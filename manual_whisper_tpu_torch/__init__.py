@@ -1,0 +1,29 @@
+"""manual_whisper_tpu_torch — the PyTorch/CUDA port of ``manual_whisper_tpu``.
+
+Module names mirror the JAX package.  This package imports ``torch`` and
+``numpy`` and nothing of JAX or of ``manual_whisper_tpu``.  The Pallas
+kernels of the main path are hand-written CUDA C++ for Hopper (``csrc/``,
+built on first use by ``ops/_build.py``); each sits beside its plain
+PyTorch version, which runs only for tensors on the CPU.
+
+- ``audio``     — WAV decode + resample
+- ``ops``       — log-mel, encoder flash attention, decode attention
+- ``models``    — Whisper encoder-decoder, greedy decoder, energy VAD
+- ``tokenizer`` — Whisper byte-level BPE + special tokens
+- ``text``      — CLI cleaning + Markdown output
+- ``pipeline``  — VAD chunking + batched transcribe
+- ``convert``   — JAX param tree (numpy) -> the port's weights
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """whisperx-style top-level surface, imported lazily."""
+    if name == "load_model":
+        from .pipeline import load_model
+        return load_model
+    if name == "load_audio":
+        from .audio import load_audio
+        return load_audio
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
