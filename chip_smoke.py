@@ -6,17 +6,22 @@
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
 1. Print the card (``nvidia-smi``), torch and CUDA versions; build the
-   CUDA kernels K1-K4 from ``manual_whisper_tpu_torch/csrc`` with nvcc.
+   CUDA kernels K1-K4 from ``manual_whisper_tpu_torch/csrc`` with nvcc;
+   load large-v3 at full width and depth with seeded random weights (the
+   model phase 4 drives) and read the decode attentions' shapes from it.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's large-v3 shapes, with the tolerance printed beside it, and
    time kernel, plain version and one PyTorch library call (a yardstick
    the port never calls) with CUDA graphs of repeated launches over enough
-   input copies to exceed the 50 MB L2 cache.
+   input copies to exceed the 50 MB L2 cache.  K3 is timed over the
+   positions the decode loop visits, K4 at the full cross length; both
+   are also checked and timed at batch 16 (an extra, labelled line).
 3. Run the tiny ``test`` config (bf16, seeded weights) through the port on
    the card and on the CPU (plain versions): encoder output and the logits
-   of a prefill plus three decode steps must agree within tolerance.
-4. The main path: ``load_model("large-v3", device="cuda")`` with seeded
-   random weights, then ``transcribe`` of about 75 s of seeded
+   of a prefill plus three decode steps must agree within tolerance, and
+   three faults (a dropped encoder layer, a dropped decoder layer, half
+   the cross length) must each exceed it.
+4. The main path: ``transcribe`` of about 75 s of seeded
    amplitude-modulated audio at batch 4, language zh, with the CLI's
    options and the full temperature ladder.  Launch counters are zeroed
    just before and read just after; each of the four kernels must have
@@ -64,9 +69,13 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        "flash_attention": (1e-2, 1e-2),
        "decode_self_attention": (1e-2, 1e-2),
        "decode_cross_attention": (1e-2, 1e-2),
-       # test config in bf16, card vs CPU: rounding differs per op
-       "encoder": (0.15, 0.0),
-       "logits": (0.05, 0.0)}
+       # test config in bf16, card vs CPU: rounding differs per op.  On an
+       # H100 the errors were 0.031 (encoder, 2 bf16 ulps at |x| < 4; std
+       # 1.0) and 0.0047 (logits; std 0.16); the limits sit about 3x above
+       # them, and below the faults phase 3 runs (smallest: half the cross
+       # length, logits off by 0.099)
+       "encoder": (0.1, 0.0),
+       "logits": (0.015, 0.0)}
 
 SOURCES = {
     "mel": ("manual_whisper_tpu_torch/csrc/mel.cu",
@@ -144,11 +153,77 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
+def _decode_bound(b, h, dh, n):
+    """Bound of one q_len = 1 attention over n positions: K and V read
+    once, q read and the output written once (bf16); 4 FLOP per (key, dim)."""
+    return bound(4.0 * b * h * n * dh, 2.0 * (2 * b * h * n * dh
+                                            + 2 * b * h * dh), F32_FLOPS)
+
+
+def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks):
+    """K3 vs its plain version at every pos in ``checks`` (a sharp softmax:
+    keys scaled 3x), then timed over one call per pos in ``timed_pos``,
+    each on its own K/V copy."""
+    q = randn((b, h, 1, dh))
+    k = randn((b, h, t_max, dh), scale=3.0)
+    v = randn((b, h, t_max, dh))
+    err = 0.0
+    for pos in checks:
+        pos_t = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        err = max(err, compare("decode_self_attention",
+                               decode_self_attention(q, k, v, pos_t),
+                               attend_plain(q, k, v, pos + 1)))
+    reps = max(1, math.ceil(copies_for(2 * k.numel() * 2) / len(timed_pos)))
+    sets = [(randn((b, h, 1, dh)), randn((b, h, t_max, dh)),
+             randn((b, h, t_max, dh)),
+             torch.full((1,), pos, dtype=torch.int32, device=dev), pos + 1)
+            for pos in timed_pos * reps]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # one call per set: the mean over the timed positions
+    ms, plain_ms, lib_ms = (graph_ms(fn, sets, iters=len(sets)) for fn in (
+        lambda a, c, d, pt, n: decode_self_attention(a, c, d, pt),
+        lambda a, c, d, pt, n: attend_plain(a, c, d, n),
+        lambda a, c, d, pt, n: sdpa(a, c[:, :, :n], d[:, :, :n])))
+    bounds = [_decode_bound(b, h, dh, s[4]) for s in sets]
+    return dict(
+        shape=(f"B={b} H={h} T_max={t_max} pos={timed_pos[0]}.."
+               f"{timed_pos[-1]} ({len(timed_pos)} pos) dh={dh} bf16"),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound=(sum(x[0] for x in bounds) / len(bounds), bounds[0][1]))
+
+
+def cross_attention_row(randn, dev, b, h, dh, ta):
+    """K4 vs its plain version at kv_len Ta, 1000 and 1, then timed at
+    kv_len = Ta (the main path's) over K/V copies that exceed L2."""
+    q = randn((b, h, 1, dh))
+    k = randn((b, h, ta, dh))
+    v = randn((b, h, ta, dh))
+    err = 0.0
+    for kv_len in (ta, 1000, 1):
+        len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+        err = max(err, compare("decode_cross_attention",
+                               decode_cross_attention(q, k, v, len_t),
+                               attend_plain(q, k, v, kv_len)))
+    len_t = torch.full((1,), ta, dtype=torch.int32, device=dev)
+    sets = [(randn((b, h, 1, dh)), randn((b, h, ta, dh)),
+             randn((b, h, ta, dh)))
+            for _ in range(copies_for(2 * k.numel() * 2))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(
+        shape=f"B={b} H={h} Ta={ta} kv_len={ta} dh={dh} bf16",
+        max_abs_err=err,
+        ms=graph_ms(lambda a, c, d: decode_cross_attention(a, c, d, len_t),
+                    sets),
+        plain_ms=graph_ms(lambda a, c, d: attend_plain(a, c, d, ta), sets),
+        library_ms=graph_ms(sdpa, sets),
+        bound=_decode_bound(b, h, dh, ta))
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version at large-v3 shapes
 # ---------------------------------------------------------------------------
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, main: dict) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     rows = {}
@@ -193,56 +268,28 @@ def phase_kernels(dev) -> dict:
         bound=bound(4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * 2,
                     BF16_FLOPS))
 
-    # K3 self: B=16, H=20, T_max=448; several pos incl. 0 and T_max-1
-    b, t_max = 16, 448
-    q = randn((b, h, 1, dh))
-    k = randn((b, h, t_max, dh), scale=3.0)     # sharp softmax
-    v = randn((b, h, t_max, dh))
-    err = 0.0
-    for pos in (0, 1, 100, 255, t_max - 1):
-        pos_t = torch.full((1,), pos, dtype=torch.int32, device=dev)
-        err = max(err, compare("decode_self_attention",
-                               decode_self_attention(q, k, v, pos_t),
-                               attend_plain(q, k, v, pos + 1)))
-    pos = t_max - 1
-    pos_t = torch.full((1,), pos, dtype=torch.int32, device=dev)
-    sets = [(randn((b, h, 1, dh)), randn((b, h, t_max, dh)),
-             randn((b, h, t_max, dh)))
-            for _ in range(copies_for(2 * k.numel() * 2))]
-    n = pos + 1
-    rows["decode_self_attention"] = dict(
-        shape=f"B={b} H={h} T_max={t_max} pos={pos} dh={dh} bf16",
-        max_abs_err=err,
-        ms=graph_ms(lambda a, c, d: decode_self_attention(a, c, d, pos_t),
-                    sets),
-        plain_ms=graph_ms(lambda a, c, d: attend_plain(a, c, d, n), sets),
-        library_ms=graph_ms(lambda a, c, d: sdpa(a, c[:, :, :n], d[:, :, :n]),
-                            sets),
-        bound=bound(4.0 * b * h * n * dh,
-                    2.0 * (2 * b * h * n * dh + 2 * b * h * dh), F32_FLOPS))
-
-    # K4 cross: B=16, H=20, Ta=1500, plus a kv_len < Ta
-    ta = 1500
-    k = randn((b, h, ta, dh))
-    v = randn((b, h, ta, dh))
-    err = 0.0
-    for kv_len in (ta, 1000, 1):
-        len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-        err = max(err, compare("decode_cross_attention",
-                               decode_cross_attention(q, k, v, len_t),
-                               attend_plain(q, k, v, kv_len)))
-    len_t = torch.full((1,), ta, dtype=torch.int32, device=dev)
-    sets = [(randn((b, h, 1, dh)), randn((b, h, ta, dh)),
-             randn((b, h, ta, dh)))
-            for _ in range(copies_for(2 * k.numel() * 2))]
-    rows["decode_cross_attention"] = dict(
-        shape=f"B={b} H={h} Ta={ta} dh={dh} bf16", max_abs_err=err,
-        ms=graph_ms(lambda a, c, d: decode_cross_attention(a, c, d, len_t),
-                    sets),
-        plain_ms=graph_ms(lambda a, c, d: attend_plain(a, c, d, ta), sets),
-        library_ms=graph_ms(sdpa, sets),
-        bound=bound(4.0 * b * h * ta * dh,
-                    2.0 * (2 * b * h * ta * dh + 2 * b * h * dh), F32_FLOPS))
+    # K3/K4 at the main path's shapes (phase 4: batch rows, self cache of
+    # prefix + max_new slots, every pos the decode loop visits, Ta cross
+    # positions); then at batch 16, T_max 448 as an extra, labelled check
+    b, h, dh = main["batch"], main["heads"], main["dh"]
+    t_max, p, ta = main["t_max"], main["prefix"], main["ta"]
+    steps = np.unique(np.linspace(p, t_max - 2, 20).round().astype(int))
+    rows["decode_self_attention"] = self_attention_row(
+        randn, dev, b, h, dh, t_max, [int(x) for x in steps],
+        checks=(0, 1, p, (p + t_max) // 2, t_max - 1))
+    rows["decode_cross_attention"] = cross_attention_row(
+        randn, dev, b, h, dh, ta)
+    for name, row in (("decode_self_attention", self_attention_row(
+            randn, dev, 16, h, dh, 448, [447], checks=(0, 1, 100, 255, 447))),
+            ("decode_cross_attention", cross_attention_row(
+                randn, dev, 16, h, dh, ta))):
+        log(json.dumps({"phase": "kernel_extra", "name": name,
+                        "shape": row["shape"],
+                        "max_abs_err": row["max_abs_err"], "tol": TOL[name],
+                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "library_ms": row["library_ms"],
+                        "bound_ms": row["bound"][0],
+                        "bound_by": row["bound"][1]}))
     for name, row in rows.items():
         log(json.dumps({"phase": "kernel", "name": name, "shape": row["shape"],
                         "max_abs_err": row["max_abs_err"], "tol": TOL[name],
@@ -257,10 +304,46 @@ def phase_kernels(dev) -> dict:
 # Phase 3: tiny test config, card vs CPU
 # ---------------------------------------------------------------------------
 
-def phase_tiny(dev) -> None:
+def _tiny_forward(params, cfg, audio, prefix, d, cross_len_scale=1.0):
+    """Encoder output and the logits of a prefill plus three decode steps
+    (both [..] on the CPU, f32).  ``cross_len_scale`` < 1 makes the decode
+    steps read too few cross positions (a negative control)."""
     from manual_whisper_tpu_torch.models.whisper import (
-        MODEL_CONFIGS, StepLengths, decode_step, decoder_forward, encode,
-        init_kv_cache, init_params, precompute_cross_kv)
+        StepLengths, decode_step, decoder_forward, encode, init_kv_cache,
+        precompute_cross_kv)
+    mel = log_mel_spectrogram(torch.from_numpy(audio).to(d), cfg.n_mels)
+    xa = encode(params, mel, cfg)
+    cross = precompute_cross_kv(params, xa, cfg)
+    cache = init_kv_cache(cfg, 2, len(prefix) + 3, d)
+    toks = torch.tensor(prefix, device=d).expand(2, -1)
+    logits, cache = decoder_forward(params, toks, None, cfg, 0, cache, cross)
+    steps = [logits[:, -1]]
+    positions = torch.arange(len(prefix) + 3, dtype=torch.int32, device=d)
+    cross_len = torch.full((1,), int(xa.shape[1] * cross_len_scale),
+                           dtype=torch.int32, device=d)
+    emb32 = params["decoder"]["tok_emb"].float()
+    for i, tok in enumerate((65, 70, 75)):
+        pos = len(prefix) + i
+        token = torch.full((2,), tok, dtype=torch.long, device=d)
+        steps.append(decode_step(params, token, pos,
+                                 StepLengths(positions[pos:pos + 1],
+                                             cross_len),
+                                 cache, cross, cfg, emb32))
+    return xa.float().cpu(), torch.stack(steps).cpu()
+
+
+def _drop_last_block(params, part):
+    return {**params, part: {**params[part],
+                             "blocks": params[part]["blocks"][:-1]}}
+
+
+def phase_tiny(dev) -> None:
+    """The test config in bf16 on the card vs the CPU, then three faults
+    run on the card (a dropped encoder layer, a dropped decoder layer, half
+    the cross length in the decode steps): each must exceed its tolerance,
+    so the tolerances are shown to catch them."""
+    from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
+                                                         init_params)
     cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
     cpu = torch.device("cpu")
     params_cpu = init_params(cfg, cpu, seed=7)
@@ -278,39 +361,39 @@ def phase_tiny(dev) -> None:
     audio = (0.1 * rng.standard_normal((2, n))).astype(np.float32)
     prefix = [257, 258, 359, 362, 65, 66]
 
-    outs = {}
-    for name, d, params in (("cpu", cpu, params_cpu), ("gpu", dev, params_gpu)):
-        mel = log_mel_spectrogram(torch.from_numpy(audio).to(d), cfg.n_mels)
-        xa = encode(params, mel, cfg)
-        cross = precompute_cross_kv(params, xa, cfg)
-        cache = init_kv_cache(cfg, 2, len(prefix) + 3, d)
-        toks = torch.tensor(prefix, device=d).expand(2, -1)
-        logits, cache = decoder_forward(params, toks, None, cfg, 0, cache,
-                                        cross)
-        steps = [logits[:, -1]]
-        positions = torch.arange(len(prefix) + 3, dtype=torch.int32, device=d)
-        cross_len = torch.full((1,), xa.shape[1], dtype=torch.int32, device=d)
-        emb32 = params["decoder"]["tok_emb"].float()
-        for i, tok in enumerate((65, 70, 75)):
-            pos = len(prefix) + i
-            token = torch.full((2,), tok, dtype=torch.long, device=d)
-            steps.append(decode_step(params, token, pos,
-                                     StepLengths(positions[pos:pos + 1],
-                                                 cross_len),
-                                     cache, cross, cfg, emb32))
-        outs[name] = (xa.float().cpu(), torch.stack(steps).cpu())
-    for t in outs["gpu"]:
+    enc_ref, logits_ref = _tiny_forward(params_cpu, cfg, audio, prefix, cpu)
+    enc, logits = _tiny_forward(params_gpu, cfg, audio, prefix, dev)
+    for t in (enc, logits):
         if not torch.isfinite(t).all():
             raise AssertionError("tiny config: non-finite output on the card")
+    faults = {
+        "encoder_layer_dropped": _tiny_forward(
+            _drop_last_block(params_gpu, "encoder"), cfg, audio, prefix, dev),
+        "decoder_layer_dropped": _tiny_forward(
+            _drop_last_block(params_gpu, "decoder"), cfg, audio, prefix, dev),
+        "cross_len_halved": _tiny_forward(params_gpu, cfg, audio, prefix, dev,
+                                          cross_len_scale=0.5)}
+    fault_errs = {name: {"encoder_max_abs_err": max_err(out[0], enc_ref),
+                         "logits_max_abs_err": max_err(out[1], logits_ref)}
+                  for name, out in faults.items()}
     log(json.dumps({"phase": "tiny_test_config",
-                    "encoder_max_abs_err": max_err(outs["gpu"][0],
-                                                   outs["cpu"][0]),
+                    "encoder_max_abs_err": max_err(enc, enc_ref),
                     "encoder_tol": TOL["encoder"],
-                    "logits_max_abs_err": max_err(outs["gpu"][1],
-                                                  outs["cpu"][1]),
-                    "logits_tol": TOL["logits"]}))
-    compare("encoder", outs["gpu"][0], outs["cpu"][0])
-    compare("logits", outs["gpu"][1], outs["cpu"][1])
+                    "encoder_std": float(enc_ref.std()),
+                    "logits_max_abs_err": max_err(logits, logits_ref),
+                    "logits_tol": TOL["logits"],
+                    "logits_std": float(logits_ref.std()),
+                    "faults": fault_errs}))
+    compare("encoder", enc, enc_ref)
+    compare("logits", logits, logits_ref)
+    caught = {"encoder_layer_dropped": "encoder",
+              "decoder_layer_dropped": "logits",
+              "cross_len_halved": "logits"}
+    for name, what in caught.items():
+        if fault_errs[name][f"{what}_max_abs_err"] <= TOL[what][0]:
+            raise AssertionError(f"tiny config: the {what} tolerance does "
+                                 f"not catch the fault {name}: "
+                                 f"{fault_errs[name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +421,12 @@ def synthetic_speech(seconds: float, seed: int) -> np.ndarray:
     return out
 
 
-def phase_main(dev):
+BATCH = 4
+
+
+def load_main_model():
+    """large-v3 at full width and depth, seeded random weights, the CLI's
+    asr_options; returns (model, load seconds)."""
     from manual_whisper_tpu_torch.pipeline import load_model
     from manual_whisper_tpu_torch.text import INITIAL_PROMPT
     os.environ["MWX_ALLOW_RANDOM_WEIGHTS"] = "1"
@@ -347,14 +435,32 @@ def phase_main(dev):
                        asr_options={"initial_prompt": INITIAL_PROMPT,
                                     "beam_size": 1})
     torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
+
+
+def main_path_shapes(model) -> dict:
+    """The decode attentions' shapes on the main path: batch rows, heads,
+    head dim, prompt length, self-cache slots (prompt + max_new) and cross
+    positions, from the decoder ``transcribe`` uses."""
+    cfg = model.cfg
+    decoder = model._decoder("zh", 0.0)
+    prefix, _ = decoder._prefix()
+    max_new = min(decoder.opts.max_new_tokens,
+                  cfg.n_text_ctx - len(prefix) - 1)
+    return {"batch": BATCH, "heads": cfg.n_text_head,
+            "dh": cfg.n_text_state // cfg.n_text_head,
+            "prefix": len(prefix), "t_max": len(prefix) + max_new,
+            "ta": cfg.n_audio_ctx}
+
+
+def phase_main(model, load_s: float):
     audio = synthetic_speech(75.0, seed=0)
     duration = len(audio) / 16000.0
 
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     t0 = time.perf_counter()
-    result = model.transcribe(audio, batch_size=4, language="zh")
+    result = model.transcribe(audio, batch_size=BATCH, language="zh")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
@@ -379,13 +485,14 @@ def phase_main(dev):
         "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
         "vad_s": stats["vad_s"], "mel_encode_s": stats["encode_s"],
         "decode_s": stats["decode_s"], "batches": stats["batches"],
-        "windows": stats["windows"], "token_rows": stats["token_rows"],
+        "windows": stats["windows"], "rows": stats["rows"],
+        "token_rows": stats["token_rows"],
         "ms_per_token_row": 1e3 * stats["decode_s"]
         / max(stats["token_rows"], 1),
         "rung_rows": stats["rung_rows"], "segments": len(segs),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": launches}))
-    return launches, model
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -428,11 +535,11 @@ def _profiled(fn, reps: int) -> dict:
                     for us, name, n in rows[:8]]}
 
 
-def phase_profile(model) -> None:
+def phase_profile(model, main: dict) -> None:
     from manual_whisper_tpu_torch.models.whisper import (
         StepLengths, decode_step, encode, init_kv_cache, precompute_cross_kv)
     cfg, params, dev = model.cfg, model.params, model.device
-    b = 4
+    b = main["batch"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     mel = torch.randn((b, cfg.n_mels, 2 * cfg.n_audio_ctx), generator=gen,
@@ -440,11 +547,12 @@ def phase_profile(model) -> None:
     enc = _profiled(lambda: encode(params, mel, cfg), reps=2)
     xa = encode(params, mel, cfg)
     cross = precompute_cross_kv(params, xa, cfg)
-    cache = init_kv_cache(cfg, b, cfg.n_text_ctx, dev)
-    positions = torch.arange(cfg.n_text_ctx, dtype=torch.int32, device=dev)
+    cache = init_kv_cache(cfg, b, main["t_max"], dev)
+    positions = torch.arange(main["t_max"], dtype=torch.int32, device=dev)
     cross_len = torch.full((1,), xa.shape[1], dtype=torch.int32, device=dev)
     emb32 = params["decoder"]["tok_emb"].float()
-    state = {"pos": 200, "tok": torch.zeros(b, dtype=torch.long, device=dev)}
+    state = {"pos": (main["prefix"] + main["t_max"]) // 2 - 8,
+             "tok": torch.zeros(b, dtype=torch.long, device=dev)}
 
     def step():
         pos = state["pos"]
@@ -455,7 +563,9 @@ def phase_profile(model) -> None:
         state["pos"] = pos + 1
 
     dec = _profiled(step, reps=16)
-    log(json.dumps({"phase": "profile", "batch": b, "encode": enc,
+    log(json.dumps({"phase": "profile", "batch": b,
+                    "first_pos": (main["prefix"] + main["t_max"]) // 2 - 8,
+                    "encode": enc,
                     "decode_step": dec}))
 
 
@@ -479,17 +589,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    model, load_s = load_main_model()
+    main_shapes = main_path_shapes(model)
+    log(json.dumps({"phase": "main_path_shapes", **main_shapes}))
     t0 = time.perf_counter()
-    rows = phase_kernels(dev)
+    rows = phase_kernels(dev, main_shapes)
     log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_tiny(dev)
     log(f"phase tiny: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    launches, model = phase_main(dev)
+    launches = phase_main(model, load_s)
     log(f"phase main: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_profile(model)
+    phase_profile(model, main_shapes)
     log(f"phase profile: {time.perf_counter() - t0:.1f}s")
 
     kernels = []

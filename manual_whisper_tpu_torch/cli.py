@@ -3,9 +3,8 @@
 Mirrors the JAX package's ``cli.py`` (reference: transcribe.py:98-247):
 the same .env knobs (WHISPER_MODEL, BATCH_SIZE, BEAM_SIZE, VAD_ONSET,
 VAD_OFFSET, HF_TOKEN), the same prints and the same Markdown/JSON output.
-Runs on CUDA; ``MWX_DEVICE=cpu`` runs the plain PyTorch versions on the
-CPU instead.  Alignment and diarization are not ported yet: each prints
-one line saying so.
+Runs on CUDA and raises without it.  Alignment and diarization are not
+ported yet: each prints one line saying so.
 
     python -m manual_whisper_tpu_torch.cli recording.wav
 """
@@ -34,7 +33,7 @@ def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
     device_label)."""
     model_size = model_size or config.get_env("WHISPER_MODEL", "large-v3")
     batch_size = batch_size or config.get_int("BATCH_SIZE", 4)
-    dev = resolve_device(device or config.get_env("MWX_DEVICE", "cuda"))
+    dev = resolve_device(device or "cuda")
     label = device_label(dev)
 
     print(f"🎙️ 正在转写: {audio_file}")

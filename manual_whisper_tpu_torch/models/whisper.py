@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
-from ..ops.decode_attention import (decode_cross_attention,
+from ..ops.decode_attention import (attend_plain, decode_cross_attention,
                                     decode_self_attention)
 
 Params = Dict[str, Any]
@@ -250,17 +250,6 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
     return k, v
 
 
-def _attend_plain(q, k, v, mask):
-    """Einsum-path attention (JAX ``_decoder_block``/``_cross_attend``):
-    f32 scores and softmax, probabilities in q's dtype."""
-    dh = q.shape[-1]
-    s = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
-    if mask is not None:
-        s = s + mask
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return p @ v
-
-
 @dataclasses.dataclass
 class StepLengths:
     """Device-side lengths a decode step's kernels read: ``pos`` (one int32,
@@ -279,7 +268,7 @@ def _decoder_block(h, blk, n_head, self_k, self_v, self_mask, xkv,
     if step is not None:
         attn_out = decode_self_attention(q, self_k, self_v, step.pos)
     else:
-        attn_out = _attend_plain(q, self_k, self_v, self_mask)
+        attn_out = attend_plain(q, self_k, self_v, mask=self_mask)
     h = h + (_merge_heads(attn_out) @ att["o_w"] + att["o_b"])
 
     x_in = _layer_norm(h, blk["lnx"])
@@ -288,7 +277,7 @@ def _decoder_block(h, blk, n_head, self_k, self_v, self_mask, xkv,
     if step is not None:
         xout = decode_cross_attention(xq, xkv[0], xkv[1], step.cross_len)
     else:
-        xout = _attend_plain(xq, xkv[0], xkv[1], None)
+        xout = attend_plain(xq, xkv[0], xkv[1])
     h = h + (_merge_heads(xout) @ xat["o_w"] + xat["o_b"])
     return h + _mlp(_layer_norm(h, blk["ln2"]), blk["mlp"])
 

@@ -18,19 +18,26 @@ dtype, then the weighted sum in q's dtype.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
 
 
 def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 n_valid: int) -> torch.Tensor:
-    """Plain version of K3/K4: attention of q [B, H, 1, dh] over the first
-    ``n_valid`` positions of k/v [B, H, T, dh]."""
+                 n_valid: Optional[int] = None,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K3/K4, and the prefill's attention: q [B, H, Tq, dh]
+    over the first ``n_valid`` positions (all when None) of k/v
+    [B, H, T, dh], plus an optional additive float mask [Tq, T]."""
     dh = q.shape[-1]
     s = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
-    valid = torch.arange(k.shape[2], device=q.device) < n_valid
-    s = s.masked_fill(~valid, float("-inf"))
+    if n_valid is not None:
+        valid = torch.arange(k.shape[2], device=q.device) < n_valid
+        s = s.masked_fill(~valid, float("-inf"))
+    if mask is not None:
+        s = s + mask
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return p @ v
 

@@ -9,7 +9,8 @@ batch_size, language)``.
 
 Each batch is finalized as soon as it is decoded (the JAX package's fetch
 worker overlaps device and host work; that is not ported).  ``last_stats``
-holds the phase times and counts of the most recent ``transcribe`` call;
+holds the phase times and counts of the most recent ``transcribe`` call
+(``windows``: real audio windows; ``rows``: batch rows, padding included);
 on CUDA each phase ends in a synchronisation so its time is the device's.
 """
 
@@ -159,7 +160,7 @@ class TranscribePipeline:
         lang = language or self.language
         duration = len(audio) / 16000.0
         stats = {"vad_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
-                 "batches": 0, "windows": 0, "token_rows": 0,
+                 "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
                  "rung_rows": {}}
         self.last_stats = stats
         segments: List[dict] = []
@@ -203,7 +204,8 @@ class TranscribePipeline:
                 xa, first=first, n_valid=len(group), rng_tag=batch_idx)
             stats["decode_s"] += time.perf_counter() - t_dec
             stats["batches"] += 1
-            stats["windows"] += len(windows)
+            stats["windows"] += len(group)
+            stats["rows"] += len(windows)
             for ch, res in zip(group, results):
                 if decoder.is_no_speech(res) or not res.text:
                     continue

@@ -64,6 +64,7 @@ def test_pipeline_segments_match_jax(synth, seed, batch_size):
     assert wer(truth, hyp) < 0.3, f"ref={truth!r} hyp={hyp!r}"
     stats = tm.last_stats
     assert stats["windows"] >= len(out["segments"]) and stats["batches"] >= 1
+    assert stats["rows"] >= stats["windows"]
     assert stats["token_rows"] > 0 and stats["rung_rows"][0] >= 1
 
 
@@ -145,7 +146,8 @@ def test_cli_markdown_matches_jax_cli(synth, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(jcli, "load_model", jax_load)
     monkeypatch.setattr(tcli, "load_model", port_load)
     monkeypatch.setenv("WHISPER_MODEL", "test")
-    monkeypatch.setenv("MWX_DEVICE", "cpu")
+    monkeypatch.setattr(tcli, "resolve_device",
+                        lambda device: torch.device("cpu"))
     monkeypatch.delenv("HF_TOKEN", raising=False)
     monkeypatch.delenv("MWX_ALLOW_RANDOM_WEIGHTS", raising=False)
 
