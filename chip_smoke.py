@@ -6,30 +6,45 @@
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
 1. Print the card (``nvidia-smi``), torch and CUDA versions; build the
-   CUDA kernels K1-K4 from ``manual_whisper_tpu_torch/csrc`` with nvcc;
-   load large-v3 at full width and depth with seeded random weights (the
-   model phase 4 drives) and read the decode attentions' shapes from it.
+   CUDA kernels K1-K6 from ``manual_whisper_tpu_torch/csrc`` with nvcc;
+   load large-v3 at full width and depth with seeded random weights in
+   bf16 and read the decode attentions' shapes from it.  The int8 model
+   (``compute_type="int8"``, ``int8_cross_kv=True``) is loaded in its turn
+   in phase 4, after the bf16 model is freed.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   main path's large-v3 shapes, with the tolerance printed beside it, and
+   main paths' large-v3 shapes, with the tolerance printed beside it, and
    time kernel, plain version and one PyTorch library call (a yardstick
    the port never calls) with CUDA graphs of repeated launches over enough
    input copies to exceed the 50 MB L2 cache.  K3 is timed over the
-   positions the decode loop visits, K4 at the full cross length; both
-   are also checked and timed at batch 16 (an extra, labelled line).
-3. Run the tiny ``test`` config (bf16, seeded weights) through the port on
-   the card and on the CPU (plain versions): encoder output and the logits
-   of a prefill plus three decode steps must agree within tolerance, and
-   three faults (a dropped encoder layer, a dropped decoder layer, half
-   the cross length) must each exceed it.
-4. The main path: ``transcribe`` of about 75 s of seeded
+   positions the decode loop visits, K4 and K5 at the full cross length
+   (K5 with f32 scales; bf16 scales on an extra line), K6 at a decode
+   step's M=4 with K, N = 1280, 5120 (the other decode shapes and the
+   encoder's M=6000 on extra lines); K3 and K4 also at batch 16 (extra).
+3. Run the tiny ``test`` config through the port on the card and on the
+   CPU (plain versions), in bf16 and in int8 (int8 weights and int8 cross
+   K/V on bf16 activations): encoder output and the logits of a prefill
+   plus three decode steps must agree within tolerance, and faults run on
+   the card (bf16: a dropped encoder layer, a dropped decoder layer, half
+   the cross length; int8: one layer's weight scales on the wrong output
+   channels, one layer's cross-K/V scales dropped or swapped between K
+   and V) must each exceed it.
+4. The main paths: ``transcribe`` of about 75 s of seeded
    amplitude-modulated audio at batch 4, language zh, with the CLI's
-   options and the full temperature ladder.  Launch counters are zeroed
-   just before and read just after; each of the four kernels must have
-   launched.
+   options and the full temperature ladder, with the bf16 model and then
+   with the int8 model.  Launch counters are zeroed just before each run
+   and read just after: bf16 must launch K1-K4 and not K5/K6; int8 must
+   launch K1, K2, K3, K5 and K6 and not K4, each exactly as often as the
+   batches, decode loops and steps in ``last_stats`` imply.
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
-   and 16 decode steps of the same model (device-busy share, top kernels).
+   and 16 decode steps of each model (device-busy share, top kernels), run
+   right after that model's phase 4; before phase 3, the host time to
+   issue one call of K6 (through ``mm``) and K5 against the bf16 step's
+   cuBLAS matmul and K4.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The kernels line gives each kernel's launches on the main path that
+runs it (K1-K4 bf16, K5 and K6 int8; the int8 path's K1-K3 counts are on
+its ``main_path`` line).  The line before the last is
+``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
 result.
 """
@@ -50,11 +65,15 @@ from manual_whisper_tpu_torch.ops import _build
 from manual_whisper_tpu_torch.ops.attention import (attention_plain,
                                                     flash_attention)
 from manual_whisper_tpu_torch.ops.decode_attention import (
-    attend_plain, decode_cross_attention, decode_self_attention)
+    attend_int8_plain, attend_plain, decode_cross_attention,
+    decode_cross_attention_int8, decode_self_attention)
 from manual_whisper_tpu_torch.ops.mel import (log_mel_spectrogram,
                                               normalize_log_mel,
                                               unnormalized_log_mel,
                                               unnormalized_log_mel_plain)
+from manual_whisper_tpu_torch.ops.quant import (int8_matmul,
+                                                int8_matmul_plain,
+                                                quantize_weight)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -69,13 +88,23 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        "flash_attention": (1e-2, 1e-2),
        "decode_self_attention": (1e-2, 1e-2),
        "decode_cross_attention": (1e-2, 1e-2),
+       "decode_cross_attention_int8": (1e-2, 1e-2),
+       # bf16 output of an f32 sum of exact products: one bf16 rounding
+       "int8_matmul": (1e-2, 1e-2),
        # test config in bf16, card vs CPU: rounding differs per op.  On an
        # H100 the errors were 0.031 (encoder, 2 bf16 ulps at |x| < 4; std
        # 1.0) and 0.0047 (logits; std 0.16); the limits sit about 3x above
        # them, and below the faults phase 3 runs (smallest: half the cross
        # length, logits off by 0.099)
        "encoder": (0.1, 0.0),
-       "logits": (0.015, 0.0)}
+       "logits": (0.015, 0.0),
+       # the test config in int8 (int8 weights and cross K/V, bf16
+       # activations), card vs CPU: on an H100 the errors were 0.031
+       # (encoder) and 0.0048 (logits; std 0.16), as in bf16, so the same
+       # limits; the faults phase 3 runs exceed them (smallest: the last
+       # layer's cross-K/V scales swapped, logits off by 0.067)
+       "encoder_int8": (0.1, 0.0),
+       "logits_int8": (0.015, 0.0)}
 
 SOURCES = {
     "mel": ("manual_whisper_tpu_torch/csrc/mel.cu",
@@ -88,7 +117,16 @@ SOURCES = {
     "decode_cross_attention": (
         "manual_whisper_tpu_torch/csrc/decode_attention.cu",
         "manual_whisper_tpu/ops/decode_attention.py:150"),
+    "decode_cross_attention_int8": (
+        "manual_whisper_tpu_torch/csrc/decode_attention.cu",
+        "manual_whisper_tpu/ops/decode_attention.py:80"),
+    "int8_matmul": ("manual_whisper_tpu_torch/csrc/int8_matmul.cu",
+                    "manual_whisper_tpu/ops/quant.py:102"),
 }
+BF16_KERNELS = ("mel", "flash_attention", "decode_self_attention",
+                "decode_cross_attention")
+INT8_KERNELS = ("mel", "flash_attention", "decode_self_attention",
+                "decode_cross_attention_int8", "int8_matmul")
 
 
 def log(msg: str) -> None:
@@ -219,6 +257,79 @@ def cross_attention_row(randn, dev, b, h, dh, ta):
         bound=_decode_bound(b, h, dh, ta))
 
 
+def _int8_cross_bound(b, h, dh, n, scale_bytes):
+    """Bound of K5 over n positions: int8 K and V and their per-position
+    scales read once, q read and the output written once (bf16)."""
+    return bound(4.0 * b * h * n * dh,
+                 2.0 * b * h * n * dh + 2.0 * b * h * n * scale_bytes
+                 + 2.0 * 2 * b * h * dh, F32_FLOPS)
+
+
+def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
+    """K5 vs its plain version at kv_len Ta, 1000 and 1, then timed at
+    kv_len = Ta over K/V copies that exceed L2; the yardstick is SDPA over
+    a bf16 copy of K/V dequantized before timing."""
+    from manual_whisper_tpu_torch.models.whisper import quantize_cross_kv
+
+    def kv4():
+        return quantize_cross_kv(randn((b, h, ta, dh)), randn((b, h, ta, dh)),
+                                 scale_dtype)
+    q, kv = randn((b, h, 1, dh)), kv4()
+    err = 0.0
+    for kv_len in (ta, 1000, 1):
+        len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+        err = max(err, compare("decode_cross_attention_int8",
+                               decode_cross_attention_int8(q, *kv, len_t),
+                               attend_int8_plain(q, *kv, kv_len)))
+    len_t = torch.full((1,), ta, dtype=torch.int32, device=dev)
+    sets = [(randn((b, h, 1, dh)), *kv4())
+            for _ in range(copies_for(2 * b * h * ta * dh))]
+    deq = [(a, (kq.float() * ks.float()[..., None]).bfloat16(),
+            (vq.float() * vs.float()[..., None]).bfloat16())
+           for a, kq, ks, vq, vs in sets]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale_bytes = torch.empty((), dtype=scale_dtype).element_size()
+    return dict(
+        shape=(f"B={b} H={h} Ta={ta} kv_len={ta} dh={dh} int8 K/V, "
+               f"{str(scale_dtype).split('.')[-1]} scales"),
+        max_abs_err=err,
+        ms=graph_ms(lambda *a: decode_cross_attention_int8(*a, len_t), sets),
+        plain_ms=graph_ms(lambda *a: attend_int8_plain(*a, ta), sets),
+        library_ms=graph_ms(sdpa, deq),
+        bound=_int8_cross_bound(b, h, dh, ta, scale_bytes))
+
+
+def int8_matmul_row(randn, m, k, n):
+    """K6 vs its plain version at x [m, k], weight [k, n], then timed over
+    copies that exceed L2; the yardstick is cuBLAS x @ w on a bf16 copy of
+    the weight dequantized before timing (twice K6's weight bytes).
+    Bound: x, codes, scales read once and the output written once, or
+    2*m*k*n operations at the bf16 tensor-core rate."""
+    def weight():
+        w = quantize_weight(randn((k, n), torch.float32) / math.sqrt(k))
+        return w["q"], w["s"]
+    x, (q, s) = randn((m, k)), weight()
+    err = compare("int8_matmul", int8_matmul(x, q, s),
+                  int8_matmul_plain(x, q, s))
+    nbytes = 2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n
+    sets = [(randn((m, k)), *weight()) for _ in range(copies_for(nbytes))]
+    deq = [(a, (wq.float() * ws).bfloat16()) for a, wq, ws in sets]
+    return dict(shape=f"M={m} K={k} N={n} bf16 x int8", max_abs_err=err,
+                ms=graph_ms(int8_matmul, sets),
+                plain_ms=graph_ms(int8_matmul_plain, sets),
+                library_ms=graph_ms(torch.matmul, deq),
+                bound=bound(2.0 * m * k * n, nbytes, BF16_FLOPS))
+
+
+def _row_line(phase: str, name: str, row: dict) -> str:
+    return json.dumps({"phase": phase, "name": name, "shape": row["shape"],
+                       "max_abs_err": row["max_abs_err"], "tol": TOL[name],
+                       "ms": row["ms"], "plain_ms": row["plain_ms"],
+                       "library_ms": row["library_ms"],
+                       "bound_ms": row["bound"][0],
+                       "bound_by": row["bound"][1]})
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version at large-v3 shapes
 # ---------------------------------------------------------------------------
@@ -279,24 +390,27 @@ def phase_kernels(dev, main: dict) -> dict:
         checks=(0, 1, p, (p + t_max) // 2, t_max - 1))
     rows["decode_cross_attention"] = cross_attention_row(
         randn, dev, b, h, dh, ta)
-    for name, row in (("decode_self_attention", self_attention_row(
-            randn, dev, 16, h, dh, 448, [447], checks=(0, 1, 100, 255, 447))),
-            ("decode_cross_attention", cross_attention_row(
-                randn, dev, 16, h, dh, ta))):
-        log(json.dumps({"phase": "kernel_extra", "name": name,
-                        "shape": row["shape"],
-                        "max_abs_err": row["max_abs_err"], "tol": TOL[name],
-                        "ms": row["ms"], "plain_ms": row["plain_ms"],
-                        "library_ms": row["library_ms"],
-                        "bound_ms": row["bound"][0],
-                        "bound_by": row["bound"][1]}))
+    # K5 at the int8 path's shapes (f32 scales, the default; bf16 extra);
+    # K6 at a decode step's fc1 (M = batch rows; the other decode shapes,
+    # the prefill's M = 4 x 193 and the encoder's M = 4 x 1500 extra)
+    d = main["d"]
+    rows["decode_cross_attention_int8"] = cross_int8_row(
+        randn, dev, b, h, dh, ta, torch.float32)
+    rows["int8_matmul"] = int8_matmul_row(randn, b, d, 4 * d)
+    extra = [("decode_self_attention", self_attention_row(
+                 randn, dev, 16, h, dh, 448, [447],
+                 checks=(0, 1, 100, 255, 447))),
+             ("decode_cross_attention", cross_attention_row(
+                 randn, dev, 16, h, dh, ta)),
+             ("decode_cross_attention_int8", cross_int8_row(
+                 randn, dev, b, h, dh, ta, torch.bfloat16))]
+    extra += [("int8_matmul", int8_matmul_row(randn, mm_m, mm_k, mm_n))
+              for mm_m, mm_k, mm_n in ((b, d, d), (b, 4 * d, d),
+                                       (b * p, d, d), (b * ta, d, 4 * d))]
+    for name, row in extra:
+        log(_row_line("kernel_extra", name, row))
     for name, row in rows.items():
-        log(json.dumps({"phase": "kernel", "name": name, "shape": row["shape"],
-                        "max_abs_err": row["max_abs_err"], "tol": TOL[name],
-                        "ms": row["ms"], "plain_ms": row["plain_ms"],
-                        "library_ms": row["library_ms"],
-                        "bound_ms": row["bound"][0],
-                        "bound_by": row["bound"][1]}))
+        log(_row_line("kernel", name, row))
     return rows
 
 
@@ -304,16 +418,20 @@ def phase_kernels(dev, main: dict) -> dict:
 # Phase 3: tiny test config, card vs CPU
 # ---------------------------------------------------------------------------
 
-def _tiny_forward(params, cfg, audio, prefix, d, cross_len_scale=1.0):
+def _tiny_forward(params, cfg, audio, prefix, d, cross_len_scale=1.0,
+                  int8_cross_kv=False, cross_fault=None):
     """Encoder output and the logits of a prefill plus three decode steps
     (both [..] on the CPU, f32).  ``cross_len_scale`` < 1 makes the decode
-    steps read too few cross positions (a negative control)."""
+    steps read too few cross positions, ``cross_fault`` rewrites the cross
+    K/V list (negative controls)."""
     from manual_whisper_tpu_torch.models.whisper import (
         StepLengths, decode_step, decoder_forward, encode, init_kv_cache,
         precompute_cross_kv)
     mel = log_mel_spectrogram(torch.from_numpy(audio).to(d), cfg.n_mels)
     xa = encode(params, mel, cfg)
-    cross = precompute_cross_kv(params, xa, cfg)
+    cross = precompute_cross_kv(params, xa, cfg, quantize=int8_cross_kv)
+    if cross_fault is not None:
+        cross = cross_fault(cross)
     cache = init_kv_cache(cfg, 2, len(prefix) + 3, d)
     toks = torch.tensor(prefix, device=d).expand(2, -1)
     logits, cache = decoder_forward(params, toks, None, cfg, 0, cache, cross)
@@ -337,60 +455,109 @@ def _drop_last_block(params, part):
                              "blocks": params[part]["blocks"][:-1]}}
 
 
-def phase_tiny(dev) -> None:
-    """The test config in bf16 on the card vs the CPU, then three faults
-    run on the card (a dropped encoder layer, a dropped decoder layer, half
-    the cross length in the decode steps): each must exceed its tolerance,
-    so the tolerances are shown to catch them."""
+def _reverse_last_block_scales(params, part):
+    """The last block's int8 weights with each ``s`` reversed: scales on
+    the wrong output channels."""
+    def flip(node):
+        if isinstance(node, dict) and "q" in node:
+            return {"q": node["q"], "s": node["s"].flip(0)}
+        if isinstance(node, dict):
+            return {k: flip(v) for k, v in node.items()}
+        return node
+    blocks = params[part]["blocks"]
+    return {**params, part: {**params[part],
+                             "blocks": blocks[:-1] + [flip(blocks[-1])]}}
+
+
+def _last_cross_scales(fault: str):
+    """A cross-K/V rewrite: the last layer's int8 scales ``dropped`` (all
+    ones) or ``swapped`` (K's for V's, an argument-order slip)."""
+    def rewrite(cross):
+        k_q, k_s, v_q, v_s = cross[-1]
+        if fault == "swapped":
+            k_s, v_s = v_s, k_s
+        else:
+            k_s, v_s = torch.ones_like(k_s), torch.ones_like(v_s)
+        return cross[:-1] + [(k_q, k_s, v_q, v_s)]
+    return rewrite
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def phase_tiny(dev, int8: bool) -> None:
+    """The test config in bf16 (``int8``: int8 weights and int8 cross K/V
+    on bf16 activations) on the card vs the CPU, then faults run on the
+    card: each must exceed its tolerance, so the tolerances are shown to
+    catch them.  bf16: a dropped encoder layer, a dropped decoder layer,
+    half the cross length in the decode steps; int8: the last encoder
+    block's weight scales reversed, the last decoder layer's cross-K/V
+    scales dropped, or swapped between K and V."""
     from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
                                                          init_params)
+    from manual_whisper_tpu_torch.ops.quant import quantize_params
     cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
     cpu = torch.device("cpu")
     params_cpu = init_params(cfg, cpu, seed=7)
-
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
-    params_gpu = to(params_cpu, dev)
+    if int8:
+        params_cpu = quantize_params(params_cpu)
+    params_gpu = _to(params_cpu, dev)
     rng = np.random.default_rng(7)
     n = cfg.n_audio_ctx * 2 * 160
     audio = (0.1 * rng.standard_normal((2, n))).astype(np.float32)
     prefix = [257, 258, 359, 362, 65, 66]
 
-    enc_ref, logits_ref = _tiny_forward(params_cpu, cfg, audio, prefix, cpu)
-    enc, logits = _tiny_forward(params_gpu, cfg, audio, prefix, dev)
+    def run(params, d, **kw):
+        return _tiny_forward(params, cfg, audio, prefix, d,
+                             int8_cross_kv=int8, **kw)
+
+    enc_ref, logits_ref = run(params_cpu, cpu)
+    enc, logits = run(params_gpu, dev)
     for t in (enc, logits):
         if not torch.isfinite(t).all():
             raise AssertionError("tiny config: non-finite output on the card")
-    faults = {
-        "encoder_layer_dropped": _tiny_forward(
-            _drop_last_block(params_gpu, "encoder"), cfg, audio, prefix, dev),
-        "decoder_layer_dropped": _tiny_forward(
-            _drop_last_block(params_gpu, "decoder"), cfg, audio, prefix, dev),
-        "cross_len_halved": _tiny_forward(params_gpu, cfg, audio, prefix, dev,
-                                          cross_len_scale=0.5)}
+    if int8:
+        faults = {
+            "weight_scales_reversed": run(
+                _reverse_last_block_scales(params_gpu, "encoder"), dev),
+            "cross_scales_dropped": run(
+                params_gpu, dev, cross_fault=_last_cross_scales("dropped")),
+            "cross_scales_swapped": run(
+                params_gpu, dev, cross_fault=_last_cross_scales("swapped"))}
+        caught = {"weight_scales_reversed": "encoder",
+                  "cross_scales_dropped": "logits",
+                  "cross_scales_swapped": "logits"}
+    else:
+        faults = {
+            "encoder_layer_dropped": run(
+                _drop_last_block(params_gpu, "encoder"), dev),
+            "decoder_layer_dropped": run(
+                _drop_last_block(params_gpu, "decoder"), dev),
+            "cross_len_halved": run(params_gpu, dev, cross_len_scale=0.5)}
+        caught = {"encoder_layer_dropped": "encoder",
+                  "decoder_layer_dropped": "logits",
+                  "cross_len_halved": "logits"}
+    suffix = "_int8" if int8 else ""
     fault_errs = {name: {"encoder_max_abs_err": max_err(out[0], enc_ref),
                          "logits_max_abs_err": max_err(out[1], logits_ref)}
                   for name, out in faults.items()}
-    log(json.dumps({"phase": "tiny_test_config",
+    log(json.dumps({"phase": "tiny_test_config" + suffix,
                     "encoder_max_abs_err": max_err(enc, enc_ref),
-                    "encoder_tol": TOL["encoder"],
+                    "encoder_tol": TOL["encoder" + suffix],
                     "encoder_std": float(enc_ref.std()),
                     "logits_max_abs_err": max_err(logits, logits_ref),
-                    "logits_tol": TOL["logits"],
+                    "logits_tol": TOL["logits" + suffix],
                     "logits_std": float(logits_ref.std()),
                     "faults": fault_errs}))
-    compare("encoder", enc, enc_ref)
-    compare("logits", logits, logits_ref)
-    caught = {"encoder_layer_dropped": "encoder",
-              "decoder_layer_dropped": "logits",
-              "cross_len_halved": "logits"}
+    compare("encoder" + suffix, enc, enc_ref)
+    compare("logits" + suffix, logits, logits_ref)
     for name, what in caught.items():
-        if fault_errs[name][f"{what}_max_abs_err"] <= TOL[what][0]:
+        if fault_errs[name][f"{what}_max_abs_err"] <= TOL[what + suffix][0]:
             raise AssertionError(f"tiny config: the {what} tolerance does "
                                  f"not catch the fault {name}: "
                                  f"{fault_errs[name]}")
@@ -424,38 +591,62 @@ def synthetic_speech(seconds: float, seed: int) -> np.ndarray:
 BATCH = 4
 
 
-def load_main_model():
+def load_main_model(compute_type: str, int8_cross_kv: bool):
     """large-v3 at full width and depth, seeded random weights, the CLI's
     asr_options; returns (model, load seconds)."""
     from manual_whisper_tpu_torch.pipeline import load_model
     from manual_whisper_tpu_torch.text import INITIAL_PROMPT
     os.environ["MWX_ALLOW_RANDOM_WEIGHTS"] = "1"
     t0 = time.perf_counter()
-    model = load_model("large-v3", device="cuda", language="zh",
+    model = load_model("large-v3", device="cuda", compute_type=compute_type,
+                       language="zh",
                        asr_options={"initial_prompt": INITIAL_PROMPT,
-                                    "beam_size": 1})
+                                    "beam_size": 1,
+                                    "int8_cross_kv": int8_cross_kv})
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
 
 def main_path_shapes(model) -> dict:
     """The decode attentions' shapes on the main path: batch rows, heads,
-    head dim, prompt length, self-cache slots (prompt + max_new) and cross
-    positions, from the decoder ``transcribe`` uses."""
+    width, head dim, prompt length, self-cache slots (prompt + max_new) and
+    cross positions, from the decoder ``transcribe`` uses."""
     cfg = model.cfg
     decoder = model._decoder("zh", 0.0)
     prefix, _ = decoder._prefix()
     max_new = min(decoder.opts.max_new_tokens,
                   cfg.n_text_ctx - len(prefix) - 1)
-    return {"batch": BATCH, "heads": cfg.n_text_head,
+    return {"batch": BATCH, "heads": cfg.n_text_head, "d": cfg.n_text_state,
             "dh": cfg.n_text_state // cfg.n_text_head,
             "prefix": len(prefix), "t_max": len(prefix) + max_new,
             "ta": cfg.n_audio_ctx}
 
 
-def phase_main(model, load_s: float):
+def expected_launches(cfg, stats: dict, int8: bool) -> dict:
+    """Launches the main path implies for the batches, decode loops and
+    steps in ``last_stats``: K1 once and K2 once per encoder layer per
+    batch; per decode step K3 and the cross kernel (K4, or K5 for int8)
+    once per decoder layer; K6 for every block matmul: 6 per encoder layer
+    per batch, per decoder layer 2 (cross K/V) + 8 (prefill) per decode
+    loop and 8 per step."""
+    le, ld = cfg.n_audio_layer, cfg.n_text_layer
+    batches, calls = stats["batches"], stats["decode_calls"]
+    steps = stats["decode_steps"]
+    exp = {"mel": batches, "flash_attention": le * batches,
+           "decode_self_attention": ld * steps}
+    if int8:
+        exp["decode_cross_attention_int8"] = ld * steps
+        exp["int8_matmul"] = 6 * le * batches + 10 * ld * calls \
+            + 8 * ld * steps
+    else:
+        exp["decode_cross_attention"] = ld * steps
+    return exp
+
+
+def phase_main(model, load_s: float, compute_type: str) -> dict:
     audio = synthetic_speech(75.0, seed=0)
     duration = len(audio) / 16000.0
+    int8 = compute_type == "int8"
 
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
@@ -476,16 +667,22 @@ def phase_main(model, load_s: float):
                 or not isinstance(s["text"], str) \
                 or not math.isfinite(s["avg_logprob"]):
             raise AssertionError(f"bad segment {s}")
-    missing = [k for k in SOURCES if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing} (launches {launches})")
+    expected = expected_launches(model.cfg, stats, int8)
+    if launches != expected or 0 in expected.values():
+        raise AssertionError(f"{compute_type} main path: launches {launches}"
+                             f", expected {expected} (every kernel of the "
+                             f"path, and no other)")
     log(json.dumps({
-        "phase": "main_path", "model": "large-v3", "load_s": load_s,
+        "phase": "main_path", "model": "large-v3",
+        "compute_type": compute_type,
+        "int8_cross_kv": model.asr_options.get("int8_cross_kv", False),
+        "load_s": load_s,
         "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
         "vad_s": stats["vad_s"], "mel_encode_s": stats["encode_s"],
         "decode_s": stats["decode_s"], "batches": stats["batches"],
         "windows": stats["windows"], "rows": stats["rows"],
+        "decode_calls": stats["decode_calls"],
+        "decode_steps": stats["decode_steps"],
         "token_rows": stats["token_rows"],
         "ms_per_token_row": 1e3 * stats["decode_s"]
         / max(stats["token_rows"], 1),
@@ -535,7 +732,7 @@ def _profiled(fn, reps: int) -> dict:
                     for us, name, n in rows[:8]]}
 
 
-def phase_profile(model, main: dict) -> None:
+def phase_profile(model, main: dict, compute_type: str) -> None:
     from manual_whisper_tpu_torch.models.whisper import (
         StepLengths, decode_step, encode, init_kv_cache, precompute_cross_kv)
     cfg, params, dev = model.cfg, model.params, model.device
@@ -546,7 +743,9 @@ def phase_profile(model, main: dict) -> None:
                       device=dev)
     enc = _profiled(lambda: encode(params, mel, cfg), reps=2)
     xa = encode(params, mel, cfg)
-    cross = precompute_cross_kv(params, xa, cfg)
+    cross = precompute_cross_kv(
+        params, xa, cfg,
+        quantize=model.asr_options.get("int8_cross_kv", False))
     cache = init_kv_cache(cfg, b, main["t_max"], dev)
     positions = torch.arange(main["t_max"], dtype=torch.int32, device=dev)
     cross_len = torch.full((1,), xa.shape[1], dtype=torch.int32, device=dev)
@@ -563,10 +762,60 @@ def phase_profile(model, main: dict) -> None:
         state["pos"] = pos + 1
 
     dec = _profiled(step, reps=16)
-    log(json.dumps({"phase": "profile", "batch": b,
+    log(json.dumps({"phase": "profile", "compute_type": compute_type,
+                    "batch": b,
                     "first_pos": (main["prefix"] + main["t_max"]) // 2 - 8,
                     "encode": enc,
                     "decode_step": dec}))
+
+
+def _host_us(fn, n: int = 200) -> float:
+    """Host time to issue one call, mean over n calls after a warm-up; the
+    timed loop ends before the synchronise, so it measures the enqueue."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def phase_host_costs(dev, main: dict) -> None:
+    """Host time per call of the int8 decode step's wrappers against the
+    bf16 step's calls they replace, at the decode step's shapes: K6
+    through ``mm`` vs ``x @ w`` on a bf16 weight (cuBLAS), K5 vs K4."""
+    from manual_whisper_tpu_torch.models.whisper import quantize_cross_kv
+    from manual_whisper_tpu_torch.ops.quant import mm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    b, h, d, dh, ta = (main[k] for k in ("batch", "heads", "d", "dh", "ta"))
+    x = randn((b, 1, d))
+    w = quantize_weight(randn((d, 4 * d)).float() / math.sqrt(d))
+    w_bf16 = (w["q"].float() * w["s"]).bfloat16()
+    q, k, v = randn((b, h, 1, dh)), randn((b, h, ta, dh)), randn((b, h, ta, dh))
+    kv4 = quantize_cross_kv(k, v)
+    len_t = torch.full((1,), ta, dtype=torch.int32, device=dev)
+    log(json.dumps({
+        "phase": "host_us_per_call", "batch": b,
+        "int8_matmul_via_mm": _host_us(lambda: mm(x, w)),
+        "bf16_matmul": _host_us(lambda: x @ w_bf16),
+        "decode_cross_attention_int8": _host_us(
+            lambda: decode_cross_attention_int8(q, *kv4, len_t)),
+        "decode_cross_attention": _host_us(
+            lambda: decode_cross_attention(q, k, v, len_t))}))
+
+
+def timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -589,21 +838,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    model, load_s = load_main_model()
+    model, load_s = load_main_model("bfloat16", False)
     main_shapes = main_path_shapes(model)
     log(json.dumps({"phase": "main_path_shapes", **main_shapes}))
-    t0 = time.perf_counter()
-    rows = phase_kernels(dev, main_shapes)
-    log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_tiny(dev)
-    log(f"phase tiny: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches = phase_main(model, load_s)
-    log(f"phase main: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_profile(model, main_shapes)
-    log(f"phase profile: {time.perf_counter() - t0:.1f}s")
+    rows = timed("kernels", phase_kernels, dev, main_shapes)
+    timed("host costs", phase_host_costs, dev, main_shapes)
+    timed("tiny bf16", phase_tiny, dev, False)
+    timed("tiny int8", phase_tiny, dev, True)
+    launches = {}
+    for compute_type, kernels in (("bfloat16", BF16_KERNELS),
+                                  ("int8", INT8_KERNELS)):
+        if compute_type == "int8":     # one model on the card at a time
+            del model
+            torch.cuda.empty_cache()
+            model, load_s = load_main_model("int8", True)
+        found = timed(f"main {compute_type}", phase_main, model, load_s,
+                      compute_type)
+        launches.update({k: found[k] for k in kernels if k not in launches})
+        timed(f"profile {compute_type}", phase_profile, model, main_shapes,
+              compute_type)
 
     kernels = []
     for name, row in rows.items():

@@ -45,7 +45,10 @@ def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
     model = load_model(
         model_size, dev, compute_type=compute_type, language="zh",
         asr_options={"initial_prompt": INITIAL_PROMPT,
-                     "beam_size": config.get_int("BEAM_SIZE", 1)},
+                     "beam_size": config.get_int("BEAM_SIZE", 1),
+                     # bf16 per-position scales of the int8 cross K/V
+                     "ckv_scale_bf16":
+                         config.get_env("MWX_CKV_SCALE", "f32") == "bf16"},
         vad_options={
             "vad_onset": config.get_float("VAD_ONSET", 0.5),
             "vad_offset": config.get_float("VAD_OFFSET", 0.363),

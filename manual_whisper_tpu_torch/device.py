@@ -16,8 +16,10 @@ import torch
 
 DeviceLike = Union[str, torch.device]
 
+# activation dtype of each compute_type; int8 quantizes the block weights
+# on top of bf16 activations (``ops.quant``)
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.bfloat16,
-           "float32": torch.float32}
+           "float32": torch.float32, "int8": torch.bfloat16}
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
@@ -39,14 +41,11 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 
 def compute_dtype(compute_type: str) -> torch.dtype:
-    """CLI compute_type -> weight dtype (float16 maps to bf16 as in JAX)."""
-    if compute_type == "int8":
-        raise NotImplementedError(
-            "compute_type='int8' (int8 weights, ROADMAP Queue A item 8) is "
-            "not ported yet")
+    """CLI compute_type -> activation dtype (float16 and int8 map to bf16
+    as in JAX)."""
     if compute_type not in _DTYPES:
         raise KeyError(f"unknown compute_type {compute_type!r}; options: "
-                       f"{sorted(_DTYPES) + ['int8']}")
+                       f"{sorted(_DTYPES)}")
     return _DTYPES[compute_type]
 
 

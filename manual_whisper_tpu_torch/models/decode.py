@@ -11,10 +11,12 @@ At temperature > 0 tokens are drawn with the Gumbel trick from a
 ``torch.Generator`` seeded by ``opts.seed + 1000003 * rng_tag``: the same
 seed gives the same tokens, but not JAX's tokens (other random numbers).
 
-Not ported yet: ``beam_size > 1``, timestamp-token decoding and
-``int8_cross_kv`` raise ``NotImplementedError``.  There is no
-``fused_attention`` option: on a CUDA device the decode steps always run
-the K3/K4 kernels, on the CPU their plain versions.
+``int8_cross_kv`` quantizes the cross K/V to int8 per layer (scales in
+bf16 with ``ckv_scale_bf16``); the decode steps then read it through K5
+instead of K4.  Not ported yet: ``beam_size > 1`` and timestamp-token
+decoding raise ``NotImplementedError``.  There is no ``fused_attention``
+option: on a CUDA device the decode steps always run the K3/K4/K5
+kernels, on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ class DecodingOptions:
     max_new_tokens: int = 224
     beam_size: int = 1
     int8_cross_kv: bool = False
+    ckv_scale_bf16: bool = False
     suppress_blank: bool = True
     suppress_non_speech: bool = True
     suppress_tokens: Optional[Tuple[int, ...]] = None
@@ -121,14 +124,17 @@ def greedy_decode(params: Params, xa: torch.Tensor, prefix: List[int],
                   suppress_mask: torch.Tensor, blank_mask: torch.Tensor,
                   temperature: float, gen: Optional[torch.Generator],
                   eot: int, cfg: WhisperConfig, max_new: int,
-                  sot_index: int = 0, no_speech_token: int = 0
+                  sot_index: int = 0, no_speech_token: int = 0,
+                  int8_cross_kv: bool = False, ckv_scale_bf16: bool = False
                   ) -> DecodeOutput:
     """Prefill + decode loop over encoder states xa [B, Ta, d] with a
     prompt shared by the batch (JAX ``greedy_decode_jit``)."""
     b, ta = xa.shape[0], xa.shape[1]
     p = len(prefix)
     dev = xa.device
-    cross_kv = precompute_cross_kv(params, xa, cfg)
+    cross_kv = precompute_cross_kv(
+        params, xa, cfg, quantize=int8_cross_kv,
+        scale_dtype=torch.bfloat16 if ckv_scale_bf16 else torch.float32)
     cache = init_kv_cache(cfg, b, p + max_new, dev)
     prefix_b = torch.tensor(prefix, dtype=torch.long, device=dev).expand(b, p)
     prefill_logits, cache = decoder_forward(params, prefix_b, None, cfg,
@@ -193,8 +199,10 @@ class BatchDecoder:
     """Host side of decoding: prompt building, decode, fallback ladder.
 
     ``stats`` accumulates, for run reports: ``token_rows`` (rows x decode
-    positions run, padding rows included) and ``rung_rows`` (rows decoded
-    at each rung of the temperature ladder)."""
+    positions run, padding rows included), ``rung_rows`` (rows decoded at
+    each rung of the temperature ladder), ``decode_calls`` (decode loops
+    run: one cross-K/V and one prefill each) and ``decode_steps``
+    (single-token steps run over all loops)."""
 
     def __init__(self, params: Params, cfg: WhisperConfig,
                  tokenizer: WhisperTokenizer, opts: DecodingOptions,
@@ -206,10 +214,6 @@ class BatchDecoder:
             raise NotImplementedError(
                 "timestamp-token decoding is not ported yet (ROADMAP Queue "
                 "A item 9)")
-        if opts.int8_cross_kv:
-            raise NotImplementedError(
-                "int8_cross_kv is not ported yet (ROADMAP Queue A item 8, "
-                "kernel K5)")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -220,7 +224,8 @@ class BatchDecoder:
         self._blank = (torch.from_numpy(build_blank_mask(tokenizer, cfg))
                        .to(device) if opts.suppress_blank
                        else torch.zeros(cfg.n_vocab, device=device))
-        self.stats = {"token_rows": 0, "rung_rows": collections.Counter()}
+        self.stats = {"token_rows": 0, "rung_rows": collections.Counter(),
+                      "decode_calls": 0, "decode_steps": 0}
 
     def _prefix(self) -> Tuple[List[int], int]:
         """(prefix tokens, index of SOT within the prefix)."""
@@ -257,8 +262,12 @@ class BatchDecoder:
             self.params, xa, prefix, self._suppress, self._blank,
             float(temperature), gen, self.tokenizer.special.eot, self.cfg,
             max_new, sot_index=sot_index,
-            no_speech_token=self.tokenizer.special.no_speech)
+            no_speech_token=self.tokenizer.special.no_speech,
+            int8_cross_kv=self.opts.int8_cross_kv,
+            ckv_scale_bf16=self.opts.ckv_scale_bf16)
         self.stats["token_rows"] += int(xa.shape[0]) * out.steps
+        self.stats["decode_calls"] += 1
+        self.stats["decode_steps"] += out.steps - 1
         return out
 
     def decode_finalize(self, out: DecodeOutput, b: int,

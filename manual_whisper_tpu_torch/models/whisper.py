@@ -2,8 +2,9 @@
 
 Weights are a plain nested dict of tensors (see ``convert.py`` for the
 layout): matmul weights are ``[K, N]`` and used as ``x @ w`` like the JAX
-package, conv weights are torch's ``[C_out, C_in, K]``, and each stack of
-blocks is a list of per-layer dicts.
+package (block weights may be int8 ``{q, s}``, see ``ops/quant.py``), conv
+weights are torch's ``[C_out, C_in, K]``, and each stack of blocks is a
+list of per-layer dicts.
 
 Numerics follow the JAX package: LayerNorm (eps 1e-5) in float32, exact
 GELU, convolutions with float32 accumulation, attention scores and softmax
@@ -11,9 +12,11 @@ in float32, logits as x . tok_emb^T accumulated in float32.
 
 Kernels: encoder self-attention goes through ``ops.attention``
 (K2), decode-step self- and cross-attention through
-``ops.decode_attention`` (K3, K4); on a CUDA tensor those launch the
-hand-written kernels, on a CPU tensor they run the plain versions.  The
-prefill (q_len = prefix) is plain PyTorch, as it is XLA einsum in JAX.
+``ops.decode_attention`` (K3, K4, or K5 over int8 cross K/V), every block
+matmul through ``ops.quant.mm`` (K6 for int8 ``{q, s}`` weights); on a
+CUDA tensor those launch the hand-written kernels, on a CPU tensor they
+run the plain versions.  The prefill's attention (q_len = prefix) is plain
+PyTorch, as it is XLA einsum in JAX.
 
 KV cache layout: ``[B, H, T, dh]`` per layer (the JAX package's transposed
 ``[B, H, dh, T]`` exists only for TPU lane padding).
@@ -30,8 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
-from ..ops.decode_attention import (attend_plain, decode_cross_attention,
+from ..ops.decode_attention import (attend_int8_plain, attend_plain,
+                                    decode_cross_attention,
+                                    decode_cross_attention_int8,
                                     decode_self_attention)
+from ..ops.quant import mm
 
 Params = Dict[str, Any]
 KVCache = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -188,8 +194,8 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(x: torch.Tensor, mlp: Dict[str, torch.Tensor]) -> torch.Tensor:
-    h = F.gelu(x @ mlp["fc1_w"] + mlp["fc1_b"])
-    return h @ mlp["fc2_w"] + mlp["fc2_b"]
+    h = F.gelu(mm(x, mlp["fc1_w"]) + mlp["fc1_b"])
+    return mm(h, mlp["fc2_w"]) + mlp["fc2_b"]
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -213,29 +219,54 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig
     for blk in enc["blocks"]:
         a_in = _layer_norm(x, blk["ln1"])
         att = blk["attn"]
-        q = _split_heads(a_in @ att["q_w"] + att["q_b"], n_head)
-        k = _split_heads(a_in @ att["k_w"], n_head)
-        v = _split_heads(a_in @ att["v_w"] + att["v_b"], n_head)
+        q = _split_heads(mm(a_in, att["q_w"]) + att["q_b"], n_head)
+        k = _split_heads(mm(a_in, att["k_w"]), n_head)
+        v = _split_heads(mm(a_in, att["v_w"]) + att["v_b"], n_head)
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-        x = x + (_merge_heads(out) @ att["o_w"] + att["o_b"])
+        x = x + (mm(_merge_heads(out), att["o_w"]) + att["o_b"])
         x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
     return _layer_norm(x, enc["ln_post"])
 
 
 # -- decoder -----------------------------------------------------------------
 
-def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig
-                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
+                        quantize: bool = False,
+                        scale_dtype: torch.dtype = torch.float32) -> list:
     """Per-layer cross-attention (k, v), each [B, H, Ta, dh], from encoder
-    output xa [B, Ta, d]; computed once per batch, read by every step."""
+    output xa [B, Ta, d]; computed once per batch, read by every step.
+
+    With ``quantize`` each layer's K/V is quantized inside the layer loop
+    (``quantize_cross_kv``), so the full-precision K/V of all layers never
+    exists at once; each layer is then ``(k_q, k_s, v_q, v_s)``."""
     n_head = cfg.n_text_head
     out = []
     for blk in params["decoder"]["blocks"]:
         xat = blk["xattn"]
-        k = _split_heads(xa @ xat["k_w"], n_head).contiguous()
-        v = _split_heads(xa @ xat["v_w"] + xat["v_b"], n_head).contiguous()
-        out.append((k, v))
+        k = _split_heads(mm(xa, xat["k_w"]), n_head).contiguous()
+        v = _split_heads(mm(xa, xat["v_w"]) + xat["v_b"], n_head).contiguous()
+        out.append(quantize_cross_kv(k, v, scale_dtype) if quantize
+                   else (k, v))
     return out
+
+
+def quantize_cross_kv(k: torch.Tensor, v: torch.Tensor,
+                      scale_dtype: torch.dtype = torch.float32):
+    """Per-(batch, head, position) symmetric int8 of one layer's cross K/V
+    [B, H, Ta, dh] (JAX ``quantize_cross_kv``): scale max(absmax over dh /
+    127, 1e-8) in ``scale_dtype``; codes divide by the scale as stored (the
+    rounded bf16 one for bf16), so they are exact for it.  Returns
+    (k_q, k_s, v_q, v_s): codes int8 [B, H, Ta, dh], scales [B, H, Ta]."""
+    def q(x):
+        x32 = x.float()
+        s = x32.abs().amax(dim=-1) / 127.0
+        s = torch.clamp_min(s, 1e-8).to(scale_dtype)
+        codes = torch.clamp(torch.round(x32 / s.float()[..., None]),
+                            -127, 127).to(torch.int8)
+        return codes, s
+    k_q, k_s = q(k)
+    v_q, v_s = q(v)
+    return k_q, k_s, v_q, v_s
 
 
 def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
@@ -261,24 +292,29 @@ class StepLengths:
 def _decoder_block(h, blk, n_head, self_k, self_v, self_mask, xkv,
                    step: Optional[StepLengths] = None):
     """One decoder block.  ``step`` set (q_len = 1) routes both attentions
-    through the decode kernels; otherwise the plain einsum path runs."""
+    through the decode kernels; otherwise the plain einsum path runs.
+    ``xkv`` is the layer's cross (k, v) or its int8 4-tuple."""
     a_in = _layer_norm(h, blk["ln1"])
     att = blk["attn"]
-    q = _split_heads(a_in @ att["q_w"] + att["q_b"], n_head)
+    q = _split_heads(mm(a_in, att["q_w"]) + att["q_b"], n_head)
     if step is not None:
         attn_out = decode_self_attention(q, self_k, self_v, step.pos)
     else:
         attn_out = attend_plain(q, self_k, self_v, mask=self_mask)
-    h = h + (_merge_heads(attn_out) @ att["o_w"] + att["o_b"])
+    h = h + (mm(_merge_heads(attn_out), att["o_w"]) + att["o_b"])
 
     x_in = _layer_norm(h, blk["lnx"])
     xat = blk["xattn"]
-    xq = _split_heads(x_in @ xat["q_w"] + xat["q_b"], n_head)
-    if step is not None:
-        xout = decode_cross_attention(xq, xkv[0], xkv[1], step.cross_len)
+    xq = _split_heads(mm(x_in, xat["q_w"]) + xat["q_b"], n_head)
+    if len(xkv) == 2 and step is not None:
+        xout = decode_cross_attention(xq, *xkv, step.cross_len)
+    elif len(xkv) == 2:
+        xout = attend_plain(xq, *xkv)
+    elif step is not None:
+        xout = decode_cross_attention_int8(xq, *xkv, step.cross_len)
     else:
-        xout = attend_plain(xq, xkv[0], xkv[1])
-    h = h + (_merge_heads(xout) @ xat["o_w"] + xat["o_b"])
+        xout = attend_int8_plain(xq, *xkv)
+    h = h + (mm(_merge_heads(xout), xat["o_w"]) + xat["o_b"])
     return h + _mlp(_layer_norm(h, blk["ln2"]), blk["mlp"])
 
 
@@ -323,8 +359,8 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
                                 cross_kv):
         a_in = _layer_norm(x, blk["ln1"])
         att = blk["attn"]
-        ck[:, :, pos_offset:end] = _split_heads(a_in @ att["k_w"], n_head)
-        cv[:, :, pos_offset:end] = _split_heads(a_in @ att["v_w"]
+        ck[:, :, pos_offset:end] = _split_heads(mm(a_in, att["k_w"]), n_head)
+        cv[:, :, pos_offset:end] = _split_heads(mm(a_in, att["v_w"])
                                                 + att["v_b"], n_head)
         x = _decoder_block(x, blk, n_head, ck[:, :, :end], cv[:, :, :end],
                            mask, xkv)
@@ -350,9 +386,9 @@ def decode_step(params: Params, token: torch.Tensor, pos: int,
                                 cross_kv):
         a_in = _layer_norm(h, blk["ln1"])
         att = blk["attn"]
-        ck[:, :, pos] = (a_in[:, 0] @ att["k_w"]).reshape(
+        ck[:, :, pos] = mm(a_in[:, 0], att["k_w"]).reshape(
             ck.shape[0], n_head, -1)
-        cv[:, :, pos] = (a_in[:, 0] @ att["v_w"] + att["v_b"]).reshape(
+        cv[:, :, pos] = (mm(a_in[:, 0], att["v_w"]) + att["v_b"]).reshape(
             cv.shape[0], n_head, -1)
         h = _decoder_block(h, blk, n_head, ck, cv, None, xkv, step=lengths)
     x = _layer_norm(h, dec["ln"])[:, 0, :]

@@ -57,6 +57,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, out, len_ptr, len_offset, batch*heads, t_max, head_dim,
         # stream
         "mwx_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # q, k_q, k_s, v_q, v_s, out, len_ptr, batch*heads, t_max,
+        # head_dim, scale_bf16, stream
+        "mwx_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _P],
+    },
+    "int8_matmul": {
+        # x, q, s, out, m, k, n, stream
+        "mwx_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -3,14 +3,16 @@
 
 VAD segmentation, 30 s chunk merging, bucketed batching, int16 round trip,
 log-mel (K1), encoder (K2), batched greedy decode with the temperature
-fallback ladder (K3, K4), per-chunk segment assembly.  Keeps the
+fallback ladder (K3, K4; K5 with int8 cross K/V), per-chunk segment
+assembly; with ``compute_type="int8"`` every block matmul runs K6.  Keeps the
 whisperx-like surface: ``load_model(name, device); model.transcribe(audio,
 batch_size, language)``.
 
 Each batch is finalized as soon as it is decoded (the JAX package's fetch
 worker overlaps device and host work; that is not ported).  ``last_stats``
 holds the phase times and counts of the most recent ``transcribe`` call
-(``windows``: real audio windows; ``rows``: batch rows, padding included);
+(``windows``: real audio windows; ``rows``: batch rows, padding included;
+``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``);
 on CUDA each phase ends in a synchronisation so its time is the device's.
 """
 
@@ -34,6 +36,7 @@ from ..models.vad import VadOptions, VoiceActivityDetector, binarize
 from ..models.whisper import (MODEL_CONFIGS, WhisperConfig, decoder_forward,
                               encode, init_params)
 from ..ops.mel import log_mel_spectrogram
+from ..ops.quant import quantize_params
 from ..tokenizer import WhisperTokenizer, make_test_tokenizer
 from .chunking import SpeechChunk, batch_chunks, merge_chunks
 
@@ -161,7 +164,7 @@ class TranscribePipeline:
         duration = len(audio) / 16000.0
         stats = {"vad_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
                  "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
-                 "rung_rows": {}}
+                 "decode_calls": 0, "decode_steps": 0, "rung_rows": {}}
         self.last_stats = stats
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
@@ -185,7 +188,8 @@ class TranscribePipeline:
             lang = self.detect_language(audio)
             report(2.0, f"detected language: {lang}")
         decoder = self._decoder(lang, temperature, initial_prompt)
-        before = (decoder.stats["token_rows"],
+        counts = ("token_rows", "decode_calls", "decode_steps")
+        before = ({k: decoder.stats[k] for k in counts},
                   dict(decoder.stats["rung_rows"]))
         first_temp = (decoder.opts.temperatures[0]
                       if decoder.opts.temperatures else 0.0)
@@ -214,7 +218,8 @@ class TranscribePipeline:
             report(pct, f"transcribed batch {batch_idx + 1} "
                         f"({time.time() - t0:.1f}s)")
 
-        stats["token_rows"] = decoder.stats["token_rows"] - before[0]
+        for k in counts:
+            stats[k] = decoder.stats[k] - before[0][k]
         stats["rung_rows"] = {
             rung: n - before[1].get(rung, 0)
             for rung, n in sorted(decoder.stats["rung_rows"].items())
@@ -248,8 +253,10 @@ def load_model(name: Union[str, dict] = "large-v3",
     ``MWX_ALLOW_RANDOM_WEIGHTS=1`` except for ``test``) or an in-memory
     JAX param tree of numpy arrays, which then needs ``cfg``.  Runs on
     ``device`` (CUDA by default; raises when CUDA is absent).
-    ``compute_type``: bfloat16 (default; float16 maps here) or float32;
-    int8 raises ``NotImplementedError``."""
+    ``compute_type``: bfloat16 (default; float16 maps here), float32, or
+    int8: bf16 activations with every block matmul weight quantized to
+    int8 (``ops.quant.quantize_params``; a tree already quantized passes
+    through), as the JAX ``load_model`` does."""
     dev = resolve_device(device)
     dtype = compute_dtype(compute_type)
     if isinstance(name, dict):
@@ -269,6 +276,8 @@ def load_model(name: Union[str, dict] = "large-v3",
     else:
         raise KeyError(f"unknown model {name!r}; options: "
                        f"{sorted(MODEL_CONFIGS)} or a param tree")
+    if compute_type == "int8":
+        params = quantize_params(params)
     tokenizer = make_test_tokenizer(cfg.num_languages)
 
     root = config.weights_dir()

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from manual_whisper_tpu.convert.from_hf import load_params
 from manual_whisper_tpu.models import decode as jd
 from manual_whisper_tpu.models import whisper as jw
+from manual_whisper_tpu.ops.quant import quantize_params
 from manual_whisper_tpu.tokenizer import make_test_tokenizer as j_tokenizer
 from manual_whisper_tpu_torch.convert import from_jax_tree
 from manual_whisper_tpu_torch.models import decode as td
@@ -171,6 +172,36 @@ def test_fallback_stops_when_all_pass():
                                 {"without_timestamps": False},
                                 {"int8_cross_kv": True}])
 def test_unported_modes_raise(kw):
+    """Beam and timestamp decoding raise; int8_cross_kv is ported, so its
+    case builds a decoder that carries the option."""
+    if kw.get("int8_cross_kv"):
+        dec = td.BatchDecoder(None, TCFG, make_test_tokenizer(),
+                              td.DecodingOptions(**kw), CPU)
+        assert dec.opts.int8_cross_kv and not dec.opts.ckv_scale_bf16
+        return
     with pytest.raises(NotImplementedError):
         td.BatchDecoder(None, TCFG, make_test_tokenizer(),
                         td.DecodingOptions(**kw), CPU)
+
+
+@pytest.mark.parametrize("ckv_scale_bf16", [False, True])
+def test_int8_greedy_matches_jax(synth, ckv_scale_bf16):
+    """int8 weights (quantize_params of .synth_ckpt) and int8 cross K/V at
+    float32 activations: JAX's greedy tokens and lengths exactly, summed
+    logprobs within 1e-4, for f32 and bf16 cross-K/V scales."""
+    jparams = quantize_params(synth[0])
+    tparams = from_jax_tree(jparams, TCFG, CPU)
+    xa = _xa(jparams, seed=2)
+    o = _opts(int8_cross_kv=True, ckv_scale_bf16=ckv_scale_bf16)
+    jdec = jd.BatchDecoder(jparams, JCFG, j_tokenizer(),
+                           jd.DecodingOptions(**o))
+    tdec = td.BatchDecoder(tparams, TCFG, make_test_tokenizer(),
+                           td.DecodingOptions(**o), CPU)
+    jout = jax.device_get(jdec.decode_submit(jnp.asarray(xa), 0.0))
+    tout = tdec.decode_submit(torch.from_numpy(xa), 0.0)
+    np.testing.assert_array_equal(tout.tokens.numpy(), jout[0])
+    np.testing.assert_array_equal(tout.lengths.numpy(), jout[2])
+    np.testing.assert_allclose(tout.sum_logprob.numpy(), jout[1], atol=1e-4)
+    np.testing.assert_allclose(tout.no_speech.numpy(), jout[3], atol=1e-5)
+    assert tdec.stats["decode_calls"] == 1
+    assert tdec.stats["decode_steps"] == tout.steps - 1

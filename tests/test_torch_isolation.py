@@ -38,12 +38,14 @@ def _port_files():
 def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for expected in ("ops/mel.py", "ops/attention.py",
-                     "ops/decode_attention.py", "ops/_build.py",
+                     "ops/decode_attention.py", "ops/quant.py",
+                     "ops/_build.py",
                      "models/whisper.py", "models/decode.py",
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
                      "convert.py", "device.py", "config.py"):
         assert expected in names
-    for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu"):
+    for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
+                "int8_matmul.cu"):
         assert (PORT / "csrc" / src).exists()
 
 

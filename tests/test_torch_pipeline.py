@@ -15,6 +15,7 @@ from manual_whisper_tpu.convert.from_hf import load_params
 from manual_whisper_tpu.eval.metrics import wer
 from manual_whisper_tpu.eval.synth import render_file_with_times, sample_text
 from manual_whisper_tpu.models import MODEL_CONFIGS as JCONFIGS
+from manual_whisper_tpu.ops.quant import quantize_params as j_quantize_params
 from manual_whisper_tpu.pipeline.transcribe import \
     TranscribePipeline as JPipeline
 from manual_whisper_tpu.tokenizer import make_test_tokenizer as j_tokenizer
@@ -68,6 +69,25 @@ def test_pipeline_segments_match_jax(synth, seed, batch_size):
     assert stats["token_rows"] > 0 and stats["rung_rows"][0] >= 1
 
 
+@pytest.mark.parametrize("ckv_scale_bf16", [False, True])
+def test_int8_pipeline_segments_match_jax(synth, ckv_scale_bf16):
+    """int8 weights and int8 cross K/V at float32 activations: the JAX
+    pipeline's segments exactly, for f32 and bf16 cross-K/V scales."""
+    qparams = j_quantize_params(synth)
+    opts = {**OPTS, "int8_cross_kv": True, "ckv_scale_bf16": ckv_scale_bf16}
+    audio, _ = _synth_file(123)
+    jm = JPipeline(qparams, JCONFIGS["test"], j_tokenizer(),
+                   asr_options=opts, language="en")
+    ref = jm.transcribe(audio, batch_size=4, language="en")
+    tm = _port_model(qparams, asr_options=opts, language="en")
+    out = tm.transcribe(audio, batch_size=4, language="en")
+    assert _keys(out["segments"]) == _keys(ref["segments"])
+    assert any(s["text"] for s in out["segments"])
+    stats = tm.last_stats
+    assert stats["decode_calls"] >= stats["batches"] >= 1
+    assert stats["decode_steps"] * 4 <= stats["token_rows"]
+
+
 def test_silence_yields_no_segments(synth):
     tm = _port_model(synth, asr_options=OPTS)
     out = tm.transcribe(np.zeros(32000, np.float32), batch_size=2)
@@ -82,8 +102,11 @@ def test_detect_language_matches_jax(synth):
 
 
 def test_load_model_surface(synth, monkeypatch):
-    with pytest.raises(NotImplementedError):
-        load_model("test", device="cpu", compute_type="int8")
+    int8 = load_model("test", device="cpu", compute_type="int8")
+    assert int8.cfg.dtype == torch.bfloat16
+    fc1 = int8.params["encoder"]["blocks"][0]["mlp"]["fc1_w"]
+    assert fc1["q"].dtype == torch.int8 and fc1["s"].dtype == torch.float32
+    assert int8.params["decoder"]["tok_emb"].dtype == torch.bfloat16
     with pytest.raises(KeyError):
         load_model("test", device="cpu", compute_type="fp32")
     with pytest.raises(KeyError):
@@ -164,6 +187,31 @@ def test_cli_markdown_matches_jax_cli(synth, tmp_path, monkeypatch, capsys):
     assert "尚未移植" in printed
     assert outs["port"] == outs["jax"]
     assert any(ln.startswith("[00:00:") for ln in outs["port"])
+
+
+def test_cli_forwards_ckv_scale(tmp_path, monkeypatch):
+    """MWX_CKV_SCALE=bf16 reaches asr_options as ckv_scale_bf16, as in the
+    JAX CLI."""
+    import manual_whisper_tpu_torch.cli as tcli
+    seen = []
+
+    class _Model:
+        def transcribe(self, audio, batch_size, language):
+            return {"segments": [], "language": language}
+
+    def fake_load(name, device, compute_type, language, asr_options,
+                  vad_options):
+        seen.append(asr_options["ckv_scale_bf16"])
+        return _Model()
+
+    monkeypatch.setattr(tcli, "load_model", fake_load)
+    monkeypatch.setattr(tcli, "resolve_device",
+                        lambda device: torch.device("cpu"))
+    _wav_fixture(tmp_path / "a.wav")
+    for value in ("bf16", "f32"):
+        monkeypatch.setenv("MWX_CKV_SCALE", value)
+        tcli.transcribe_audio(str(tmp_path / "a.wav"), model_size="test")
+    assert seen == [True, False]
 
 
 def test_cli_refuses_non_wav_and_missing_file(tmp_path, monkeypatch, capsys):

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from manual_whisper_tpu.convert.from_hf import load_params
 from manual_whisper_tpu.models import whisper as jw
-from manual_whisper_tpu.ops.quant import quantize_params
+from manual_whisper_tpu.ops.quant import is_quantized, quantize_params
 from manual_whisper_tpu_torch.convert import from_jax_tree
 from manual_whisper_tpu_torch.models import whisper as tw
 
@@ -102,8 +102,18 @@ def test_bridge_bf16_leaves_bit_exact():
 
 
 def test_bridge_rejects_int8_leaves():
+    """int8 {q, s} leaves cross as per-layer int8/f32 tensors (not cast to
+    the config's dtype); a malformed one is rejected."""
     tree = quantize_params(jw.init_params_host(0, JCFG))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    p = from_jax_tree(tree, TCFG.with_dtype(torch.bfloat16), CPU)
+    w = p["decoder"]["blocks"][1]["mlp"]["fc2_w"]
+    assert w["q"].dtype == torch.int8 and w["s"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        w["q"].numpy(), tree["decoder"]["blocks"]["mlp"]["fc2_w"]["q"][1])
+    assert p["decoder"]["blocks"][1]["mlp"]["fc2_b"].dtype == torch.bfloat16
+    bad = tree["encoder"]["blocks"]["attn"]["q_w"]
+    bad["q"] = bad["q"].astype(np.float32)
+    with pytest.raises(ValueError, match="int8"):
         from_jax_tree(tree, TCFG, CPU)
 
 
@@ -168,3 +178,87 @@ def test_decoder_forward_rejects_offset_without_cache(synth):
     with pytest.raises(ValueError):
         tw.decoder_forward(tparams, torch.zeros(1, 2, dtype=torch.long),
                            torch.zeros(1, 150, 64), TCFG, pos_offset=3)
+
+
+def _int8_decoder_logits(jparams, tparams, jcfg, tcfg, scale_dtype, xa_np):
+    """Prefill logits and three decode-step logits with int8 cross K/V, on
+    both sides (JAX: einsum ``_cross_attend``; port: K5's plain version)."""
+    xa = torch.from_numpy(xa_np).to(tcfg.dtype)
+    b, L = xa_np.shape[0], jcfg.n_text_layer
+    prefix = [257, 258, 259, 362]
+    cache_len = len(prefix) + 3
+    jcross = jw.precompute_cross_kv(
+        jparams, jnp.asarray(xa_np, jcfg.dtype), jcfg, quantize=True,
+        scale_dtype=getattr(jnp, str(scale_dtype).split(".")[-1]))
+    tcross = tw.precompute_cross_kv(tparams, xa, tcfg, quantize=True,
+                                    scale_dtype=scale_dtype)
+    assert len(tcross) == L and len(tcross[0]) == 4
+    assert tcross[0][0].dtype == torch.int8
+    assert tcross[0][1].dtype == scale_dtype
+    toks = np.tile(np.asarray(prefix, np.int32), (b, 1))
+    jcache = jw.init_kv_cache(jcfg, b, max_len=cache_len)
+    jlog, jcache = jw.decoder_forward(
+        jparams, jnp.asarray(toks), None, jcfg, pos_offset=0,
+        kv_cache=jcache, cross_kv=jcross)
+    tcache = tw.init_kv_cache(tcfg, b, cache_len, CPU)
+    tlog, tcache = tw.decoder_forward(
+        tparams, torch.from_numpy(toks).long(), None, tcfg, 0, tcache,
+        tcross)
+    out, ref = [tlog.numpy()], [np.asarray(jlog)]
+    dec_u = jw.unstack_decoder(jparams, jcfg)
+    cross_layers = jw.unstack_cross_kv(jcross, L)
+    positions = torch.arange(cache_len, dtype=torch.int32)
+    cross_len = torch.tensor([xa.shape[1]], dtype=torch.int32)
+    emb32 = tparams["decoder"]["tok_emb"].float()
+    for i, tok in enumerate((70, 80, 90)):
+        pos = len(prefix) + i
+        jl, jcache = jw.decode_step(dec_u, jnp.full((b,), tok, jnp.int32),
+                                    jnp.int32(pos), jcache, cross_layers,
+                                    jcfg)
+        tl = tw.decode_step(
+            tparams, torch.full((b,), tok, dtype=torch.long), pos,
+            tw.StepLengths(positions[pos:pos + 1], cross_len),
+            tcache, tcross, tcfg, emb32)
+        out.append(tl.numpy())
+        ref.append(np.asarray(jl))
+    return out, ref
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_int8_cross_kv_and_decoder_match_jax(synth, scale_dtype):
+    """int8 weights and int8 cross K/V at float32 activations: prefill and
+    decode-step logits within 1e-4."""
+    jparams = quantize_params(synth[0])
+    tparams = from_jax_tree(jparams, TCFG, CPU)
+    xa_np = np.array(jw.encode(jparams, jnp.asarray(_mel(2)), JCFG))
+    torch.testing.assert_close(
+        tw.encode(tparams, torch.from_numpy(_mel(2)), TCFG),
+        torch.from_numpy(xa_np), **TOL)
+    out, ref = _int8_decoder_logits(jparams, tparams, JCFG, TCFG,
+                                    scale_dtype, xa_np)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+def test_int8_bf16_activations_match_jax(synth):
+    """What ``load_model(compute_type="int8")`` runs: bf16 activations,
+    int8 weights, int8 cross K/V with f32 scales, both sides in bf16.  The
+    two frameworks round bf16 at other places: on the CPU the logits (std
+    0.74-0.85) differed by at most 0.038; the limit is 0.1."""
+    jcfg = JCFG.with_dtype(jnp.bfloat16)
+    tcfg = TCFG.with_dtype(torch.bfloat16)
+    jparams = quantize_params(synth[0])
+    tparams = from_jax_tree(jparams, tcfg, CPU)
+
+    def to_bf16(node):
+        if is_quantized(node):
+            return node
+        if isinstance(node, dict):
+            return {k: to_bf16(v) for k, v in node.items()}
+        return jnp.asarray(node, jnp.bfloat16)
+    jbf = to_bf16(jparams)
+    xa_np = np.array(jw.encode(jparams, jnp.asarray(_mel(3)), JCFG))
+    out, ref = _int8_decoder_logits(jbf, tparams, jcfg, tcfg, torch.float32,
+                                    xa_np)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o, np.asarray(r, np.float32), atol=0.1)
