@@ -51,6 +51,7 @@ result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -321,6 +322,38 @@ def int8_matmul_row(randn, m, k, n):
                 bound=bound(2.0 * m * k * n, nbytes, BF16_FLOPS))
 
 
+def int8_matmul_ragged(randn) -> dict:
+    """K6's tile product vs its plain version where no tile divides the
+    shape: M in {9, 129, 771}, K = 1288 (a last K step of 8), N = 1296 (a
+    last column tile of 16).  Checked, not timed."""
+    k, n = 1288, 1296
+    w = quantize_weight(randn((k, n), torch.float32) / math.sqrt(k))
+    errs = {}
+    for m in (9, 129, 771):
+        x = randn((m, k))
+        errs[f"M={m}"] = compare("int8_matmul", int8_matmul(x, w["q"], w["s"]),
+                                 int8_matmul_plain(x, w["q"], w["s"]))
+    return {"phase": "kernel_check", "name": "int8_matmul",
+            "shape": f"K={k} N={n} bf16 x int8, ragged tiles",
+            "max_abs_err": errs, "tol": TOL["int8_matmul"]}
+
+
+def int8_matmul_rows(randn, main: dict):
+    """K6 at every shape the int8 main path gives it: the row of the
+    kernels line at a decode step's fc1 (M = batch rows), and as extras the
+    other decode shapes and every M > 8 shape: the encoder's and the
+    cross-K/V's M = batch x Ta and the prefill's M = batch x prompt length,
+    each with the attention projections' and both MLP weights' (K, N).
+    Logs the ragged-tile check on its way."""
+    b, d, p, ta = main["batch"], main["d"], main["prefix"], main["ta"]
+    log(json.dumps(int8_matmul_ragged(randn)))
+    row = int8_matmul_row(randn, b, d, 4 * d)
+    shapes = [(b, d, d), (b, 4 * d, d)]
+    shapes += [(m, k, n) for m in (b * ta, b * p)
+               for k, n in ((d, d), (d, 4 * d), (4 * d, d))]
+    return row, [int8_matmul_row(randn, *shape) for shape in shapes]
+
+
 def _row_line(phase: str, name: str, row: dict) -> str:
     return json.dumps({"phase": phase, "name": name, "shape": row["shape"],
                        "max_abs_err": row["max_abs_err"], "tol": TOL[name],
@@ -334,13 +367,36 @@ def _row_line(phase: str, name: str, row: dict) -> str:
 # Phase 2: each kernel against its plain version at large-v3 shapes
 # ---------------------------------------------------------------------------
 
-def phase_kernels(dev, main: dict) -> dict:
+def seeded_randn(dev, seed: int):
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
-    rows = {}
+    gen.manual_seed(seed)
 
     def randn(shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    return randn
+
+
+def phase_rows(dev, main: dict, names) -> None:
+    """``--rows``: only the named kernels' checks and timed rows, at the
+    main paths' shapes (for work on one kernel; prints no result line)."""
+    randn = seeded_randn(dev, 1234)
+    b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
+    for name in names:
+        if name == "int8_matmul":
+            row, extra = int8_matmul_rows(randn, main)
+            rows = [row] + extra
+        elif name == "decode_cross_attention":
+            rows = [cross_attention_row(randn, dev, bb, h, dh, ta)
+                    for bb in (b, 16)]
+        else:
+            raise SystemExit(f"--rows: no rows for {name!r}")
+        for row in rows:
+            log(_row_line("kernel_rows", name, row))
+
+
+def phase_kernels(dev, main: dict) -> dict:
+    randn = seeded_randn(dev, 1234)
+    rows = {}
 
     # K1 mel: B=4 windows of 30 s, 128 mels
     b, n_samples, n_mels = 4, 480000, 128
@@ -390,13 +446,10 @@ def phase_kernels(dev, main: dict) -> dict:
         checks=(0, 1, p, (p + t_max) // 2, t_max - 1))
     rows["decode_cross_attention"] = cross_attention_row(
         randn, dev, b, h, dh, ta)
-    # K5 at the int8 path's shapes (f32 scales, the default; bf16 extra);
-    # K6 at a decode step's fc1 (M = batch rows; the other decode shapes,
-    # the prefill's M = 4 x 193 and the encoder's M = 4 x 1500 extra)
-    d = main["d"]
+    # K5 at the int8 path's shapes (f32 scales, the default; bf16 extra)
     rows["decode_cross_attention_int8"] = cross_int8_row(
         randn, dev, b, h, dh, ta, torch.float32)
-    rows["int8_matmul"] = int8_matmul_row(randn, b, d, 4 * d)
+    rows["int8_matmul"], k6_extra = int8_matmul_rows(randn, main)
     extra = [("decode_self_attention", self_attention_row(
                  randn, dev, 16, h, dh, 448, [447],
                  checks=(0, 1, 100, 255, 447))),
@@ -404,9 +457,7 @@ def phase_kernels(dev, main: dict) -> dict:
                  randn, dev, 16, h, dh, ta)),
              ("decode_cross_attention_int8", cross_int8_row(
                  randn, dev, b, h, dh, ta, torch.bfloat16))]
-    extra += [("int8_matmul", int8_matmul_row(randn, mm_m, mm_k, mm_n))
-              for mm_m, mm_k, mm_n in ((b, d, d), (b, 4 * d, d),
-                                       (b * p, d, d), (b * ta, d, 4 * d))]
+    extra += [("int8_matmul", row) for row in k6_extra]
     for name, row in extra:
         log(_row_line("kernel_extra", name, row))
     for name, row in rows.items():
@@ -819,6 +870,12 @@ def timed(label: str, fn, *args):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", default="", metavar="KERNEL[,KERNEL]",
+                    help="only build, check and time these kernels' rows "
+                         "(int8_matmul, decode_cross_attention), then stop "
+                         "without a result line")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -841,6 +898,9 @@ def main() -> int:
     model, load_s = load_main_model("bfloat16", False)
     main_shapes = main_path_shapes(model)
     log(json.dumps({"phase": "main_path_shapes", **main_shapes}))
+    if args.rows:
+        timed("rows", phase_rows, dev, main_shapes, args.rows.split(","))
+        return 0
     rows = timed("kernels", phase_kernels, dev, main_shapes)
     timed("host costs", phase_host_costs, dev, main_shapes)
     timed("tiny bf16", phase_tiny, dev, False)

@@ -19,12 +19,25 @@
 //   SMs and no second pass or atomics are needed.  Each thread streams
 //   16 columns of a weight row with one 16-byte load, four rows in flight.
 // - M > 8 (prefill, encoder, cross-K/V): a tiled tensor-core product,
-//   bound by the bf16 tensor-core rate at M >= 772.  Tiles of 128 x 128
-//   outputs, 32-deep K steps; x tiles are staged in shared memory as they
-//   are, weight tiles are converted int8 -> bf16 while they are staged;
-//   8 warps each own 32 x 64 outputs as 2 x 4 WMMA 16x16x16 fragments with
-//   float32 accumulators; the epilogue multiplies by s[n] and rounds to
-//   bf16.  No double buffering yet.
+//   bound by the bf16 tensor-core rate at M >= 772.  What a tile product
+//   loses on this card is time in which the tensor cores wait: for device
+//   memory, for the int8 -> bf16 widening, for too few blocks.  So:
+//   * a block owns 128 x BN outputs and walks K in steps of 64 through a
+//     ring of four stages in dynamic shared memory, filled by 16-byte
+//     `cp.async` copies issued three steps ahead; the x tile lands in the
+//     128-byte-swizzled K-major layout the tensor cores read without bank
+//     conflicts, the weight tile lands as int8 (half the bytes of a bf16
+//     staging);
+//   * the codes of step t+1 are widened to bf16 (byte permutes into the
+//     mantissa of 2^23, one subtraction, a permute to pack: exact) into a
+//     second, double-buffered shared tile while the products of step t
+//     run, so one barrier per step orders ring, widening and products;
+//   * BN is 128 where that gives at least two tiles per SM and 64
+//     otherwise (M=772, N=1280: 140 blocks instead of 70), two blocks of
+//     the narrow tile sharing an SM;
+//   * the epilogue scales the float32 sums in registers, rounds to bf16,
+//     and each warp turns its 16 rows through shared memory into 16-byte
+//     row-contiguous stores.
 //
 // Ragged M, N and K edges are masked inside the kernels (zero-filled
 // tiles, guarded stores), never padded by the wrapper.  K must be a
@@ -33,7 +46,6 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "int8.cuh"
@@ -42,7 +54,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 // ---- small M: cluster split-K matvec --------------------------------------
 
@@ -169,109 +180,296 @@ int launch_matvec(const void* x, const void* q, const void* s, void* out,
   return (int)cudaGetLastError();
 }
 
-// ---- large M: WMMA tile product --------------------------------------------
+// ---- large M: pipelined tensor-core tile product ---------------------------
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kMmaThreads = 256;   // 8 warps: 4 along M x 2 along N
-constexpr int kLdA = kBK + 8;      // bf16 stride of staged x rows
-constexpr int kLdB = kBN + 8;      // bf16 stride of staged weight rows
+constexpr int kBM = 128;            // rows per block, 16 per warp
+constexpr int kBK = 64;             // K step: one 128-byte row of the x tile
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kStages = 4;          // ring depth; the schedule below needs 4
+constexpr int kABytes = kBM * kBK * 2;        // one x tile, bf16
 
-__global__ void __launch_bounds__(kMmaThreads)
-mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-           const float* __restrict__ s, bf16* __restrict__ out, int m, int k,
-           int n) {
-  __shared__ __align__(128) bf16 sa[kBM * kLdA];
-  __shared__ __align__(128) bf16 sb[kBK * kLdB];
-  __shared__ __align__(128) float stage[kMmaThreads / 32][16 * 16];
+// Shared memory of a block, from a 1024-byte aligned base: the ring's x
+// tiles, the ring's int8 weight tiles, two widened bf16 weight tiles.  The
+// epilogue reuses the x tiles as its per-warp staging rows.
+template <int BN>
+struct TileSmem {
+  static constexpr int q_bytes = kBK * BN;            // int8 weight tile
+  static constexpr int b_bytes = kBK * BN * 2;        // widened weight tile
+  static constexpr int q_off = kStages * kABytes;
+  static constexpr int b_off = q_off + kStages * q_bytes;
+  static constexpr int total = b_off + 2 * b_bytes;
+  static constexpr int out_row = BN * 2 + 16;         // padded staging row
+  static constexpr int launch_bytes = total + 1024;   // room to align
+  static_assert(kTileWarps * 16 * out_row <= q_off, "staging fits the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy; with !valid nothing is read and the 16 bytes
+// are zero-filled (src must still be an address inside the allocation)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk `c` (0..7) of row `r` in a tile of 128-byte
+// rows under the 128-byte swizzle: chunk index XOR (row mod 8).
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Byte offset, in a widened weight tile, of the 16-byte chunk that holds
+// columns [n, n + 8) of K row `kr` (n a multiple of 8).  The tile is
+// N-contiguous ("MN-major"): 64 columns make a 128-byte row, 8 K rows a
+// 1024-byte swizzle atom, the 8 atoms of a 64-column panel follow each
+// other, and panels are kBK * 128 bytes apart.
+__device__ __forceinline__ int b_offset(int kr, int n) {
+  return (n >> 6) * (kBK * 128) + swz(kr, (n & 63) >> 3);
+}
+
+// One ring stage: x[m0 : m0+128, k0 : k0+64] and q[k0 : k0+64, n0 : n0+BN].
+template <int BN>
+__device__ __forceinline__ void load_stage(uint32_t sa, uint32_t sq,
+                                           const bf16* __restrict__ x,
+                                           const int8_t* __restrict__ q,
+                                           int m, int k, int n, int m0,
+                                           int n0, int k0, int tid) {
+#pragma unroll
+  for (int i = 0; i < kBM * 8 / kTileThreads; ++i) {
+    const int idx = tid + i * kTileThreads;
+    const int r = idx >> 3;
+    const int c = idx & 7;
+    const bool ok = m0 + r < m && k0 + c * 8 < k;
+    const bf16* src = ok ? x + (size_t)(m0 + r) * k + k0 + c * 8 : x;
+    cp_async16(sa + swz(r, c), src, ok);
+  }
+  constexpr int cpr = BN / 16;                  // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < kBK * cpr / kTileThreads; ++i) {
+    const int idx = tid + i * kTileThreads;
+    const int r = idx / cpr;
+    const int c = idx % cpr;
+    const bool ok = k0 + r < k && n0 + c * 16 < n;
+    const int8_t* src = ok ? q + (size_t)(k0 + r) * n + n0 + c * 16 : q;
+    cp_async16(sq + r * BN + c * 16, src, ok);
+  }
+}
+
+// Four int8 codes of one word -> two bf16 pairs, exact.  code ^ 0x80 is
+// code + 128 as an unsigned byte; placed in the low mantissa byte of
+// 0x4B000000 (2^23) it reads as the float 2^23 + 128 + code, and
+// subtracting 2^23 + 128 leaves the code.  An integer of 8 bits fits
+// bf16's significand, so taking the upper halves rounds nothing.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float bias = 8388736.f;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - bias;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - bias;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - bias;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - bias;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// Widen one int8 weight tile [kBK, BN] into a bf16 tile in b_offset's layout.
+template <int BN>
+__device__ __forceinline__ void widen_tile(const unsigned char* sq,
+                                           unsigned char* sb, int tid) {
+  constexpr int cpr = BN / 16;
+#pragma unroll
+  for (int i = 0; i < kBK * cpr / kTileThreads; ++i) {
+    const int idx = tid + i * kTileThreads;
+    const int r = idx / cpr;
+    const int c = idx % cpr;
+    const uint4 w = *reinterpret_cast<const uint4*>(sq + r * BN + c * 16);
+    uint4 lo, hi;
+    widen4(w.x, lo.x, lo.y);
+    widen4(w.y, lo.z, lo.w);
+    widen4(w.z, hi.x, hi.y);
+    widen4(w.w, hi.z, hi.w);
+    *reinterpret_cast<uint4*>(sb + b_offset(r, c * 16)) = lo;
+    *reinterpret_cast<uint4*>(sb + b_offset(r, c * 16 + 8)) = hi;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The products of one ring stage.  Warp w owns rows [16 w, 16 w + 16) of
+// the tile and all BN columns; acc[j] is the m16n8 fragment of columns
+// [8 j, 8 j + 8): rows lane / 4 and lane / 4 + 8, columns 2 (lane % 4) + {0,1}.
+template <int BN>
+__device__ __forceinline__ void mma_stage(float (&acc)[BN / 8][4],
+                                          uint32_t sa, uint32_t sb, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, sa + swz(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+    const int kr = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int jp = 0; jp < BN / 16; ++jp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sb + b_offset(kr, jp * 16 + (lane >> 4) * 8));
+      mma_bf16(acc[2 * jp], a, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kTileThreads, BN == 64 ? 2 : 1)
+tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
+            const float* __restrict__ s, bf16* __restrict__ out, int m, int k,
+            int n) {
+  using L = TileSmem<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - smem_u32(smem_raw)) & 1023u);
+  const uint32_t base = smem_u32(smem);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int wm = warp / 2;            // rows [wm * 32, +32) of the tile
-  const int wn = warp % 2;            // cols [wn * 64, +64)
   const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+  const int n0 = blockIdx.x * BN;
+  const int nk = (k + kBK - 1) / kBK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  float acc[BN / 8][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    __syncthreads();                   // all warps done with the last tiles
-    for (int i = tid; i < kBM * (kBK / 8); i += kMmaThreads) {
-      const int r = i / (kBK / 8);
-      const int c = (i % (kBK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < m && k0 + c < k)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * k + k0 + c);
-      *reinterpret_cast<uint4*>(sa + r * kLdA + c) = v;
-    }
-    {
-      const int r = tid / (kBN / 16);
-      const int c = (tid % (kBN / 16)) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < k && n0 + c < n)
-        v = __ldg(reinterpret_cast<const uint4*>(q + (size_t)(k0 + r) * n
-                                                 + n0 + c));
-      float f[16];
-      unpack16_i8(v, f);
-      __align__(16) __nv_bfloat162 h[8];
+  // Schedule.  Entering step t: x tile t is in ring stage t % 4, weight
+  // tile t is widened in bf16 buffer t % 2, int8 tile t + 1 has landed.
+  // Step t: issue the copies of tile t + 3 (its stage held tile t - 1,
+  // released by the last barrier); products of tile t; widen tile t + 1;
+  // wait for this thread's copies of tile t + 2; barrier.
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);   // exact
-      uint4* dst = reinterpret_cast<uint4*>(sb + r * kLdB + c);
-      dst[0] = reinterpret_cast<const uint4*>(h)[0];
-      dst[1] = reinterpret_cast<const uint4*>(h)[1];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sa + (wm * 32 + i * 16) * kLdA + kk * 16,
-                               kLdA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], sb + kk * 16 * kLdB + wn * 64 + j * 16,
-                               kLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j],
-                                                   acc[i][j]);
-    }
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk)
+      load_stage<BN>(base + t * kABytes, base + L::q_off + t * L::q_bytes, x,
+                     q, m, k, n, m0, n0, t * kBK, tid);
+    cp_async_commit();
   }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  widen_tile<BN>(smem + L::q_off, smem + L::b_off, tid);
+  cp_async_wait<kStages - 3>();
+  __syncthreads();
 
-  // epilogue: per fragment, through this warp's 16x16 stage; two lanes per
-  // row, 8 columns each, one 16-byte store
-  float* st = stage[warp];
-  const int r = lane / 2;
-  const int c0 = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 32 + i * 16 + r;
-      const int gc = n0 + wn * 64 + j * 16 + c0;
-      if (gr < m && gc < n) {
-        __align__(16) bf16 h[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          h[e] = __float2bfloat16(st[r * 16 + c0 + e] * s[gc + e]);
-        *reinterpret_cast<uint4*>(out + (size_t)gr * n + gc) =
-            *reinterpret_cast<const uint4*>(h);
-      }
-      __syncwarp();
+  for (int t = 0; t < nk; ++t) {
+    const int lt = t + kStages - 1;
+    if (lt < nk) {
+      const int st = lt % kStages;
+      load_stage<BN>(base + st * kABytes, base + L::q_off + st * L::q_bytes,
+                     x, q, m, k, n, m0, n0, lt * kBK, tid);
     }
+    cp_async_commit();
+    mma_stage<BN>(acc, base + (t % kStages) * kABytes,
+                  base + L::b_off + (t & 1) * L::b_bytes, warp, lane);
+    if (t + 1 < nk)
+      widen_tile<BN>(smem + L::q_off + ((t + 1) % kStages) * L::q_bytes,
+                     smem + L::b_off + ((t + 1) & 1) * L::b_bytes, tid);
+    cp_async_wait<kStages - 3>();
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  // Epilogue.  The last barrier freed the ring; each warp stages its own
+  // 16 x BN outputs (scaled, rounded) in padded rows and stores them as
+  // 16-byte chunks, a row's chunks on neighbouring lanes.
+  unsigned char* stage = smem + warp * 16 * L::out_row;
+  const int g = lane / 4;
+  const int c2 = (lane % 4) * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + c2;
+    float2 sc = make_float2(0.f, 0.f);
+    if (col < n) sc = __ldg(reinterpret_cast<const float2*>(s + col));
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * L::out_row
+                                       + (j * 8 + c2) * 2) =
+        __floats2bfloat162_rn(acc[j][0] * sc.x, acc[j][1] * sc.y);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * L::out_row
+                                       + (j * 8 + c2) * 2) =
+        __floats2bfloat162_rn(acc[j][2] * sc.x, acc[j][3] * sc.y);
+  }
+  __syncwarp();
+  constexpr int cpr = BN / 8;                   // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < 16 * cpr / 32; ++i) {
+    const int idx = lane + i * 32;
+    const int r = idx / cpr;
+    const int c = idx % cpr;
+    const int gr = m0 + warp * 16 + r;
+    const int gc = n0 + c * 8;
+    if (gr < m && gc < n)
+      *reinterpret_cast<uint4*>(out + (size_t)gr * n + gc) =
+          *reinterpret_cast<const uint4*>(stage + r * L::out_row + c * 16);
+  }
+}
+
+template <int BN>
+int launch_tile(const void* x, const void* q, const void* s, void* out, int m,
+                int k, int n, cudaStream_t stream) {
+  static bool configured = false;     // more than 48 KB: opt in once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tile_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TileSmem<BN>::launch_bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((n + BN - 1) / BN, (m + kBM - 1) / kBM);
+  tile_kernel<BN><<<grid, kTileThreads, TileSmem<BN>::launch_bytes, stream>>>(
+      (const bf16*)x, (const int8_t*)q, (const float*)s, (bf16*)out, m, k, n);
+  return (int)cudaGetLastError();
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
 }
 
 }  // namespace
@@ -287,9 +485,10 @@ extern "C" int mwx_int8_matmul(const void* x, const void* q, const void* s,
   if (m <= 2) return launch_matvec<2>(x, q, s, out, m, k, n, st);
   if (m <= 4) return launch_matvec<4>(x, q, s, out, m, k, n, st);
   if (m <= kVecMaxM) return launch_matvec<8>(x, q, s, out, m, k, n, st);
-  if ((m + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  mma_kernel<<<grid, kMmaThreads, 0, st>>>(
-      (const bf16*)x, (const int8_t*)q, (const float*)s, (bf16*)out, m, k, n);
-  return (int)cudaGetLastError();
+  const int row_tiles = (m + kBM - 1) / kBM;
+  if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
+  // wide tiles where they still give every SM two blocks' worth of work
+  if (row_tiles * ((n + 127) / 128) >= 2 * sm_count())
+    return launch_tile<128>(x, q, s, out, m, k, n, st);
+  return launch_tile<64>(x, q, s, out, m, k, n, st);
 }

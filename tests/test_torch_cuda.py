@@ -102,8 +102,8 @@ def test_decode_int8_kernel(dev, dh, scale_dtype):
     assert _build.launches["decode_cross_attention_int8"] == before + 3
 
 
-@pytest.mark.parametrize("m", [1, 4, 17, 300])
-@pytest.mark.parametrize("k,n", [(64, 256), (1280, 5120)])
+@pytest.mark.parametrize("m", [1, 4, 9, 17, 129, 300, 772])
+@pytest.mark.parametrize("k,n", [(64, 256), (1280, 5120), (1288, 1296)])
 def test_int8_matmul_kernel(dev, m, k, n):
     x = _randn((m, k), dev, 11)
     w = quantize_weight(_randn((k, n), dev, 12, torch.float32) / k ** 0.5)
