@@ -307,48 +307,115 @@ __device__ __forceinline__ void widen_tile(const unsigned char* sq,
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+// Shared-memory matrix descriptor of a warpgroup product: start address,
+// leading and stride byte offsets (each stored in 16-byte units), 128-byte
+// swizzle (layout type 1 in bits 62-63); the tiles are 1024-byte aligned,
+// so the base offset is 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-               "{%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// The products of one ring stage.  Warp w owns rows [16 w, 16 w + 16) of
-// the tile and all BN columns; acc[j] is the m16n8 fragment of columns
-// [8 j, 8 j + 8): rows lane / 4 and lane / 4 + 8, columns 2 (lane % 4) + {0,1}.
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Writes of this thread to shared memory (stores and landed cp.async
+// copies) become visible to the tensor cores' asynchronous reads.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[64, N] += a[64, 16] b[16, N] for one warpgroup: a K-major, b
+// N-contiguous (transposed-B flag set), both read from shared memory, d in
+// registers: d[j] is the fragment of columns [8 j, 8 j + 8), rows
+// 16 (warp % 4) + lane / 4 and + 8, columns 2 (lane % 4) + {0, 1}.
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[16][4],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[8][4],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Issue the products of one ring stage: warpgroup w owns rows [64 w, +64)
+// of the tile and all BN columns.  x tile: 8-row groups 1024 bytes apart,
+// a K step of 16 is 32 bytes along the swizzled row.  Weight tile: 8-row K
+// groups 1024 bytes apart, 64-column panels kBK * 128 bytes apart, a K
+// step of 16 is two K groups.
 template <int BN>
-__device__ __forceinline__ void mma_stage(float (&acc)[BN / 8][4],
-                                          uint32_t sa, uint32_t sb, int warp,
-                                          int lane) {
+__device__ __forceinline__ void wgmma_stage(float (&acc)[BN / 8][4],
+                                            uint32_t sa, uint32_t sb,
+                                            int warpgroup) {
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sa + swz(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
-    const int kr = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int jp = 0; jp < BN / 16; ++jp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, sb + b_offset(kr, jp * 16 + (lane >> 4) * 8));
-      mma_bf16(acc[2 * jp], a, b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_m64k16(acc, gmma_desc(sa + warpgroup * 64 * 128 + kk * 32, 16, 1024),
+                 gmma_desc(sb + kk * 2048, kBK * 128, 1024));
+  wgmma_commit();
 }
 
 template <int BN>
@@ -390,6 +457,7 @@ tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
   __syncthreads();
   widen_tile<BN>(smem + L::q_off, smem + L::b_off, tid);
   cp_async_wait<kStages - 3>();
+  fence_async_proxy();
   __syncthreads();
 
   for (int t = 0; t < nk; ++t) {
@@ -400,12 +468,14 @@ tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
                      x, q, m, k, n, m0, n0, lt * kBK, tid);
     }
     cp_async_commit();
-    mma_stage<BN>(acc, base + (t % kStages) * kABytes,
-                  base + L::b_off + (t & 1) * L::b_bytes, warp, lane);
+    wgmma_stage<BN>(acc, base + (t % kStages) * kABytes,
+                    base + L::b_off + (t & 1) * L::b_bytes, warp / 4);
     if (t + 1 < nk)
       widen_tile<BN>(smem + L::q_off + ((t + 1) % kStages) * L::q_bytes,
                      smem + L::b_off + ((t + 1) & 1) * L::b_bytes, tid);
+    wgmma_wait_all();
     cp_async_wait<kStages - 3>();
+    fence_async_proxy();
     __syncthreads();
   }
   cp_async_wait<0>();
