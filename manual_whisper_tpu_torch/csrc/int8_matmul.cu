@@ -21,29 +21,45 @@
 // - M > 8 (prefill, encoder, cross-K/V): a tiled tensor-core product,
 //   bound by the bf16 tensor-core rate at M >= 772.  What a tile product
 //   loses on this card is time in which the tensor cores wait: for device
-//   memory, for the int8 -> bf16 widening, for too few blocks.  So:
-//   * a block owns 128 x BN outputs and walks K in steps of 64 through a
-//     ring of four stages in dynamic shared memory, filled by 16-byte
-//     `cp.async` copies issued three steps ahead; the x tile lands in the
-//     128-byte-swizzled K-major layout the tensor cores read without bank
-//     conflicts, the weight tile lands as int8 (half the bytes of a bf16
-//     staging);
-//   * the codes of step t+1 are widened to bf16 (byte permutes into the
-//     mantissa of 2^23, one subtraction, a permute to pack: exact) into a
-//     second, double-buffered shared tile while the products of step t
-//     run, so one barrier per step orders ring, widening and products;
-//   * BN is 128 where that gives at least two tiles per SM and 64
-//     otherwise (M=772, N=1280: 140 blocks instead of 70), two blocks of
-//     the narrow tile sharing an SM;
-//   * the epilogue scales the float32 sums in registers, rounds to bf16,
-//     and each warp turns its 16 rows through shared memory into 16-byte
-//     row-contiguous stores.
+//   memory, for the int8 -> bf16 widening, for threads that do something
+//   else.  So the block is split into roles that meet only at mbarriers:
+//   * A block owns 128 x BN outputs (BN = 256, or 128 where 256 would
+//     leave SMs without work) and walks K in steps of 64.  One thread
+//     asks the Tensor Memory Accelerator for each step's x tile and int8
+//     weight tile, kStages - 1 steps ahead, into a ring in dynamic shared
+//     memory: the x tile in the 128-byte-swizzled K-major layout the
+//     products read, the weight tile as int8 (half the bytes a bf16 weight
+//     would take through L2 and shared memory).  TMA and not cp.async:
+//     with the few warps that are free to copy, 16-byte cp.async copies
+//     took longer to issue than the products of the step take to run.
+//   * One producer warpgroup widens each step's codes to bf16 (exact: two
+//     byte permutes and one packed bf16 subtraction per pair) into a
+//     second ring of N-contiguous, 128-byte-swizzled tiles, a step or two
+//     ahead of the products.
+//   * Two consumer warpgroups of 64 rows each issue the products as
+//     `wgmma.mma_async` m64nBNk16 with float32 sums in registers: x as the
+//     K-major A operand straight from the load ring, the widened tile as
+//     B with the transposed-B flag.  One step's products are always in
+//     flight while the next step's barriers are awaited.
+//   * Blocks are persistent: gridDim.x = min(tiles, SMs), and the rings run
+//     on from one tile into the next, so a tile's first loads and widening
+//     hide behind the previous tile's epilogue.
+//   * The epilogue scales the float32 sums in registers (the tile's scales
+//     wait in shared memory), rounds to bf16, and each warp turns its 16
+//     rows through swizzled staging rows into 16-byte row-contiguous
+//     stores.
+//   Measured on an H100 (chip_smoke.py): the loads alone, 16 KB of x and
+//   64 BN bytes of codes per step and SM, take about as long as the
+//   products (L2 bandwidth; no multicast across a cluster yet); widening
+//   and epilogue do not yet hide behind them.
 //
-// Ragged M, N and K edges are masked inside the kernels (zero-filled
-// tiles, guarded stores), never padded by the wrapper.  K must be a
-// multiple of 8 and N of 16 (16-byte vector loads and stores).
+// Ragged M, N and K edges are handled inside the kernels (the matvec masks
+// its loads; the TMA fills what lies outside a matrix with zeros; stores
+// are guarded), never padded by the wrapper.  K must be a multiple of 8
+// and N of 16 (16-byte vector loads and stores, 16-byte row pitches).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -180,50 +196,92 @@ int launch_matvec(const void* x, const void* q, const void* s, void* out,
   return (int)cudaGetLastError();
 }
 
-// ---- large M: pipelined tensor-core tile product ---------------------------
+// ---- large M: warp-specialised tensor-core tile product --------------------
 
-constexpr int kBM = 128;            // rows per block, 16 per warp
+constexpr int kBM = 128;            // rows per block: 64 per consumer warpgroup
 constexpr int kBK = 64;             // K step: one 128-byte row of the x tile
-constexpr int kTileThreads = 256;
-constexpr int kTileWarps = kTileThreads / 32;
-constexpr int kStages = 4;          // ring depth; the schedule below needs 4
-constexpr int kABytes = kBM * kBK * 2;        // one x tile, bf16
+constexpr int kConsumerThreads = 256;   // two warpgroups issue the products
+constexpr int kProducerThreads = 128;   // one warpgroup loads and widens
+constexpr int kTileThreads = kConsumerThreads + kProducerThreads;
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kABytes = kBM * kBK * 2;  // one x tile, bf16
+constexpr int kOutCols = 32;            // columns per epilogue pass
 
-// Shared memory of a block, from a 1024-byte aligned base: the ring's x
-// tiles, the ring's int8 weight tiles, two widened bf16 weight tiles.  The
-// epilogue reuses the x tiles as its per-warp staging rows.
-template <int BN>
+constexpr int kScaleSlots = 6;          // tiles whose scales are kept
+
+// Shared memory of a block, from a 1024-byte aligned base: the load ring
+// (per stage one x tile and one int8 weight tile, both written by TMA),
+// the ring of widened bf16 weight tiles, per consumer warp 16 staging rows
+// of kOutCols outputs, the scales of the tiles in flight, and the
+// barriers: full and empty per load stage, full and empty per bf16 stage.
+template <int BN, int kStages, int kWideStages>
 struct TileSmem {
-  static constexpr int q_bytes = kBK * BN;            // int8 weight tile
-  static constexpr int b_bytes = kBK * BN * 2;        // widened weight tile
-  static constexpr int q_off = kStages * kABytes;
-  static constexpr int b_off = q_off + kStages * q_bytes;
-  static constexpr int total = b_off + 2 * b_bytes;
-  static constexpr int out_row = BN * 2 + 16;         // padded staging row
+  static constexpr int q_bytes = kBK * BN;
+  static constexpr int load_bytes = kABytes + q_bytes;
+  static constexpr int b_bytes = kBK * BN * 2;
+  static constexpr int b_off = kStages * load_bytes;
+  static constexpr int out_off = b_off + kWideStages * b_bytes;
+  static constexpr int out_warp_bytes = 16 * kOutCols * 2;
+  static constexpr int scale_off = out_off + kConsumerWarps * out_warp_bytes;
+  static constexpr int bar_off = scale_off + kScaleSlots * BN * 4;
+  static constexpr int total = bar_off + 2 * (kStages + kWideStages) * 8;
   static constexpr int launch_bytes = total + 1024;   // room to align
-  static_assert(kTileWarps * 16 * out_row <= q_off, "staging fits the ring");
+  static_assert(load_bytes % 1024 == 0 && b_off % 1024 == 0, "swizzle atoms");
+  static_assert(launch_bytes <= 227 * 1024, "fits one SM");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16-byte asynchronous copy; with !valid nothing is read and the 16 bytes
-// are zero-filled (src must still be an address inside the allocation)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(arrivals) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+// The thread announces `bytes` of TMA traffic to `bar` and arrives at it.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// One thread asks the Tensor Memory Accelerator for the box of `map` at
+// (c0, c1), c0 along the contiguous dimension; the bytes land at `dst` and
+// are counted at `bar`.  What lies outside the tensor arrives as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  The last
+// operand lets the hardware suspend the warp for up to that many
+// nanoseconds while the phase is open.  A wait that never ends is a fault
+// in the kernel's schedule: trap and let the launch fail rather than hang
+// the device.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (int spin = 0; !done; ++spin) {
+    asm volatile("{\n"
+                 ".reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+                 "selp.u32 %0, 1, 0, p;\n"
+                 "}\n"
+                 : "=r"(done)
+                 : "r"(bar), "r"(parity), "r"(1000000)
+                 : "memory");
+    if (spin > 2000) __trap();
+  }
 }
 
 // Byte offset of 16-byte chunk `c` (0..7) of row `r` in a tile of 128-byte
@@ -241,70 +299,25 @@ __device__ __forceinline__ int b_offset(int kr, int n) {
   return (n >> 6) * (kBK * 128) + swz(kr, (n & 63) >> 3);
 }
 
-// One ring stage: x[m0 : m0+128, k0 : k0+64] and q[k0 : k0+64, n0 : n0+BN].
-template <int BN>
-__device__ __forceinline__ void load_stage(uint32_t sa, uint32_t sq,
-                                           const bf16* __restrict__ x,
-                                           const int8_t* __restrict__ q,
-                                           int m, int k, int n, int m0,
-                                           int n0, int k0, int tid) {
-#pragma unroll
-  for (int i = 0; i < kBM * 8 / kTileThreads; ++i) {
-    const int idx = tid + i * kTileThreads;
-    const int r = idx >> 3;
-    const int c = idx & 7;
-    const bool ok = m0 + r < m && k0 + c * 8 < k;
-    const bf16* src = ok ? x + (size_t)(m0 + r) * k + k0 + c * 8 : x;
-    cp_async16(sa + swz(r, c), src, ok);
-  }
-  constexpr int cpr = BN / 16;                  // 16-byte chunks per row
-#pragma unroll
-  for (int i = 0; i < kBK * cpr / kTileThreads; ++i) {
-    const int idx = tid + i * kTileThreads;
-    const int r = idx / cpr;
-    const int c = idx % cpr;
-    const bool ok = k0 + r < k && n0 + c * 16 < n;
-    const int8_t* src = ok ? q + (size_t)(k0 + r) * n + n0 + c * 16 : q;
-    cp_async16(sq + r * BN + c * 16, src, ok);
-  }
+// Four int8 codes of one word -> two bf16 pairs, exact.  A code c is
+// (c & 0x7F) - (c < 0 ? 128 : 0).  A byte b < 128 under the high byte 0x43
+// reads as the bf16 128 + b, and the byte 0x80 there as 256.  So one byte
+// permute builds 128 + (c & 0x7F) for two codes, another builds 128 or 256
+// from their sign bits, and one packed bf16 subtraction leaves the codes.
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                                   *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-// Four int8 codes of one word -> two bf16 pairs, exact.  code ^ 0x80 is
-// code + 128 as an unsigned byte; placed in the low mantissa byte of
-// 0x4B000000 (2^23) it reads as the float 2^23 + 128 + code, and
-// subtracting 2^23 + 128 leaves the code.  An integer of 8 bits fits
-// bf16's significand, so taking the upper halves rounds nothing.
 __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
                                        uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  const float bias = 8388736.f;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - bias;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - bias;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - bias;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - bias;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
-// Widen one int8 weight tile [kBK, BN] into a bf16 tile in b_offset's layout.
-template <int BN>
-__device__ __forceinline__ void widen_tile(const unsigned char* sq,
-                                           unsigned char* sb, int tid) {
-  constexpr int cpr = BN / 16;
-#pragma unroll
-  for (int i = 0; i < kBK * cpr / kTileThreads; ++i) {
-    const int idx = tid + i * kTileThreads;
-    const int r = idx / cpr;
-    const int c = idx % cpr;
-    const uint4 w = *reinterpret_cast<const uint4*>(sq + r * BN + c * 16);
-    uint4 lo, hi;
-    widen4(w.x, lo.x, lo.y);
-    widen4(w.y, lo.z, lo.w);
-    widen4(w.z, hi.x, hi.y);
-    widen4(w.w, hi.z, hi.w);
-    *reinterpret_cast<uint4*>(sb + b_offset(r, c * 16)) = lo;
-    *reinterpret_cast<uint4*>(sb + b_offset(r, c * 16 + 8)) = hi;
-  }
+  const uint32_t mag = w & 0x7F7F7F7Fu;
+  const uint32_t sgn = w & 0x80808080u;
+  lo = sub_bf16x2(__byte_perm(mag, 0x43434343u, 0x5140),
+                  __byte_perm(sgn, 0x43434343u, 0x5140));
+  hi = sub_bf16x2(__byte_perm(mag, 0x43434343u, 0x5342),
+                  __byte_perm(sgn, 0x43434343u, 0x5342));
 }
 
 // Shared-memory matrix descriptor of a warpgroup product: start address,
@@ -325,23 +338,86 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// Writes of this thread to shared memory (stores and landed cp.async
-// copies) become visible to the tensor cores' asynchronous reads.
+// Stores of this thread to shared memory become visible to the tensor
+// cores' asynchronous reads.
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d[64, N] += a[64, 16] b[16, N] for one warpgroup: a K-major, b
+// d[64, N] (+)= a[64, 16] b[16, N] for one warpgroup: a K-major, b
 // N-contiguous (transposed-B flag set), both read from shared memory, d in
 // registers: d[j] is the fragment of columns [8 j, 8 j + 8), rows
-// 16 (warp % 4) + lane / 4 and + 8, columns 2 (lane % 4) + {0, 1}.
+// 16 (warp % 4) + lane / 4 and + 8, columns 2 (lane % 4) + {0, 1}.  With
+// accumulate == 0 the old d is ignored.
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[32][4],
+                                             uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[16][4],
-                                             uint64_t desc_a,
-                                             uint64_t desc_b) {
+                                             uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -373,67 +449,222 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[16][4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_m64k16(float (&d)[8][4],
-                                             uint64_t desc_a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
+// Launch shape of the tile product: BN columns per tile, the depth of the
+// load ring and of the ring of widened weight tiles.
+template <int BN_, int kStages_, int kWideStages_>
+struct TileCfg {
+  static constexpr int BN = BN_;
+  static constexpr int kStages = kStages_;
+  static constexpr int kWideStages = kWideStages_;
+  using Smem = TileSmem<BN_, kStages_, kWideStages_>;
+  // barrier addresses, from the block's first barrier
+  static constexpr int full_load = 0;
+  static constexpr int empty_load = kStages_ * 8;
+  static constexpr int full_wide = 2 * kStages_ * 8;
+  static constexpr int empty_wide = (2 * kStages_ + kWideStages_) * 8;
+};
 
-// Issue the products of one ring stage: warpgroup w owns rows [64 w, +64)
-// of the tile and all BN columns.  x tile: 8-row groups 1024 bytes apart,
-// a K step of 16 is 32 bytes along the swizzled row.  Weight tile: 8-row K
-// groups 1024 bytes apart, 64-column panels kBK * 128 bytes apart, a K
-// step of 16 is two K groups.
-template <int BN>
-__device__ __forceinline__ void wgmma_stage(float (&acc)[BN / 8][4],
-                                            uint32_t sa, uint32_t sb,
-                                            int warpgroup) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_m64k16(acc, gmma_desc(sa + warpgroup * 64 * 128 + kk * 32, 16, 1024),
-                 gmma_desc(sb + kk * 2048, kBK * 128, 1024));
-  wgmma_commit();
-}
+// A block's K steps in order: the tiles blockIdx.x, blockIdx.x + gridDim.x,
+// ... and within each tile t = 0 .. nk - 1.
+struct StepCursor {
+  int tile, t;
+  __device__ __forceinline__ void advance(int nk) {
+    if (++t == nk) {
+      t = 0;
+      tile += gridDim.x;
+    }
+  }
+};
 
-template <int BN>
-__global__ void __launch_bounds__(kTileThreads, BN == 64 ? 2 : 1)
-tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-            const float* __restrict__ s, bf16* __restrict__ out, int m, int k,
-            int n) {
-  using L = TileSmem<BN>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024u - smem_u32(smem_raw)) & 1023u);
+// A position in a ring of `n` stages and the parity of the barrier phase
+// that belongs to it.
+struct RingPos {
+  int stage, parity;
+  __device__ __forceinline__ void advance(int n) {
+    if (++stage == n) {
+      stage = 0;
+      parity ^= 1;
+    }
+  }
+};
+
+// The producer warpgroup widens: for every K step of this block, in the
+// consumers' order, it waits for the step's load stage and for a free bf16
+// weight tile, turns the stage's int8 codes into that tile (b_offset's
+// layout), and one lane per warp arrives at the tile's full barrier and
+// hands the load stage's weight half back.  On a tile's first step the
+// warpgroup also puts the tile's scales into shared memory for the
+// epilogue.  It issues no TMA load: its fence.proxy.async, which makes the
+// bf16 tile visible to the products, would wait for loads of its own that
+// are still in flight.
+template <typename C>
+__device__ __forceinline__ void produce(unsigned char* smem, uint32_t bars,
+                                        const float* __restrict__ s, int n,
+                                        int tiles, int n_tiles, int nk,
+                                        int ptid) {
+  using L = typename C::Smem;
+  constexpr int BN = C::BN;
+  constexpr int PT = kProducerThreads;
+  // Eight neighbouring lanes take the four 16-code chunks of one 64-column
+  // panel in two neighbouring K rows: their loads cover 128 contiguous
+  // bytes of the int8 tile (panels of 64-byte rows) and their stores the
+  // eight 16-byte slots of two swizzled rows, so neither meets a bank
+  // conflict.  A unit is such a (panel, row pair); 16 units go at a time.
+  constexpr int kPanels = BN / 64;
+  constexpr int kChunks = kPanels * (kBK / 2) / (PT / 8);  // per thread, step
+  static_assert(kChunks * (PT / 8) == kPanels * (kBK / 2), "even split");
+  const int cc = ptid & 3;                        // chunk in the panel row
+  const int row_lo = (ptid >> 2) & 1;
+  const int unit0 = ptid >> 3;
   const uint32_t base = smem_u32(smem);
+  const int total = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x * nk;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * BN;
-  const int nk = (k + kBK - 1) / kBK;
+  StepCursor work_at{(int)blockIdx.x, 0};
+  RingPos from{0, 0};                             // load stage being widened
+  RingPos to{0, 1};                               // bf16 tile being written
+  int tile_iter = 0;
+  for (int i = 0; i < total; ++i) {
+    mbar_wait(bars + C::full_load + from.stage * 8, from.parity);
+    mbar_wait(bars + C::empty_wide + to.stage * 8, to.parity);
+
+    if (work_at.t == 0) {
+      const int col = (work_at.tile % n_tiles) * BN + ptid * 2;
+      if (ptid * 2 < BN) {
+        float2 v = make_float2(0.f, 0.f);
+        if (col < n) v = __ldg(reinterpret_cast<const float2*>(s + col));
+        *reinterpret_cast<float2*>(smem + L::scale_off +
+                                   ((tile_iter % kScaleSlots) * BN + ptid * 2)
+                                       * 4) = v;
+      }
+      ++tile_iter;
+    }
+
+    const unsigned char* sq = smem + from.stage * L::load_bytes + kABytes;
+    unsigned char* sb = smem + L::b_off + to.stage * L::b_bytes;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int unit = j * (PT / 8) + unit0;
+      const int panel = unit % kPanels;
+      const int r = (unit / kPanels) * 2 + row_lo;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          sq + panel * (kBK * 64) + r * 64 + cc * 16);
+      uint4 lo, hi;
+      widen4(w.x, lo.x, lo.y);
+      widen4(w.y, lo.z, lo.w);
+      widen4(w.z, hi.x, hi.y);
+      widen4(w.w, hi.z, hi.w);
+      *reinterpret_cast<uint4*>(sb + b_offset(r, panel * 64 + cc * 16)) = lo;
+      *reinterpret_cast<uint4*>(sb + b_offset(r, panel * 64 + cc * 16 + 8)) =
+          hi;
+    }
+    fence_async_proxy();
+    __syncwarp();
+    if (ptid % 32 == 0) {
+      mbar_arrive(bars + C::full_wide + to.stage * 8);
+      mbar_arrive(bars + C::empty_load + from.stage * 8);
+    }
+    from.advance(C::kStages);
+    to.advance(C::kWideStages);
+    work_at.advance(nk);
+  }
+}
+
+// A consumer warp's epilogue: its 16 rows of the tile, kOutCols columns a
+// pass: scale the float32 sums in registers (the tile's scales are in
+// shared memory), round to bf16, turn them through the warp's swizzled
+// staging rows into 16-byte chunks, and store each row's chunks from
+// neighbouring lanes.
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 8][4],
+                                           unsigned char* stage,
+                                           const float* scales,
+                                           bf16* __restrict__ out, int m,
+                                           int n, int row0, int n0,
+                                           int lane) {
+  const int g = lane / 4;
+  const int c2 = (lane % 4) * 2;
+  constexpr int jpp = kOutCols / 8;               // fragments per pass
+#pragma unroll
+  for (int pass = 0; pass < BN / kOutCols; ++pass) {
+#pragma unroll
+    for (int jj = 0; jj < jpp; ++jj) {
+      const int j = pass * jpp + jj;
+      const float2 sc = *reinterpret_cast<const float2*>(scales + j * 8 + c2);
+      const int chunk = (jj ^ ((g >> 1) & 3)) << 4;
+      *reinterpret_cast<__nv_bfloat162*>(stage + g * (kOutCols * 2) + chunk
+                                         + c2 * 2) =
+          __floats2bfloat162_rn(acc[j][0] * sc.x, acc[j][1] * sc.y);
+      *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * (kOutCols * 2)
+                                         + chunk + c2 * 2) =
+          __floats2bfloat162_rn(acc[j][2] * sc.x, acc[j][3] * sc.y);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 16 * jpp / 32; ++i) {
+      const int idx = lane + i * 32;
+      const int r = idx / jpp;
+      const int c = idx % jpp;
+      const int gr = row0 + r;
+      const int gc = n0 + pass * kOutCols + c * 8;
+      if (gr < m && gc < n)
+        *reinterpret_cast<uint4*>(out + (size_t)gr * n + gc) =
+            *reinterpret_cast<const uint4*>(
+                stage + r * (kOutCols * 2) + ((c ^ ((r >> 1) & 3)) << 4));
+    }
+    __syncwarp();
+  }
+}
+
+// The two consumer warpgroups.  Warpgroup w owns rows [64 w, 64 w + 64) of
+// the tile and all BN columns.  Per K step: wait for the x tile and for the
+// widened weight tile, issue four m64nBNk16 products (x tile: 8-row groups
+// 1024 bytes apart, a K step of 16 is 32 bytes along the swizzled row;
+// weight tile: 8-row K groups 1024 bytes apart, 64-column panels kBK * 128
+// bytes apart, a K step of 16 is two K groups), then wait for the previous
+// step's products and hand its two stages back.  One step's products are
+// always in flight.
+template <typename C>
+__device__ __forceinline__ void consume(unsigned char* smem, uint32_t bars,
+                                        const CUtensorMap* map_x,
+                                        const CUtensorMap* map_q,
+                                        bf16* __restrict__ out, int m, int n,
+                                        int tiles, int n_tiles, int nk,
+                                        int warp, int lane) {
+  using L = typename C::Smem;
+  constexpr int BN = C::BN;
+  constexpr int kAhead = C::kStages - 1;
+  const uint32_t base = smem_u32(smem);
+  const int total = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x * nk;
+  const bool loader = warp == 4 && lane == 0;
+
+  // The loads run kStages - 1 steps ahead of the products.  The stage of
+  // step j - 1 is handed back as step j is issued, and is loaded at once
+  // with step j - 1 + kStages.
+  StepCursor load_at{(int)blockIdx.x, 0};
+  RingPos load_to{0, 1};                          // a fresh stage is empty
+  int loaded = 0;
+  auto issue_loads = [&]() {
+    mbar_wait(bars + C::empty_load + load_to.stage * 8, load_to.parity);
+    const uint32_t full = bars + C::full_load + load_to.stage * 8;
+    const uint32_t dst = base + load_to.stage * L::load_bytes;
+    mbar_expect_tx(full, L::load_bytes);
+    tma_load_2d(dst, map_x, full, load_at.t * kBK,
+                (load_at.tile / n_tiles) * kBM);
+#pragma unroll
+    for (int p = 0; p < BN / 64; ++p)
+      tma_load_2d(dst + kABytes + p * (kBK * 64), map_q, full,
+                  (load_at.tile % n_tiles) * BN + p * 64, load_at.t * kBK);
+    load_at.advance(nk);
+    load_to.advance(C::kStages);
+    ++loaded;
+  };
+  if (loader)
+    while (loaded < kAhead && loaded < total) issue_loads();
 
   float acc[BN / 8][4];
 #pragma unroll
@@ -441,93 +672,90 @@ tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  // Schedule.  Entering step t: x tile t is in ring stage t % 4, weight
-  // tile t is widened in bf16 buffer t % 2, int8 tile t + 1 has landed.
-  // Step t: issue the copies of tile t + 3 (its stage held tile t - 1,
-  // released by the last barrier); products of tile t; widen tile t + 1;
-  // wait for this thread's copies of tile t + 2; barrier.
+  RingPos xs{0, 0}, ws{0, 0};
+  int prev_x = 0, prev_w = 0, tile_iter = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int t = 0; t < nk; ++t) {
+      mbar_wait(bars + C::full_load + xs.stage * 8, xs.parity);
+      mbar_wait(bars + C::full_wide + ws.stage * 8, ws.parity);
+      const uint32_t sa = base + xs.stage * L::load_bytes + (warp / 4) * 64 * 128;
+      const uint32_t sb = base + L::b_off + ws.stage * L::b_bytes;
+      wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < nk)
-      load_stage<BN>(base + t * kABytes, base + L::q_off + t * L::q_bytes, x,
-                     q, m, k, n, m0, n0, t * kBK, tid);
-    cp_async_commit();
-  }
-  cp_async_wait<kStages - 2>();
-  __syncthreads();
-  widen_tile<BN>(smem + L::q_off, smem + L::b_off, tid);
-  cp_async_wait<kStages - 3>();
-  fence_async_proxy();
-  __syncthreads();
-
-  for (int t = 0; t < nk; ++t) {
-    const int lt = t + kStages - 1;
-    if (lt < nk) {
-      const int st = lt % kStages;
-      load_stage<BN>(base + st * kABytes, base + L::q_off + st * L::q_bytes,
-                     x, q, m, k, n, m0, n0, lt * kBK, tid);
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_m64k16(acc, gmma_desc(sa + kk * 32, 16, 1024),
+                     gmma_desc(sb + kk * 2048, kBK * 128, 1024),
+                     (t | kk) != 0);
+      wgmma_commit();
+      if (t > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) {
+          mbar_arrive(bars + C::empty_load + prev_x * 8);
+          mbar_arrive(bars + C::empty_wide + prev_w * 8);
+        }
+      }
+      if (loader && loaded < total) issue_loads();
+      prev_x = xs.stage;
+      prev_w = ws.stage;
+      xs.advance(C::kStages);
+      ws.advance(C::kWideStages);
     }
-    cp_async_commit();
-    wgmma_stage<BN>(acc, base + (t % kStages) * kABytes,
-                    base + L::b_off + (t & 1) * L::b_bytes, warp / 4);
-    if (t + 1 < nk)
-      widen_tile<BN>(smem + L::q_off + ((t + 1) % kStages) * L::q_bytes,
-                     smem + L::b_off + ((t + 1) & 1) * L::b_bytes, tid);
-    wgmma_wait_all();
-    cp_async_wait<kStages - 3>();
-    fence_async_proxy();
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  // Epilogue.  The last barrier freed the ring; each warp stages its own
-  // 16 x BN outputs (scaled, rounded) in padded rows and stores them as
-  // 16-byte chunks, a row's chunks on neighbouring lanes.
-  unsigned char* stage = smem + warp * 16 * L::out_row;
-  const int g = lane / 4;
-  const int c2 = (lane % 4) * 2;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + j * 8 + c2;
-    float2 sc = make_float2(0.f, 0.f);
-    if (col < n) sc = __ldg(reinterpret_cast<const float2*>(s + col));
-    *reinterpret_cast<__nv_bfloat162*>(stage + g * L::out_row
-                                       + (j * 8 + c2) * 2) =
-        __floats2bfloat162_rn(acc[j][0] * sc.x, acc[j][1] * sc.y);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * L::out_row
-                                       + (j * 8 + c2) * 2) =
-        __floats2bfloat162_rn(acc[j][2] * sc.x, acc[j][3] * sc.y);
-  }
-  __syncwarp();
-  constexpr int cpr = BN / 8;                   // 16-byte chunks per row
-#pragma unroll
-  for (int i = 0; i < 16 * cpr / 32; ++i) {
-    const int idx = lane + i * 32;
-    const int r = idx / cpr;
-    const int c = idx % cpr;
-    const int gr = m0 + warp * 16 + r;
-    const int gc = n0 + c * 8;
-    if (gr < m && gc < n)
-      *reinterpret_cast<uint4*>(out + (size_t)gr * n + gc) =
-          *reinterpret_cast<const uint4*>(stage + r * L::out_row + c * 16);
+    wgmma_wait<0>();
+    if (lane == 0) {
+      mbar_arrive(bars + C::empty_load + prev_x * 8);
+      mbar_arrive(bars + C::empty_wide + prev_w * 8);
+    }
+    store_tile<BN>(acc, smem + L::out_off + warp * L::out_warp_bytes,
+                   reinterpret_cast<const float*>(smem + L::scale_off) +
+                       (tile_iter % kScaleSlots) * BN,
+                   out, m, n, (tile / n_tiles) * kBM + warp * 16,
+                   (tile % n_tiles) * BN, lane);
+    ++tile_iter;
   }
 }
 
-template <int BN>
-int launch_tile(const void* x, const void* q, const void* s, void* out, int m,
-                int k, int n, cudaStream_t stream) {
-  static bool configured = false;     // more than 48 KB: opt in once
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tile_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        TileSmem<BN>::launch_bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+// Blocks walk the tiles in row-major order of (row tile, column tile),
+// gridDim.x apart, so the blocks running together share x rows and the
+// whole weight in L2; a block's rings run on from one tile into the next,
+// which hides a tile's first loads behind the previous tile's epilogue.
+// The two roles never meet again after the barriers are set up.
+template <typename C>
+__global__ void __launch_bounds__(kTileThreads, 1)
+tile_kernel(const __grid_constant__ CUtensorMap map_x,
+            const __grid_constant__ CUtensorMap map_q,
+            const float* __restrict__ s, bf16* __restrict__ out, int m, int k,
+            int n) {
+  using L = typename C::Smem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - smem_u32(smem_raw)) & 1023u);
+  const uint32_t bars = smem_u32(smem) + L::bar_off;
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (n + C::BN - 1) / C::BN;
+  const int tiles = ((m + kBM - 1) / kBM) * n_tiles;
+  const int nk = (k + kBK - 1) / kBK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < C::kStages; ++i) {
+      mbar_init(bars + C::full_load + i * 8, 1);
+      mbar_init(bars + C::empty_load + i * 8,
+                kConsumerWarps + kProducerThreads / 32);
+    }
+#pragma unroll
+    for (int i = 0; i < C::kWideStages; ++i) {
+      mbar_init(bars + C::full_wide + i * 8, kProducerThreads / 32);
+      mbar_init(bars + C::empty_wide + i * 8, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  dim3 grid((n + BN - 1) / BN, (m + kBM - 1) / kBM);
-  tile_kernel<BN><<<grid, kTileThreads, TileSmem<BN>::launch_bytes, stream>>>(
-      (const bf16*)x, (const int8_t*)q, (const float*)s, (bf16*)out, m, k, n);
-  return (int)cudaGetLastError();
+  __syncthreads();
+
+  if (tid >= kConsumerThreads)
+    produce<C>(smem, bars, s, n, tiles, n_tiles, nk, tid - kConsumerThreads);
+  else
+    consume<C>(smem, bars, &map_x, &map_q, out, m, n, tiles, n_tiles, nk,
+               tid / 32, tid % 32);
 }
 
 int sm_count() {
@@ -540,6 +768,70 @@ int sm_count() {
       sms = 132;
   }
   return sms;
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime so that the library
+// needs no link against the driver.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a row-major [rows, cols] matrix, boxes of
+// [box_rows, box_cols]; what a box holds outside the matrix reads as zero.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+              const void* ptr, int rows, int cols, int box_rows, int box_cols,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename C>
+int launch_tile(const void* x, const void* q, const void* s, void* out, int m,
+                int k, int n, cudaStream_t stream) {
+  using L = typename C::Smem;
+  static bool configured = false;     // more than 48 KB: opt in once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tile_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::launch_bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap map_x, map_q;
+  if (!make_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, kBM, kBK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&map_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, k, n, kBK, 64,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = ((m + kBM - 1) / kBM) * ((n + C::BN - 1) / C::BN);
+  const int grid = min(tiles, sm_count());
+  tile_kernel<C><<<grid, kTileThreads, L::launch_bytes, stream>>>(
+      map_x, map_q, (const float*)s, (bf16*)out, m, k, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -555,10 +847,11 @@ extern "C" int mwx_int8_matmul(const void* x, const void* q, const void* s,
   if (m <= 2) return launch_matvec<2>(x, q, s, out, m, k, n, st);
   if (m <= 4) return launch_matvec<4>(x, q, s, out, m, k, n, st);
   if (m <= kVecMaxM) return launch_matvec<8>(x, q, s, out, m, k, n, st);
+  // 256-column tiles where they fill the SMs one and a half times over
+  // (a round of tiles that leaves most SMs idle costs more than the wide
+  // tile saves), else 128-column ones
   const int row_tiles = (m + kBM - 1) / kBM;
-  if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  // wide tiles where they still give every SM two blocks' worth of work
-  if (row_tiles * ((n + 127) / 128) >= 2 * sm_count())
-    return launch_tile<128>(x, q, s, out, m, k, n, st);
-  return launch_tile<64>(x, q, s, out, m, k, n, st);
+  if (2 * row_tiles * ((n + 255) / 256) >= 3 * sm_count())
+    return launch_tile<TileCfg<256, 3, 3>>(x, q, s, out, m, k, n, st);
+  return launch_tile<TileCfg<128, 4, 3>>(x, q, s, out, m, k, n, st);
 }
