@@ -2,6 +2,10 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rows int8_matmul,decode_cross_attention
+
+With ``--rows`` only phase 1 and the named kernels' checks and timed rows
+run (for work on one kernel); no result line is printed.
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -17,9 +21,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    the port never calls) with CUDA graphs of repeated launches over enough
    input copies to exceed the 50 MB L2 cache.  K3 is timed over the
    positions the decode loop visits, K4 and K5 at the full cross length
-   (K5 with f32 scales; bf16 scales on an extra line), K6 at a decode
-   step's M=4 with K, N = 1280, 5120 (the other decode shapes and the
-   encoder's M=6000 on extra lines); K3 and K4 also at batch 16 (extra).
+   (K5 with f32 scales; bf16 scales on an extra line; K4 also checked at
+   lengths that leave some of its blocks without keys), K6 at a decode
+   step's M=4 with K, N = 1280, 5120 (on extra lines the other decode
+   shapes and every M > 8 shape of the int8 path: M = 4 x 1500 and
+   M = 4 x 193, each with 1280x1280, 1280x5120 and 5120x1280; a
+   ``kernel_check`` line holds ragged tiles against the plain version);
+   K3 and K4 also at batch 16 (extra).
 3. Run the tiny ``test`` config through the port on the card and on the
    CPU (plain versions), in bf16 and in int8 (int8 weights and int8 cross
    K/V on bf16 activations): encoder output and the logits of a prefill
@@ -232,13 +240,15 @@ def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks):
 
 
 def cross_attention_row(randn, dev, b, h, dh, ta):
-    """K4 vs its plain version at kv_len Ta, 1000 and 1, then timed at
-    kv_len = Ta (the main path's) over K/V copies that exceed L2."""
+    """K4 vs its plain version at kv_len Ta, Ta - 1, 1000, 8, 7 and 1 (the
+    key axis is split over 8 blocks: a ragged last slice, slices that are
+    empty for some or all but one block), then timed at kv_len = Ta (the
+    main path's) over K/V copies that exceed L2."""
     q = randn((b, h, 1, dh))
     k = randn((b, h, ta, dh))
     v = randn((b, h, ta, dh))
     err = 0.0
-    for kv_len in (ta, 1000, 1):
+    for kv_len in (ta, ta - 1, 1000, 8, 7, 1):
         len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
         err = max(err, compare("decode_cross_attention",
                                decode_cross_attention(q, k, v, len_t),

@@ -3,7 +3,7 @@
 // Replaces, in manual_whisper_tpu/ops/decode_attention.py,
 //   K3 `_self_kernel` / `decode_self_attention`   (self cache, slots <= pos)
 //   K4 `_cross_bf16_kernel` / `decode_cross_attention` (cross K/V, < kv_len)
-// which share `_attend_all_heads`.  Here too both are one kernel:
+// which share `_attend_all_heads`.  Both compute
 //   out[bh] = softmax(q[bh] . k[bh, t] / sqrt(dh), t < n) @ v[bh, t]
 // with q [B*H, dh], k/v [B*H, T, dh] bf16 (the port's cache layout: the
 // TPU's transposed [.., dh, T] layout existed only for its 128-lane tiles),
@@ -16,12 +16,26 @@
 //
 // Bound on the H100: about one operation per byte (2*n*dh bf16 values read
 // for 4*n*dh operations), so it is bound by device memory bandwidth.
-// Design (simple, not yet fast): one block of 128 threads per (batch,
-// head); dh/8 lanes share one key with 16-byte loads and reduce its dot
-// product with shuffles; scores stay in shared memory; the weighted sum of
-// V runs over 16 groups of lanes and is reduced through shared memory.
-// One block per (batch, head) leaves SMs idle at small batch: splitting T
-// across blocks is later work.
+//
+// K3 (simple, not yet fast): one block of 128 threads per (batch, head);
+// dh/8 lanes share one key with 16-byte loads and reduce its dot product
+// with shuffles; scores stay in shared memory; the weighted sum of V runs
+// over 16 groups of lanes and is reduced through shared memory.  One block
+// per (batch, head) leaves SMs idle at small batch.
+//
+// K4 has its own kernel.  Over 1500 cross positions one block per (batch,
+// head) is 80 blocks on 132 SMs, each walking its keys three times with
+// one 16-byte load in flight per thread: the serial walk, not the bytes,
+// set its time.  So the key axis is split over the 8 blocks of a
+// thread-block cluster (640 blocks at batch 4).  A block makes one pass
+// over its slice: dh/8 lanes share a key, K and V of eight keys per lane
+// group are loaded before any is used, and an online softmax (running
+// max, sum and weighted V in registers, base-2 exponentials with log2(e)
+// folded into q) needs no score buffer.  The lane groups of a block meet
+// in shared memory, the 8 blocks' (max, sum, o[dh]) in distributed shared
+// memory, and each block normalises and writes dh/8 of the outputs: one
+// launch, no workspace, no atomics, kv_len read on the device by every
+// block.  K3 and K5 can take the same split.
 //
 // K5: the same attention over int8 cross K/V with per-position scales.
 // Replaces `_cross_int8_kernel` / `decode_cross_attention_int8` of the
@@ -35,6 +49,7 @@
 // dh/16 lanes sharing one key's 16-byte load, and the same SM under-fill
 // at small batch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +58,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
@@ -164,6 +180,152 @@ int launch(const void* q, const void* k, const void* v, void* out,
   decode_kernel<DH><<<bh, kThreads, bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
       (const int*)len_ptr, len_offset, t_max, 1.0f / sqrtf((float)DH));
+  return (int)cudaGetLastError();
+}
+
+// ---- K4: cross attention, key axis split over a cluster -------------------
+
+constexpr int kCrossSplit = 8;     // blocks per (batch, head): one cluster
+constexpr int kCrossKeys = 8;      // keys in flight per lane group
+
+template <int DH>
+__global__ void __cluster_dims__(kCrossSplit, 1, 1) __launch_bounds__(kThreads)
+cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ out,
+             const int* __restrict__ len_ptr, int t_max, float scale_log2e) {
+  constexpr int lanes_per_key = DH / 8;            // 16-byte chunks per row
+  constexpr int groups = kThreads / lanes_per_key; // keys per pass and block
+  constexpr int dims_per_rank = DH / kCrossSplit;
+  __shared__ float part_m[groups];
+  __shared__ float part_l[groups];
+  __shared__ float part_o[groups][DH];
+  __shared__ float block_o[DH];                    // read by the other ranks
+  __shared__ float block_ml[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.x / kCrossSplit;
+
+  int n = *len_ptr;
+  if (n <= 0 || n > t_max) n = t_max;
+  const int per = (n + kCrossSplit - 1) / kCrossSplit;
+  const int k0 = min(n, rank * per);               // this block's slice; the
+  const int k1 = min(n, k0 + per);                 // last ranks' may be empty
+  const bf16* kb = k + (size_t)bh * t_max * DH;
+  const bf16* vb = v + (size_t)bh * t_max * DH;
+  const int tid = threadIdx.x;
+  const int sub = tid % lanes_per_key;
+  const int g = tid / lanes_per_key;
+
+  float qf[8];
+  unpack8(*reinterpret_cast<const uint4*>(q + (size_t)bh * DH + sub * 8), qf);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) qf[i] *= scale_log2e;
+
+  // running max, sum and weighted V of this lane group's keys (the lanes of
+  // a group hold the same m and l and 8 dims of o each); scores in base 2
+  float m = -3.0e38f, l = 0.f, o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+
+  // every thread runs the same trip count (the shuffles need whole warps);
+  // keys past the slice are masked
+  for (int base = k0; base < k1; base += groups * kCrossKeys) {
+    uint4 kr[kCrossKeys], vr[kCrossKeys];
+#pragma unroll
+    for (int u = 0; u < kCrossKeys; ++u) {
+      const int t = base + u * groups + g;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (t < k1) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)t * DH
+                                                     + sub * 8));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * DH
+                                                     + sub * 8));
+      }
+    }
+    float sc[kCrossKeys];
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < kCrossKeys; ++u) {
+      float kf[8];
+      unpack8(kr[u], kf);
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
+#pragma unroll
+      for (int w = lanes_per_key / 2; w > 0; w >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, w);
+      sc[u] = base + u * groups + g < k1 ? dot : -3.0e38f;
+      mx = fmaxf(mx, sc[u]);
+    }
+    const float corr = exp2f(m - mx);
+    l *= corr;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] *= corr;
+#pragma unroll
+    for (int u = 0; u < kCrossKeys; ++u) {
+      const float p =
+          base + u * groups + g < k1 ? exp2f(sc[u] - mx) : 0.f;
+      float vf[8];
+      unpack8(vr[u], vf);
+      l += p;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = fmaf(p, vf[i], o[i]);
+    }
+    m = mx;
+  }
+
+  // the block's lane groups meet in shared memory
+  if (sub == 0) {
+    part_m[g] = m;
+    part_l[g] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];
+  __syncthreads();
+  if (tid < DH) {
+    float bm = -3.0e38f;
+    for (int j = 0; j < groups; ++j) bm = fmaxf(bm, part_m[j]);
+    float bl = 0.f, bo = 0.f;
+    for (int j = 0; j < groups; ++j) {
+      const float w = exp2f(part_m[j] - bm);       // 0 for a group without keys
+      bl += part_l[j] * w;
+      bo += part_o[j][tid] * w;
+    }
+    block_o[tid] = bo;
+    if (tid == 0) {
+      block_ml[0] = bm;
+      block_ml[1] = bl;
+    }
+  }
+  cluster.sync();  // every block's partial result is written and visible
+
+  // rank r normalises and writes dims [r * dh / 8, (r + 1) * dh / 8)
+  if (tid < dims_per_rank) {
+    const int d = rank * dims_per_rank + tid;
+    float cm = -3.0e38f;
+#pragma unroll
+    for (int b = 0; b < kCrossSplit; ++b)
+      cm = fmaxf(cm, cluster.map_shared_rank(block_ml, b)[0]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int b = 0; b < kCrossSplit; ++b) {
+      const float* ml = cluster.map_shared_rank(block_ml, b);
+      const float w = exp2f(ml[0] - cm);           // 0 for an empty slice
+      den += ml[1] * w;
+      num += cluster.map_shared_rank(block_o, b)[d] * w;
+    }
+    out[(size_t)bh * DH + d] = __float2bfloat16(num / den);
+  }
+  cluster.sync();  // keep this block's shared memory until all have read it
+}
+
+template <int DH>
+int launch_cross(const void* q, const void* k, const void* v, void* out,
+                 const void* len_ptr, int bh, int t_max, cudaStream_t stream) {
+  cross_kernel<DH><<<bh * kCrossSplit, kThreads, 0, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+      (const int*)len_ptr, t_max,
+      1.4426950408889634f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
@@ -308,6 +470,24 @@ extern "C" int mwx_decode_attention(const void* q, const void* k,
   switch (head_dim) {
     case 64: return launch<64>(q, k, v, out, len_ptr, len_offset, bh, t_max, s);
     case 32: return launch<32>(q, k, v, out, len_ptr, len_offset, bh, t_max, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4.  q [bh, dh], k/v [bh, t_max, dh], out [bh, dh], bf16 contiguous;
+// len_ptr is one int32 on the device: positions < *len_ptr are valid
+// (outside 1..t_max means all t_max).  dh is 32 or 64.
+extern "C" int mwx_decode_cross_attention(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          const void* len_ptr, int bh,
+                                          int t_max, int head_dim,
+                                          void* stream) {
+  if (bh <= 0) return 0;
+  if (t_max <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64: return launch_cross<64>(q, k, v, out, len_ptr, bh, t_max, s);
+    case 32: return launch_cross<32>(q, k, v, out, len_ptr, bh, t_max, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -210,7 +210,8 @@ constexpr int kOutCols = 32;            // columns per epilogue pass
 constexpr int kScaleSlots = 6;          // tiles whose scales are kept
 
 // Shared memory of a block, from a 1024-byte aligned base: the load ring
-// (per stage one x tile and one int8 weight tile, both written by TMA),
+// (per stage one x tile and one int8 weight tile in 64-column panels of
+// 64-byte rows, both written by TMA),
 // the ring of widened bf16 weight tiles, per consumer warp 16 staging rows
 // of kOutCols outputs, the scales of the tiles in flight, and the
 // barriers: full and empty per load stage, full and empty per bf16 stage.
@@ -519,7 +520,6 @@ __device__ __forceinline__ void produce(unsigned char* smem, uint32_t bars,
   const int cc = ptid & 3;                        // chunk in the panel row
   const int row_lo = (ptid >> 2) & 1;
   const int unit0 = ptid >> 3;
-  const uint32_t base = smem_u32(smem);
   const int total = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
                     (int)gridDim.x * nk;
 

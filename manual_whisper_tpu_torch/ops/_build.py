@@ -57,6 +57,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, out, len_ptr, len_offset, batch*heads, t_max, head_dim,
         # stream
         "mwx_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # q, k, v, out, len_ptr, batch*heads, t_max, head_dim, stream
+        "mwx_decode_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         # q, k_q, k_s, v_q, v_s, out, len_ptr, batch*heads, t_max,
         # head_dim, scale_bf16, stream
         "mwx_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -77,21 +77,16 @@ def _check_lengths(name: str, q: torch.Tensor, length: torch.Tensor,
         raise ValueError(f"{name}: at most 8192 positions, got {t_max}")
 
 
-def _launch(name: str, q, k, v, length: torch.Tensor, offset: int):
+def _checked_output(name: str, q, k, v, length: torch.Tensor):
+    """Check what K3 and K4 take; returns (batch*heads, t_max, head_dim)
+    and the empty output."""
     b, h, _, dh = q.shape
     t_max = k.shape[2]
     _build.require(q, "q", torch.bfloat16, (b, h, 1, dh), q.device)
     _build.require(k, "k", torch.bfloat16, (b, h, t_max, dh), q.device)
     _build.require(v, "v", torch.bfloat16, (b, h, t_max, dh), q.device)
     _check_lengths(name, q, length, t_max)
-    out = torch.empty_like(q)
-    lib = _build.library("decode_attention")
-    err = lib.mwx_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), length.data_ptr(), offset,
-                                   b * h, t_max, dh, _build.stream_of(q))
-    _build.check(err, f"{name} kernel")
-    _build.launches[name] += 1
-    return out
+    return (b * h, t_max, dh), torch.empty_like(q)
 
 
 def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,18 +97,33 @@ def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, 1, dh]."""
     if q.device.type == "cpu":
         return attend_plain(q, k, v, int(pos.reshape(-1)[0]) + 1)
-    return _launch("decode_self_attention", q, k, v, pos, 1)
+    name = "decode_self_attention"
+    dims, out = _checked_output(name, q, k, v, pos)
+    err = _build.library("decode_attention").mwx_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        pos.data_ptr(), 1, *dims, _build.stream_of(q))
+    _build.check(err, f"{name} kernel")
+    _build.launches[name] += 1
+    return out
 
 
 def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_len: torch.Tensor) -> torch.Tensor:
-    """K4: q_len = 1 attention over cross K/V, positions < kv_len valid.
+    """K4: q_len = 1 attention over cross K/V, positions < kv_len valid,
+    the key axis split over a cluster of blocks per (batch, head).
 
     q [B, H, 1, dh]; k/v [B, H, Ta, dh]; kv_len one int32.  Returns
     [B, H, 1, dh]."""
     if q.device.type == "cpu":
         return attend_plain(q, k, v, int(kv_len.reshape(-1)[0]))
-    return _launch("decode_cross_attention", q, k, v, kv_len, 0)
+    name = "decode_cross_attention"
+    dims, out = _checked_output(name, q, k, v, kv_len)
+    err = _build.library("decode_attention").mwx_decode_cross_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kv_len.data_ptr(), *dims, _build.stream_of(q))
+    _build.check(err, f"{name} kernel")
+    _build.launches[name] += 1
+    return out
 
 
 def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,

@@ -77,6 +77,22 @@ def test_decode_kernels(dev, dh):
             attend_plain(q, k, v, n).float(), atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("n", [1, 7, 8, 1499, 1500])
+def test_decode_cross_kernel_slices(dev, dh, n):
+    """K4 splits the key axis over 8 blocks: lengths that leave blocks
+    without keys, and a ragged last slice, at the encoder's 1500 positions."""
+    q = _randn((2, 3, 1, dh), dev, 19)
+    k = _randn((2, 3, 1500, dh), dev, 20)
+    v = _randn((2, 3, 1500, dh), dev, 21)
+    kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+    before = _build.launches["decode_cross_attention"]
+    out = decode_cross_attention(q, k, v, kv_len)
+    assert _build.launches["decode_cross_attention"] == before + 1
+    torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
+                               atol=1e-2, rtol=1e-2)
+
+
 def test_kernels_reject_wrong_inputs(dev):
     q = _randn((1, 2, 8, 64), dev, 7, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
