@@ -31,12 +31,12 @@
 //     products read, the weight tile as int8 (half the bytes a bf16 weight
 //     would take through L2 and shared memory).  TMA and not cp.async:
 //     with the few warps that are free to copy, 16-byte cp.async copies
-//     took longer to issue than the products of the step take to run.
+//     took longer to start than the products of the step take to run.
 //   * One producer warpgroup widens each step's codes to bf16 (exact: two
 //     byte permutes and one packed bf16 subtraction per pair) into a
 //     second ring of N-contiguous, 128-byte-swizzled tiles, a step or two
 //     ahead of the products.
-//   * Two consumer warpgroups of 64 rows each issue the products as
+//   * Two consumer warpgroups of 64 rows each start the products as
 //     `wgmma.mma_async` m64nBNk16 with float32 sums in registers: x as the
 //     K-major A operand straight from the load ring, the widened tile as
 //     B with the transposed-B flag.  One step's products are always in
@@ -200,7 +200,7 @@ int launch_matvec(const void* x, const void* q, const void* s, void* out,
 
 constexpr int kBM = 128;            // rows per block: 64 per consumer warpgroup
 constexpr int kBK = 64;             // K step: one 128-byte row of the x tile
-constexpr int kConsumerThreads = 256;   // two warpgroups issue the products
+constexpr int kConsumerThreads = 256;   // two warpgroups run the products
 constexpr int kProducerThreads = 128;   // one warpgroup loads and widens
 constexpr int kTileThreads = kConsumerThreads + kProducerThreads;
 constexpr int kConsumerWarps = kConsumerThreads / 32;
@@ -498,7 +498,7 @@ struct RingPos {
 // layout), and one lane per warp arrives at the tile's full barrier and
 // hands the load stage's weight half back.  On a tile's first step the
 // warpgroup also puts the tile's scales into shared memory for the
-// epilogue.  It issues no TMA load: its fence.proxy.async, which makes the
+// epilogue.  It asks for no TMA load: its fence.proxy.async, which makes the
 // bf16 tile visible to the products, would wait for loads of its own that
 // are still in flight.
 template <typename C>
@@ -621,7 +621,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 8][4],
 
 // The two consumer warpgroups.  Warpgroup w owns rows [64 w, 64 w + 64) of
 // the tile and all BN columns.  Per K step: wait for the x tile and for the
-// widened weight tile, issue four m64nBNk16 products (x tile: 8-row groups
+// widened weight tile, start four m64nBNk16 products (x tile: 8-row groups
 // 1024 bytes apart, a K step of 16 is 32 bytes along the swizzled row;
 // weight tile: 8-row K groups 1024 bytes apart, 64-column panels kBK * 128
 // bytes apart, a K step of 16 is two K groups), then wait for the previous
@@ -643,12 +643,12 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t bars,
   const bool loader = warp == 4 && lane == 0;
 
   // The loads run kStages - 1 steps ahead of the products.  The stage of
-  // step j - 1 is handed back as step j is issued, and is loaded at once
+  // step j - 1 is handed back as step j is started, and is loaded at once
   // with step j - 1 + kStages.
   StepCursor load_at{(int)blockIdx.x, 0};
   RingPos load_to{0, 1};                          // a fresh stage is empty
   int loaded = 0;
-  auto issue_loads = [&]() {
+  auto start_loads = [&]() {
     mbar_wait(bars + C::empty_load + load_to.stage * 8, load_to.parity);
     const uint32_t full = bars + C::full_load + load_to.stage * 8;
     const uint32_t dst = base + load_to.stage * L::load_bytes;
@@ -664,7 +664,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t bars,
     ++loaded;
   };
   if (loader)
-    while (loaded < kAhead && loaded < total) issue_loads();
+    while (loaded < kAhead && loaded < total) start_loads();
 
   float acc[BN / 8][4];
 #pragma unroll
@@ -694,7 +694,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t bars,
           mbar_arrive(bars + C::empty_wide + prev_w * 8);
         }
       }
-      if (loader && loaded < total) issue_loads();
+      if (loader && loaded < total) start_loads();
       prev_x = xs.stage;
       prev_w = ws.stage;
       xs.advance(C::kStages);
@@ -771,7 +771,7 @@ int sm_count() {
 }
 
 // cuTensorMapEncodeTiled, fetched through the runtime so that the library
-// needs no link against the driver.
+// needs no link against libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
