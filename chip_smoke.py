@@ -2,10 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --rows int8_matmul,decode_cross_attention
+    python3 chip_smoke.py --rows flash_attention,decode_cross_attention_int8
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
-run (for work on one kernel); no result line is printed.
+run (for work on one kernel; the names are ``flash_attention``,
+``decode_cross_attention``, ``decode_cross_attention_int8`` and
+``int8_matmul``); no result line is printed.
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -19,10 +21,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    main paths' large-v3 shapes, with the tolerance printed beside it, and
    time kernel, plain version and one PyTorch library call (a yardstick
    the port never calls) with CUDA graphs of repeated launches over enough
-   input copies to exceed the 50 MB L2 cache.  K3 is timed over the
-   positions the decode loop visits, K4 and K5 at the full cross length
-   (K5 with f32 scales; bf16 scales on an extra line; K4 also checked at
-   lengths that leave some of its blocks without keys), K6 at a decode
+   input copies to exceed the 50 MB L2 cache.  K2 is timed at the
+   encoder's T=1500, dh=64 (a ``kernel_check`` line holds it against the
+   plain version at ragged query and key tiles and at dh=32).  K3 is timed
+   over the positions the decode loop visits, K4 and K5 at the full cross
+   length (K5 with f32 scales; bf16 scales and batch 16 on extra lines;
+   K4 and K5 also checked at lengths that leave some of their blocks
+   without keys), K6 at a decode
    step's M=4 with K, N = 1280, 5120 (on extra lines the other decode
    shapes and every M > 8 shape of the int8 path: M = 4 x 1500 and
    M = 4 x 193, each with 1280x1280, 1280x5120 and 5120x1280; a
@@ -277,9 +282,11 @@ def _int8_cross_bound(b, h, dh, n, scale_bytes):
 
 
 def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
-    """K5 vs its plain version at kv_len Ta, 1000 and 1, then timed at
-    kv_len = Ta over K/V copies that exceed L2; the yardstick is SDPA over
-    a bf16 copy of K/V dequantized before timing."""
+    """K5 vs its plain version at kv_len Ta, Ta - 1, 1000, 8, 7 and 1 (the
+    key axis is split over 8 blocks: a ragged last slice, slices that are
+    empty for some or all but one block), then timed at kv_len = Ta over
+    K/V copies that exceed L2; the yardstick is SDPA over a bf16 copy of
+    K/V dequantized before timing."""
     from manual_whisper_tpu_torch.models.whisper import quantize_cross_kv
 
     def kv4():
@@ -287,7 +294,7 @@ def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
                                  scale_dtype)
     q, kv = randn((b, h, 1, dh)), kv4()
     err = 0.0
-    for kv_len in (ta, 1000, 1):
+    for kv_len in (ta, ta - 1, 1000, 8, 7, 1):
         len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
         err = max(err, compare("decode_cross_attention_int8",
                                decode_cross_attention_int8(q, *kv, len_t),
@@ -308,6 +315,61 @@ def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
         plain_ms=graph_ms(lambda *a: attend_int8_plain(*a, ta), sets),
         library_ms=graph_ms(sdpa, deq),
         bound=_int8_cross_bound(b, h, dh, ta, scale_bytes))
+
+
+def cross_int8_rows(randn, dev, main: dict):
+    """K5's row of the kernels line (batch rows of the main path, f32
+    scales, the default) and its extras: bf16 scales, and batch 16."""
+    b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
+    row = cross_int8_row(randn, dev, b, h, dh, ta, torch.float32)
+    return row, [cross_int8_row(randn, dev, b, h, dh, ta, torch.bfloat16),
+                 cross_int8_row(randn, dev, 16, h, dh, ta, torch.float32)]
+
+
+def flash_row(randn, b, h, tt, dh):
+    """K2 vs its plain version at [b, h, tt, dh], then timed over copies
+    that exceed L2; the yardstick is SDPA.  Bound: q, k, v read and the
+    output written once, or 4 b h tt^2 dh operations at the bf16
+    tensor-core rate.  ``exp2`` counts the b h tt^2 exponentials of the
+    softmax, which the special-function units (16 a cycle and SM) run
+    beside the tensor cores."""
+    q, k, v = (randn((b, h, tt, dh)) for _ in range(3))
+    err = compare("flash_attention", flash_attention(q, k, v),
+                  attention_plain(q, k, v))
+    per = 3 * q.numel() * 2
+    sets = [tuple(randn((b, h, tt, dh)) for _ in range(3))
+            for _ in range(copies_for(per))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(
+        shape=f"B={b} H={h} T={tt} dh={dh} bf16", max_abs_err=err,
+        ms=graph_ms(flash_attention, sets),
+        plain_ms=graph_ms(attention_plain, sets[:1]),
+        library_ms=graph_ms(sdpa, sets),
+        bound=bound(4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * 2,
+                    BF16_FLOPS),
+        exp2=float(b * h * tt * tt))
+
+
+# (t_q, t_k, dh) of K2's ragged check: a query tile of one row, a last key
+# tile of one key (129 = 128 + 1), the test config's dh=32 at T=150 and the
+# encoder's T=1500 at both head widths
+FLASH_CHECKS = ((1, 70, 64), (150, 150, 32), (127, 129, 64), (1499, 1499, 64),
+                (1500, 1500, 32))
+
+
+def flash_check(randn) -> dict:
+    """K2 vs its plain version at FLASH_CHECKS, B=2, H=3.  Checked, not
+    timed."""
+    errs = {}
+    for t_q, t_k, dh in FLASH_CHECKS:
+        q = randn((2, 3, t_q, dh))
+        k, v = randn((2, 3, t_k, dh)), randn((2, 3, t_k, dh))
+        errs[f"t_q={t_q} t_k={t_k} dh={dh}"] = compare(
+            "flash_attention", flash_attention(q, k, v),
+            attention_plain(q, k, v))
+    return {"phase": "kernel_check", "name": "flash_attention",
+            "shape": "B=2 H=3 bf16, ragged tiles", "max_abs_err": errs,
+            "tol": TOL["flash_attention"]}
 
 
 def int8_matmul_row(randn, m, k, n):
@@ -365,12 +427,14 @@ def int8_matmul_rows(randn, main: dict):
 
 
 def _row_line(phase: str, name: str, row: dict) -> str:
-    return json.dumps({"phase": phase, "name": name, "shape": row["shape"],
-                       "max_abs_err": row["max_abs_err"], "tol": TOL[name],
-                       "ms": row["ms"], "plain_ms": row["plain_ms"],
-                       "library_ms": row["library_ms"],
-                       "bound_ms": row["bound"][0],
-                       "bound_by": row["bound"][1]})
+    line = {"phase": phase, "name": name, "shape": row["shape"],
+            "max_abs_err": row["max_abs_err"], "tol": TOL[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "library_ms": row["library_ms"], "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1]}
+    if "exp2" in row:
+        line["exp2"] = row["exp2"]
+    return json.dumps(line)
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +462,12 @@ def phase_rows(dev, main: dict, names) -> None:
         elif name == "decode_cross_attention":
             rows = [cross_attention_row(randn, dev, bb, h, dh, ta)
                     for bb in (b, 16)]
+        elif name == "decode_cross_attention_int8":
+            row, extra = cross_int8_rows(randn, dev, main)
+            rows = [row] + extra
+        elif name == "flash_attention":
+            log(json.dumps(flash_check(randn)))
+            rows = [flash_row(randn, 4, 20, 1500, 64)]
         else:
             raise SystemExit(f"--rows: no rows for {name!r}")
         for row in rows:
@@ -428,22 +498,9 @@ def phase_kernels(dev, main: dict) -> dict:
         plain_ms=graph_ms(unnormalized_log_mel_plain, sets),
         library_ms=None, bound=bound(ops, nbytes, F32_FLOPS))
 
-    # K2 flash: B=4, H=20, T=1500, dh=64
-    b, h, tt, dh = 4, 20, 1500, 64
-    q, k, v = (randn((b, h, tt, dh)) for _ in range(3))
-    err = compare("flash_attention", flash_attention(q, k, v),
-                  attention_plain(q, k, v))
-    per = 3 * q.numel() * 2
-    sets = [tuple(randn((b, h, tt, dh)) for _ in range(3))
-            for _ in range(copies_for(per))]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows["flash_attention"] = dict(
-        shape=f"B={b} H={h} T={tt} dh={dh} bf16", max_abs_err=err,
-        ms=graph_ms(flash_attention, sets),
-        plain_ms=graph_ms(attention_plain, sets[:1]),
-        library_ms=graph_ms(sdpa, sets),
-        bound=bound(4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * 2,
-                    BF16_FLOPS))
+    # K2 flash: B=4, H=20, T=1500, dh=64 (the encoder's); ragged check
+    log(json.dumps(flash_check(randn)))
+    rows["flash_attention"] = flash_row(randn, 4, 20, 1500, 64)
 
     # K3/K4 at the main path's shapes (phase 4: batch rows, self cache of
     # prefix + max_new slots, every pos the decode loop visits, Ta cross
@@ -456,17 +513,17 @@ def phase_kernels(dev, main: dict) -> dict:
         checks=(0, 1, p, (p + t_max) // 2, t_max - 1))
     rows["decode_cross_attention"] = cross_attention_row(
         randn, dev, b, h, dh, ta)
-    # K5 at the int8 path's shapes (f32 scales, the default; bf16 extra)
-    rows["decode_cross_attention_int8"] = cross_int8_row(
-        randn, dev, b, h, dh, ta, torch.float32)
+    # K5 at the int8 path's shapes (f32 scales, the default; bf16 scales
+    # and batch 16 extra)
+    rows["decode_cross_attention_int8"], k5_extra = cross_int8_rows(
+        randn, dev, main)
     rows["int8_matmul"], k6_extra = int8_matmul_rows(randn, main)
     extra = [("decode_self_attention", self_attention_row(
                  randn, dev, 16, h, dh, 448, [447],
                  checks=(0, 1, 100, 255, 447))),
              ("decode_cross_attention", cross_attention_row(
-                 randn, dev, 16, h, dh, ta)),
-             ("decode_cross_attention_int8", cross_int8_row(
-                 randn, dev, b, h, dh, ta, torch.bfloat16))]
+                 randn, dev, 16, h, dh, ta))]
+    extra += [("decode_cross_attention_int8", row) for row in k5_extra]
     extra += [("int8_matmul", row) for row in k6_extra]
     for name, row in extra:
         log(_row_line("kernel_extra", name, row))
@@ -883,8 +940,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", default="", metavar="KERNEL[,KERNEL]",
                     help="only build, check and time these kernels' rows "
-                         "(int8_matmul, decode_cross_attention), then stop "
-                         "without a result line")
+                         "(flash_attention, decode_cross_attention, "
+                         "decode_cross_attention_int8, int8_matmul), then "
+                         "stop without a result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -902,7 +960,8 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "setmaxnreg")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     model, load_s = load_main_model("bfloat16", False)

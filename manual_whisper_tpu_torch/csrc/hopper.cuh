@@ -1,0 +1,192 @@
+// Shared by the Hopper tile kernels (K2, K6): shared-memory barriers, the
+// Tensor Memory Accelerator (TMA), warpgroup products (wgmma), and tensor
+// maps encoded on the host without a link against libcuda.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(arrivals) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// The thread announces `bytes` of TMA traffic to `bar` and arrives at it.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  The last
+// operand lets the hardware suspend the warp for up to that many
+// nanoseconds while the phase is open.  A wait that never ends is a fault
+// in the kernel's schedule: trap and let the launch fail rather than hang
+// the device.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (int spin = 0; !done; ++spin) {
+    asm volatile("{\n"
+                 ".reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+                 "selp.u32 %0, 1, 0, p;\n"
+                 "}\n"
+                 : "=r"(done)
+                 : "r"(bar), "r"(parity), "r"(1000000)
+                 : "memory");
+    if (spin > 2000) __trap();
+  }
+}
+
+// One thread asks the Tensor Memory Accelerator for the box of `map` at
+// (c0, c1), c0 along the contiguous dimension; the bytes land at `dst` and
+// are counted at `bar`.  What lies outside the tensor arrives as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-D map: (c0, c1, c2), c2 the outermost dimension.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One thread stores the box at `src` to `map` at (c0, c1, c2) and waits
+// until the TMA has read it (the shared memory may then be reused or
+// released).  What falls outside the tensor is not written.  The threads
+// that wrote the box must have run fence_async_proxy() and met this one
+// at a barrier first.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// Stores of this thread to shared memory become visible to the tensor
+// cores' and the TMA's asynchronous reads.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Layout types of a shared-memory matrix descriptor (bits 62-63).
+constexpr int kSwizzle128 = 1;
+constexpr int kSwizzle64 = 2;
+
+// Shared-memory matrix descriptor of a warpgroup product: start address,
+// leading and stride byte offsets (each stored in 16-byte units) and the
+// swizzle; the tiles are aligned to their swizzle atom, so the base offset
+// is 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo,
+                                              int layout = kSwizzle128) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime so that the library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a row-major [depth, rows, cols] array (rank 3) or
+// [rows, cols] matrix (rank 2, depth ignored), boxes of [1, box_rows,
+// box_cols]; what a box holds outside the array, or past `rows` within its
+// own depth index, reads as zero and is not written by a store.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                const void* ptr, int rank, int depth, int rows, int cols,
+                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a row-major [rows, cols] matrix, boxes of
+// [box_rows, box_cols].
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+              const void* ptr, int rows, int cols, int box_rows, int box_cols,
+              CUtensorMapSwizzle swizzle) {
+  return encode_map(map, type, elem_bytes, ptr, 2, 1, rows, cols, box_rows,
+                    box_cols, swizzle);
+}
+
+// Tensor map of a row-major [depth, rows, cols] array, boxes of
+// [1, box_rows, box_cols].
+bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                 const void* ptr, int depth, int rows, int cols, int box_rows,
+                 int box_cols, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, type, elem_bytes, ptr, 3, depth, rows, cols,
+                    box_rows, box_cols, swizzle);
+}
+
+}  // namespace

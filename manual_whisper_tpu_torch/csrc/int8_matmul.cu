@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "int8.cuh"
 
 namespace {
@@ -231,60 +232,6 @@ struct TileSmem {
   static_assert(launch_bytes <= 227 * 1024, "fits one SM");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(arrivals) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// The thread announces `bytes` of TMA traffic to `bar` and arrives at it.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// One thread asks the Tensor Memory Accelerator for the box of `map` at
-// (c0, c1), c0 along the contiguous dimension; the bytes land at `dst` and
-// are counted at `bar`.  What lies outside the tensor arrives as zeros.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1)
-      : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.  The last
-// operand lets the hardware suspend the warp for up to that many
-// nanoseconds while the phase is open.  A wait that never ends is a fault
-// in the kernel's schedule: trap and let the launch fail rather than hang
-// the device.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (int spin = 0; !done; ++spin) {
-    asm volatile("{\n"
-                 ".reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-                 "selp.u32 %0, 1, 0, p;\n"
-                 "}\n"
-                 : "=r"(done)
-                 : "r"(bar), "r"(parity), "r"(1000000)
-                 : "memory");
-    if (spin > 2000) __trap();
-  }
-}
-
 // Byte offset of 16-byte chunk `c` (0..7) of row `r` in a tile of 128-byte
 // rows under the 128-byte swizzle: chunk index XOR (row mod 8).
 __device__ __forceinline__ int swz(int r, int c) {
@@ -319,35 +266,6 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
                   __byte_perm(sgn, 0x43434343u, 0x5140));
   hi = sub_bf16x2(__byte_perm(mag, 0x43434343u, 0x5342),
                   __byte_perm(sgn, 0x43434343u, 0x5342));
-}
-
-// Shared-memory matrix descriptor of a warpgroup product: start address,
-// leading and stride byte offsets (each stored in 16-byte units), 128-byte
-// swizzle (layout type 1 in bits 62-63); the tiles are 1024-byte aligned,
-// so the base offset is 0.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Stores of this thread to shared memory become visible to the tensor
-// cores' asynchronous reads.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // d[64, N] (+)= a[64, 16] b[16, N] for one warpgroup: a K-major, b
@@ -768,45 +686,6 @@ int sm_count() {
       sms = 132;
   }
   return sms;
-}
-
-// cuTensorMapEncodeTiled, fetched through the runtime so that the library
-// needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map of a row-major [rows, cols] matrix, boxes of
-// [box_rows, box_cols]; what a box holds outside the matrix reads as zero.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-              const void* ptr, int rows, int cols, int box_rows, int box_cols,
-              CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename C>

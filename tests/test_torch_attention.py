@@ -25,14 +25,15 @@ def _mk(shape, seed, scale=1.0):
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("t_q,t_k", [(150, 150), (128, 300)])
-def test_flash_matches_jax_interpret(t_q, t_k):
-    q, k, v = (_mk((1, 2, t, 64), s) for s, t in ((0, t_q), (1, t_k),
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("t_q,t_k", [(150, 150), (128, 300), (1, 70)])
+def test_flash_matches_jax_interpret(t_q, t_k, dh):
+    q, k, v = (_mk((1, 2, t, dh), s) for s, t in ((0, t_q), (1, t_k),
                                                    (2, t_k)))
     ref = np.asarray(jatt.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                           jnp.asarray(v), interpret=True))
     out = tatt.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
-    assert out.shape == ref.shape == (1, 2, t_q, 64)
+    assert out.shape == ref.shape == (1, 2, t_q, dh)
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
 
 

@@ -51,13 +51,18 @@ def test_mel_kernel(dev, n_samples, n_mels):
 
 
 @pytest.mark.parametrize("t_q,t_k,dh", [(150, 150, 32), (1500, 1500, 64),
-                                        (1, 70, 64)])
+                                        (1, 70, 64), (127, 129, 64),
+                                        (129, 1, 32), (1500, 1500, 32)])
 def test_flash_kernel(dev, t_q, t_k, dh):
+    """K2 takes 128 queries a block and 128 keys a step: a query tile of
+    one row, a last key tile of one key, a single key, both head widths."""
     q = _randn((2, 3, t_q, dh), dev, 1)
     k = _randn((2, 3, t_k, dh), dev, 2)
     v = _randn((2, 3, t_k, dh), dev, 3)
-    torch.testing.assert_close(flash_attention(q, k, v).float(),
-                               attention_plain(q, k, v).float(),
+    before = _build.launches["flash_attention"]
+    out = flash_attention(q, k, v)
+    assert _build.launches["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
                                atol=1e-2, rtol=1e-2)
 
 
@@ -116,6 +121,24 @@ def test_decode_int8_kernel(dev, dh, scale_dtype):
             decode_cross_attention_int8(q, *kv4, kv_len).float(),
             attend_int8_plain(q, *kv4, n).float(), atol=1e-2, rtol=1e-2)
     assert _build.launches["decode_cross_attention_int8"] == before + 3
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 8, 1499, 1500])
+def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
+    """K5 splits the key axis over 8 blocks: lengths that leave blocks
+    without keys, and a ragged last slice, at the encoder's 1500 positions."""
+    q = _randn((2, 3, 1, dh), dev, 22)
+    kv4 = quantize_cross_kv(_randn((2, 3, 1500, dh), dev, 23),
+                            _randn((2, 3, 1500, dh), dev, 24), scale_dtype)
+    kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+    before = _build.launches["decode_cross_attention_int8"]
+    out = decode_cross_attention_int8(q, *kv4, kv_len)
+    assert _build.launches["decode_cross_attention_int8"] == before + 1
+    torch.testing.assert_close(out.float(),
+                               attend_int8_plain(q, *kv4, n).float(),
+                               atol=1e-2, rtol=1e-2)
 
 
 @pytest.mark.parametrize("m", [1, 4, 9, 17, 129, 300, 772])

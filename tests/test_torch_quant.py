@@ -160,7 +160,7 @@ def _jax_layout(kv4):
             jnp.asarray(v_q.numpy().transpose(0, 1, 3, 2)), scales(v_s))
 
 
-@pytest.mark.parametrize("kv_len", [150, 100, 1])
+@pytest.mark.parametrize("kv_len", [150, 100, 8, 7, 1])
 def test_int8_cross_matches_jax_interpret(kv_len):
     q = _mk((2, 3, 1, 64), 0)
     kv4 = _port_int8(*_cross_kv(1))
