@@ -43,18 +43,24 @@
 //   out[bh] = sum_t softmax_t(q . k_q[t] / sqrt(dh) * k_s[t]) v_s[t] v_q[t]
 // with k_q/v_q int8 [B*H, T, dh] and k_s/v_s [B*H, T] float32 or bf16
 // (`ckv_scale_bf16`).  The scales commute out of both dot products, so
-// the codes are widened to float32 in registers and each scale multiplies
-// once per position.  Half of K4's bytes (one byte per value, plus 2*T
-// scales), so it too is bound by device memory; same design as K4, with
-// dh/16 lanes sharing one key's 16-byte load, and the same SM under-fill
-// at small batch.
+// each multiplies once per position; the softmax's sum takes the
+// exponentials without v_s.  Half of K4's bytes (one byte per value, plus
+// 2*T scales), so it too is bound by device memory.  A block per (batch,
+// head) walking its keys three times (scores, softmax, V) left it at
+// K4's old speed although it reads half the bytes, so K5 takes K4's
+// split: the 8 blocks of a cluster each make one pass over their slice of
+// the keys (derived from kv_len on the device; the last ranks' may be
+// empty), dh/16 lanes share one key's 16-byte code loads, the codes and
+// both scales of eight keys per lane group are loaded before any is used,
+// the codes are widened exactly on the ALU (a byte permute under 2^23 and
+// one subtraction, not the slower int-to-float converter), and the lane
+// groups and then the 8 ranks combine (max, sum, o[dh]) in shared and
+// distributed shared memory.  One launch, no workspace, no atomics.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "int8.cuh"
 
 namespace {
 
@@ -329,100 +335,177 @@ int launch_cross(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---- K5: int8 cross attention, the same split ----------------------------
+
+constexpr int kInt8Keys = 8;       // keys in flight per lane group
+
+// 16 int8 codes of one 16-byte load to float32, exact and without the
+// converter unit: a code c as the byte c + 128 under the float 2^23
+// (0x4B000000) reads as 2^23 + 128 + c, and one subtraction leaves c.
+__device__ inline void widen16(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * i + b] =
+          __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540u | b)) -
+          8388736.f;
+}
+
 template <int DH, typename S>
-__global__ void __launch_bounds__(kThreads)
-decode_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
-                   const S* __restrict__ ks, const int8_t* __restrict__ vq,
-                   const S* __restrict__ vs, bf16* __restrict__ out,
-                   const int* __restrict__ len_ptr, int t_max, float scale) {
+__global__ void __cluster_dims__(kCrossSplit, 1, 1) __launch_bounds__(kThreads)
+cross_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
+                  const S* __restrict__ ks, const int8_t* __restrict__ vq,
+                  const S* __restrict__ vs, bf16* __restrict__ out,
+                  const int* __restrict__ len_ptr, int t_max,
+                  float scale_log2e) {
   constexpr int lanes_per_key = DH / 16;           // 16-byte chunks per row
-  constexpr int keys_per_warp = 32 / lanes_per_key;
-  constexpr int groups = kThreads / lanes_per_key; // for the P V sum
-  extern __shared__ float smem[];
-  float* s = smem;                                 // [t_max] scores
-  float* partial = s + t_max;                      // [groups, DH]
-  float* red = partial + groups * DH;              // [kWarps]
+  constexpr int groups = kThreads / lanes_per_key; // keys per pass and block
+  constexpr int dims_per_rank = DH / kCrossSplit;
+  __shared__ float part_m[groups];
+  __shared__ float part_l[groups];
+  __shared__ float part_o[groups][DH];
+  __shared__ float block_o[DH];                    // read by the other ranks
+  __shared__ float block_ml[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.x / kCrossSplit;
 
   int n = *len_ptr;
   if (n <= 0 || n > t_max) n = t_max;
-  const int bh = blockIdx.x;
+  const int per = (n + kCrossSplit - 1) / kCrossSplit;
+  const int k0 = min(n, rank * per);               // this block's slice; the
+  const int k1 = min(n, k0 + per);                 // last ranks' may be empty
   const int8_t* kb = kq + (size_t)bh * t_max * DH;
   const int8_t* vb = vq + (size_t)bh * t_max * DH;
   const S* ksb = ks + (size_t)bh * t_max;
   const S* vsb = vs + (size_t)bh * t_max;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int sub = lane % lanes_per_key;
-  const int slot = lane / lanes_per_key;
+  const int sub = tid % lanes_per_key;
+  const int g = tid / lanes_per_key;
 
   float qf[16];
   const bf16* qb = q + (size_t)bh * DH + sub * 16;
   unpack8(*reinterpret_cast<const uint4*>(qb), qf);
   unpack8(*reinterpret_cast<const uint4*>(qb + 8), qf + 8);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) qf[i] *= scale_log2e;
 
-  for (int t0 = warp * keys_per_warp; t0 < n;
-       t0 += kWarps * keys_per_warp) {
-    const int t = t0 + slot;
-    float dot = 0.f;
-    if (t < n) {
+  // running max, sum and weighted V of this lane group's keys (the lanes of
+  // a group hold the same m and l and 16 dims of o each); scores in base 2
+  float m = -3.0e38f, l = 0.f, o[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = 0.f;
+
+  // every thread runs the same trip count (the shuffles need whole warps);
+  // keys past the slice are masked
+  for (int base = k0; base < k1; base += groups * kInt8Keys) {
+    uint4 kr[kInt8Keys], vr[kInt8Keys];
+    float k_s[kInt8Keys], v_s[kInt8Keys];
+#pragma unroll
+    for (int u = 0; u < kInt8Keys; ++u) {
+      const int t = base + u * groups + g;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      k_s[u] = v_s[u] = 0.f;
+      if (t < k1) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)t * DH
+                                                     + sub * 16));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * DH
+                                                     + sub * 16));
+        k_s[u] = to_float(ksb[t]);
+        v_s[u] = to_float(vsb[t]);
+      }
+    }
+    float sc[kInt8Keys];
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < kInt8Keys; ++u) {
       float kf[16];
-      unpack16_i8(*reinterpret_cast<const uint4*>(kb + (size_t)t * DH
-                                                  + sub * 16), kf);
+      widen16(kr[u], kf);
+      float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < 16; ++i) dot = fmaf(qf[i], kf[i], dot);
+#pragma unroll
+      for (int w = lanes_per_key / 2; w > 0; w >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, w);
+      sc[u] = base + u * groups + g < k1 ? dot * k_s[u] : -3.0e38f;
+      mx = fmaxf(mx, sc[u]);
     }
+    const float corr = exp2f(m - mx);
+    l *= corr;
 #pragma unroll
-    for (int o = lanes_per_key / 2; o > 0; o >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (t < n && sub == 0) s[t] = dot * scale * to_float(ksb[t]);
+    for (int i = 0; i < 16; ++i) o[i] *= corr;
+#pragma unroll
+    for (int u = 0; u < kInt8Keys; ++u) {
+      // the softmax's sum takes p; the output takes p * v_s (K5's plain
+      // version rounds p * v_s to q's dtype before it meets v_q)
+      const float p =
+          base + u * groups + g < k1 ? exp2f(sc[u] - mx) : 0.f;
+      const float pv = p * v_s[u];
+      float vf[16];
+      widen16(vr[u], vf);
+      l += p;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) o[i] = fmaf(pv, vf[i], o[i]);
+    }
+    m = mx;
   }
-  __syncthreads();
 
-  float mx = -3.0e38f;
-  for (int t = tid; t < n; t += kThreads) mx = fmaxf(mx, s[t]);
-  mx = block_reduce(mx, red, true);
-  float sum = 0.f;
-  for (int t = tid; t < n; t += kThreads) {
-    const float p = expf(s[t] - mx);
-    s[t] = p;
-    sum += p;
-  }
-  sum = block_reduce(sum, red, false);   // its barrier publishes s[]
-
-  const int g = tid / lanes_per_key;
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int t = g; t < n; t += groups) {
-    float vf[16];
-    unpack16_i8(*reinterpret_cast<const uint4*>(vb + (size_t)t * DH
-                                                + sub * 16), vf);
-    const float p = s[t] * to_float(vsb[t]);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+  // the block's lane groups meet in shared memory
+  if (sub == 0) {
+    part_m[g] = m;
+    part_l[g] = l;
   }
 #pragma unroll
-  for (int i = 0; i < 16; ++i) partial[g * DH + sub * 16 + i] = acc[i];
+  for (int i = 0; i < 16; ++i) part_o[g][sub * 16 + i] = o[i];
   __syncthreads();
   if (tid < DH) {
-    float o = 0.f;
-    for (int j = 0; j < groups; ++j) o += partial[j * DH + tid];
-    out[(size_t)bh * DH + tid] = __float2bfloat16(o / sum);
+    float bm = -3.0e38f;
+    for (int j = 0; j < groups; ++j) bm = fmaxf(bm, part_m[j]);
+    float bl = 0.f, bo = 0.f;
+    for (int j = 0; j < groups; ++j) {
+      const float w = exp2f(part_m[j] - bm);       // 0 for a group without keys
+      bl += part_l[j] * w;
+      bo += part_o[j][tid] * w;
+    }
+    block_o[tid] = bo;
+    if (tid == 0) {
+      block_ml[0] = bm;
+      block_ml[1] = bl;
+    }
   }
+  cluster.sync();  // every block's partial result is written and visible
+
+  // rank r normalises and writes dims [r * dh / 8, (r + 1) * dh / 8)
+  if (tid < dims_per_rank) {
+    const int d = rank * dims_per_rank + tid;
+    float cm = -3.0e38f;
+#pragma unroll
+    for (int b = 0; b < kCrossSplit; ++b)
+      cm = fmaxf(cm, cluster.map_shared_rank(block_ml, b)[0]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int b = 0; b < kCrossSplit; ++b) {
+      const float* ml = cluster.map_shared_rank(block_ml, b);
+      const float w = exp2f(ml[0] - cm);           // 0 for an empty slice
+      den += ml[1] * w;
+      num += cluster.map_shared_rank(block_o, b)[d] * w;
+    }
+    out[(size_t)bh * DH + d] = __float2bfloat16(num / den);
+  }
+  cluster.sync();  // keep this block's shared memory until all have read it
 }
 
 template <int DH, typename S>
 int launch_int8(const void* q, const void* kq, const void* ks, const void* vq,
                 const void* vs, void* out, const void* len_ptr, int bh,
                 int t_max, cudaStream_t stream) {
-  constexpr int groups = kThreads / (DH / 16);
-  const size_t bytes = (size_t)(t_max + groups * DH + kWarps) * sizeof(float);
-  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
-  decode_int8_kernel<DH, S><<<bh, kThreads, bytes, stream>>>(
+  cross_int8_kernel<DH, S><<<bh * kCrossSplit, kThreads, 0, stream>>>(
       (const bf16*)q, (const int8_t*)kq, (const S*)ks, (const int8_t*)vq,
       (const S*)vs, (bf16*)out, (const int*)len_ptr, t_max,
-      1.0f / sqrtf((float)DH));
+      1.4426950408889634f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// Shared by the int8 kernels (K5, K6): widen 16 int8 values of one 16-byte
-// load to float32 (exact).
+// Used by K6's matvec: widen 16 int8 values of one 16-byte load to
+// float32 (exact).
 #pragma once
 
 #include <cuda_runtime.h>

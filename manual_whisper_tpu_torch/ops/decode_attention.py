@@ -130,7 +130,8 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                                 k_s: torch.Tensor, v_q: torch.Tensor,
                                 v_s: torch.Tensor,
                                 kv_len: torch.Tensor) -> torch.Tensor:
-    """K5: q_len = 1 attention over int8 cross K/V, positions < kv_len.
+    """K5: q_len = 1 attention over int8 cross K/V, positions < kv_len,
+    the key axis split over a cluster of blocks per (batch, head) as K4's.
 
     q [B, H, 1, dh] bf16; k_q/v_q int8 [B, H, Ta, dh]; k_s/v_s [B, H, Ta]
     float32 or bf16 (both the same); kv_len one int32.  Returns
