@@ -331,8 +331,7 @@ def flash_row(randn, b, h, tt, dh):
     that exceed L2; the yardstick is SDPA.  Bound: q, k, v read and the
     output written once, or 4 b h tt^2 dh operations at the bf16
     tensor-core rate.  ``exp2`` counts the b h tt^2 exponentials of the
-    softmax, which the special-function units (16 a cycle and SM) run
-    beside the tensor cores."""
+    softmax, which the special-function units run at 16 a cycle and SM."""
     q, k, v = (randn((b, h, tt, dh)) for _ in range(3))
     err = compare("flash_attention", flash_attention(q, k, v),
                   attention_plain(q, k, v))

@@ -16,7 +16,8 @@
 // - A block owns 128 query rows of one (batch, head): two consumer
 //   warpgroups of 64 rows each, and one producer warpgroup whose one
 //   thread keeps the Tensor Memory Accelerator (TMA) busy.  `setmaxnreg`
-//   gives the producer 24 registers a thread and the consumers 240.
+//   gives the producer 24 registers a thread and the consumers 240 (ptxas
+//   still fits the consumers' code into the launch bound's 168).
 // - Q is loaded once; K and V of 128 keys a step arrive by TMA in a ring of
 //   kStages stages in dynamic shared memory, each on its own mbarrier, and
 //   the consumers hand each stage back on a second one (K as soon as its
@@ -61,8 +62,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 128;              // query rows per block
 constexpr int kBK = 128;              // keys per step
