@@ -2,12 +2,13 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --rows flash_attention,decode_cross_attention_int8
+    python3 chip_smoke.py --rows decode_self_attention,int8_matmul
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``flash_attention``,
-``decode_cross_attention``, ``decode_cross_attention_int8`` and
-``int8_matmul``); no result line is printed.
+``decode_self_attention``, ``decode_cross_attention``,
+``decode_cross_attention_int8`` and ``int8_matmul``); no result line is
+printed.
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -24,14 +25,16 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    input copies to exceed the 50 MB L2 cache.  K2 is timed at the
    encoder's T=1500, dh=64 (a ``kernel_check`` line holds it against the
    plain version at ragged query and key tiles and at dh=32).  K3 is timed
-   over the positions the decode loop visits, K4 and K5 at the full cross
+   over the positions the decode loop visits (and checked at slots that
+   leave some of its blocks without keys), K4 and K5 at the full cross
    length (K5 with f32 scales; bf16 scales and batch 16 on extra lines;
    K4 and K5 also checked at lengths that leave some of their blocks
    without keys), K6 at a decode
    step's M=4 with K, N = 1280, 5120 (on extra lines the other decode
    shapes and every M > 8 shape of the int8 path: M = 4 x 1500 and
-   M = 4 x 193, each with 1280x1280, 1280x5120 and 5120x1280; a
-   ``kernel_check`` line holds ragged tiles against the plain version);
+   M = 4 x 193, each with 1280x1280, 1280x5120 and 5120x1280; two
+   ``kernel_check`` lines hold ragged tiles and the matvec at M in {1, 2,
+   3, 5, 8} against the plain version);
    K3 and K4 also at batch 16 (extra).
 3. Run the tiny ``test`` config through the port on the card and on the
    CPU (plain versions), in bf16 and in int8 (int8 weights and int8 cross
@@ -244,6 +247,23 @@ def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks):
         bound=(sum(x[0] for x in bounds) / len(bounds), bounds[0][1]))
 
 
+def self_attention_rows(randn, dev, main: dict):
+    """K3's row of the kernels line (batch rows of the main path, its
+    self cache, every pos the decode loop visits) and its extra: batch 16,
+    T_max 448.  The checks take pos 6, 7 and 8 (n = 7, 8, 9: the key axis
+    is split over the blocks of a cluster, so short lengths leave blocks
+    without keys) besides the first, middle and last slots."""
+    b, h, dh = main["batch"], main["heads"], main["dh"]
+    t_max, p = main["t_max"], main["prefix"]
+    steps = np.unique(np.linspace(p, t_max - 2, 20).round().astype(int))
+    row = self_attention_row(randn, dev, b, h, dh, t_max,
+                             [int(x) for x in steps],
+                             checks=(0, 1, 6, 7, 8, p, (p + t_max) // 2,
+                                     t_max - 1))
+    return row, [self_attention_row(randn, dev, 16, h, dh, 448, [447],
+                                    checks=(0, 1, 6, 7, 8, 100, 255, 447))]
+
+
 def cross_attention_row(randn, dev, b, h, dh, ta):
     """K4 vs its plain version at kv_len Ta, Ta - 1, 1000, 8, 7 and 1 (the
     key axis is split over 8 blocks: a ragged last slice, slices that are
@@ -409,15 +429,38 @@ def int8_matmul_ragged(randn) -> dict:
             "max_abs_err": errs, "tol": TOL["int8_matmul"]}
 
 
+# (K, N) of the matvec's check: one of each launch shape (wide: N >= 4K,
+# deep: K >= 4N, square), the square one with a last column stripe and a
+# last K step that are cut short
+MATVEC_CHECKS = ((64, 256), (1288, 1296), (5120, 1280))
+
+
+def int8_matvec_check(randn) -> dict:
+    """K6's matvec (M <= 8) vs its plain version at every M in {1, 2, 3,
+    5, 8} and (K, N) in MATVEC_CHECKS.  Checked, not timed."""
+    errs = {}
+    for k, n in MATVEC_CHECKS:
+        w = quantize_weight(randn((k, n), torch.float32) / math.sqrt(k))
+        for m in (1, 2, 3, 5, 8):
+            x = randn((m, k))
+            errs[f"M={m} K={k} N={n}"] = compare(
+                "int8_matmul", int8_matmul(x, w["q"], w["s"]),
+                int8_matmul_plain(x, w["q"], w["s"]))
+    return {"phase": "kernel_check", "name": "int8_matmul",
+            "shape": "M <= 8 (matvec) bf16 x int8", "max_abs_err": errs,
+            "tol": TOL["int8_matmul"]}
+
+
 def int8_matmul_rows(randn, main: dict):
     """K6 at every shape the int8 main path gives it: the row of the
     kernels line at a decode step's fc1 (M = batch rows), and as extras the
     other decode shapes and every M > 8 shape: the encoder's and the
     cross-K/V's M = batch x Ta and the prefill's M = batch x prompt length,
     each with the attention projections' and both MLP weights' (K, N).
-    Logs the ragged-tile check on its way."""
+    Logs the ragged-tile and matvec checks on its way."""
     b, d, p, ta = main["batch"], main["d"], main["prefix"], main["ta"]
     log(json.dumps(int8_matmul_ragged(randn)))
+    log(json.dumps(int8_matvec_check(randn)))
     row = int8_matmul_row(randn, b, d, 4 * d)
     shapes = [(b, d, d), (b, 4 * d, d)]
     shapes += [(m, k, n) for m in (b * ta, b * p)
@@ -457,6 +500,9 @@ def phase_rows(dev, main: dict, names) -> None:
     for name in names:
         if name == "int8_matmul":
             row, extra = int8_matmul_rows(randn, main)
+            rows = [row] + extra
+        elif name == "decode_self_attention":
+            row, extra = self_attention_rows(randn, dev, main)
             rows = [row] + extra
         elif name == "decode_cross_attention":
             rows = [cross_attention_row(randn, dev, bb, h, dh, ta)
@@ -504,12 +550,9 @@ def phase_kernels(dev, main: dict) -> dict:
     # K3/K4 at the main path's shapes (phase 4: batch rows, self cache of
     # prefix + max_new slots, every pos the decode loop visits, Ta cross
     # positions); then at batch 16, T_max 448 as an extra, labelled check
-    b, h, dh = main["batch"], main["heads"], main["dh"]
-    t_max, p, ta = main["t_max"], main["prefix"], main["ta"]
-    steps = np.unique(np.linspace(p, t_max - 2, 20).round().astype(int))
-    rows["decode_self_attention"] = self_attention_row(
-        randn, dev, b, h, dh, t_max, [int(x) for x in steps],
-        checks=(0, 1, p, (p + t_max) // 2, t_max - 1))
+    b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
+    rows["decode_self_attention"], k3_extra = self_attention_rows(randn, dev,
+                                                                  main)
     rows["decode_cross_attention"] = cross_attention_row(
         randn, dev, b, h, dh, ta)
     # K5 at the int8 path's shapes (f32 scales, the default; bf16 scales
@@ -517,11 +560,9 @@ def phase_kernels(dev, main: dict) -> dict:
     rows["decode_cross_attention_int8"], k5_extra = cross_int8_rows(
         randn, dev, main)
     rows["int8_matmul"], k6_extra = int8_matmul_rows(randn, main)
-    extra = [("decode_self_attention", self_attention_row(
-                 randn, dev, 16, h, dh, 448, [447],
-                 checks=(0, 1, 100, 255, 447))),
-             ("decode_cross_attention", cross_attention_row(
-                 randn, dev, 16, h, dh, ta))]
+    extra = [("decode_self_attention", row) for row in k3_extra]
+    extra += [("decode_cross_attention", cross_attention_row(
+        randn, dev, 16, h, dh, ta))]
     extra += [("decode_cross_attention_int8", row) for row in k5_extra]
     extra += [("int8_matmul", row) for row in k6_extra]
     for name, row in extra:
@@ -939,7 +980,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", default="", metavar="KERNEL[,KERNEL]",
                     help="only build, check and time these kernels' rows "
-                         "(flash_attention, decode_cross_attention, "
+                         "(flash_attention, decode_self_attention, "
+                         "decode_cross_attention, "
                          "decode_cross_attention_int8, int8_matmul), then "
                          "stop without a result line")
     args = ap.parse_args()

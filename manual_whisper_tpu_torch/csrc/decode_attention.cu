@@ -17,25 +17,35 @@
 // Bound on the H100: about one operation per byte (2*n*dh bf16 values read
 // for 4*n*dh operations), so it is bound by device memory bandwidth.
 //
-// K3 (simple, not yet fast): one block of 128 threads per (batch, head);
-// dh/8 lanes share one key with 16-byte loads and reduce its dot product
-// with shuffles; scores stay in shared memory; the weighted sum of V runs
-// over 16 groups of lanes and is reduced through shared memory.  One block
-// per (batch, head) leaves SMs idle at small batch.
-//
-// K4 has its own kernel.  Over 1500 cross positions one block per (batch,
-// head) is 80 blocks on 132 SMs, each walking its keys three times with
-// one 16-byte load in flight per thread: the serial walk, not the bytes,
-// set its time.  So the key axis is split over the 8 blocks of a
-// thread-block cluster (640 blocks at batch 4).  A block makes one pass
-// over its slice: dh/8 lanes share a key, K and V of eight keys per lane
-// group are loaded before any is used, and an online softmax (running
-// max, sum and weighted V in registers, base-2 exponentials with log2(e)
-// folded into q) needs no score buffer.  The lane groups of a block meet
-// in shared memory, the 8 blocks' (max, sum, o[dh]) in distributed shared
-// memory, and each block normalises and writes dh/8 of the outputs: one
-// launch, no workspace, no atomics, kv_len read on the device by every
-// block.  K3 and K5 can take the same split.
+// K3 and K4 share one kernel, `split_kernel`.  One block per (batch, head)
+// walking its keys three times (scores into shared memory, softmax, V),
+// with one 16-byte load in flight per thread, left both far from their
+// bound: the serial walk, not the bytes, set their time.  So the key axis
+// is split over the blocks of a thread-block cluster.  A block makes one
+// pass over its slice (derived from n on the device; the last ranks' may
+// be empty): dh/8 lanes share a key, K and V of KEYS keys per lane group
+// are loaded before any is used, and an online softmax (running max, sum
+// and weighted V in registers, base-2 exponentials with log2(e) folded
+// into q) needs no score buffer.  The lane groups of a block meet in
+// shared memory (K3: first the groups of a warp through shuffles), the
+// blocks' (max, sum, o[dh]) in distributed shared memory, and each block
+// normalises and writes dh/SPLIT of the outputs: one launch, no
+// workspace, no atomics.  The launch shape (`SplitCfg`) follows the
+// shapes the host knows, never n, so a captured CUDA graph replays one
+// launch at every step:
+//   * K4, over 1500 cross positions: 8 blocks of 128 threads per (batch,
+//     head), 8 keys per lane group, ranks reading each other's partial
+//     results after a cluster barrier.
+//   * K3, over a self cache of at most 448 slots, where a decode step's
+//     call costs a few microseconds and latency, not bandwidth, decides:
+//     at most one (batch, head) per SM gets 4 blocks of 256 threads and 4
+//     keys per lane group; each rank stores its partial result into the
+//     shared memory of the rank that finishes those dims with
+//     asynchronous stores counted at that rank's mbarrier, so each rank
+//     waits only for the bytes it expects: no barrier across the cluster
+//     and no remote read stand between the last key and the output.
+//     With more (batch, head) pairs than SMs, where the bytes decide, 2
+//     blocks of 256 threads per pair.
 //
 // K5: the same attention over int8 cross K/V with per-position scales.
 // Replaces `_cross_int8_kernel` / `decode_cross_attention_int8` of the
@@ -62,13 +72,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;      // K5's block
 
 __device__ inline void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -83,137 +94,65 @@ __device__ inline void unpack8(const uint4& u, float* f) {
 __device__ inline float to_float(float x) { return x; }
 __device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
 
-__device__ float block_reduce(float x, float* red, bool is_max) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();
-  return r;
-}
+// ---- K3 and K4: the key axis split over a cluster ------------------------
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ out,
-              const int* __restrict__ len_ptr, int len_offset, int t_max,
-              float scale) {
-  constexpr int lanes_per_key = DH / 8;            // 16-byte chunks per row
-  constexpr int keys_per_warp = 32 / lanes_per_key;
-  constexpr int groups = kThreads / lanes_per_key; // for the P V sum
-  extern __shared__ float smem[];
-  float* s = smem;                                 // [t_max] scores
-  float* partial = s + t_max;                      // [groups, DH]
-  float* red = partial + groups * DH;              // [kWarps]
+// A launch shape of the split kernel: blocks per (batch, head) (the
+// cluster), keys in flight per lane group, threads per block.
+template <int SPLIT_, int KEYS_, int THREADS_, bool WARP_COMBINE_ = false,
+          bool PUSH_ = false>
+struct SplitCfg {
+  static constexpr int SPLIT = SPLIT_;
+  static constexpr int KEYS = KEYS_;
+  static constexpr int THREADS = THREADS_;
+  static constexpr bool WARP_COMBINE = WARP_COMBINE_;
+  static constexpr bool PUSH = PUSH_;
+};
 
-  int n = *len_ptr + len_offset;
-  if (n <= 0 || n > t_max) n = t_max;
-  const int bh = blockIdx.x;
-  const bf16* kb = k + (size_t)bh * t_max * DH;
-  const bf16* vb = v + (size_t)bh * t_max * DH;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int sub = lane % lanes_per_key;
-  const int slot = lane / lanes_per_key;
+// K4 over the 1500 cross positions.
+using CrossCfg = SplitCfg<8, 8, 128>;
+// K3 over the self cache (at most 448 slots; 417 on the main paths, of
+// which 194..416 are valid).  Up to one (batch, head) per SM (the main
+// paths' batch 4 is 80): 4 blocks of 256 threads each, one pass of 4 keys
+// per lane group.  More (batch 16 is 320): 2 blocks of 256 threads each.
+using SelfCfg = SplitCfg<4, 4, 256, true, true>;
+using SelfWideCfg = SplitCfg<2, 4, 256, true, true>;
 
-  float qf[8];
-  unpack8(*reinterpret_cast<const uint4*>(q + (size_t)bh * DH + sub * 8), qf);
-
-  // scores: all lanes of a warp run the same trip count (shuffles below)
-  for (int t0 = warp * keys_per_warp; t0 < n;
-       t0 += kWarps * keys_per_warp) {
-    const int t = t0 + slot;
-    float dot = 0.f;
-    if (t < n) {
-      float kf[8];
-      unpack8(*reinterpret_cast<const uint4*>(kb + (size_t)t * DH + sub * 8),
-              kf);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
-    }
-#pragma unroll
-    for (int o = lanes_per_key / 2; o > 0; o >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (t < n && sub == 0) s[t] = dot * scale;
-  }
-  __syncthreads();
-
-  float mx = -3.0e38f;
-  for (int t = tid; t < n; t += kThreads) mx = fmaxf(mx, s[t]);
-  mx = block_reduce(mx, red, true);
-  float sum = 0.f;
-  for (int t = tid; t < n; t += kThreads) {
-    const float p = expf(s[t] - mx);
-    s[t] = p;
-    sum += p;
-  }
-  sum = block_reduce(sum, red, false);   // its barrier publishes s[]
-
-  const int g = tid / lanes_per_key;
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int t = g; t < n; t += groups) {
-    float vf[8];
-    unpack8(*reinterpret_cast<const uint4*>(vb + (size_t)t * DH + sub * 8),
-            vf);
-    const float p = s[t];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) partial[g * DH + sub * 8 + i] = acc[i];
-  __syncthreads();
-  if (tid < DH) {
-    float o = 0.f;
-    for (int j = 0; j < groups; ++j) o += partial[j * DH + tid];
-    out[(size_t)bh * DH + tid] = __float2bfloat16(o / sum);
-  }
-}
-
-template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const void* len_ptr, int len_offset, int bh, int t_max,
-           cudaStream_t stream) {
-  constexpr int groups = kThreads / (DH / 8);
-  const size_t bytes = (size_t)(t_max + groups * DH + kWarps) * sizeof(float);
-  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
-  decode_kernel<DH><<<bh, kThreads, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (const int*)len_ptr, len_offset, t_max, 1.0f / sqrtf((float)DH));
-  return (int)cudaGetLastError();
-}
-
-// ---- K4: cross attention, key axis split over a cluster -------------------
-
-constexpr int kCrossSplit = 8;     // blocks per (batch, head): one cluster
-constexpr int kCrossKeys = 8;      // keys in flight per lane group
-
-template <int DH>
-__global__ void __cluster_dims__(kCrossSplit, 1, 1) __launch_bounds__(kThreads)
-cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+template <int DH, typename C>
+__global__ void __launch_bounds__(C::THREADS)
+split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out,
-             const int* __restrict__ len_ptr, int t_max, float scale_log2e) {
+             const int* __restrict__ len_ptr, int len_offset, int t_max,
+             float scale_log2e) {
+  constexpr int kSplit = C::SPLIT;
+  constexpr int kKeys = C::KEYS;
+  constexpr int kBlock = C::THREADS;
   constexpr int lanes_per_key = DH / 8;            // 16-byte chunks per row
-  constexpr int groups = kThreads / lanes_per_key; // keys per pass and block
-  constexpr int dims_per_rank = DH / kCrossSplit;
+  constexpr int groups = kBlock / lanes_per_key;   // keys per pass and block
+  constexpr int dims_per_rank = DH / kSplit;
+  static_assert(kBlock >= DH && dims_per_rank >= 1, "combine needs DH lanes");
   __shared__ float part_m[groups];
   __shared__ float part_l[groups];
   __shared__ float part_o[groups][DH];
   __shared__ float block_o[DH];                    // read by the other ranks
   __shared__ float block_ml[2];
+  __shared__ float inbox_o[kSplit][dims_per_rank];  // sent by the other ranks
+  __shared__ float inbox_ml[kSplit][2];
+  __shared__ alignas(8) uint64_t inbox_full;
+  constexpr bool kPush = C::PUSH && kSplit > 1;
+  if constexpr (kPush) {
+    if (threadIdx.x == 0) {
+      mbar_init(smem_u32(&inbox_full), 1);
+      fence_mbarrier_init();
+    }
+    cluster_arrive_relaxed();
+  }
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int bh = blockIdx.x / kCrossSplit;
+  const int rank = kSplit == 1 ? 0 : (int)cluster.block_rank();
+  const int bh = blockIdx.x / kSplit;
 
-  int n = *len_ptr;
+  int n = *len_ptr + len_offset;
   if (n <= 0 || n > t_max) n = t_max;
-  const int per = (n + kCrossSplit - 1) / kCrossSplit;
+  const int per = (n + kSplit - 1) / kSplit;
   const int k0 = min(n, rank * per);               // this block's slice; the
   const int k1 = min(n, k0 + per);                 // last ranks' may be empty
   const bf16* kb = k + (size_t)bh * t_max * DH;
@@ -235,10 +174,10 @@ cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // every thread runs the same trip count (the shuffles need whole warps);
   // keys past the slice are masked
-  for (int base = k0; base < k1; base += groups * kCrossKeys) {
-    uint4 kr[kCrossKeys], vr[kCrossKeys];
+  for (int base = k0; base < k1; base += groups * kKeys) {
+    uint4 kr[kKeys], vr[kKeys];
 #pragma unroll
-    for (int u = 0; u < kCrossKeys; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       const int t = base + u * groups + g;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (t < k1) {
@@ -248,10 +187,10 @@ cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                      + sub * 8));
       }
     }
-    float sc[kCrossKeys];
+    float sc[kKeys];
     float mx = m;
 #pragma unroll
-    for (int u = 0; u < kCrossKeys; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       float kf[8];
       unpack8(kr[u], kf);
       float dot = 0.f;
@@ -268,7 +207,7 @@ cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[i] *= corr;
 #pragma unroll
-    for (int u = 0; u < kCrossKeys; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       const float p =
           base + u * groups + g < k1 ? exp2f(sc[u] - mx) : 0.f;
       float vf[8];
@@ -281,18 +220,43 @@ cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // the block's lane groups meet in shared memory
-  if (sub == 0) {
-    part_m[g] = m;
-    part_l[g] = l;
-  }
+  int parts = groups;
+  if constexpr (C::WARP_COMBINE) {
+    // first the groups of a warp, through shuffles
 #pragma unroll
-  for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];
+    for (int w = lanes_per_key; w < 32; w <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, w);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l, w);
+      const float mn = fmaxf(m, m2);
+      const float a = exp2f(m - mn), b = exp2f(m2 - mn);
+      l = l * a + l2 * b;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        o[i] = o[i] * a + __shfl_xor_sync(0xffffffffu, o[i], w) * b;
+      m = mn;
+    }
+    parts = kBlock / 32;
+    if (tid % 32 < lanes_per_key) {
+      if (sub == 0) {
+        part_m[tid / 32] = m;
+        part_l[tid / 32] = l;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part_o[tid / 32][sub * 8 + i] = o[i];
+    }
+  } else {
+    if (sub == 0) {
+      part_m[g] = m;
+      part_l[g] = l;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];
+  }
   __syncthreads();
+  float bm = -3.0e38f, bl = 0.f, bo = 0.f;
   if (tid < DH) {
-    float bm = -3.0e38f;
-    for (int j = 0; j < groups; ++j) bm = fmaxf(bm, part_m[j]);
-    float bl = 0.f, bo = 0.f;
-    for (int j = 0; j < groups; ++j) {
+    for (int j = 0; j < parts; ++j) bm = fmaxf(bm, part_m[j]);
+    for (int j = 0; j < parts; ++j) {
       const float w = exp2f(part_m[j] - bm);       // 0 for a group without keys
       bl += part_l[j] * w;
       bo += part_o[j][tid] * w;
@@ -303,18 +267,60 @@ cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       block_ml[1] = bl;
     }
   }
+  if constexpr (kPush) {
+    // each rank stores its (max, sum) into every rank and its dims of o
+    // into the rank that writes them (asynchronous stores counted at the
+    // receiver's mbarrier); each rank waits for its own bytes only, and no
+    // rank reads another's shared memory
+    cluster_wait();   // every rank runs and has set up its barrier
+    if (tid < DH) {
+      const int to = tid / dims_per_rank;
+      st_async(cluster_addr(smem_u32(&inbox_o[rank][tid % dims_per_rank]),
+                            to),
+               bo, cluster_addr(smem_u32(&inbox_full), to));
+      if (tid < kSplit) {
+        const uint32_t bar = cluster_addr(smem_u32(&inbox_full), tid);
+        st_async(cluster_addr(smem_u32(&inbox_ml[rank][0]), tid), bm, bar);
+        st_async(cluster_addr(smem_u32(&inbox_ml[rank][1]), tid), bl, bar);
+      }
+    }
+    if (tid == 0)
+      mbar_expect_tx(smem_u32(&inbox_full), kSplit * (dims_per_rank + 2) * 4);
+    if (tid < dims_per_rank) {
+      mbar_wait(smem_u32(&inbox_full), 0);
+      float cm = -3.0e38f;
+#pragma unroll
+      for (int b = 0; b < kSplit; ++b) cm = fmaxf(cm, inbox_ml[b][0]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int b = 0; b < kSplit; ++b) {
+        const float w = exp2f(inbox_ml[b][0] - cm);  // 0 for an empty slice
+        den += inbox_ml[b][1] * w;
+        num += inbox_o[b][tid] * w;
+      }
+      out[(size_t)bh * DH + rank * dims_per_rank + tid] =
+          __float2bfloat16(num / den);
+    }
+    return;
+  }
+  if constexpr (kSplit == 1) {
+    __syncthreads();
+    if (tid < DH)
+      out[(size_t)bh * DH + tid] = __float2bfloat16(block_o[tid] / block_ml[1]);
+    return;
+  }
   cluster.sync();  // every block's partial result is written and visible
 
-  // rank r normalises and writes dims [r * dh / 8, (r + 1) * dh / 8)
+  // rank r normalises and writes dims [r * dh / SPLIT, (r + 1) * dh / SPLIT)
   if (tid < dims_per_rank) {
     const int d = rank * dims_per_rank + tid;
     float cm = -3.0e38f;
 #pragma unroll
-    for (int b = 0; b < kCrossSplit; ++b)
+    for (int b = 0; b < kSplit; ++b)
       cm = fmaxf(cm, cluster.map_shared_rank(block_ml, b)[0]);
     float num = 0.f, den = 0.f;
 #pragma unroll
-    for (int b = 0; b < kCrossSplit; ++b) {
+    for (int b = 0; b < kSplit; ++b) {
       const float* ml = cluster.map_shared_rank(block_ml, b);
       const float w = exp2f(ml[0] - cm);           // 0 for an empty slice
       den += ml[1] * w;
@@ -325,18 +331,32 @@ cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cluster.sync();  // keep this block's shared memory until all have read it
 }
 
-template <int DH>
-int launch_cross(const void* q, const void* k, const void* v, void* out,
-                 const void* len_ptr, int bh, int t_max, cudaStream_t stream) {
-  cross_kernel<DH><<<bh * kCrossSplit, kThreads, 0, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (const int*)len_ptr, t_max,
+// The cluster size is a launch attribute, so one kernel serves every split.
+template <int DH, typename C>
+int launch_split(const void* q, const void* k, const void* v, void* out,
+                 const void* len_ptr, int len_offset, int bh, int t_max,
+                 cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * C::SPLIT);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C::SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C::SPLIT > 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, split_kernel<DH, C>, (const bf16*)q, (const bf16*)k,
+      (const bf16*)v, (bf16*)out, (const int*)len_ptr, len_offset, t_max,
       1.4426950408889634f / sqrtf((float)DH));
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // ---- K5: int8 cross attention, the same split ----------------------------
 
+constexpr int kCrossSplit = 8;     // blocks per (batch, head): one cluster
 constexpr int kInt8Keys = 8;       // keys in flight per lane group
 
 // 16 int8 codes of one 16-byte load to float32, exact and without the
@@ -550,9 +570,19 @@ extern "C" int mwx_decode_attention(const void* q, const void* k,
   if (bh <= 0) return 0;
   if (t_max <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // the launch shape follows batch x heads, never n
+  const bool wide = bh > sm_count();
   switch (head_dim) {
-    case 64: return launch<64>(q, k, v, out, len_ptr, len_offset, bh, t_max, s);
-    case 32: return launch<32>(q, k, v, out, len_ptr, len_offset, bh, t_max, s);
+    case 64:
+      return wide ? launch_split<64, SelfWideCfg>(q, k, v, out, len_ptr,
+                                                  len_offset, bh, t_max, s)
+                  : launch_split<64, SelfCfg>(q, k, v, out, len_ptr,
+                                              len_offset, bh, t_max, s);
+    case 32:
+      return wide ? launch_split<32, SelfWideCfg>(q, k, v, out, len_ptr,
+                                                  len_offset, bh, t_max, s)
+                  : launch_split<32, SelfCfg>(q, k, v, out, len_ptr,
+                                              len_offset, bh, t_max, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -569,8 +599,12 @@ extern "C" int mwx_decode_cross_attention(const void* q, const void* k,
   if (t_max <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (head_dim) {
-    case 64: return launch_cross<64>(q, k, v, out, len_ptr, bh, t_max, s);
-    case 32: return launch_cross<32>(q, k, v, out, len_ptr, bh, t_max, s);
+    case 64:
+      return launch_split<64, CrossCfg>(q, k, v, out, len_ptr, 0, bh, t_max,
+                                        s);
+    case 32:
+      return launch_split<32, CrossCfg>(q, k, v, out, len_ptr, 0, bh, t_max,
+                                        s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Shared by the Hopper tile kernels (K2, K6): shared-memory barriers, the
-// Tensor Memory Accelerator (TMA), warpgroup products (wgmma), and tensor
-// maps encoded on the host without a link against libcuda.
+// Shared by the Hopper kernels (K2, K3, K6): shared-memory and cluster
+// barriers, the Tensor Memory Accelerator (TMA), warpgroup products
+// (wgmma), and tensor maps encoded on the host without a link against
+// libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -100,6 +101,45 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The cluster barrier in halves.  A block may store to another block's
+// shared memory only once that block runs and has set up its barriers:
+// each thread arrives (relaxed: it orders nothing; the barriers' set-up is
+// published by fence_mbarrier_init) when it starts and waits before its
+// first such store, so the wait costs nothing by then.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Makes this thread's mbarrier_init visible to the cluster.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The address of this block's shared `addr` in the shared memory of block
+// `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Stores v at `addr` in another block's shared memory (a cluster_addr)
+// and counts its 4 bytes at that block's mbarrier `bar`: the receiver
+// waits on its own barrier, for exactly the bytes it expects, and no
+// barrier across the cluster is needed.
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n"
+      :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
 // Layout types of a shared-memory matrix descriptor (bits 62-63).
 constexpr int kSwizzle128 = 1;
 constexpr int kSwizzle64 = 2;
@@ -126,6 +166,19 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The SMs of the current device (132 on an H100 SXM).
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
 }
 
 // cuTensorMapEncodeTiled, fetched through the runtime so that the library

@@ -11,13 +11,21 @@
 //
 // Two launch shapes, chosen by M:
 //
-// - M <= 8 (decode steps): a weight-streaming matvec, bound by the int8
-//   weight bytes (K*N bytes for 2*M*K*N operations).  A block owns 64
-//   output columns and one eighth of K; the eight blocks of a column tile
-//   form a thread-block cluster and sum their partial results through
-//   distributed shared memory, so N=1280 still runs 160 blocks on the 132
-//   SMs and no second pass or atomics are needed.  Each thread streams
-//   16 columns of a weight row with one 16-byte load, four rows in flight.
+// - M <= 8 (decode steps): a weight-streaming product, bound by the int8
+//   weight bytes (K*N bytes for 2*M*K*N operations).  A code widened to
+//   float32 on the converter (a quarter of the FMA rate) and multiplied
+//   into M sums on the FMA pipe keeps the ALU about as busy as device
+//   memory at M = 8, and M scalar loads of x for every 16 codes keep few
+//   bytes in flight.  So the products go to the tensor cores: out^T =
+//   q^T x^T as mma.sync m16n8k16, the codes read straight
+//   from device memory into A fragments (a lane's four rows of a 16-row
+//   step, interleaved by one byte permute and widened exactly to bf16
+//   pairs), x's M <= 8 rows as the B operand.  A block owns a stripe of
+//   32 to 64 columns; K is split over its warps and, where the stripes
+//   alone would leave SMs idle, over a cluster of blocks, whose sums meet
+//   through asynchronous stores into the finishing block's shared memory.
+//   The launch shape follows (K, N) so each decode shape fills the SMs
+//   about once with a few steps per warp, all of a warp's loads in flight.
 // - M > 8 (prefill, encoder, cross-K/V): a tiled tensor-core product,
 //   bound by the bf16 tensor-core rate at M >= 772.  What a tile product
 //   loses on this card is time in which the tensor cores wait: for device
@@ -72,129 +80,244 @@ namespace {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-// ---- small M: cluster split-K matvec --------------------------------------
+// ---- small M: split-K matvec on the tensor cores --------------------------
 
-constexpr int kVecThreads = 256;
-constexpr int kVecCols = 64;                         // columns per block
-constexpr int kVecGroups = kVecCols / 16;            // 16-byte column groups
-constexpr int kVecSlots = kVecThreads / kVecGroups;  // rows per pass
-constexpr int kVecWarps = kVecThreads / 32;
-constexpr int kSplit = 8;                            // blocks per cluster
 constexpr int kVecMaxM = 8;
-constexpr int kUnroll = 4;                           // rows in flight
-static_assert(kVecCols % kSplit == 0, "ranks split the tile's columns");
+constexpr int kVecMaxCluster = 8;
 
-template <int MT>
-__device__ inline void fma_row(float (&acc)[MT][16], const uint4& w,
-                               const bf16* __restrict__ x, int m, int k,
-                               int row) {
-  float wf[16];
-  unpack16_i8(w, wf);
-#pragma unroll
-  for (int r = 0; r < MT; ++r) {
-    const float xv = r < m ? __bfloat162float(x[(size_t)r * k + row]) : 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
-  }
+// WORDS 32-bit words of weight codes, streamed: read once, so not kept in
+// L1.
+template <int WORDS>
+__device__ __forceinline__ void ld_stream(uint32_t (&w)[WORDS],
+                                          const int8_t* p) {
+  if constexpr (WORDS == 4)
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
+  else if constexpr (WORDS == 2)
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+        : "=r"(w[0]), "=r"(w[1]) : "l"(p));
+  else
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n"
+        : "=r"(w[0]) : "l"(p));
 }
 
-template <int MT>
-__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kVecThreads)
+// d[16, 8] += a[16, 16] b[16, 8], bf16 operands, float32 sums (mma.sync
+// fragments: lane = 4 g + c holds a's rows g and g + 8 at k = 2c, 2c + 1
+// (a[0], a[1]) and at k = 2c + 8, 2c + 9 (a[2], a[3]); b's column g at the
+// same k (b0, b1); d's rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at
+// columns 2c, 2c + 1).
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out[M, N] for M <= 8 as out^T = q^T x^T: the widened codes are the A
+// operand of m16n8k16 products (16 weight columns as its rows), x's rows
+// the B operand (its 8 columns; rows of x past m read as zeros).  A block
+// of WARPS warps owns COLS columns; the key to reading the codes straight
+// from device memory into A fragments is the freedom in which weight
+// column stands for which A row, and in the order of K within a product:
+//   * lane (g, c) loads BYTES = COLS / 8 codes of its weight rows 2c,
+//     2c + 1, 2c + 8 and 2c + 9 of each 16-row step (four loads of 4 to 16
+//     bytes: eight lanes cover a row's COLS contiguous bytes);
+//   * one byte permute interleaves rows 2c and 2c + 1 (and 2c + 8, 2c + 9)
+//     column by column, and the tile product's widening turns each pair
+//     into the bf16 pair (k, k + 1) of one column: an A register;
+//   * product j takes columns 2j (as A row g) and 2j + 1 (row g + 8) of
+//     the lane's codes, so BYTES / 2 products cover a step.
+// Each warp owns a contiguous run of 16-row steps (the K axis is split over
+// the warps of a block and the `cs` blocks of a cluster), keeps U steps'
+// loads (U * 4 * BYTES bytes a lane) in flight before it widens any, and
+// keeps its sums in registers.  The warps meet in shared memory.  In a
+// cluster each block then stores its sums of column c into the inbox of
+// block c % cs (asynchronous stores to distributed shared memory, counted
+// at the receiver's mbarrier), and each block waits only for the bytes it
+// expects, then scales, rounds and writes its columns; with cs = 1 there
+// is no cluster and the block writes at once.  One launch, no workspace,
+// no atomics.
+template <int COLS, int U, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
 matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
               const float* __restrict__ s, bf16* __restrict__ out, int m,
               int k, int n) {
-  __shared__ float warp_sum[kVecWarps][MT][kVecCols];
-  __shared__ float block_sum[MT][kVecCols];
+  constexpr int kThreads = WARPS * 32;
+  constexpr int BYTES = COLS / 8;          // codes of a row per lane
+  constexpr int WORDS = BYTES / 4;
+  constexpr int J = BYTES / 2;             // products per 16-row step
+  constexpr int kOut = COLS * kVecMaxM;    // a stripe's outputs, column-major
+  constexpr int kChunks = (kOut + kThreads - 1) / kThreads;
+  // a warp's sums in shared memory: per lane group g its BYTES columns of
+  // 8 rows of out (column by column), groups kPad floats apart: 8 more
+  // than they fill, so the float2 stores of a half-warp meet no bank twice
+  constexpr int kPad = BYTES * 8 + 8;
+  __shared__ float red[WARPS][8 * kPad];
+  // sums sent by the cluster's blocks: [sender][this block's columns][row]
+  __shared__ float inbox[kOut + kVecMaxCluster * kVecMaxM];
+  __shared__ alignas(8) uint64_t inbox_full;
   cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int n0 = (blockIdx.x / kSplit) * kVecCols;
+  if (cs > 1) {
+    if (threadIdx.x == 0) {
+      mbar_init(smem_u32(&inbox_full), 1);
+      fence_mbarrier_init();
+    }
+    cluster_arrive_relaxed();
+  }
+  const int n0 = (blockIdx.x / cs) * COLS;
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
   const int warp = tid / 32;
-  const int col = n0 + (tid % kVecGroups) * 16;
-  const int slot = tid / kVecGroups;
-  const int k_per = (k + kSplit - 1) / kSplit;
-  const int k0 = min(k, rank * k_per);
-  const int k1 = min(k, k0 + k_per);
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int col = n0 + g * BYTES;
+  const int steps = (k + 15) / 16;
+  const int per = (steps + cs * WARPS - 1) / (cs * WARPS);
+  const int s0 = min(steps, (rank * WARPS + warp) * per);
+  const int s1 = min(steps, s0 + per);
+  const bool col_ok = col < n;
+  const bool row_ok = g < m;
+  const int8_t* qc = q + col;
+  const bf16* xg = x + (size_t)(row_ok ? g : 0) * k;
 
-  float acc[MT][16];
+  // The block finishes the stripe's columns rank, rank + cs, ...: its
+  // output l (row l % 8 of its column l / 8) is the stripe's output
+  // ((l / 8) * cs + rank) * 8 + l % 8, and thread tid takes l = tid,
+  // tid + kThreads, ...  The scales are loaded now, off the epilogue's
+  // path.
+  const int own = (COLS + cs - 1) / cs * kVecMaxM;   // outputs it finishes
+  float scale[kChunks];
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
+  for (int j = 0; j < kChunks; ++j) {
+    const int l = j * kThreads + tid;
+    const int cl = (l / kVecMaxM) * cs + rank;
+    scale[j] = l < own && cl < COLS && n0 + cl < n ? __ldg(s + n0 + cl)
+                                                   : 0.f;
+  }
 
-  if (col < n) {
-    const int8_t* qc = q + col;
-    // all kUnroll loads of a pass are issued before any is used; rows past
-    // the slice are masked (a rank's slice is often shorter than a pass)
-    for (int row = k0 + slot; row < k1; row += kUnroll * kVecSlots) {
-      uint4 w[kUnroll];
+  float acc[J][4];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = row + u * kVecSlots;
-        w[u] = r < k1 ? __ldg(reinterpret_cast<const uint4*>(
-                            qc + (size_t)r * n))
-                      : make_uint4(0u, 0u, 0u, 0u);
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int st = s0; st < s1; st += U) {
+    // U steps of codes and x: rows past the warp's steps or past k, and
+    // columns past n, read as zeros
+    uint32_t w[U][4][WORDS], b[U][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool live = st + u < s1;
+      const int r0 = (st + u) * 16 + 2 * c;    // k is a multiple of 8, so
+#pragma unroll                                 // rows r0, r0 + 1 stand or
+      for (int i = 0; i < 4; ++i) {            // fall together
+        const int r = r0 + (i & 1) + (i >> 1) * 8;
+        if (live && col_ok && r < k) {
+          ld_stream<WORDS>(w[u][i], qc + (size_t)r * n);
+        } else {
+#pragma unroll
+          for (int e = 0; e < WORDS; ++e) w[u][i][e] = 0u;
+        }
       }
+      b[u][0] = live && row_ok && r0 < k
+                    ? __ldg(reinterpret_cast<const unsigned int*>(xg + r0))
+                    : 0u;
+      b[u][1] = live && row_ok && r0 + 8 < k
+                    ? __ldg(reinterpret_cast<const unsigned int*>(xg + r0 + 8))
+                    : 0u;
+    }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (row + u * kVecSlots < k1)
-          fma_row<MT>(acc, w[u], x, m, k, row + u * kVecSlots);
+    for (int u = 0; u < U; ++u) {
+      if (st + u >= s1) break;                 // the same for the warp
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint32_t sel = j & 1 ? 0x7362u : 0x5140u;
+        uint32_t a[4];
+        widen4(__byte_perm(w[u][0][j / 2], w[u][1][j / 2], sel), a[0], a[1]);
+        widen4(__byte_perm(w[u][2][j / 2], w[u][3][j / 2], sel), a[2], a[3]);
+        mma_16816(acc[j], a, b[u][0], b[u][1]);
+      }
     }
   }
 
-  // sum the 8 lanes of a warp that share a column group (lane % 4)
+  // the warps meet in shared memory: acc[j] holds columns g * BYTES + 2j
+  // (d[0], d[1]) and + 2j + 1 (d[2], d[3]) at rows 2c, 2c + 1 of out
+  float* rw = red[warp] + g * kPad + 2 * c;
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float v = acc[r][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[r][j] = v;
-    }
-  if (lane < kVecGroups) {
-#pragma unroll
-    for (int r = 0; r < MT; ++r)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) warp_sum[warp][r][lane * 16 + j] = acc[r][j];
+  for (int j = 0; j < J; ++j) {
+    *reinterpret_cast<float2*>(rw + 16 * j) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(rw + 16 * j + 8) =
+        make_float2(acc[j][2], acc[j][3]);
   }
   __syncthreads();
-  for (int i = tid; i < MT * kVecCols; i += kVecThreads) {
-    const int r = i / kVecCols;
-    const int c = i % kVecCols;
-    float v = 0.f;
+  if (cs > 1) cluster_wait();   // every block of the cluster runs by now
 #pragma unroll
-    for (int w = 0; w < kVecWarps; ++w) v += warp_sum[w][r][c];
-    block_sum[r][c] = v;
-  }
-  cluster.sync();  // every block's partial sums are written and visible
-
-  // rank r finishes columns [r * 8, r * 8 + 8) of the tile over all ranks
-  constexpr int kRankCols = kVecCols / kSplit;
-  for (int i = tid; i < MT * kRankCols; i += kVecThreads) {
-    const int r = i / kRankCols;
-    const int c = rank * kRankCols + i % kRankCols;
-    const int nn = n0 + c;
-    if (r < m && nn < n) {
+  for (int jj = 0; jj < kChunks; ++jj) {
+    const int o = jj * kThreads + tid;         // column o / 8, row o % 8
+    if (o < kOut && o % kVecMaxM < m) {
+      const int idx = (o / (8 * BYTES)) * kPad + o % (8 * BYTES);
       float v = 0.f;
 #pragma unroll
-      for (int b = 0; b < kSplit; ++b)
-        v += cluster.map_shared_rank(&block_sum[0][0], b)[r * kVecCols + c];
-      out[(size_t)r * n + nn] = __float2bfloat16(v * s[nn]);
+      for (int w8 = 0; w8 < WARPS; ++w8) v += red[w8][idx];
+      const int cl = o / kVecMaxM;
+      if (cs == 1) {
+        if (n0 + cl < n)
+          out[(size_t)(o % kVecMaxM) * n + n0 + cl] =
+              __float2bfloat16(v * scale[jj]);
+      } else {
+        st_async(cluster_addr(smem_u32(inbox + rank * own
+                                       + (cl / cs) * kVecMaxM + o % kVecMaxM),
+                              cl % cs),
+                 v, cluster_addr(smem_u32(&inbox_full), cl % cs));
+      }
     }
   }
-  cluster.sync();  // keep this block's shared memory until all have read it
+  if (cs == 1) return;
+  // every block sends each of this block's columns its m rows
+  if (threadIdx.x == 0)
+    mbar_expect_tx(smem_u32(&inbox_full),
+                   cs * ((COLS - rank + cs - 1) / cs) * m * 4);
+  mbar_wait(smem_u32(&inbox_full), 0);
+
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int l = j * kThreads + tid;
+    const int cl = (l / kVecMaxM) * cs + rank;
+    if (l < own && cl < COLS && n0 + cl < n && l % kVecMaxM < m) {
+      float v = 0.f;
+#pragma unroll
+      for (int b = 0; b < kVecMaxCluster; ++b)
+        if (b < cs) v += inbox[b * own + l];
+      out[(size_t)(l % kVecMaxM) * n + n0 + cl] =
+          __float2bfloat16(v * scale[j]);
+    }
+  }
 }
 
-template <int MT>
+// One cluster of `cs` blocks per COLS columns (no cluster for cs = 1).
+template <int COLS, int U, int WARPS>
 int launch_matvec(const void* x, const void* q, const void* s, void* out,
-                  int m, int k, int n, cudaStream_t stream) {
-  const int tiles = (n + kVecCols - 1) / kVecCols;
-  matvec_kernel<MT><<<tiles * kSplit, kVecThreads, 0, stream>>>(
-      (const bf16*)x, (const int8_t*)q, (const float*)s, (bf16*)out, m, k, n);
-  return (int)cudaGetLastError();
+                  int m, int k, int n, int cs, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((n + COLS - 1) / COLS) * cs);
+  cfg.blockDim = dim3(WARPS * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, matvec_kernel<COLS, U, WARPS>, (const bf16*)x, (const int8_t*)q,
+      (const float*)s, (bf16*)out, m, k, n);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // ---- large M: warp-specialised tensor-core tile product --------------------
@@ -245,27 +368,6 @@ __device__ __forceinline__ int swz(int r, int c) {
 // other, and panels are kBK * 128 bytes apart.
 __device__ __forceinline__ int b_offset(int kr, int n) {
   return (n >> 6) * (kBK * 128) + swz(kr, (n & 63) >> 3);
-}
-
-// Four int8 codes of one word -> two bf16 pairs, exact.  A code c is
-// (c & 0x7F) - (c < 0 ? 128 : 0).  A byte b < 128 under the high byte 0x43
-// reads as the bf16 128 + b, and the byte 0x80 there as 256.  So one byte
-// permute builds 128 + (c & 0x7F) for two codes, another builds 128 or 256
-// from their sign bits, and one packed bf16 subtraction leaves the codes.
-__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
-                                   *reinterpret_cast<__nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&d);
-}
-
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
-                                       uint32_t& hi) {
-  const uint32_t mag = w & 0x7F7F7F7Fu;
-  const uint32_t sgn = w & 0x80808080u;
-  lo = sub_bf16x2(__byte_perm(mag, 0x43434343u, 0x5140),
-                  __byte_perm(sgn, 0x43434343u, 0x5140));
-  hi = sub_bf16x2(__byte_perm(mag, 0x43434343u, 0x5342),
-                  __byte_perm(sgn, 0x43434343u, 0x5342));
 }
 
 // d[64, N] (+)= a[64, 16] b[16, N] for one warpgroup: a K-major, b
@@ -676,18 +778,6 @@ tile_kernel(const __grid_constant__ CUtensorMap map_x,
                tid / 32, tid % 32);
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
 template <typename C>
 int launch_tile(const void* x, const void* q, const void* s, void* out, int m,
                 int k, int n, cudaStream_t stream) {
@@ -722,10 +812,23 @@ extern "C" int mwx_int8_matmul(const void* x, const void* q, const void* s,
   if (m <= 0 || n <= 0) return 0;
   if (k <= 0 || k % 8 || n % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 1) return launch_matvec<1>(x, q, s, out, m, k, n, st);
-  if (m <= 2) return launch_matvec<2>(x, q, s, out, m, k, n, st);
-  if (m <= 4) return launch_matvec<4>(x, q, s, out, m, k, n, st);
-  if (m <= kVecMaxM) return launch_matvec<8>(x, q, s, out, m, k, n, st);
+  if (m <= kVecMaxM) {
+    // Launch shapes measured at a decode step's three shapes (K, N) on an
+    // H100: each fills the SMs about once with a few 16-row steps per warp.
+    // Wide (fc1, 1280 x 5120): 80 stripes of 64 columns, no cluster, 16
+    // warps of 5 steps.  Deep (fc2, 5120 x 1280): 20 stripes of 64
+    // columns, clusters of 8 along K.  Square (1280 x 1280): 40 stripes
+    // of 32 columns, clusters of 4.  Clusters never exceed one 16-row step
+    // per warp.
+    const int steps = (k + 15) / 16;
+    if (n >= 4 * k) return launch_matvec<64, 5, 16>(x, q, s, out, m, k, n, 1,
+                                                     st);
+    if (k >= 4 * n)
+      return launch_matvec<64, 2, 8>(x, q, s, out, m, k, n,
+                                     max(1, min(8, steps / 8)), st);
+    return launch_matvec<32, 3, 8>(x, q, s, out, m, k, n,
+                                   max(1, min(4, steps / 8)), st);
+  }
   // 256-column tiles where they fill the SMs one and a half times over
   // (a round of tiles that leaves most SMs idle costs more than the wide
   // tile saves), else 128-column ones

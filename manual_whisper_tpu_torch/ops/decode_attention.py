@@ -91,7 +91,9 @@ def _checked_output(name: str, q, k, v, length: torch.Tensor):
 
 def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pos: torch.Tensor) -> torch.Tensor:
-    """K3: q_len = 1 attention over the self cache, slots <= pos valid.
+    """K3: q_len = 1 attention over the self cache, slots <= pos valid;
+    the key axis split over a cluster of 4 blocks per (batch, head) while
+    there are no more (batch, head) pairs than SMs, of 2 beyond that.
 
     q [B, H, 1, dh]; k/v [B, H, T_max, dh]; pos one int32.  Returns
     [B, H, 1, dh]."""

@@ -98,6 +98,23 @@ def test_decode_cross_kernel_slices(dev, dh, n):
                                atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 194, 416, 417])
+def test_decode_self_kernel_slices(dev, dh, n):
+    """K3 splits the key axis over the blocks of a cluster: lengths n =
+    pos + 1 that leave blocks without keys, a ragged last slice, and the
+    main path's first, last and full self cache of 417 slots."""
+    q = _randn((2, 3, 1, dh), dev, 25)
+    k = _randn((2, 3, 417, dh), dev, 26)
+    v = _randn((2, 3, 417, dh), dev, 27)
+    pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+    before = _build.launches["decode_self_attention"]
+    out = decode_self_attention(q, k, v, pos)
+    assert _build.launches["decode_self_attention"] == before + 1
+    torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
+                               atol=1e-2, rtol=1e-2)
+
+
 def test_kernels_reject_wrong_inputs(dev):
     q = _randn((1, 2, 8, 64), dev, 7, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
@@ -141,8 +158,9 @@ def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
                                atol=1e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("m", [1, 4, 9, 17, 129, 300, 772])
-@pytest.mark.parametrize("k,n", [(64, 256), (1280, 5120), (1288, 1296)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 17, 129, 300, 772])
+@pytest.mark.parametrize("k,n", [(64, 256), (1280, 5120), (1288, 1296),
+                                 (5120, 1280)])
 def test_int8_matmul_kernel(dev, m, k, n):
     x = _randn((m, k), dev, 11)
     w = quantize_weight(_randn((k, n), dev, 12, torch.float32) / k ** 0.5)
