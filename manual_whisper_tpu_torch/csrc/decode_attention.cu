@@ -27,10 +27,10 @@
 // are loaded before any is used, and an online softmax (running max, sum
 // and weighted V in registers, base-2 exponentials with log2(e) folded
 // into q) needs no score buffer.  The lane groups of a block meet in
-// shared memory (K3: first the groups of a warp through shuffles), the
-// blocks' (max, sum, o[dh]) in distributed shared memory, and each block
-// normalises and writes dh/SPLIT of the outputs: one launch, no
-// workspace, no atomics.  The launch shape (`SplitCfg`) follows the
+// shared memory, the blocks' (max, sum, o[dh]) in distributed shared
+// memory, and each block normalises and writes dh/SPLIT of the outputs:
+// one launch, no workspace, no atomics.  The launch shape (`SplitCfg`)
+// follows the
 // shapes the host knows, never n, so a captured CUDA graph replays one
 // launch at every step:
 //   * K4, over 1500 cross positions: 8 blocks of 128 threads per (batch,
@@ -97,25 +97,25 @@ __device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
 // ---- K3 and K4: the key axis split over a cluster ------------------------
 
 // A launch shape of the split kernel: blocks per (batch, head) (the
-// cluster), keys in flight per lane group, threads per block.
-template <int SPLIT_, int KEYS_, int THREADS_, bool WARP_COMBINE_ = false,
-          bool PUSH_ = false>
+// cluster), keys in flight per lane group, threads per block, and whether
+// the ranks push their partial results to the rank that finishes them
+// (K3) or read each other's after a cluster barrier (K4).
+template <int SPLIT_, int KEYS_, int THREADS_, bool PUSH_>
 struct SplitCfg {
   static constexpr int SPLIT = SPLIT_;
   static constexpr int KEYS = KEYS_;
   static constexpr int THREADS = THREADS_;
-  static constexpr bool WARP_COMBINE = WARP_COMBINE_;
   static constexpr bool PUSH = PUSH_;
 };
 
 // K4 over the 1500 cross positions.
-using CrossCfg = SplitCfg<8, 8, 128>;
+using CrossCfg = SplitCfg<8, 8, 128, false>;
 // K3 over the self cache (at most 448 slots; 417 on the main paths, of
 // which 194..416 are valid).  Up to one (batch, head) per SM (the main
 // paths' batch 4 is 80): 4 blocks of 256 threads each, one pass of 4 keys
 // per lane group.  More (batch 16 is 320): 2 blocks of 256 threads each.
-using SelfCfg = SplitCfg<4, 4, 256, true, true>;
-using SelfWideCfg = SplitCfg<2, 4, 256, true, true>;
+using SelfCfg = SplitCfg<4, 4, 256, true>;
+using SelfWideCfg = SplitCfg<2, 4, 256, true>;
 
 template <int DH, typename C>
 __global__ void __launch_bounds__(C::THREADS)
@@ -138,8 +138,7 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ float inbox_o[kSplit][dims_per_rank];  // sent by the other ranks
   __shared__ float inbox_ml[kSplit][2];
   __shared__ alignas(8) uint64_t inbox_full;
-  constexpr bool kPush = C::PUSH && kSplit > 1;
-  if constexpr (kPush) {
+  if constexpr (C::PUSH) {
     if (threadIdx.x == 0) {
       mbar_init(smem_u32(&inbox_full), 1);
       fence_mbarrier_init();
@@ -147,7 +146,7 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cluster_arrive_relaxed();
   }
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = kSplit == 1 ? 0 : (int)cluster.block_rank();
+  const int rank = (int)cluster.block_rank();
   const int bh = blockIdx.x / kSplit;
 
   int n = *len_ptr + len_offset;
@@ -220,54 +219,23 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // the block's lane groups meet in shared memory
-  int parts = groups;
-  if constexpr (C::WARP_COMBINE) {
-    // first the groups of a warp, through shuffles
-#pragma unroll
-    for (int w = lanes_per_key; w < 32; w <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m, w);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l, w);
-      const float mn = fmaxf(m, m2);
-      const float a = exp2f(m - mn), b = exp2f(m2 - mn);
-      l = l * a + l2 * b;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        o[i] = o[i] * a + __shfl_xor_sync(0xffffffffu, o[i], w) * b;
-      m = mn;
-    }
-    parts = kBlock / 32;
-    if (tid % 32 < lanes_per_key) {
-      if (sub == 0) {
-        part_m[tid / 32] = m;
-        part_l[tid / 32] = l;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) part_o[tid / 32][sub * 8 + i] = o[i];
-    }
-  } else {
-    if (sub == 0) {
-      part_m[g] = m;
-      part_l[g] = l;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];
+  if (sub == 0) {
+    part_m[g] = m;
+    part_l[g] = l;
   }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];
   __syncthreads();
   float bm = -3.0e38f, bl = 0.f, bo = 0.f;
   if (tid < DH) {
-    for (int j = 0; j < parts; ++j) bm = fmaxf(bm, part_m[j]);
-    for (int j = 0; j < parts; ++j) {
+    for (int j = 0; j < groups; ++j) bm = fmaxf(bm, part_m[j]);
+    for (int j = 0; j < groups; ++j) {
       const float w = exp2f(part_m[j] - bm);       // 0 for a group without keys
       bl += part_l[j] * w;
       bo += part_o[j][tid] * w;
     }
-    block_o[tid] = bo;
-    if (tid == 0) {
-      block_ml[0] = bm;
-      block_ml[1] = bl;
-    }
   }
-  if constexpr (kPush) {
+  if constexpr (C::PUSH) {
     // each rank stores its (max, sum) into every rank and its dims of o
     // into the rank that writes them (asynchronous stores counted at the
     // receiver's mbarrier); each rank waits for its own bytes only, and no
@@ -303,11 +271,12 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     return;
   }
-  if constexpr (kSplit == 1) {
-    __syncthreads();
-    if (tid < DH)
-      out[(size_t)bh * DH + tid] = __float2bfloat16(block_o[tid] / block_ml[1]);
-    return;
+  if (tid < DH) {
+    block_o[tid] = bo;
+    if (tid == 0) {
+      block_ml[0] = bm;
+      block_ml[1] = bl;
+    }
   }
   cluster.sync();  // every block's partial result is written and visible
 
@@ -346,7 +315,7 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = C::SPLIT > 1;
+  cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, split_kernel<DH, C>, (const bf16*)q, (const bf16*)k,
       (const bf16*)v, (bf16*)out, (const int*)len_ptr, len_offset, t_max,

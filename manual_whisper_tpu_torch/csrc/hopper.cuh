@@ -1,4 +1,4 @@
-// Shared by the Hopper kernels (K2, K3, K6): shared-memory and cluster
+// Shared by the Hopper kernels (K2 to K6): shared-memory and cluster
 // barriers, the Tensor Memory Accelerator (TMA), warpgroup products
 // (wgmma), and tensor maps encoded on the host without a link against
 // libcuda.

@@ -90,10 +90,8 @@ constexpr int kVecMaxCluster = 8;
 template <int WORDS>
 __device__ __forceinline__ void ld_stream(uint32_t (&w)[WORDS],
                                           const int8_t* p) {
-  if constexpr (WORDS == 4)
-    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
-  else if constexpr (WORDS == 2)
+  static_assert(WORDS == 1 || WORDS == 2, "stripes of 32 or 64 columns");
+  if constexpr (WORDS == 2)
     asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
         : "=r"(w[0]), "=r"(w[1]) : "l"(p));
   else
@@ -123,7 +121,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 // from device memory into A fragments is the freedom in which weight
 // column stands for which A row, and in the order of K within a product:
 //   * lane (g, c) loads BYTES = COLS / 8 codes of its weight rows 2c,
-//     2c + 1, 2c + 8 and 2c + 9 of each 16-row step (four loads of 4 to 16
+//     2c + 1, 2c + 8 and 2c + 9 of each 16-row step (four loads of 4 or 8
 //     bytes: eight lanes cover a row's COLS contiguous bytes);
 //   * one byte permute interleaves rows 2c and 2c + 1 (and 2c + 8, 2c + 9)
 //     column by column, and the tile product's widening turns each pair

@@ -64,9 +64,9 @@ int launch_empty(void* out, int bh, cudaStream_t stream) {
 """
 
 
-def _self(s, u, t, warp, push="false", patches=()):
-    return ("", f"return launch_split<64, SplitCfg<{s}, {u}, {t}, {warp}, "
-                f"{push}>>(q, k, v, out, len_ptr, len_offset, bh, t_max, "
+def _self(s, u, t, push="true", patches=()):
+    return ("", f"return launch_split<64, SplitCfg<{s}, {u}, {t}, {push}>>("
+                "q, k, v, out, len_ptr, len_offset, bh, t_max, "
                 "(cudaStream_t)stream);", patches)
 
 
@@ -155,12 +155,14 @@ def _marks(header, marks):
 # outputs written; K6: loop done, warps met, all blocks run, sums sent (or
 # with no cluster, written), outputs written
 _SELF_MARKS = _marks('#include "hopper.cuh"\n', [
-    "  cg::cluster_group cluster = cg::this_cluster();",
+    "  const int bh = blockIdx.x / kSplit;",
     "<  const int per = (n + kSplit - 1) / kSplit;",
-    "<  // the block's lane groups meet in shared memory\n  int parts",
+    "<  // the block's lane groups meet in shared memory\n  if (sub == 0) {\n"
+    "    part_m[g] = m;\n    part_l[g] = l;\n  }\n#pragma unroll\n"
+    "  for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];",
     "    cluster_wait();   // every rank runs and has set up its barrier",
     "      mbar_wait(smem_u32(&inbox_full), 0);",
-    "<    return;\n  }\n  if constexpr (kSplit == 1) {"])
+    "<    return;\n  }\n  if (tid < DH) {\n    block_o[tid] = bo;"])
 _MATVEC_MARKS = _marks('#include "int8.cuh"\n', [
     "  const int cs = (int)cluster.num_blocks();",
     "<  // the warps meet in shared memory: acc[j]",
@@ -179,23 +181,21 @@ VARIANTS = {
         "const void* len_ptr, int len_offset, int bh, int t_max, "
         "int head_dim, void* stream",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        {**{f"split{s}_keys{u}_threads{t}" + ("_warps" if w else "")
-            + ("_push" if p else ""):
-            _self(s, u, t, "true" if w else "false", "true" if p else "false")
-            for s, u, t, w, p in (
-                (4, 4, 256, 1, 1), (2, 4, 256, 1, 1), (8, 8, 128, 0, 0),
-                (4, 4, 256, 1, 0), (4, 2, 256, 1, 1), (2, 4, 128, 1, 1),
-                (1, 4, 512, 1, 0))},
-         **{f"stamps_split{s}_keys4_threads{t}_warps_push": _self(
-             s, 4, t, "true", "true", _SELF_MARKS)
+        {**{f"split{s}_keys{u}_threads{t}" + ("_push" if p else "_pull"):
+            _self(s, u, t, "true" if p else "false")
+            for s, u, t, p in (
+                (4, 4, 256, 1), (2, 4, 256, 1), (8, 8, 128, 0), (4, 4, 256, 0),
+                (4, 2, 256, 1), (2, 4, 128, 1), (8, 4, 128, 1))},
+         **{f"stamps_split{s}_keys4_threads{t}_push": _self(
+             s, 4, t, "true", _SELF_MARKS)
             for s, t in ((4, 256), (2, 256))},
-         **{f"probe_split4_keys4_threads256_warps_push_{name}":
-            _self(4, 4, 256, "true", "true", patches)
+         **{f"probe_split4_keys4_threads256_push_{name}":
+            _self(4, 4, 256, "true", patches)
             for name, patches in _SELF_PROBES.items()},
          **{f"probe_empty_split{s}": (
              _EMPTY_SELF, f"return launch_empty<{s}>(out, bh, "
                           "(cudaStream_t)stream);", ())
-            for s in (1, 2, 4)}}),
+            for s in (1, 2, 4, 8)}}),
     "int8_matmul": (
         "int8_matmul.cu",
         "const void* x, const void* q, const void* s, void* out, int m, "
@@ -207,7 +207,7 @@ VARIANTS = {
                 (64, 5, 16, 1), (64, 3, 16, 1), (32, 5, 16, 1),
                 (64, 2, 8, 8), (64, 5, 8, 8), (64, 3, 8, 8), (32, 3, 16, 8),
                 (32, 3, 8, 4), (32, 2, 8, 4), (32, 5, 8, 2), (32, 4, 16, 2),
-                (128, 2, 8, 0))},
+                (64, 2, 8, 0))},
          "stamps_cols64_u2_warps8_cs8": _matvec(64, 2, 8, _fixed(8, 8),
                                                 _MATVEC_MARKS),
          "stamps_cols32_u3_warps8_cs4": _matvec(32, 3, 8, _fixed(4, 8),

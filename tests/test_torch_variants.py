@@ -1,10 +1,10 @@
 """PyTorch port: the kernel-variant timer's sources, on the CPU.
 
 ``kernel_variants`` builds its probes from copies of ``csrc/*.cu`` with one
-part replaced; a replacement whose text is no longer in the source would
-only fail on the card.  So each variant's patches are applied here, and the
-timeline's and ptxas's parsers are checked on canned text.  Nothing is
-built.
+part replaced; a replacement whose text is no longer in the source, or
+stands there more than once, would only show on the card.  So each
+variant's patches are applied here, and ptxas's parser is checked on
+canned text.  Nothing is built.
 """
 
 import pytest
@@ -22,7 +22,7 @@ def test_variant_patches_apply(name, var):
     text = (_build.CSRC_DIR / src).read_text()
     _, body, patches = variants[var]
     for old, new in patches:
-        assert text.count(old) >= 1, f"{var}: {old!r} not in {src}"
+        assert text.count(old) == 1, f"{var}: {old!r} not once in {src}"
         text = text.replace(old, new)
     if var.startswith("stamps"):
         assert all(f"MWX_STAMP({i});" in text for i in range(6))
