@@ -5,7 +5,7 @@
     python3 chip_smoke.py --rows decode_self_attention,int8_matmul
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
-run (for work on one kernel; the names are ``flash_attention``,
+run (for work on one kernel; the names are ``mel``, ``flash_attention``,
 ``decode_self_attention``, ``decode_cross_attention``,
 ``decode_cross_attention_int8`` and ``int8_matmul``); no result line is
 printed.
@@ -22,7 +22,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    main paths' large-v3 shapes, with the tolerance printed beside it, and
    time kernel, plain version and one PyTorch library call (a yardstick
    the port never calls) with CUDA graphs of repeated launches over enough
-   input copies to exceed the 50 MB L2 cache.  K2 is timed at the
+   input copies to exceed the 50 MB L2 cache.  K1 is timed at B=4
+   windows of 30 s, 128 mels, and checked after the normalisation there and
+   on rows of zeros, quiet noise and DC plus a faint 7 kHz tone (a
+   ``kernel_check`` line); its bound counts the twice-folded DFT the kernel
+   does and the filterbank's nonzeros, the bounds of the DFT folded once
+   and of the dense product stand beside it, and a ``library_route`` line
+   times ``torch.stft`` -> ``abs()**2`` -> ``@`` filters -> ``log10``
+   (four calls, so not the row's ``library_ms``).  K2 is timed at the
    encoder's T=1500, dh=64 (a ``kernel_check`` line holds it against the
    plain version at ragged query and key tiles and at dh=32).  K3 is timed
    over the positions the decode loop visits (and checked at slots that
@@ -68,6 +75,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -85,6 +93,7 @@ from manual_whisper_tpu_torch.ops.decode_attention import (
     attend_int8_plain, attend_plain, decode_cross_attention,
     decode_cross_attention_int8, decode_self_attention)
 from manual_whisper_tpu_torch.ops.mel import (log_mel_spectrogram,
+                                              mel_filter_bank,
                                               normalize_log_mel,
                                               unnormalized_log_mel,
                                               unnormalized_log_mel_plain)
@@ -346,6 +355,97 @@ def cross_int8_rows(randn, dev, main: dict):
                  cross_int8_row(randn, dev, 16, h, dh, ta, torch.float32)]
 
 
+def mel_hard_rows(n_samples: int, dev, randn) -> torch.Tensor:
+    """Rows that test K1's floor and range: exact zeros (a batch's padding
+    row), quiet noise (amplitude 1e-4), DC 0.5 plus a 1e-3 tone at 7 kHz."""
+    t = torch.arange(n_samples, device=dev) / 16000.0
+    return torch.stack([
+        torch.zeros(n_samples, device=dev),
+        1e-4 * randn((n_samples,), torch.float32),
+        0.5 + 1e-3 * torch.sin(2 * math.pi * 7000.0 * t)]).contiguous()
+
+
+def mel_stft_chain(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """The route a PyTorch user would take to raw log10-mel, four calls:
+    ``torch.stft`` (Hann 400, hop 160, reflect) -> ``abs() ** 2`` -> ``@``
+    the filterbank -> ``log10(clamp)``.  A yardstick; the port never calls
+    it."""
+    window, filters = _stft_constants(n_mels, audio.device)
+    spec = torch.stft(audio, 400, 160, window=window, center=True,
+                      pad_mode="reflect", return_complex=True)
+    power = spec[..., :audio.shape[-1] // 160].abs() ** 2   # [B, 201, F]
+    return torch.log10(torch.clamp(power.transpose(-1, -2) @ filters,
+                                   min=1e-10))
+
+
+@functools.lru_cache(maxsize=4)
+def _stft_constants(n_mels: int, dev):
+    return (torch.hann_window(400, periodic=True, device=dev),
+            torch.from_numpy(mel_filter_bank(n_mels).astype(np.float32)
+                             ).to(dev))
+
+
+def mel_row(randn, dev) -> dict:
+    """K1 vs its plain version on B=4 windows of 30 s at 128 mels (noise
+    over a gated 220 Hz tone), compared after the normalisation, then on
+    ``mel_hard_rows`` (logged as a ``kernel_check`` line); timed over audio
+    copies that exceed L2.  No single PyTorch call computes log-mel, so
+    ``library_ms`` is null; a ``library_route`` line times
+    ``mel_stft_chain``.  Bound: the multiply-adds the kernel's twice-folded
+    DFT does (200 x 101 + 199 x 100 a frame: taps folded by the window's
+    symmetry, bins 101..200 from the sums of bins 0..100) and the
+    filterbank's nonzeros at the f32 rate, or audio, constants and output
+    moved once.  Beside it stand the bounds of the DFT folded once (200 x
+    201 + 199 x 199) and of the dense product (400 x 402 + 201 x n_mels)."""
+    b, n_samples, n_mels = 4, 480000, 128
+    t = torch.arange(n_samples, device=dev) / 16000.0
+    audio = (0.1 * randn((b, n_samples), torch.float32)
+             + 0.3 * torch.sin(2 * math.pi * 220.0 * t)
+             * (torch.sin(2 * math.pi * 0.7 * t) > 0)).float().contiguous()
+
+    def normalized(fn, x):
+        return normalize_log_mel(fn(x, n_mels))
+    err = compare("mel", normalized(unnormalized_log_mel, audio),
+                  normalized(unnormalized_log_mel_plain, audio))
+    hard = mel_hard_rows(n_samples, dev, randn)
+    log(json.dumps({
+        "phase": "kernel_check", "name": "mel",
+        "shape": f"3 rows x T={n_samples} n_mels={n_mels}: zeros, noise "
+                 "1e-4, DC 0.5 + 1e-3 tone at 7 kHz; after normalisation",
+        "max_abs_err": compare("mel", normalized(unnormalized_log_mel, hard),
+                               normalized(unnormalized_log_mel_plain, hard)),
+        "tol": TOL["mel"]}))
+    n_frames = n_samples // 160
+    nnz = int(np.count_nonzero(mel_filter_bank(n_mels).astype(np.float32)))
+    sets = [(randn((b, n_samples), torch.float32),)
+            for _ in range(copies_for(audio.numel() * 4))]
+    io_bytes = 4.0 * (b * n_samples + b * n_frames * n_mels)
+    twice = bound(2.0 * b * n_frames * (200 * 101 + 199 * 100 + nnz),
+                  io_bytes + 4.0 * (2 * 200 * 101 + nnz + 4 * n_mels),
+                  F32_FLOPS)
+    once = bound(2.0 * b * n_frames * (200 * 201 + 199 * 199 + nnz),
+                 io_bytes + 4.0 * ((200 + 199) * 201 + nnz + 4 * n_mels),
+                 F32_FLOPS)
+    dense = bound(2.0 * b * n_frames * (400 * 402 + 201 * n_mels),
+                  io_bytes + 4.0 * (400 * 402 + 201 * n_mels), F32_FLOPS)
+    route_err = compare("mel", normalized(mel_stft_chain, audio),
+                        normalized(unnormalized_log_mel_plain, audio))
+    log(json.dumps({
+        "phase": "library_route", "name": "mel",
+        "route": "torch.stft -> abs()**2 -> @ filters -> log10(clamp)",
+        "calls": 4, "shape": f"B={b} T={n_samples} n_mels={n_mels}",
+        "ms": graph_ms(lambda x: mel_stft_chain(x, n_mels), sets),
+        "max_abs_err_vs_plain": route_err}))
+    return dict(
+        shape=f"B={b} T={n_samples} n_mels={n_mels}", max_abs_err=err,
+        ms=graph_ms(lambda x: unnormalized_log_mel(x, n_mels), sets),
+        plain_ms=graph_ms(lambda x: unnormalized_log_mel_plain(x, n_mels),
+                          sets),
+        library_ms=None, bound=twice, other_bounds={
+            "folded_once_bound_ms": once[0], "dense_product_bound_ms":
+            dense[0]})
+
+
 def flash_row(randn, b, h, tt, dh):
     """K2 vs its plain version at [b, h, tt, dh], then timed over copies
     that exceed L2; the yardstick is SDPA.  Bound: q, k, v read and the
@@ -476,6 +576,7 @@ def _row_line(phase: str, name: str, row: dict) -> str:
             "bound_by": row["bound"][1]}
     if "exp2" in row:
         line["exp2"] = row["exp2"]
+    line.update(row.get("other_bounds", {}))
     return json.dumps(line)
 
 
@@ -498,7 +599,9 @@ def phase_rows(dev, main: dict, names) -> None:
     randn = seeded_randn(dev, 1234)
     b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
     for name in names:
-        if name == "int8_matmul":
+        if name == "mel":
+            rows = [mel_row(randn, dev)]
+        elif name == "int8_matmul":
             row, extra = int8_matmul_rows(randn, main)
             rows = [row] + extra
         elif name == "decode_self_attention":
@@ -523,25 +626,7 @@ def phase_kernels(dev, main: dict) -> dict:
     randn = seeded_randn(dev, 1234)
     rows = {}
 
-    # K1 mel: B=4 windows of 30 s, 128 mels
-    b, n_samples, n_mels = 4, 480000, 128
-    t = torch.arange(n_samples, device=dev) / 16000.0
-    audio = (0.1 * randn((b, n_samples), torch.float32)
-             + 0.3 * torch.sin(2 * math.pi * 220.0 * t)
-             * (torch.sin(2 * math.pi * 0.7 * t) > 0)).float().contiguous()
-    err = compare("mel",
-                  normalize_log_mel(unnormalized_log_mel(audio, n_mels)),
-                  normalize_log_mel(unnormalized_log_mel_plain(audio, n_mels)))
-    n_frames = n_samples // 160
-    sets = [(audio.clone(), n_mels) for _ in range(copies_for(audio.numel() * 4))]
-    ops = 2.0 * b * n_frames * (400 * 402 + 201 * n_mels)
-    nbytes = 4.0 * (b * n_samples + b * n_frames * n_mels + 400 * 402
-                    + 201 * n_mels)
-    rows["mel"] = dict(
-        shape=f"B={b} T={n_samples} n_mels={n_mels}", max_abs_err=err,
-        ms=graph_ms(unnormalized_log_mel, sets),
-        plain_ms=graph_ms(unnormalized_log_mel_plain, sets),
-        library_ms=None, bound=bound(ops, nbytes, F32_FLOPS))
+    rows["mel"] = mel_row(randn, dev)
 
     # K2 flash: B=4, H=20, T=1500, dh=64 (the encoder's); ragged check
     log(json.dumps(flash_check(randn)))
@@ -980,7 +1065,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", default="", metavar="KERNEL[,KERNEL]",
                     help="only build, check and time these kernels' rows "
-                         "(flash_attention, decode_self_attention, "
+                         "(mel, flash_attention, decode_self_attention, "
                          "decode_cross_attention, "
                          "decode_cross_attention_int8, int8_matmul), then "
                          "stop without a result line")
@@ -1038,6 +1123,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "shape": row["shape"]})
+        kernels[-1].update(row.get("other_bounds", {}))
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

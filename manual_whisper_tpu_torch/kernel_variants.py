@@ -2,6 +2,7 @@
 
     python3 -m manual_whisper_tpu_torch.kernel_variants decode_self_attention
     python3 -m manual_whisper_tpu_torch.kernel_variants int8_matmul
+    python3 -m manual_whisper_tpu_torch.kernel_variants mel
 
 Run from the repository root (it times with ``chip_smoke.py``'s CUDA-graph
 timer).  Each variant is a small source under ``_kernels/variants/`` that
@@ -121,17 +122,18 @@ _MATVEC_PROBES = {
          "  // the warps meet in shared memory: acc[j]")],
 }
 
-# Timeline: thread 0 of each block writes %globaltimer (ns, one clock for
-# the whole card) at marks 0..5 and its SM at slot 7; mwx_read_stamps
-# copies them out.
+# Timeline: thread 0 of each block (numbered along x, then y) writes
+# %globaltimer (ns, one clock for the whole card) at marks 0..5 and its SM
+# at slot 7; mwx_read_stamps copies them out.
 _STAMPS = (
     "\n__device__ unsigned long long mwx_stamps[8192 * 8];\n"
-    "#define MWX_STAMP(i) do { if (threadIdx.x == 0 && blockIdx.x < 8192) {"
+    "#define MWX_STAMP(i) do { const unsigned b_ = blockIdx.y * gridDim.x"
+    " + blockIdx.x; if (threadIdx.x == 0 && b_ < 8192) {"
     " unsigned long long t_; unsigned s_;"
     " asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_));"
     " asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s_));"
-    " mwx_stamps[blockIdx.x * 8 + (i)] = t_;"
-    " mwx_stamps[blockIdx.x * 8 + 7] = s_; } } while (0)\n"
+    " mwx_stamps[b_ * 8 + (i)] = t_;"
+    " mwx_stamps[b_ * 8 + 7] = s_; } } while (0)\n"
     'extern "C" int mwx_read_stamps(void* dst) {\n'
     "  return (int)cudaMemcpyFromSymbol(dst, mwx_stamps, "
     "sizeof(mwx_stamps));\n}\n")
@@ -170,6 +172,56 @@ _MATVEC_MARKS = _marks('#include "int8.cuh"\n', [
     "  if (cs > 1) cluster_wait();   // every block of the cluster runs by now",
     "<  if (cs == 1) return;",
     "<}\n\n// One cluster of `cs` blocks per COLS columns"])
+
+# K1: MelCfg<TM, TN, GX, GY, LX, KC, STAGES> (frames and frequencies a
+# thread, a half's threads along frequencies and frames, a warp's threads
+# along the frequencies, constant rows a chunk, chunks in the ring); l2:
+# every thread reads its constants from L2 instead of a ring copy
+_MEL_SHIPPED = "6, 13, 8, 16, 4, 20, 3"
+
+
+def _mel(cfg, l2="false", patches=()):
+    return ("", f"return launch_mel<MelCfg<{cfg}>, {l2}>(audio, cos_p, "
+                "sin_p, bands, weights, out, batch, n_samples, n_frames, "
+                "n_mels, (cudaStream_t)stream);", patches)
+
+
+def _mel_name(cfg):
+    return "tile" + cfg.replace(", ", "_")
+
+
+def mel_tile(var):
+    """(TN, GX) of a K1 variant's name: the packing its constants need."""
+    parts = var.split("tile")[1].split("_")
+    return int(parts[1]), int(parts[2])
+
+
+_MEL_PROBES = {
+    "no_filterbank": [("  for (int m = tid / 32; m < n_mels; m += C::kWarps) {",
+                       "  if (power[tid] == 1.2345f) tile[tid] = 0.f;\n"
+                       "  for (int m = tid / 32; m < 0; m += C::kWarps) {")],
+    "no_constant_copies": [("      cp_async16(dst + i, src + i);",
+                            "      ;")],
+    "no_constant_loads": [
+        ("      const float4 v = kFromL2 ? __ldg(src) : *src;",
+         "      const float4 v = make_float4(r + 0.5f, p + 0.25f, "
+         "__int_as_float(threadIdx.x), 0.75f);")],
+    "no_folds": [("  fold_span<C>(fold, span, 1.f);", "  ;"),
+                 ("      fold_span<C>(fold, span, -1.f);", "      ;")],
+    "no_audio_loads": [("__ldg(row + reflect(p0 + i, n_samples))",
+                        "(float)(p0 + i)")],
+}
+
+# marks: start, cosine fold written (this block's thread 0), cosine
+# product done and sine fold written, sine product done, filterbank
+# starts, outputs written
+_MEL_MARKS = _marks("#include <cuda_runtime.h>\n", [
+    "  const int tid = threadIdx.x;",
+    "<  // the two folded products as one walk over 2 * kChunks chunks",
+    "      fold_span<C>(fold, span, -1.f);",
+    "  __syncthreads();                     // the exchange's region is free",
+    "<  // filterbank: a warp takes a mel band at a time, its lanes the",
+    "<}\n\ntemplate <class C, bool kFromL2 = false>\nint launch_mel("])
 
 # name -> (source, the entry point's C parameters, their argtypes,
 # {variant: (code before mwx_variant, body of mwx_variant, probe patches)});
@@ -215,6 +267,29 @@ VARIANTS = {
          **{f"probe_cols64_u2_warps8_cs8_{name}": _matvec(
              64, 2, 8, _fixed(8, 8), patches)
             for name, patches in _MATVEC_PROBES.items()}}),
+    "mel": (
+        "mel.cu",
+        "const void* audio, const void* cos_p, const void* sin_p, "
+        "const void* bands, const void* weights, void* out, int batch, "
+        "int n_samples, int n_frames, int n_mels, void* stream",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        {**{_mel_name(cfg) + ("_from_l2" if l2 == "true" else ""):
+            _mel(cfg, l2)
+            for cfg, l2 in (
+                (_MEL_SHIPPED, "false"), (_MEL_SHIPPED, "true"),
+                ("6, 13, 8, 16, 8, 20, 3", "false"),
+                ("6, 13, 8, 16, 4, 8, 4", "false"),
+                ("6, 13, 8, 16, 4, 40, 2", "false"),
+                ("6, 13, 8, 16, 4, 50, 2", "false"),
+                ("4, 13, 8, 16, 4, 20, 3", "false"),
+                ("4, 13, 8, 24, 4, 20, 3", "false"),
+                ("2, 13, 8, 48, 4, 20, 3", "false"),
+                ("6, 7, 16, 16, 4, 20, 3", "false"))},
+         f"stamps_{_mel_name(_MEL_SHIPPED)}": _mel(
+             _MEL_SHIPPED, patches=_MEL_MARKS),
+         **{f"probe_{_mel_name(_MEL_SHIPPED)}_{name}": _mel(
+             _MEL_SHIPPED, patches=patches)
+            for name, patches in _MEL_PROBES.items()}}),
 }
 
 
@@ -257,13 +332,14 @@ def build_variants(name: str) -> dict:
 
 def _ptxas(log: str) -> list:
     """ptxas's register and spill lines of the variant's kernels
-    (``split_kernel``, ``empty_kernel``, ``matvec_kernel``), each after its
+    (``split_kernel``, ``empty_kernel``, ``matvec_kernel``,
+    ``log_mel_kernel``), each after its
     template arguments as they stand in the mangled name."""
     out, entry = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"(split_kernel|empty_kernel|matvec_kernel)"
-                              r"I(\w*?)EE", line)
+            found = re.search(r"(split_kernel|empty_kernel|matvec_kernel|"
+                              r"log_mel_kernel)I(\w*?)EE", line)
             entry = f"{found.group(1)}<{found.group(2)}>" if found else ""
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry}: {line.strip()}")
@@ -379,6 +455,54 @@ def run_matvec(fns, randn, dev):
         report(shape, timed, sets)
 
 
+def run_mel(fns, randn, dev):
+    """K1 at the main path's shape (B=4 windows of 30 s, 128 mels) over
+    audio copies that exceed L2, each variant held against the plain
+    version after the normalisation (chip_smoke's TOL["mel"]); beside
+    them the shipped wrapper, the plain version and the four-call
+    ``torch.stft`` route."""
+    from chip_smoke import TOL, copies_for, mel_stft_chain
+    from .ops.mel import (KERNEL_COLS, _constants, normalize_log_mel,
+                          pack_folded,
+                          unnormalized_log_mel, unnormalized_log_mel_plain)
+    b, n, n_mels = 4, 480000, 128
+    n_frames = n // 160
+    c = _constants(n_mels, dev)
+    packs = {}
+    for var in fns:
+        tile = mel_tile(var)
+        if tile not in packs:
+            packs[tile] = tuple(
+                torch.from_numpy(pack_folded(
+                    f[:, :KERNEL_COLS].cpu().numpy(), *tile)).to(dev)
+                for f in (c.cos_fold, c.sin_fold))
+    consts = {var: (*packs[mel_tile(var)], c.bands, c.weights)
+              for var in fns}
+    sets = [(0.1 * randn((b, n), torch.float32),)
+            for _ in range(copies_for(4 * b * n))]
+    outs = {a: torch.empty((b, n_frames, n_mels), device=dev)
+            for (a,) in sets}
+    calls = {var: _launcher(fn, b, n, n_frames, n_mels)
+             for var, fn in fns.items()}
+    shape = f"B={b} T={n} n_mels={n_mels}"
+    a = sets[0][0]
+    ref = normalize_log_mel(unnormalized_log_mel_plain(a, n_mels))
+    for var, call in calls.items():
+        if var.startswith("stamps"):
+            timeline(var, fns[var], call, (a, *consts[var], outs[a]))
+        if not var.startswith("probe"):
+            call(a, *consts[var], outs[a])
+            err = float((normalize_log_mel(outs[a]) - ref).abs().max())
+            if not err <= TOL["mel"][0]:
+                raise AssertionError(f"{var} at {shape}: max abs error {err}")
+    timed = {var: (lambda c_, k_: lambda x: c_(x, *k_, outs[x]))(
+        call, consts[var]) for var, call in calls.items()}
+    timed["shipped"] = lambda x: unnormalized_log_mel(x, n_mels)
+    timed["plain"] = lambda x: unnormalized_log_mel_plain(x, n_mels)
+    timed["stft_chain"] = lambda x: mel_stft_chain(x, n_mels)
+    report(shape, timed, sets)
+
+
 def report(shape, timed, sets):
     from chip_smoke import graph_ms
     names = list(timed)
@@ -406,8 +530,8 @@ def main() -> int:
     print(f"card: {card_line()}", flush=True)
     fns = build_variants(args.kernel)
     randn = seeded_randn(dev, 4321)
-    {"decode_self_attention": run_self,
-     "int8_matmul": run_matvec}[args.kernel](fns, randn, dev)
+    {"decode_self_attention": run_self, "int8_matmul": run_matvec,
+     "mel": run_mel}[args.kernel](fns, randn, dev)
     return 0
 
 

@@ -46,8 +46,9 @@ _I = ctypes.c_int
 # C signature of each entry point: (library, symbol) -> argtypes
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "mel": {
-        # audio, dft, filters, out, batch, n_samples, n_frames, n_mels, stream
-        "mwx_log_mel": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # audio, cos_packed, sin_packed, bands, weights, out, batch,
+        # n_samples, n_frames, n_mels, stream
+        "mwx_log_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, out, batch*heads, t_q, t_k, head_dim, stream

@@ -8,16 +8,20 @@ dynamic-range normalisation (max-8 clamp, (x+4)/4).
   replacing ``_mel_kernel`` of ``ops/mel_pallas.py``).  On a CUDA tensor it
   launches the kernel, which builds the frames itself from the audio
   (reflect padding by index, hop 160), so no ``[B, F, 400]`` frame tensor
-  is written; it takes any frame count.  On a CPU tensor it runs the plain
-  version ``unnormalized_log_mel_plain`` (reflect pad, framing, two f32
-  matmuls), which follows the JAX XLA path.
+  is written; it takes any frame count.  The kernel multiplies by the
+  DFT folded twice by symmetry (taps k and 400 - k, bins f and 200 - f)
+  and sums the filterbank from a table of its nonzeros (``MelConstants``),
+  all taken from the f32 values the plain version reads.  On a CPU tensor
+  it runs the plain version
+  ``unnormalized_log_mel_plain`` (reflect pad, framing, two f32 matmuls),
+  which follows the JAX XLA path.
 - The global-max normalisation stays a torch reduction outside the kernel.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,6 +36,8 @@ CHUNK_LENGTH = 30
 N_SAMPLES = CHUNK_LENGTH * SAMPLE_RATE          # 480000
 N_FRAMES = N_SAMPLES // HOP_LENGTH              # 3000
 N_FREQS = N_FFT // 2 + 1                        # 201
+MAX_KERNEL_MELS = 128                           # K1's band table: bands
+MAX_KERNEL_BAND = 16                            # and bins a band
 
 
 def _hz_to_mel_slaney(freq):
@@ -92,12 +98,80 @@ def _dft_window_matrix() -> np.ndarray:
     return window[:, None] * mat
 
 
+def band_table(filters: np.ndarray):
+    """The nonzeros of a filterbank ``[201, n_mels]``, band by band: int32
+    ``[n_mels, 4]`` rows (first bin, bins, offset of the first weight, the
+    widest band's bins) and the weights of every band packed in one f32
+    vector.  A slaney band's nonzeros are one run of bins (a triangle)."""
+    table = np.zeros((filters.shape[1], 4), np.int32)
+    packed = []
+    offset = 0
+    for m in range(filters.shape[1]):
+        nz = np.flatnonzero(filters[:, m])
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 0)
+        table[m, :3] = (lo, hi - lo, offset)
+        packed.append(filters[lo:hi, m])
+        offset += hi - lo
+    table[:, 3] = table[:, 1].max()
+    return table, np.concatenate(packed).astype(np.float32)
+
+
+def pack_folded(fold: np.ndarray, tn: int, gx: int) -> np.ndarray:
+    """Columns of a folded DFT half ``[rows <= 200, cols <= tn * gx]`` as K1
+    reads them: ``[200, planes * gx * 4]`` with planes = ceil(tn / 4),
+    column ``g * tn + s`` of a row at plane ``s // 4``, group ``g``, lane
+    ``s % 4``, so the ``tn`` constants of thread group ``g`` are float4s
+    ``gx * 16`` bytes apart.  Rows and lanes past the data are zero."""
+    planes = -(-tn // 4)
+    out = np.zeros((N_FFT // 2, planes, gx, 4), np.float32)
+    f = np.arange(fold.shape[1])
+    g, s = f // tn, f % tn
+    out[:fold.shape[0], s // 4, g, s % 4] = fold
+    return out.reshape(N_FFT // 2, planes * gx * 4)
+
+
+class MelConstants(NamedTuple):
+    """K1's constants on one device, f32 tensors but ``bands`` (int32).
+
+    ``dft`` [400, 402] and ``filters`` [201, n_mels] are what the plain
+    version multiplies by.  The kernel takes the same values folded:
+    ``cos_fold`` [200, 201] is rows 1..200 of the cosine half, ``sin_fold``
+    [199, 201] rows 1..199 of the sine half (the periodic Hann window is
+    zero at tap 0 and symmetric about tap 200, so taps k and 400 - k share
+    a row), ``cos_packed``/``sin_packed`` their columns 0..100 as the
+    kernel reads them (``pack_folded`` for its 13 frequencies a thread, 8
+    threads along them; row k of column 200 - f is (-1)^k times column f's,
+    negated for the sine, so the kernel takes bins 101..200 from the same
+    sums), and ``bands``/``weights`` are ``band_table(filters)``."""
+    dft: torch.Tensor
+    filters: torch.Tensor
+    cos_fold: torch.Tensor
+    sin_fold: torch.Tensor
+    cos_packed: torch.Tensor
+    sin_packed: torch.Tensor
+    bands: torch.Tensor
+    weights: torch.Tensor
+    widest: int                 # the widest band's bins
+
+
+KERNEL_TILE = (13, 8)       # K1's frequencies a thread, threads along them
+KERNEL_COLS = N_FFT // 4 + 1                    # 101: bins 0..100
+
+
 @functools.lru_cache(maxsize=8)
-def _constants(n_mels: int, device: torch.device):
-    """(DFT [400, 402], filterbank [201, n_mels]) as f32 tensors on device."""
-    dft = torch.from_numpy(_dft_window_matrix().astype(np.float32))
-    filters = torch.from_numpy(mel_filter_bank(n_mels).astype(np.float32))
-    return dft.to(device), filters.to(device)
+def _constants(n_mels: int, device: torch.device) -> MelConstants:
+    """K1's constants for ``n_mels`` bands on ``device``, made once."""
+    dft = _dft_window_matrix().astype(np.float32)
+    filters = mel_filter_bank(n_mels).astype(np.float32)
+    half = N_FFT // 2
+    bands, weights = band_table(filters)
+    cos_fold, sin_fold = dft[1:half + 1, :N_FREQS], dft[1:half, N_FREQS:]
+    arrays = (dft, filters, cos_fold, sin_fold,
+              pack_folded(cos_fold[:, :KERNEL_COLS], *KERNEL_TILE),
+              pack_folded(sin_fold[:, :KERNEL_COLS], *KERNEL_TILE), bands,
+              weights)
+    return MelConstants(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                          for a in arrays), widest=int(bands[0, 3]))
 
 
 def _frame(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -113,11 +187,11 @@ def unnormalized_log_mel_plain(audio: torch.Tensor, n_mels: int = 80
     [B, T//160, n_mels] (the JAX XLA path: frames @ DFT, power, @ filters,
     log10(max(x, 1e-10)), all in f32)."""
     n_frames = audio.shape[-1] // HOP_LENGTH
-    dft, filters = _constants(n_mels, audio.device)
-    spec = _frame(audio, n_frames) @ dft
+    c = _constants(n_mels, audio.device)
+    spec = _frame(audio, n_frames) @ c.dft
     re, im = spec[..., :N_FREQS], spec[..., N_FREQS:]
     power = re * re + im * im
-    return torch.log10(torch.clamp(power @ filters, min=1e-10))
+    return torch.log10(torch.clamp(power @ c.filters, min=1e-10))
 
 
 def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
@@ -134,14 +208,19 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
         raise ValueError(f"audio of {n_samples} samples is too short for "
                          "the 200-sample reflect padding")
     n_frames = n_samples // HOP_LENGTH
-    dft, filters = _constants(n_mels, audio.device)
+    c = _constants(n_mels, audio.device)
+    if n_mels > MAX_KERNEL_MELS or c.widest > MAX_KERNEL_BAND:
+        raise ValueError(f"the kernel takes at most {MAX_KERNEL_MELS} bands "
+                         f"of at most {MAX_KERNEL_BAND} bins, got {n_mels} "
+                         f"of up to {c.widest}")
     _build.require(audio, "audio", torch.float32, (batch, n_samples),
                    audio.device)
     out = torch.empty(batch, n_frames, n_mels, dtype=torch.float32,
                       device=audio.device)
     lib = _build.library("mel")
-    err = lib.mwx_log_mel(audio.data_ptr(), dft.data_ptr(),
-                          filters.data_ptr(), out.data_ptr(), batch,
+    err = lib.mwx_log_mel(audio.data_ptr(), c.cos_packed.data_ptr(),
+                          c.sin_packed.data_ptr(), c.bands.data_ptr(),
+                          c.weights.data_ptr(), out.data_ptr(), batch,
                           n_samples, n_frames, n_mels,
                           _build.stream_of(audio))
     _build.check(err, "mel kernel")

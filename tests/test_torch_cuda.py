@@ -19,7 +19,8 @@ from manual_whisper_tpu_torch.ops.decode_attention import (
 from manual_whisper_tpu_torch.ops.quant import (int8_matmul,
                                                 int8_matmul_plain,
                                                 quantize_weight)
-from manual_whisper_tpu_torch.ops.mel import (unnormalized_log_mel,
+from manual_whisper_tpu_torch.ops.mel import (normalize_log_mel,
+                                              unnormalized_log_mel,
                                               unnormalized_log_mel_plain)
 
 pytestmark = pytest.mark.cuda
@@ -39,8 +40,13 @@ def _randn(shape, dev, seed, dtype=torch.bfloat16):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("n_samples,n_mels", [(1601, 80), (48000, 80),
-                                              (480000, 128)])
+# K1 takes 96 frames a block: 10 frames (one short block), 96 and 97, 300
+# (three blocks and 12 frames) and the 3000 of a 30 s window
+MEL_SIZES = [(1601, 80), (15360, 80), (15520, 128), (48000, 80),
+             (480000, 128)]
+
+
+@pytest.mark.parametrize("n_samples,n_mels", MEL_SIZES)
 def test_mel_kernel(dev, n_samples, n_mels):
     audio = 0.1 * _randn((2, n_samples), dev, 0, torch.float32)
     before = _build.launches["mel"]
@@ -48,6 +54,22 @@ def test_mel_kernel(dev, n_samples, n_mels):
     assert _build.launches["mel"] == before + 1
     ref = unnormalized_log_mel_plain(audio, n_mels)
     torch.testing.assert_close(out, ref, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n_samples,n_mels", MEL_SIZES)
+def test_mel_kernel_hard_rows(dev, n_samples, n_mels):
+    """Rows of exact zeros (a batch's padding row), quiet noise (1e-4) and
+    DC 0.5 plus a 1e-3 tone at 7 kHz, after the normalisation, which
+    clamps bins more than 8 decades below the row's max."""
+    t = torch.arange(n_samples, device=dev) / 16000.0
+    audio = torch.stack([
+        torch.zeros(n_samples, device=dev),
+        1e-4 * _randn((n_samples,), dev, 30, torch.float32),
+        0.5 + 1e-3 * torch.sin(2 * torch.pi * 7000.0 * t)]).contiguous()
+    out = normalize_log_mel(unnormalized_log_mel(audio, n_mels))
+    ref = normalize_log_mel(unnormalized_log_mel_plain(audio, n_mels))
+    assert torch.equal(out[0], ref[0])              # the floor, everywhere
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("t_q,t_k,dh", [(150, 150, 32), (1500, 1500, 64),

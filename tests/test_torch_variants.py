@@ -30,7 +30,8 @@ def test_variant_patches_apply(name, var):
 
 
 def test_every_kernel_has_a_runner_and_the_shipped_shape():
-    assert set(kv.VARIANTS) == {"decode_self_attention", "int8_matmul"}
+    assert set(kv.VARIANTS) == {"decode_self_attention", "int8_matmul",
+                                "mel"}
     for name, spec in kv.VARIANTS.items():
         assert any(not v.startswith(("probe", "stamps")) for v in spec[3])
 
@@ -51,3 +52,15 @@ def test_ptxas_parser_keeps_the_variant_kernels():
         "stores, 0 bytes spill loads",
         "matvec_kernel<Li128ELi2>: ptxas info    : Used 95 registers, used "
         "1 barriers"]
+
+
+def test_mel_variants_name_the_shipped_shape_and_its_packing():
+    """The mel entry's shipped variant is the kernel's ShippedMel, and the
+    packing a variant's name asks for is the wrapper's for that shape."""
+    from manual_whisper_tpu_torch.ops import mel
+    text = (_build.CSRC_DIR / "mel.cu").read_text()
+    assert f"using ShippedMel = MelCfg<{kv._MEL_SHIPPED}>;" in text
+    shipped = kv._mel_name(kv._MEL_SHIPPED)
+    assert shipped in kv.VARIANTS["mel"][3]
+    assert kv.mel_tile(shipped) == mel.KERNEL_TILE
+    assert kv.mel_tile("probe_" + shipped + "_no_folds") == mel.KERNEL_TILE
