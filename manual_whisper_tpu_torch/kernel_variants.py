@@ -282,6 +282,7 @@ VARIANTS = {
                 ("6, 13, 8, 16, 4, 40, 2", "false"),
                 ("6, 13, 8, 16, 4, 50, 2", "false"),
                 ("4, 13, 8, 16, 4, 20, 3", "false"),
+                ("2, 13, 8, 16, 4, 20, 3", "false"),
                 ("4, 13, 8, 24, 4, 20, 3", "false"),
                 ("2, 13, 8, 48, 4, 20, 3", "false"),
                 ("6, 7, 16, 16, 4, 20, 3", "false"))},
