@@ -31,10 +31,13 @@
 // frame tensor is never written, and any frame count is taken (the TPU's
 // 600-frame blocks were a VMEM tiling constraint).
 //
-// Bound on the H100: 2 * (40,100 + nnz) operations a frame against 4 *
-// (T + F * n_mels) bytes a row, so the float32 rate outside the tensor
-// cores binds (67 TFLOP/s: 0.0145 ms at B=4, 30 s, 128 mels; 0.0041 ms
-// of bytes).  What the design does about it:
+// Bound on the H100: the function itself needs no more than a real FFT's
+// work, about 1.2e4 operations a frame, against 4 * (T + F * n_mels)
+// bytes a row, so the bytes bind (0.0041 ms at B=4, 30 s, 128 mels, at
+// 3.35 TB/s).  This kernel's own work, 2 * (40,100 + nnz) operations a
+// frame, takes 0.0145 ms at the float32 rate outside the tensor cores
+// (67 TFLOP/s): a body built as FFT stages could go below that, this one
+// cannot.  What the design does about its own work:
 // - one block takes TM * GY frames of one batch row (96 in the shipped
 //   shape: B=4 x 3000 frames is 128 blocks, one wave on 132 SMs, one
 //   block an SM); its audio span comes into shared memory with every load
@@ -60,7 +63,8 @@
 //   band's weights, zero outside its run; the results go through a
 //   [mel][frame] tile and are stored along n_mels.
 // MelCfg and log_mel_kernel take the tile sizes as template arguments, so
-// kernel_variants.py can build other shapes from this file.
+// kernel_variants.py can build other shapes from this file; the packing
+// of the constants follows the tile that mwx_log_mel_tile reports.
 
 #include <cuda_runtime.h>
 
@@ -141,11 +145,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Chunk q of the walk (q < kChunks: the cosine's rows, then the sine's),
 // KC packed rows, into ring slot q % kStages.  Commits one cp.async group,
-// empty past the last chunk (or when the constants are read from L2).
-template <class C, bool kFromL2>
+// empty past the last chunk.
+template <class C>
 __device__ __forceinline__ void stage_chunk(float* ring, const float* cos_p,
                                             const float* sin_p, int q) {
-  if (!kFromL2 && q < 2 * C::kChunks) {
+  if (q < 2 * C::kChunks) {
     const float* src = (q < C::kChunks ? cos_p : sin_p)
                        + (q % C::kChunks) * C::KC * C::kRow;
     float* dst = ring + (q % C::kStages) * C::KC * C::kRow;
@@ -157,8 +161,8 @@ __device__ __forceinline__ void stage_chunk(float* ring, const float* cos_p,
 
 // acc[i][s] += sum over every other row of a chunk (a and w point at this
 // half's first) of a[r][i] * w[r][s]: TM samples and the thread's TN
-// constants (packed, from the ring or from L2) loaded a row, TM * TN FMAs.
-template <class C, bool kFromL2>
+// constants (packed, in the ring) loaded a row, TM * TN FMAs.
+template <class C>
 __device__ __forceinline__ void chunk_product(float (&acc)[C::TM][C::TN],
                                               const float* a,
                                               const float* w) {
@@ -184,7 +188,7 @@ __device__ __forceinline__ void chunk_product(float (&acc)[C::TM][C::TN],
     for (int p = 0; p < C::kPlanes; ++p) {
       const float4* src = reinterpret_cast<const float4*>(
           w + r * C::kRow + p * C::GX * 4);
-      const float4 v = kFromL2 ? __ldg(src) : *src;
+      const float4 v = *src;
       wv[4 * p] = v.x; wv[4 * p + 1] = v.y;
       wv[4 * p + 2] = v.z; wv[4 * p + 3] = v.w;
     }
@@ -240,7 +244,7 @@ __device__ __forceinline__ void fold_span(float* fold, const float* span,
   }
 }
 
-template <class C, bool kFromL2>
+template <class C>
 __global__ void __launch_bounds__(C::kThreads, 1)
 log_mel_kernel(const float* __restrict__ audio,
                const float* __restrict__ cos_p,
@@ -275,7 +279,7 @@ log_mel_kernel(const float* __restrict__ audio,
   // before the first store
 #pragma unroll
   for (int q = 0; q < C::kStages - 1; ++q)
-    stage_chunk<C, kFromL2>(ring, cos_p, sin_p, q);
+    stage_chunk<C>(ring, cos_p, sin_p, q);
   const int nq = (__ldg(bands).w + 3) / 4;
   for (int i = tid; i < n_mels * kBandWidth; i += C::kThreads) {
     const int4 band = __ldg(bands + i / kBandWidth);   // bin, bins, offset
@@ -327,14 +331,12 @@ log_mel_kernel(const float* __restrict__ audio,
         }
       __syncthreads();
     }
-    stage_chunk<C, kFromL2>(ring, cos_p, sin_p, q + C::kStages - 1);
+    stage_chunk<C>(ring, cos_p, sin_p, q + C::kStages - 1);
     const int r0 = (q % C::kChunks) * C::KC + half;
     const float* a = fold + r0 * C::kFoldStride + ty * C::TM;
-    const float* w =
-        kFromL2 ? (q < C::kChunks ? cos_p : sin_p) + r0 * C::kRow + tx * 4
-                : ring + (q % C::kStages) * C::KC * C::kRow
-                  + half * C::kRow + tx * 4;
-    chunk_product<C, kFromL2>(acc, a, w);
+    const float* w = ring + (q % C::kStages) * C::KC * C::kRow
+                     + half * C::kRow + tx * 4;
+    chunk_product<C>(acc, a, w);
   }
   __syncthreads();                     // the exchange's region is free
   meet<C>(held, exchange, half, tx, ty);
@@ -400,7 +402,7 @@ log_mel_kernel(const float* __restrict__ audio,
   }
 }
 
-template <class C, bool kFromL2 = false>
+template <class C>
 int launch_mel(const void* audio, const void* cos_p, const void* sin_p,
                const void* bands, const void* weights, void* out, int batch,
                int n_samples, int n_frames, int n_mels,
@@ -408,17 +410,25 @@ int launch_mel(const void* audio, const void* cos_p, const void* sin_p,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        log_mel_kernel<C, kFromL2>,
+        log_mel_kernel<C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((n_frames + C::kFrames - 1) / C::kFrames, batch);
-  log_mel_kernel<C, kFromL2><<<grid, C::kThreads, C::kBytes, stream>>>(
+  log_mel_kernel<C><<<grid, C::kThreads, C::kBytes, stream>>>(
       (const float*)audio, (const float*)cos_p, (const float*)sin_p,
       (const int4*)bands, (const float*)weights, (float*)out, n_samples,
       n_frames, n_mels);
   return (int)cudaGetLastError();
+}
+
+// The packing a tile's constants need: {TN, GX} into tile[0..1].
+template <class C>
+int report_tile(void* tile) {
+  static_cast<int*>(tile)[0] = C::TN;
+  static_cast<int*>(tile)[1] = C::GX;
+  return 0;
 }
 
 // 96 frames a block; two halves of 128 threads of 6 frames x 13
@@ -428,12 +438,18 @@ using ShippedMel = MelCfg<6, 13, 8, 16, 4, 20, 3>;
 
 }  // namespace
 
-// audio [batch, n_samples] f32; cos_p and sin_p [200, 256] f32: the
-// folded cosine (rows 1..200) and sine (rows 1..199, then a zero row)
-// packed by ops/mel.py `pack_folded(fold, 13, 16)`; bands [n_mels, 4]
-// int32 (first bin, bins, offset in weights, the widest band's bins: at
-// most 16);
-// weights [nnz] f32 -> out [batch, n_frames, n_mels] f32.  Requires
+// tile: int[2] <- the frequencies a thread and the threads along them,
+// the (tn, gx) for which ops/mel.py `pack_folded` packs mwx_log_mel's
+// constants.
+extern "C" int mwx_log_mel_tile(void* tile) {
+  return report_tile<ShippedMel>(tile);
+}
+
+// audio [batch, n_samples] f32; cos_p and sin_p [200, 128] f32: columns
+// 0..100 of the folded cosine (rows 1..200) and sine (rows 1..199, then a
+// zero row) packed by ops/mel.py `pack_folded` for the reported tile;
+// bands [n_mels, 4] int32 (first bin, bins, offset in weights, the widest
+// band's bins: at most 16); weights [nnz] f32 -> out [batch, n_frames, n_mels] f32.  Requires
 // n_samples > 200 and n_mels <= 128.
 extern "C" int mwx_log_mel(const void* audio, const void* cos_p,
                            const void* sin_p, const void* bands,

@@ -175,26 +175,32 @@ _MATVEC_MARKS = _marks('#include "int8.cuh"\n', [
 
 # K1: MelCfg<TM, TN, GX, GY, LX, KC, STAGES> (frames and frequencies a
 # thread, a half's threads along frequencies and frames, a warp's threads
-# along the frequencies, constant rows a chunk, chunks in the ring); l2:
-# every thread reads its constants from L2 instead of a ring copy
+# along the frequencies, constant rows a chunk, chunks in the ring); each
+# variant reports its tile through mwx_variant_tile, and its constants are
+# packed for it
 _MEL_SHIPPED = "6, 13, 8, 16, 4, 20, 3"
 
 
-def _mel(cfg, l2="false", patches=()):
-    return ("", f"return launch_mel<MelCfg<{cfg}>, {l2}>(audio, cos_p, "
-                "sin_p, bands, weights, out, batch, n_samples, n_frames, "
-                "n_mels, (cudaStream_t)stream);", patches)
+def _mel(cfg, patches=()):
+    return (f"using VariantMel = MelCfg<{cfg}>;",
+            "return launch_mel<VariantMel>(audio, cos_p, sin_p, bands, "
+            "weights, out, batch, n_samples, n_frames, n_mels, "
+            "(cudaStream_t)stream);", patches)
 
 
 def _mel_name(cfg):
     return "tile" + cfg.replace(", ", "_")
 
 
-def mel_tile(var):
-    """(TN, GX) of a K1 variant's name: the packing its constants need."""
-    parts = var.split("tile")[1].split("_")
-    return int(parts[1]), int(parts[2])
-
+# every thread reads its constants from L2 instead of a ring copy: no
+# copies, __ldg loads from the packed arrays
+_MEL_FROM_L2 = [
+    ("  if (q < 2 * C::kChunks) {", "  if (false) {"),
+    ("      const float4 v = *src;", "      const float4 v = __ldg(src);"),
+    ("    const float* w = ring + (q % C::kStages) * C::KC * C::kRow\n"
+     "                     + half * C::kRow + tx * 4;",
+     "    const float* w = (q < C::kChunks ? cos_p : sin_p) + r0 * C::kRow\n"
+     "                     + tx * 4;")]
 
 _MEL_PROBES = {
     "no_filterbank": [("  for (int m = tid / 32; m < n_mels; m += C::kWarps) {",
@@ -203,7 +209,7 @@ _MEL_PROBES = {
     "no_constant_copies": [("      cp_async16(dst + i, src + i);",
                             "      ;")],
     "no_constant_loads": [
-        ("      const float4 v = kFromL2 ? __ldg(src) : *src;",
+        ("      const float4 v = *src;",
          "      const float4 v = make_float4(r + 0.5f, p + 0.25f, "
          "__int_as_float(threadIdx.x), 0.75f);")],
     "no_folds": [("  fold_span<C>(fold, span, 1.f);", "  ;"),
@@ -221,11 +227,12 @@ _MEL_MARKS = _marks("#include <cuda_runtime.h>\n", [
     "      fold_span<C>(fold, span, -1.f);",
     "  __syncthreads();                     // the exchange's region is free",
     "<  // filterbank: a warp takes a mel band at a time, its lanes the",
-    "<}\n\ntemplate <class C, bool kFromL2 = false>\nint launch_mel("])
+    "<}\n\ntemplate <class C>\nint launch_mel("])
 
 # name -> (source, the entry point's C parameters, their argtypes,
 # {variant: (code before mwx_variant, body of mwx_variant, probe patches)});
-# the body sees the entry point's parameters by name.
+# the body sees the entry point's parameters by name.  _EXPORTS: C code
+# after mwx_variant in every variant of a kernel.
 VARIANTS = {
     "decode_self_attention": (
         "decode_attention.cu",
@@ -273,19 +280,15 @@ VARIANTS = {
         "const void* bands, const void* weights, void* out, int batch, "
         "int n_samples, int n_frames, int n_mels, void* stream",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        {**{_mel_name(cfg) + ("_from_l2" if l2 == "true" else ""):
-            _mel(cfg, l2)
-            for cfg, l2 in (
-                (_MEL_SHIPPED, "false"), (_MEL_SHIPPED, "true"),
-                ("6, 13, 8, 16, 8, 20, 3", "false"),
-                ("6, 13, 8, 16, 4, 8, 4", "false"),
-                ("6, 13, 8, 16, 4, 40, 2", "false"),
-                ("6, 13, 8, 16, 4, 50, 2", "false"),
-                ("4, 13, 8, 16, 4, 20, 3", "false"),
-                ("2, 13, 8, 16, 4, 20, 3", "false"),
-                ("4, 13, 8, 24, 4, 20, 3", "false"),
-                ("2, 13, 8, 48, 4, 20, 3", "false"),
-                ("6, 7, 16, 16, 4, 20, 3", "false"))},
+        {**{_mel_name(cfg): _mel(cfg)
+            for cfg in (
+                _MEL_SHIPPED, "6, 13, 8, 16, 8, 20, 3",
+                "6, 13, 8, 16, 4, 8, 4", "6, 13, 8, 16, 4, 40, 2",
+                "6, 13, 8, 16, 4, 50, 2", "4, 13, 8, 16, 4, 20, 3",
+                "2, 13, 8, 16, 4, 20, 3", "4, 13, 8, 24, 4, 20, 3",
+                "2, 13, 8, 48, 4, 20, 3", "6, 7, 16, 16, 4, 20, 3")},
+         f"{_mel_name(_MEL_SHIPPED)}_from_l2": _mel(_MEL_SHIPPED,
+                                                    _MEL_FROM_L2),
          f"stamps_{_mel_name(_MEL_SHIPPED)}": _mel(
              _MEL_SHIPPED, patches=_MEL_MARKS),
          **{f"probe_{_mel_name(_MEL_SHIPPED)}_{name}": _mel(
@@ -294,24 +297,35 @@ VARIANTS = {
 }
 
 
+_EXPORTS = {"mel": 'extern "C" int mwx_variant_tile(void* tile) {\n'
+                   "  return report_tile<VariantMel>(tile);\n}\n"}
+
+
+def variant_source(name: str, var: str) -> str:
+    """The source of variant ``var`` of kernel ``name``, as it is built."""
+    src, params, _, variants = VARIANTS[name]
+    prelude, body, patches = variants[var]
+    text = (_build.CSRC_DIR / src).read_text()
+    for old, new in patches:
+        if old not in text:
+            raise ValueError(f"variant {var}: {old!r} not in {src}")
+        text = text.replace(old, new)
+    return ((text if patches else f'#include "{src}"\n')
+            + f"\nnamespace {{\n{prelude}\n}}\n\n"
+            f'extern "C" int mwx_variant({params}) {{\n  {body}\n}}\n'
+            + _EXPORTS.get(name, ""))
+
+
 def build_variants(name: str) -> dict:
     """Build every variant of kernel ``name``; {variant: typed function}."""
-    src, params, argtypes, variants = VARIANTS[name]
+    _, _, argtypes, variants = VARIANTS[name]
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for var, (prelude, body, patches) in variants.items():
-        text = (_build.CSRC_DIR / src).read_text()
-        for old, new in patches:
-            if old not in text:
-                raise ValueError(f"variant {var}: {old!r} not in {src}")
-            text = text.replace(old, new)
+    for var in variants:
         cu = out_dir / f"{name}-{var}.cu"
-        cu.write_text((text if patches else f'#include "{src}"\n')
-                      + f"\nnamespace {{\n{prelude}\n}}\n\n"
-                      f'extern "C" int mwx_variant({params}) {{\n'
-                      f"  {body}\n}}\n")
+        cu.write_text(variant_source(name, var))
         so = cu.with_suffix(".so")
         procs[var] = (so, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
@@ -463,22 +477,17 @@ def run_mel(fns, randn, dev):
     them the shipped wrapper, the plain version and the four-call
     ``torch.stft`` route."""
     from chip_smoke import TOL, copies_for, mel_stft_chain
-    from .ops.mel import (KERNEL_COLS, _constants, normalize_log_mel,
-                          pack_folded,
-                          unnormalized_log_mel, unnormalized_log_mel_plain)
+    from .ops.mel import (_constants, kernel_tile, normalize_log_mel,
+                          packed_folds, unnormalized_log_mel,
+                          unnormalized_log_mel_plain)
     b, n, n_mels = 4, 480000, 128
     n_frames = n // 160
     c = _constants(n_mels, dev)
-    packs = {}
-    for var in fns:
-        tile = mel_tile(var)
-        if tile not in packs:
-            packs[tile] = tuple(
-                torch.from_numpy(pack_folded(
-                    f[:, :KERNEL_COLS].cpu().numpy(), *tile)).to(dev)
-                for f in (c.cos_fold, c.sin_fold))
-    consts = {var: (*packs[mel_tile(var)], c.bands, c.weights)
-              for var in fns}
+    consts = {}
+    for var, fn in fns.items():
+        tile = kernel_tile(fn.lib.mwx_variant_tile)
+        consts[var] = (*(torch.from_numpy(p).to(dev)
+                         for p in packed_folds(*tile)), c.bands, c.weights)
     sets = [(0.1 * randn((b, n), torch.float32),)
             for _ in range(copies_for(4 * b * n))]
     outs = {a: torch.empty((b, n_frames, n_mels), device=dev)

@@ -49,6 +49,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # audio, cos_packed, sin_packed, bands, weights, out, batch,
         # n_samples, n_frames, n_mels, stream
         "mwx_log_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # tile (int[2]: frequencies a thread, threads along them)
+        "mwx_log_mel_tile": [_P],
     },
     "flash_attention": {
         # q, k, v, out, batch*heads, t_q, t_k, head_dim, stream

@@ -9,9 +9,10 @@ dynamic-range normalisation (max-8 clamp, (x+4)/4).
   launches the kernel, which builds the frames itself from the audio
   (reflect padding by index, hop 160), so no ``[B, F, 400]`` frame tensor
   is written; it takes any frame count.  The kernel multiplies by the
-  DFT folded twice by symmetry (taps k and 400 - k, bins f and 200 - f)
-  and sums the filterbank from a table of its nonzeros (``MelConstants``),
-  all taken from the f32 values the plain version reads.  On a CPU tensor
+  DFT folded twice by symmetry (taps k and 400 - k, bins f and 200 - f;
+  ``folded_dft``, packed for the tile the kernel reports) and sums the
+  filterbank from a table of its nonzeros (``MelConstants``), all taken
+  from the f32 values the plain version reads.  On a CPU tensor
   it runs the plain version
   ``unnormalized_log_mel_plain`` (reflect pad, framing, two f32 matmuls),
   which follows the JAX XLA path.
@@ -20,6 +21,7 @@ dynamic-range normalisation (max-8 clamp, (x+4)/4).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -134,44 +136,64 @@ class MelConstants(NamedTuple):
     """K1's constants on one device, f32 tensors but ``bands`` (int32).
 
     ``dft`` [400, 402] and ``filters`` [201, n_mels] are what the plain
-    version multiplies by.  The kernel takes the same values folded:
-    ``cos_fold`` [200, 201] is rows 1..200 of the cosine half, ``sin_fold``
-    [199, 201] rows 1..199 of the sine half (the periodic Hann window is
-    zero at tap 0 and symmetric about tap 200, so taps k and 400 - k share
-    a row), ``cos_packed``/``sin_packed`` their columns 0..100 as the
-    kernel reads them (``pack_folded`` for its 13 frequencies a thread, 8
-    threads along them; row k of column 200 - f is (-1)^k times column f's,
-    negated for the sine, so the kernel takes bins 101..200 from the same
-    sums), and ``bands``/``weights`` are ``band_table(filters)``."""
+    version multiplies by; ``bands``/``weights`` are
+    ``band_table(filters)``, the filterbank's nonzeros as the kernel sums
+    them."""
     dft: torch.Tensor
     filters: torch.Tensor
-    cos_fold: torch.Tensor
-    sin_fold: torch.Tensor
-    cos_packed: torch.Tensor
-    sin_packed: torch.Tensor
     bands: torch.Tensor
     weights: torch.Tensor
     widest: int                 # the widest band's bins
 
 
-KERNEL_TILE = (13, 8)       # K1's frequencies a thread, threads along them
 KERNEL_COLS = N_FFT // 4 + 1                    # 101: bins 0..100
+
+
+@functools.lru_cache(maxsize=1)
+def folded_dft():
+    """The plain version's f32 DFT values folded by the window's symmetry:
+    ``cos_fold`` [200, 201] is rows 1..200 of the cosine half, ``sin_fold``
+    [199, 201] rows 1..199 of the sine half (the periodic Hann window is
+    zero at tap 0 and symmetric about tap 200, so taps k and 400 - k share
+    a row).  Row k of bin 200 - f is (-1)^k times bin f's, negated for the
+    sine, so K1 reads columns 0..100 only."""
+    dft = _dft_window_matrix().astype(np.float32)
+    half = N_FFT // 2
+    return dft[1:half + 1, :N_FREQS], dft[1:half, N_FREQS:]
 
 
 @functools.lru_cache(maxsize=8)
 def _constants(n_mels: int, device: torch.device) -> MelConstants:
-    """K1's constants for ``n_mels`` bands on ``device``, made once."""
+    """The constants for ``n_mels`` bands on ``device``, made once."""
     dft = _dft_window_matrix().astype(np.float32)
     filters = mel_filter_bank(n_mels).astype(np.float32)
-    half = N_FFT // 2
     bands, weights = band_table(filters)
-    cos_fold, sin_fold = dft[1:half + 1, :N_FREQS], dft[1:half, N_FREQS:]
-    arrays = (dft, filters, cos_fold, sin_fold,
-              pack_folded(cos_fold[:, :KERNEL_COLS], *KERNEL_TILE),
-              pack_folded(sin_fold[:, :KERNEL_COLS], *KERNEL_TILE), bands,
-              weights)
     return MelConstants(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                          for a in arrays), widest=int(bands[0, 3]))
+                          for a in (dft, filters, bands, weights)),
+                        widest=int(bands[0, 3]))
+
+
+@functools.lru_cache(maxsize=4)
+def packed_folds(tn: int, gx: int):
+    """Columns 0..100 of ``folded_dft()`` packed for a kernel tile of ``tn``
+    frequencies a thread and ``gx`` threads along them (``pack_folded``)."""
+    return tuple(pack_folded(f[:, :KERNEL_COLS], tn, gx)
+                 for f in folded_dft())
+
+
+def kernel_tile(fn) -> tuple:
+    """(tn, gx) that a K1 build's tile entry ``fn`` (``mwx_log_mel_tile``
+    or a variant's) reports."""
+    tile = (ctypes.c_int * 2)()
+    _build.check(fn(tile), "mel tile")
+    return tile[0], tile[1]
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_folds(device: torch.device):
+    """The packed folds for the shipped kernel's tile, on ``device``."""
+    tile = kernel_tile(_build.library("mel").mwx_log_mel_tile)
+    return tuple(torch.from_numpy(p).to(device) for p in packed_folds(*tile))
 
 
 def _frame(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -192,6 +214,19 @@ def unnormalized_log_mel_plain(audio: torch.Tensor, n_mels: int = 80
     re, im = spec[..., :N_FREQS], spec[..., N_FREQS:]
     power = re * re + im * im
     return torch.log10(torch.clamp(power @ c.filters, min=1e-10))
+
+
+def unnormalized_log_mel_f64(audio: torch.Tensor, n_mels: int = 80
+                             ) -> torch.Tensor:
+    """The plain version's steps in float64, from float64 constants: the
+    reference that the kernel's and the plain version's float32 rounding
+    are measured against.  Returns float64."""
+    audio = audio.to(torch.float64)
+    spec = _frame(audio, audio.shape[-1] // HOP_LENGTH) @ torch.from_numpy(
+        _dft_window_matrix()).to(audio.device)
+    power = spec[..., :N_FREQS] ** 2 + spec[..., N_FREQS:] ** 2
+    filters = torch.from_numpy(mel_filter_bank(n_mels)).to(audio.device)
+    return torch.log10(torch.clamp(power @ filters, min=1e-10))
 
 
 def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
@@ -217,12 +252,11 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
                    audio.device)
     out = torch.empty(batch, n_frames, n_mels, dtype=torch.float32,
                       device=audio.device)
-    lib = _build.library("mel")
-    err = lib.mwx_log_mel(audio.data_ptr(), c.cos_packed.data_ptr(),
-                          c.sin_packed.data_ptr(), c.bands.data_ptr(),
-                          c.weights.data_ptr(), out.data_ptr(), batch,
-                          n_samples, n_frames, n_mels,
-                          _build.stream_of(audio))
+    cos_packed, sin_packed = _kernel_folds(audio.device)
+    err = _build.library("mel").mwx_log_mel(
+        audio.data_ptr(), cos_packed.data_ptr(), sin_packed.data_ptr(),
+        c.bands.data_ptr(), c.weights.data_ptr(), out.data_ptr(), batch,
+        n_samples, n_frames, n_mels, _build.stream_of(audio))
     _build.check(err, "mel kernel")
     _build.launches["mel"] += 1
     return out

@@ -21,6 +21,7 @@ from manual_whisper_tpu_torch.ops.quant import (int8_matmul,
                                                 quantize_weight)
 from manual_whisper_tpu_torch.ops.mel import (normalize_log_mel,
                                               unnormalized_log_mel,
+                                              unnormalized_log_mel_f64,
                                               unnormalized_log_mel_plain)
 
 pytestmark = pytest.mark.cuda
@@ -70,6 +71,34 @@ def test_mel_kernel_hard_rows(dev, n_samples, n_mels):
     ref = normalize_log_mel(unnormalized_log_mel_plain(audio, n_mels))
     assert torch.equal(out[0], ref[0])              # the floor, everywhere
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+
+
+def _f64_error_kept(out, ref):
+    """Max abs error against the float64 reference where the normalisation
+    keeps the reference (within 8 decades of its row's max)."""
+    kept = ref >= ref.amax(dim=(-2, -1), keepdim=True) - 8.0
+    return float((out.double() - ref).abs()[kept].max())
+
+
+def test_mel_kernel_against_float64(dev):
+    """A steep spectral tilt, where K1's bins 101..200 are small differences
+    of two large sums (P - Q): a 0.5 tone at 200 Hz with a 1e-4 tone at
+    7.8 kHz (its mirror bin), and a 0.5 tone at 100 Hz over 1e-5
+    high-passed noise.  Against the plain version run in float64, the
+    kernel's error where the normalisation keeps the values is no worse
+    than 4x the plain float32 version's."""
+    n = 32000
+    t = torch.arange(n, device=dev, dtype=torch.float64) / 16000.0
+    noise = _randn((n + 1,), dev, 40, torch.float64)
+    audio = torch.stack([
+        0.5 * torch.sin(2 * torch.pi * 200.0 * t)
+        + 1e-4 * torch.sin(2 * torch.pi * 7800.0 * t),
+        0.5 * torch.sin(2 * torch.pi * 100.0 * t)
+        + 1e-5 * (noise[1:] - noise[:-1])]).float().contiguous()
+    ref = unnormalized_log_mel_f64(audio, 128)
+    kernel = _f64_error_kept(unnormalized_log_mel(audio, 128), ref)
+    plain = _f64_error_kept(unnormalized_log_mel_plain(audio, 128), ref)
+    assert kernel <= 4 * plain, (kernel, plain)
 
 
 @pytest.mark.parametrize("t_q,t_k,dh", [(150, 150, 32), (1500, 1500, 64),

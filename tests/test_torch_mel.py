@@ -79,14 +79,19 @@ def test_silence_is_finite():
     assert torch.isfinite(out).all()
 
 
-def _folded_spectrum(frames, c):
+def _folds():
+    return tuple(torch.from_numpy(f) for f in tmel.folded_dft())
+
+
+def _folded_spectrum(frames):
     """re, im [N, 201] of frames [N, 400] through K1's folded constants, as
     the kernel sums them: e = x[k] + x[400-k] and o = x[k] - x[400-k] for
     k = 1..199, x[200] on its own."""
     x = torch.from_numpy(frames)
     head, tail = x[:, 1:200], x[:, 201:400].flip(1)
     even = torch.cat([head + tail, x[:, 200:201]], dim=1)
-    return even @ c.cos_fold, (head - tail) @ c.sin_fold
+    cos_fold, sin_fold = _folds()
+    return even @ cos_fold, (head - tail) @ sin_fold
 
 
 def test_window_is_symmetric_so_the_dft_folds():
@@ -101,10 +106,11 @@ def test_window_is_symmetric_so_the_dft_folds():
 
 def test_folded_constants_are_the_plain_versions_values():
     c = tmel._constants(80, torch.device("cpu"))
-    assert c.cos_fold.shape == (200, 201) and c.sin_fold.shape == (199, 201)
-    assert c.cos_fold.dtype == c.sin_fold.dtype == torch.float32
-    assert torch.equal(c.cos_fold, c.dft[1:201, :201])
-    assert torch.equal(c.sin_fold, c.dft[1:200, 201:])
+    cos_fold, sin_fold = _folds()
+    assert cos_fold.shape == (200, 201) and sin_fold.shape == (199, 201)
+    assert cos_fold.dtype == sin_fold.dtype == torch.float32
+    assert torch.equal(cos_fold, c.dft[1:201, :201])
+    assert torch.equal(sin_fold, c.dft[1:200, 201:])
 
 
 def test_folded_product_reproduces_the_dft():
@@ -112,7 +118,7 @@ def test_folded_product_reproduces_the_dft():
     frames = rng.standard_normal((64, 400)).astype(np.float32)
     c = tmel._constants(80, torch.device("cpu"))
     ref = torch.from_numpy(frames) @ c.dft
-    re, im = _folded_spectrum(frames, c)
+    re, im = _folded_spectrum(frames)
     for out, want in ((re, ref[:, :201]), (im, ref[:, 201:])):
         assert torch.all((out - want).abs() <= 1e-5 * (1 + want.abs()))
 
@@ -147,15 +153,13 @@ def test_sparse_filterbank_equals_the_dense_product(n_mels):
     assert torch.all((sparse - dense).abs() <= 1e-6 * dense.abs())
 
 
-@pytest.mark.parametrize("tn,gx", [tmel.KERNEL_TILE, (7, 16)])
+@pytest.mark.parametrize("tn,gx", [(13, 8), (7, 16)])
 def test_packed_constants_hold_the_folds(tn, gx):
     """``pack_folded`` puts column g * tn + s at plane s // 4, group g, lane
-    s % 4 of its row, zero elsewhere; the wrapper's constants are columns
-    0..100 of the folds packed for the kernel's tile."""
-    c = tmel._constants(80, torch.device("cpu"))
-    for fold, packed in ((c.cos_fold, c.cos_packed),
-                         (c.sin_fold, c.sin_packed)):
-        cols = fold[:, :tmel.KERNEL_COLS].numpy()
+    s % 4 of its row, zero elsewhere; ``packed_folds`` (what a kernel of
+    that tile is given) are columns 0..100 of the folds packed so."""
+    for fold, packed in zip(tmel.folded_dft(), tmel.packed_folds(tn, gx)):
+        cols = fold[:, :tmel.KERNEL_COLS]
         p = tmel.pack_folded(cols, tn, gx)
         planes = -(-tn // 4)
         assert p.shape == (200, planes * gx * 4)
@@ -165,24 +169,22 @@ def test_packed_constants_hold_the_folds(tn, gx):
         np.testing.assert_array_equal(got[:fold.shape[0]], cols)
         assert np.count_nonzero(got[fold.shape[0]:]) == 0
         assert np.count_nonzero(p) == np.count_nonzero(cols)
-        if (tn, gx) == tmel.KERNEL_TILE:
-            np.testing.assert_array_equal(packed.numpy(), p)
+        np.testing.assert_array_equal(packed, p)
 
 
 def test_mirrored_bins_come_from_the_same_columns():
     """Row k of bin 200 - f is (-1)^k times bin f's (cosine) and minus that
     (sine), to 2e-13: the kernel sums bins 0..100 over even and odd taps
     apart and takes bins 100..200 as their difference."""
-    c = tmel._constants(80, torch.device("cpu"))
     f = np.arange(tmel.KERNEL_COLS)
-    for fold, sign in ((c.cos_fold.numpy(), 1.0), (c.sin_fold.numpy(), -1.0)):
+    for fold, sign in zip(tmel.folded_dft(), (1.0, -1.0)):
         k = np.arange(1, fold.shape[0] + 1)[:, None]
         np.testing.assert_allclose(fold[:, 200 - f],
                                    sign * (-1.0) ** k * fold[:, f],
                                    rtol=0, atol=1e-12)
 
 
-def _kernel_spectrum(frames, c):
+def _kernel_spectrum(frames):
     """power [N, 201] of frames [N, 400] as K1 sums it: taps folded, bins
     0..100 summed over even taps (P) and odd taps (Q) apart, bin f as
     P + Q and bin 200 - f as P - Q."""
@@ -191,7 +193,7 @@ def _kernel_spectrum(frames, c):
     folds = (torch.cat([head + tail, x[:, 200:201]], dim=1),
              torch.cat([head - tail, torch.zeros_like(x[:, :1])], dim=1))
     power = torch.zeros(len(frames), 201)
-    for fold, half in zip(folds, (c.cos_fold, c.sin_fold)):
+    for fold, half in zip(folds, _folds()):
         cols = torch.cat([half, torch.zeros(200 - len(half), 201)])[:, :101]
         odd_taps = fold[:, 0::2] @ cols[0::2]        # rows 0, 2..: taps 1, 3..
         even_taps = fold[:, 1::2] @ cols[1::2]
@@ -207,5 +209,5 @@ def test_twice_folded_spectrum_matches_the_dense_one():
     c = tmel._constants(80, torch.device("cpu"))
     spec = torch.from_numpy(frames) @ c.dft
     ref = spec[:, :201] ** 2 + spec[:, 201:] ** 2
-    out = _kernel_spectrum(frames, c)
+    out = _kernel_spectrum(frames)
     assert torch.all((out - ref).abs() <= 5e-5 * (1 + ref))

@@ -55,12 +55,17 @@ def test_ptxas_parser_keeps_the_variant_kernels():
 
 
 def test_mel_variants_name_the_shipped_shape_and_its_packing():
-    """The mel entry's shipped variant is the kernel's ShippedMel, and the
-    packing a variant's name asks for is the wrapper's for that shape."""
-    from manual_whisper_tpu_torch.ops import mel
+    """The mel entry's shipped variant is the kernel's ShippedMel, and each
+    variant, like the shipped entry, reports the tile of the shape it
+    launches: its constants are packed for that tile."""
     text = (_build.CSRC_DIR / "mel.cu").read_text()
     assert f"using ShippedMel = MelCfg<{kv._MEL_SHIPPED}>;" in text
-    shipped = kv._mel_name(kv._MEL_SHIPPED)
-    assert shipped in kv.VARIANTS["mel"][3]
-    assert kv.mel_tile(shipped) == mel.KERNEL_TILE
-    assert kv.mel_tile("probe_" + shipped + "_no_folds") == mel.KERNEL_TILE
+    assert "return report_tile<ShippedMel>(tile);" in text
+    variants = kv.VARIANTS["mel"][3]
+    assert kv._mel_name(kv._MEL_SHIPPED) in variants
+    for var in variants:
+        src = kv.variant_source("mel", var)
+        assert src.count("using VariantMel = MelCfg<") == 1
+        assert "return launch_mel<VariantMel>(" in src
+        assert src.endswith('extern "C" int mwx_variant_tile(void* tile) {\n'
+                            "  return report_tile<VariantMel>(tile);\n}\n")
