@@ -54,18 +54,27 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    the cross length; int8: one layer's weight scales on the wrong output
    channels, one layer's cross-K/V scales dropped or swapped between K
    and V) must each exceed it.
-4. The main paths: ``transcribe`` of about 75 s of seeded
-   amplitude-modulated audio at batch 4, language zh, with the CLI's
-   options and the full temperature ladder, with the bf16 model and then
-   with the int8 model.  Launch counters are zeroed just before each run
-   and read just after: bf16 must launch K1-K4 and not K5/K6; int8 must
-   launch K1, K2, K3, K5 and K6 and not K4, each exactly as often as the
-   batches, decode loops and steps in ``last_stats`` imply.
+4. The main paths: ``warmup(batch_size=4, language="zh")`` (timed alone
+   as ``warmup_s``; it captures the decode chunks of batch buckets 1, 2
+   and 4 as CUDA graphs, ``capture_s``), then ``transcribe`` of about 75 s
+   of seeded amplitude-modulated audio at batch 4, language zh, with the
+   CLI's options and the full temperature ladder, with the bf16 model and
+   then with the int8 model.  Launch counters are zeroed just before each
+   ``transcribe`` and read just after: bf16 must launch K1-K4 and not
+   K5/K6; int8 must launch K1, K2, K3, K5 and K6 and not K4, each exactly
+   as often as the batches, decode loops and steps in ``last_stats`` imply
+   (a replay adds the launches its capture recorded), and every decode
+   step must have run inside a replayed chunk.  Then a ``graph_vs_eager``
+   line: one batch-4 loop at T = 0 and one at T = 0.2, replayed against
+   the same chunks run eagerly, tokens and lengths equal, sum_logprob
+   within SUM_LP_TOL, ms per token row of each.
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
-   and 16 decode steps of each model (device-busy share, top kernels), run
-   right after that model's phase 4; before phase 3, the host time to
-   issue one call of K6 (through ``mm``) and K5 against the bf16 step's
-   cuBLAS matmul and K4.
+   and 16 eager decode steps of each model (device-busy share, top
+   kernels), and over one replay of the 16-step chunk beside the same
+   chunk run eagerly and the cross K/V plus prefill of a loop, run right
+   after that model's phase 4; before phase 3, the host time to issue one
+   call of K6 (through ``mm``) and K5 against the bf16 step's cuBLAS
+   matmul and K4.
 
 The kernels line gives each kernel's launches on the main path that
 runs it (K1-K4 bf16, K5 and K6 int8; the int8 path's K1-K3 counts are on
@@ -743,7 +752,7 @@ def _tiny_forward(params, cfg, audio, prefix, d, cross_len_scale=1.0,
     for i, tok in enumerate((65, 70, 75)):
         pos = len(prefix) + i
         token = torch.full((2,), tok, dtype=torch.long, device=d)
-        steps.append(decode_step(params, token, pos,
+        steps.append(decode_step(params, token,
                                  StepLengths(positions[pos:pos + 1],
                                              cross_len),
                                  cache, cross, cfg, emb32))
@@ -943,19 +952,45 @@ def expected_launches(cfg, stats: dict, int8: bool) -> dict:
     return exp
 
 
+def graph_replays(decoder) -> dict:
+    """Replays so far of each captured chunk of ``decoder``, by (rows,
+    steps of the chunk)."""
+    return {(key[0], n): loop.graphs.replays[n]
+            for key, loop in decoder._loops.items()
+            for n in loop.graphs.graphs}
+
+
 def phase_main(model, load_s: float, compute_type: str) -> dict:
+    """``warmup`` (timed alone; it captures the decode chunks of batch
+    buckets 1, 2 and 4), then the launch counters are zeroed and
+    ``transcribe`` runs.  Every decode step must have run inside a replayed
+    chunk, and the launches must be the ones ``last_stats`` implies."""
     audio = synthetic_speech(75.0, seed=0)
     duration = len(audio) / 16000.0
     int8 = compute_type == "int8"
 
     torch.cuda.reset_peak_memory_stats()
+    decoder = model._decoder("zh", 0.0)
+    if not decoder.captured:
+        raise AssertionError("the pipeline's decoder does not capture")
+    t0 = time.perf_counter()
+    model.warmup(batch_size=BATCH, language="zh")
+    warmup_s = time.perf_counter() - t0
+    capture_s = decoder.stats["capture_s"]
+    replays_before = graph_replays(decoder)
     _build.launches.clear()
     t0 = time.perf_counter()
     result = model.transcribe(audio, batch_size=BATCH, language="zh")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
+    replays = {k: n - replays_before.get(k, 0)
+               for k, n in graph_replays(decoder).items()}
 
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
     stats = model.last_stats
     segs = result["segments"]
     if result["language"] != "zh" or not isinstance(segs, list):
@@ -972,11 +1007,15 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
         raise AssertionError(f"{compute_type} main path: launches {launches}"
                              f", expected {expected} (every kernel of the "
                              f"path, and no other)")
+    replayed_steps = sum(n * count for (_, n), count in replays.items())
+    if replayed_steps != stats["decode_steps"]:
+        raise AssertionError(f"{compute_type} main path: {replayed_steps} "
+                             f"steps replayed, {stats['decode_steps']} run")
     log(json.dumps({
         "phase": "main_path", "model": "large-v3",
         "compute_type": compute_type,
         "int8_cross_kv": model.asr_options.get("int8_cross_kv", False),
-        "load_s": load_s,
+        "load_s": load_s, "warmup_s": warmup_s, "capture_s": capture_s,
         "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
         "vad_s": stats["vad_s"], "mel_encode_s": stats["encode_s"],
         "decode_s": stats["decode_s"], "batches": stats["batches"],
@@ -988,8 +1027,59 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
         / max(stats["token_rows"], 1),
         "rung_rows": stats["rung_rows"], "segments": len(segs),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "clocks_power_temp_after": clocks,
+        "replays": {f"rows={r} steps={n}": c
+                    for (r, n), c in sorted(replays.items()) if c},
         "launches": launches}))
     return launches
+
+
+# graph vs eager: sum_logprob of one loop (same kernels in the same order,
+# so equal is expected; the limit only names the gap that fails)
+SUM_LP_TOL = 1e-3
+
+
+def phase_graph_vs_eager(model, compute_type: str) -> None:
+    """One batch-4 loop at T = 0 and one at T = 0.2, replayed (the
+    pipeline's decoder, captured by ``warmup``) against the same chunk run
+    eagerly (``BatchDecoder(eager=True)``), on the encoder states of four
+    30 s windows of synthetic speech: tokens and lengths must be equal,
+    sum_logprob within SUM_LP_TOL."""
+    from manual_whisper_tpu_torch.models.decode import BatchDecoder
+    decoder = model._decoder("zh", 0.0)
+    eager = BatchDecoder(model.params, model.cfg, model.tokenizer,
+                         decoder.opts, model.device, eager=True)
+    windows = synthetic_speech(BATCH * model.window_sec, seed=1).reshape(
+        BATCH, -1)
+    xa = model._encode_windows(windows)
+    line = {"phase": "graph_vs_eager", "compute_type": compute_type,
+            "int8_cross_kv": decoder.opts.int8_cross_kv, "batch": BATCH,
+            "sum_logprob_tol": SUM_LP_TOL}
+    for temp in (0.0, 0.2):
+        outs, ms = {}, {}
+        for name, dec in (("graph", decoder), ("eager", eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = dec.decode_submit(xa, temp, rng_tag=11)
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0) / (
+                BATCH * outs[name].steps)
+        g, e = outs["graph"], outs["eager"]
+        row = {"tokens_equal": torch.equal(g.tokens, e.tokens),
+               "lengths_equal": torch.equal(g.lengths, e.lengths),
+               "steps": [g.steps, e.steps],
+               "sum_logprob_max_abs_diff": max_err(g.sum_logprob,
+                                                   e.sum_logprob),
+               "ms_per_token_row_graph": ms["graph"],
+               "ms_per_token_row_eager": ms["eager"]}
+        line[f"T={temp}"] = row
+        if not (row["tokens_equal"] and row["lengths_equal"]
+                and g.steps == e.steps
+                and row["sum_logprob_max_abs_diff"] <= SUM_LP_TOL):
+            log(json.dumps(line))
+            raise AssertionError(f"{compute_type}: the replayed loop differs "
+                                 f"from the eager one at T={temp}")
+    log(json.dumps(line))
 
 
 # ---------------------------------------------------------------------------
@@ -1055,7 +1145,7 @@ def phase_profile(model, main: dict, compute_type: str) -> None:
 
     def step():
         pos = state["pos"]
-        logits = decode_step(params, state["tok"], pos,
+        logits = decode_step(params, state["tok"],
                              StepLengths(positions[pos:pos + 1], cross_len),
                              cache, cross, cfg, emb32)
         state["tok"] = logits.argmax(-1)
@@ -1067,6 +1157,61 @@ def phase_profile(model, main: dict, compute_type: str) -> None:
                     "first_pos": (main["prefix"] + main["t_max"]) // 2 - 8,
                     "encode": enc,
                     "decode_step": dec}))
+    phase_profile_chunks(model, xa, compute_type)
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Device time of ``reps`` calls of fn() between two CUDA events (gaps
+    between kernels included), per call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_profile_chunks(model, xa, compute_type: str) -> None:
+    """The pipeline's batch-4 decode loop (captured by ``warmup``): one
+    replay of its 16-step chunk beside the same chunk run eagerly, both
+    from step 97 (pos 289 of 417), and the cross K/V plus prefill that run
+    eagerly once a loop."""
+    from manual_whisper_tpu_torch.models.whisper import (decoder_forward,
+                                                         precompute_cross_kv)
+    decoder = model._decoder("zh", 0.0)
+    loop = next(lp for key, lp in decoder._loops.items() if key[0] == BATCH)
+    params, cfg, first = model.params, model.cfg, 97
+    prefix, _ = decoder._prefix()
+    prefix_b = torch.tensor(prefix, device=xa.device).expand(BATCH, -1)
+
+    def setup():
+        precompute_cross_kv(params, xa, cfg, quantize=loop.quantize,
+                            scale_dtype=loop.scale_dtype, out=loop.cross)
+        decoder_forward(params, prefix_b, None, cfg, 0, loop.cache,
+                        loop.cross)
+
+    def rewind():
+        loop.state.i.fill_(first)
+        loop.state.pos.fill_(loop.p + first - 1)
+    n = 16
+    rewind()
+    replay = _profiled(lambda: loop.run_chunk(n), reps=2)
+    rewind()
+    replay["event_ms_per_rep"] = _event_ms(lambda: loop.run_chunk(n), 4)
+    rewind()
+    eager = _profiled(lambda: loop._chunk(n), reps=2)
+    out = {"phase": "profile_chunk", "compute_type": compute_type,
+           "batch": BATCH, "steps": n, "first_pos": loop.p + first - 1,
+           "launch_delta": dict(loop.graphs.launch_delta[n]),
+           "loop_setup": _profiled(setup, reps=2),
+           "chunk_replay": replay, "chunk_eager": eager}
+    for name in ("chunk_replay", "chunk_eager"):
+        out[name]["wall_ms_per_step"] = out[name]["wall_ms_per_rep"] / n
+        out[name]["device_ms_per_step"] = out[name]["device_ms_per_rep"] / n
+    log(json.dumps(out))
 
 
 def _host_us(fn, n: int = 200) -> float:
@@ -1167,6 +1312,8 @@ def main() -> int:
         found = timed(f"main {compute_type}", phase_main, model, load_s,
                       compute_type)
         launches.update({k: found[k] for k in kernels if k not in launches})
+        timed(f"graph vs eager {compute_type}", phase_graph_vs_eager, model,
+              compute_type)
         timed(f"profile {compute_type}", phase_profile, model, main_shapes,
               compute_type)
 

@@ -1,15 +1,25 @@
 """Batched greedy Whisper decoding (port of the JAX ``models/decode.py``).
 
-- ``greedy_decode``: prefill over the prompt, then single-token steps over
-  a preallocated KV cache, the whole batch in lockstep; finished rows emit
-  EOT and stop counting.  Returns tokens, summed logprobs, lengths and the
-  no-speech probability at the SOT slot, all on the device.
-- ``BatchDecoder``: prompt building, the quality gates (compression ratio,
-  avg logprob, no-speech) and the temperature fallback ladder on the host.
+- ``DecodeLoop``: cross K/V and prefill over the prompt, then single-token
+  steps over a preallocated KV cache, the whole batch in lockstep;
+  finished rows emit EOT and stop counting.  Returns tokens, summed
+  logprobs, lengths and the no-speech probability at the SOT slot, all on
+  the device.  The steps run as chunks of FINISH_CHECK_EVERY
+  (``decode_chunk``) over static buffers, with the position, step index
+  and temperature on the device; on CUDA each chunk is a captured CUDA
+  graph, replayed (``models/graphs.py``: the counterpart of JAX
+  ``greedy_decode_jit``'s compiled ``lax.while_loop``), on the CPU it runs
+  eagerly.  The host checks between chunks that every row has finished.
+- ``BatchDecoder``: prompt building, one ``DecodeLoop`` per shape, the
+  quality gates (compression ratio, avg logprob, no-speech) and the
+  temperature fallback ladder on the host.
 
-At temperature > 0 tokens are drawn with the Gumbel trick from a
-``torch.Generator`` seeded by ``opts.seed + 1000003 * rng_tag``: the same
-seed gives the same tokens, but not JAX's tokens (other random numbers).
+Tokens are drawn as JAX draws them: Gumbel noise at every step, then the
+sampled or the greedy token by the device temperature, so one captured
+chunk serves every rung.  The noise comes from a ``torch.Generator``
+seeded by ``opts.seed + 1000003 * rng_tag`` before each loop: the same
+seed gives the same tokens, captured or eager, but not JAX's tokens
+(other random numbers).
 
 ``int8_cross_kv`` quantizes the cross K/V to int8 per layer (scales in
 bf16 with ``ckv_scale_bf16``); the decode steps then read it through K5
@@ -24,14 +34,17 @@ from __future__ import annotations
 import collections
 import dataclasses
 import zlib
-from typing import List, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..tokenizer import WhisperTokenizer
-from .whisper import (Params, StepLengths, WhisperConfig, decode_step,
-                      decoder_forward, init_kv_cache, precompute_cross_kv)
+from .graphs import ChunkGraphs
+from .whisper import (Params, StepLengths, WhisperConfig, alloc_cross_kv,
+                      decode_step, decoder_forward, init_kv_cache,
+                      precompute_cross_kv)
 
 # steps between checks that every row has finished: each check waits for
 # the device, and extra steps after the last EOT change no output
@@ -95,14 +108,17 @@ def build_blank_mask(tokenizer: WhisperTokenizer, cfg: WhisperConfig
     return mask
 
 
-def _sample(logits: torch.Tensor, temperature: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
-    if temperature <= 0:
-        return logits.argmax(dim=-1)
+def _sample(logits: torch.Tensor, temperature: torch.Tensor,
+            gen: torch.Generator) -> torch.Tensor:
+    """Greedy where ``temperature`` (a device f32 scalar) is 0, else a
+    Gumbel-max draw at that temperature; the noise is drawn either way
+    (JAX ``sample``), so one captured chunk serves every rung."""
+    greedy = logits.argmax(dim=-1)
     u = torch.rand(logits.shape, generator=gen, device=logits.device)
     u = u * (1.0 - 1e-9) + 1e-9                          # [1e-9, 1)
     gumbel = -torch.log(-torch.log(u))
-    return (logits / max(temperature, 1e-6) + gumbel).argmax(dim=-1)
+    sampled = (logits / temperature.clamp_min(1e-6) + gumbel).argmax(dim=-1)
+    return torch.where(temperature > 0, sampled, greedy)
 
 
 def _logprob_of(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
@@ -112,7 +128,7 @@ def _logprob_of(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DecodeOutput:
-    """Device results of one ``greedy_decode`` call."""
+    """Device results of one decode loop (``DecodeLoop.run``)."""
     tokens: torch.Tensor          # [B, max_new] int64, EOT-filled
     sum_logprob: torch.Tensor     # [B] f32
     lengths: torch.Tensor         # [B] int32 (counts the EOT step)
@@ -120,62 +136,147 @@ class DecodeOutput:
     steps: int                    # decode positions run (prefill token + steps)
 
 
-def greedy_decode(params: Params, xa: torch.Tensor, prefix: List[int],
-                  suppress_mask: torch.Tensor, blank_mask: torch.Tensor,
-                  temperature: float, gen: Optional[torch.Generator],
-                  eot: int, cfg: WhisperConfig, max_new: int,
-                  sot_index: int = 0, no_speech_token: int = 0,
-                  int8_cross_kv: bool = False, ckv_scale_bf16: bool = False
-                  ) -> DecodeOutput:
-    """Prefill + decode loop over encoder states xa [B, Ta, d] with a
-    prompt shared by the batch (JAX ``greedy_decode_jit``)."""
-    b, ta = xa.shape[0], xa.shape[1]
-    p = len(prefix)
-    dev = xa.device
-    cross_kv = precompute_cross_kv(
-        params, xa, cfg, quantize=int8_cross_kv,
-        scale_dtype=torch.bfloat16 if ckv_scale_bf16 else torch.float32)
-    cache = init_kv_cache(cfg, b, p + max_new, dev)
-    prefix_b = torch.tensor(prefix, dtype=torch.long, device=dev).expand(b, p)
-    prefill_logits, cache = decoder_forward(params, prefix_b, None, cfg,
-                                            pos_offset=0, kv_cache=cache,
-                                            cross_kv=cross_kv)
-    first = prefill_logits[:, -1, :] + suppress_mask + blank_mask
-    tok = _sample(first, temperature, gen)
-    sum_lp = _logprob_of(first, tok)
-    tokens = torch.full((b, max_new), eot, dtype=torch.long, device=dev)
-    tokens[:, 0] = tok
-    finished = tok == eot
-    lengths = torch.ones(b, dtype=torch.int32, device=dev)
+@dataclasses.dataclass
+class LoopState:
+    """What the decode steps read and write, all on the device."""
+    tok: torch.Tensor             # [B] int64, the last token
+    tokens: torch.Tensor          # [B, max_new] int64
+    finished: torch.Tensor        # [B] bool
+    lengths: torch.Tensor         # [B] int32
+    sum_lp: torch.Tensor          # [B] f32
+    i: torch.Tensor               # [1] int32, the tokens slot of the next step
+    pos: torch.Tensor             # [1] int32, its cache slot (prefix + i - 1)
+    temperature: torch.Tensor     # [] f32
 
-    # device-side positions: step i reads slice [p+i-1] (no host->device
-    # copy per step); the cross length is fixed for the batch
-    positions = torch.arange(p + max_new, dtype=torch.int32, device=dev)
-    cross_len = torch.full((1,), ta, dtype=torch.int32, device=dev)
-    tok_emb_f32 = params["decoder"]["tok_emb"].float()
-    i = 1
-    while i < max_new:
-        if (i - 1) % FINISH_CHECK_EVERY == 0 and bool(finished.all()):
-            break
-        pos = p + i - 1
-        logits = decode_step(params, tok, pos,
-                             StepLengths(positions[pos:pos + 1], cross_len),
-                             cache, cross_kv, cfg, tok_emb_f32)
-        logits = logits + suppress_mask
-        nxt = _sample(logits, temperature, gen)
-        nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)
-        lp = torch.where(finished, torch.zeros_like(sum_lp),
+    @classmethod
+    def zeros(cls, batch: int, max_new: int,
+              device: torch.device) -> "LoopState":
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return cls(z(batch, torch.long), z((batch, max_new), torch.long),
+                   z(batch, torch.bool), z(batch, torch.int32),
+                   z(batch, torch.float32), z(1, torch.int32),
+                   z(1, torch.int32), z((), torch.float32))
+
+
+def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
+                 cross_len: torch.Tensor, suppress_mask: torch.Tensor,
+                 tok_emb_f32: torch.Tensor, gen: torch.Generator, eot: int,
+                 cfg: WhisperConfig, n_steps: int) -> None:
+    """``n_steps`` decode steps over ``st`` in place (the body of JAX
+    ``greedy_decode_jit``'s while loop, unrolled n times).  Reads and
+    writes only the tensors it is given, with no host value per step, so
+    on CUDA its capture replays at any position; on the CPU it runs as it
+    stands.  Finished rows emit EOT with logprob 0 and no length."""
+    lengths = StepLengths(st.pos, cross_len)
+    for _ in range(n_steps):
+        logits = decode_step(params, st.tok, lengths, cache, cross_kv, cfg,
+                             tok_emb_f32) + suppress_mask
+        nxt = _sample(logits, st.temperature, gen)
+        nxt = torch.where(st.finished, torch.full_like(nxt, eot), nxt)
+        lp = torch.where(st.finished, torch.zeros_like(st.sum_lp),
                          _logprob_of(logits, nxt))
-        tokens[:, i] = nxt
-        lengths += (~finished).to(torch.int32)
-        finished = finished | (nxt == eot)
-        sum_lp = sum_lp + lp
-        tok = nxt
-        i += 1
+        st.tokens.index_copy_(1, st.i.long(), nxt[:, None])
+        st.lengths += (~st.finished).to(torch.int32)
+        st.finished |= nxt == eot
+        st.sum_lp += lp
+        st.tok.copy_(nxt)
+        st.i += 1
+        st.pos += 1
 
-    no_speech = torch.softmax(prefill_logits[:, sot_index, :], dim=-1)[
-        :, no_speech_token]
-    return DecodeOutput(tokens, sum_lp, lengths, no_speech, i)
+
+class DecodeLoop:
+    """Prefill + decode loop over static buffers for one shape: ``rows``
+    batch rows, ``ta`` cross positions, a prompt of ``p`` tokens,
+    ``max_new`` tokens, one cross-K/V kind (bf16, or int8 with ``scale_dtype``
+    scales).  The buffers: the self cache (per layer [B, H, p + max_new,
+    dh]), the cross K/V and the ``LoopState``; each run overwrites all it
+    reads.
+
+    With ``graphs`` (a CUDA device, the default there) the chunks of
+    FINISH_CHECK_EVERY steps and the shorter last chunk, (max_new - 1) %
+    FINISH_CHECK_EVERY steps, are captured when the loop is built and
+    replayed after; otherwise ``decode_chunk`` runs eagerly.  Cross K/V
+    and prefill run eagerly, once a loop."""
+
+    def __init__(self, params: Params, cfg: WhisperConfig, rows: int,
+                 ta: int, p: int, max_new: int, quantize: bool,
+                 scale_dtype: torch.dtype, suppress_mask: torch.Tensor,
+                 eot: int, gen: torch.Generator, device: torch.device,
+                 graphs_pool=None):
+        self.params, self.cfg = params, cfg
+        self.p, self.max_new = p, max_new
+        self.quantize, self.scale_dtype = quantize, scale_dtype
+        self.suppress, self.eot, self.gen = suppress_mask, eot, gen
+        self.cache = init_kv_cache(cfg, rows, p + max_new, device)
+        self.cross = alloc_cross_kv(cfg, rows, ta, device, quantize,
+                                    scale_dtype)
+        self.state = LoopState.zeros(rows, max_new, device)
+        self.cross_len = torch.full((1,), ta, dtype=torch.int32,
+                                    device=device)
+        self.tok_emb_f32 = params["decoder"]["tok_emb"].float()
+        self.graphs = None
+        if graphs_pool is not None:
+            self.graphs = ChunkGraphs(device, gen, graphs_pool)
+            for n in self.chunk_lengths():
+                self.graphs.capture(n, self._chunk, self._rewind)
+
+    def chunk_lengths(self) -> List[int]:
+        """Step counts of the chunks a loop runs (before an early stop)."""
+        steps = self.max_new - 1
+        full = [FINISH_CHECK_EVERY] if steps >= FINISH_CHECK_EVERY else []
+        return full + ([steps % FINISH_CHECK_EVERY]
+                       if steps % FINISH_CHECK_EVERY else [])
+
+    def _rewind(self) -> None:
+        self.state.i.fill_(1)
+        self.state.pos.fill_(self.p)
+
+    def _chunk(self, n: int) -> None:
+        decode_chunk(self.params, self.state, self.cache, self.cross,
+                     self.cross_len, self.suppress, self.tok_emb_f32,
+                     self.gen, self.eot, self.cfg, n)
+
+    def run_chunk(self, n: int) -> None:
+        if self.graphs is None:
+            self._chunk(n)
+        else:
+            self.graphs.replay(n)
+
+    def run(self, xa: torch.Tensor, prefix: List[int],
+            blank_mask: torch.Tensor, temperature: float,
+            sot_index: int = 0, no_speech_token: int = 0) -> DecodeOutput:
+        """Cross K/V, prefill, first token, then the chunks, checking
+        between them that every row has finished (at steps 1, 17, 33, ...:
+        the eager loop's checks).  Returns copies of the results."""
+        b, p, st = xa.shape[0], len(prefix), self.state
+        precompute_cross_kv(self.params, xa, self.cfg, quantize=self.quantize,
+                            scale_dtype=self.scale_dtype, out=self.cross)
+        prefix_b = torch.tensor(prefix, dtype=torch.long,
+                                device=xa.device).expand(b, p)
+        prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
+                                            self.cfg, pos_offset=0,
+                                            kv_cache=self.cache,
+                                            cross_kv=self.cross)
+        st.temperature.fill_(temperature)
+        first = prefill_logits[:, -1, :] + self.suppress + blank_mask
+        tok = _sample(first, st.temperature, self.gen)
+        st.tok.copy_(tok)
+        st.tokens.fill_(self.eot)
+        st.tokens[:, 0] = tok
+        st.finished.copy_(tok == self.eot)
+        st.lengths.fill_(1)
+        st.sum_lp.copy_(_logprob_of(first, tok))
+        self._rewind()
+        i = 1
+        while i < self.max_new and not bool(st.finished.all()):
+            n = min(FINISH_CHECK_EVERY, self.max_new - i)
+            self.run_chunk(n)
+            i += n
+        no_speech = torch.softmax(prefill_logits[:, sot_index, :], dim=-1)[
+            :, no_speech_token]
+        return DecodeOutput(st.tokens.clone(), st.sum_lp.clone(),
+                            st.lengths.clone(), no_speech, i)
 
 
 def compression_ratio(text: str) -> float:
@@ -198,15 +299,24 @@ class SegmentResult:
 class BatchDecoder:
     """Host side of decoding: prompt building, decode, fallback ladder.
 
+    Owns one ``DecodeLoop`` per (rows bucket, cross positions, prompt and
+    token budget; the cross-K/V kind is the options'), built on first use
+    as ``jax.jit`` compiles on first call: on CUDA that captures its
+    chunks, all in one graph memory pool, freed with the decoder.  A
+    lock keeps one decode at a time on the static buffers.  ``eager=True``
+    runs the chunks eagerly on CUDA too, for comparison only; on the CPU
+    they always run eagerly.
+
     ``stats`` accumulates, for run reports: ``token_rows`` (rows x decode
     positions run, padding rows included), ``rung_rows`` (rows decoded at
     each rung of the temperature ladder), ``decode_calls`` (decode loops
-    run: one cross-K/V and one prefill each) and ``decode_steps``
-    (single-token steps run over all loops)."""
+    run: one cross-K/V and one prefill each), ``decode_steps``
+    (single-token steps run over all loops) and ``capture_s`` (host
+    seconds spent capturing chunks, warm-up runs included)."""
 
     def __init__(self, params: Params, cfg: WhisperConfig,
                  tokenizer: WhisperTokenizer, opts: DecodingOptions,
-                 device: torch.device):
+                 device: torch.device, eager: bool = False):
         if opts.beam_size > 1:
             raise NotImplementedError(
                 "beam_size > 1 is not ported yet (ROADMAP Queue A item 9)")
@@ -219,13 +329,18 @@ class BatchDecoder:
         self.tokenizer = tokenizer
         self.opts = opts
         self.device = device
+        self.captured = device.type == "cuda" and not eager
         self._suppress = torch.from_numpy(
             build_suppress_mask(tokenizer, cfg, opts)).to(device)
         self._blank = (torch.from_numpy(build_blank_mask(tokenizer, cfg))
                        .to(device) if opts.suppress_blank
                        else torch.zeros(cfg.n_vocab, device=device))
+        self._gen = torch.Generator(device=device)
+        self._loops: Dict[tuple, DecodeLoop] = {}
+        self._pool = None
+        self._lock = threading.Lock()
         self.stats = {"token_rows": 0, "rung_rows": collections.Counter(),
-                      "decode_calls": 0, "decode_steps": 0}
+                      "decode_calls": 0, "decode_steps": 0, "capture_s": 0.0}
 
     def _prefix(self) -> Tuple[List[int], int]:
         """(prefix tokens, index of SOT within the prefix)."""
@@ -250,25 +365,39 @@ class BatchDecoder:
     def decode_submit(self, xa: torch.Tensor, temperature: float = 0.0,
                       rng_tag: int = 0) -> DecodeOutput:
         """Run the decode loop; results stay on the device until
-        ``decode_finalize``."""
+        ``decode_finalize``.  The sampling generator is seeded with
+        ``opts.seed + 1000003 * rng_tag`` before the loop."""
         prefix, sot_index = self._prefix()
         max_new = min(self.opts.max_new_tokens,
                       self.cfg.n_text_ctx - len(prefix) - 1)
-        gen = None
-        if temperature > 0:
-            gen = torch.Generator(device=xa.device)
-            gen.manual_seed(self.opts.seed + 1000003 * rng_tag)
-        out = greedy_decode(
-            self.params, xa, prefix, self._suppress, self._blank,
-            float(temperature), gen, self.tokenizer.special.eot, self.cfg,
-            max_new, sot_index=sot_index,
-            no_speech_token=self.tokenizer.special.no_speech,
-            int8_cross_kv=self.opts.int8_cross_kv,
-            ckv_scale_bf16=self.opts.ckv_scale_bf16)
-        self.stats["token_rows"] += int(xa.shape[0]) * out.steps
-        self.stats["decode_calls"] += 1
-        self.stats["decode_steps"] += out.steps - 1
+        rows, ta = int(xa.shape[0]), int(xa.shape[1])
+        with self._lock:
+            loop = self._loop(rows, ta, len(prefix), max_new)
+            self._gen.manual_seed(self.opts.seed + 1000003 * rng_tag)
+            out = loop.run(xa, prefix, self._blank, float(temperature),
+                           sot_index=sot_index,
+                           no_speech_token=self.tokenizer.special.no_speech)
+            self.stats["token_rows"] += rows * out.steps
+            self.stats["decode_calls"] += 1
+            self.stats["decode_steps"] += out.steps - 1
         return out
+
+    def _loop(self, rows: int, ta: int, p: int, max_new: int) -> DecodeLoop:
+        key = (rows, ta, p, max_new)
+        if key not in self._loops:
+            if self.captured and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            loop = DecodeLoop(
+                self.params, self.cfg, rows, ta, p, max_new,
+                self.opts.int8_cross_kv,
+                torch.bfloat16 if self.opts.ckv_scale_bf16
+                else torch.float32, self._suppress,
+                self.tokenizer.special.eot, self._gen, self.device,
+                graphs_pool=self._pool)
+            if loop.graphs is not None:
+                self.stats["capture_s"] += loop.graphs.capture_s
+            self._loops[key] = loop
+        return self._loops[key]
 
     def decode_finalize(self, out: DecodeOutput, b: int,
                         temperature: float = 0.0) -> List[SegmentResult]:

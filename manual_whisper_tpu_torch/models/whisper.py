@@ -232,22 +232,46 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig
 
 def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
                         quantize: bool = False,
-                        scale_dtype: torch.dtype = torch.float32) -> list:
+                        scale_dtype: torch.dtype = torch.float32,
+                        out: Optional[list] = None) -> list:
     """Per-layer cross-attention (k, v), each [B, H, Ta, dh], from encoder
     output xa [B, Ta, d]; computed once per batch, read by every step.
 
     With ``quantize`` each layer's K/V is quantized inside the layer loop
     (``quantize_cross_kv``), so the full-precision K/V of all layers never
-    exists at once; each layer is then ``(k_q, k_s, v_q, v_s)``."""
+    exists at once; each layer is then ``(k_q, k_s, v_q, v_s)``.  ``out``
+    (a list of the same structure, e.g. ``alloc_cross_kv``) takes the
+    results in place and is returned: the static buffers a captured decode
+    chunk reads."""
     n_head = cfg.n_text_head
-    out = []
+    layers = []
     for blk in params["decoder"]["blocks"]:
         xat = blk["xattn"]
         k = _split_heads(mm(xa, xat["k_w"]), n_head).contiguous()
         v = _split_heads(mm(xa, xat["v_w"]) + xat["v_b"], n_head).contiguous()
-        out.append(quantize_cross_kv(k, v, scale_dtype) if quantize
-                   else (k, v))
-    return out
+        kv = quantize_cross_kv(k, v, scale_dtype) if quantize else (k, v)
+        if out is not None:
+            for dst, src in zip(out[len(layers)], kv):
+                dst.copy_(src)
+            kv = out[len(layers)]
+        layers.append(kv)
+    return layers
+
+
+def alloc_cross_kv(cfg: WhisperConfig, batch: int, ta: int,
+                   device: torch.device, quantize: bool = False,
+                   scale_dtype: torch.dtype = torch.float32) -> list:
+    """Zeroed buffers shaped as ``precompute_cross_kv``'s result, for its
+    ``out``: per layer (k, v) [B, H, Ta, dh] in cfg.dtype, or with
+    ``quantize`` (k_q, k_s, v_q, v_s): int8 codes and [B, H, Ta] scales."""
+    h = cfg.n_text_head
+    shape = (batch, h, ta, cfg.n_text_state // h)
+    if not quantize:
+        return [tuple(torch.zeros(shape, dtype=cfg.dtype, device=device)
+                      for _ in range(2)) for _ in range(cfg.n_text_layer)]
+    return [tuple(torch.zeros(s, dtype=t, device=device)
+                  for s, t in ((shape, torch.int8), (shape[:3], scale_dtype))
+                  * 2) for _ in range(cfg.n_text_layer)]
 
 
 def quantize_cross_kv(k: torch.Tensor, v: torch.Tensor,
@@ -368,28 +392,32 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
     return logits_f32(x, dec["tok_emb"].float()), kv_cache
 
 
-def decode_step(params: Params, token: torch.Tensor, pos: int,
-                lengths: StepLengths, kv_cache: KVCache, cross_kv,
-                cfg: WhisperConfig, tok_emb_f32: torch.Tensor
-                ) -> torch.Tensor:
-    """One decode step: token [B] at position ``pos`` -> logits [B, V] f32.
+def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
+                kv_cache: KVCache, cross_kv, cfg: WhisperConfig,
+                tok_emb_f32: torch.Tensor) -> torch.Tensor:
+    """One decode step: token [B] at position ``lengths.pos`` -> logits
+    [B, V] f32.
 
-    Writes slot ``pos`` of every layer's cache in place (the JAX version
-    returns a new cache); ``lengths.pos`` holds the same position on the
-    device for the kernels.  ``tok_emb_f32`` is the float32 view of the
+    The position is read on the device only (one int32, as the kernels
+    read it): the position embedding through ``index_select`` and slot
+    ``pos`` of every layer's cache written in place with ``index_copy_``
+    (the JAX version returns a new cache), so a CUDA graph of the step
+    replays at every position.  ``tok_emb_f32`` is the float32 view of the
     embedding the caller keeps for the whole loop."""
     dec = params["decoder"]
     n_head = cfg.n_text_head
-    x = dec["tok_emb"][token] + dec["pos_emb"][pos]
+    slot = lengths.pos.long()
+    x = dec["tok_emb"][token] + dec["pos_emb"].index_select(0, lengths.pos)
     h = x[:, None, :].to(cfg.dtype)                        # [B, 1, d]
     for blk, ck, cv, xkv in zip(dec["blocks"], kv_cache[0], kv_cache[1],
                                 cross_kv):
         a_in = _layer_norm(h, blk["ln1"])
         att = blk["attn"]
-        ck[:, :, pos] = mm(a_in[:, 0], att["k_w"]).reshape(
-            ck.shape[0], n_head, -1)
-        cv[:, :, pos] = (mm(a_in[:, 0], att["v_w"]) + att["v_b"]).reshape(
-            cv.shape[0], n_head, -1)
+        b = ck.shape[0]
+        ck.index_copy_(2, slot, mm(a_in[:, 0], att["k_w"]).reshape(
+            b, n_head, 1, -1))
+        cv.index_copy_(2, slot, (mm(a_in[:, 0], att["v_w"])
+                                 + att["v_b"]).reshape(b, n_head, 1, -1))
         h = _decoder_block(h, blk, n_head, ck, cv, None, xkv, step=lengths)
     x = _layer_norm(h, dec["ln"])[:, 0, :]
     return logits_f32(x, tok_emb_f32)

@@ -8,8 +8,12 @@ assembly; with ``compute_type="int8"`` every block matmul runs K6.  Keeps the
 whisperx-like surface: ``load_model(name, device); model.transcribe(audio,
 batch_size, language)``.
 
-Each batch is finalized as soon as it is decoded (the JAX package's fetch
-worker overlaps device and host work; that is not ported).  ``last_stats``
+``warmup`` runs one decode per batch bucket ahead of the first request:
+on CUDA that captures each bucket's decode chunks as CUDA graphs, which
+every later loop replays; on the CPU the chunks run eagerly.  Each batch
+is finalized as soon as it is decoded (the JAX package's fetch worker
+overlaps device and host work; that is not ported: its second thread
+would replay the same static buffers).  ``last_stats``
 holds the phase times and counts of the most recent ``transcribe`` call
 (``windows``: real audio windows; ``rows``: batch rows, padding included;
 ``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``);
@@ -129,6 +133,34 @@ class TranscribePipeline:
         lang_logits = logits[0, 0, base:base + self.tokenizer.num_languages]
         return self.tokenizer.language_from_token(
             base + int(torch.argmax(lang_logits)))
+
+    def warmup(self, batch_size: int = 8, language: Optional[str] = None,
+               temperature=0.0,
+               progress_callback: Optional[ProgressFn] = None) -> None:
+        """Build ahead of time what the first request would otherwise
+        build: for every batch bucket the chunk scheduler can emit (1, 2
+        and 4 rows for batch 4), encode zero windows and run one T = 0
+        decode, which builds the kernels and, on CUDA, captures that
+        bucket's decode chunks (every rung replays them); then language
+        detection when no language is pinned.  The port raises for the
+        timestamp and beam decoders, and its energy VAD builds nothing.
+        Port of the JAX ``TranscribePipeline.warmup``."""
+        from .chunking import _bucket_for
+        lang = language or self.language or "zh"
+        decoder = self._decoder(lang, temperature)
+        buckets = sorted({_bucket_for(max(1, batch_size >> k), batch_size)
+                          for k in range(4)})
+        for i, rows in enumerate(buckets):
+            if progress_callback:
+                progress_callback(100.0 * i / len(buckets),
+                                  f"warmup: batch-{rows} decode loop")
+            windows = np.zeros((rows, self.window_samples), np.float32)
+            decoder.decode(self._encode_windows(windows), temperature=0.0)
+        if language is None and self.language is None:
+            self.detect_language(np.zeros(1600, np.float32))
+        self._sync()
+        if progress_callback:
+            progress_callback(100.0, "warmup: done")
 
     def transcribe(self, audio: Union[str, Path, np.ndarray],
                    batch_size: int = 8,

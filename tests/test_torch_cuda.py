@@ -6,6 +6,8 @@ same comparisons at large-v3 shapes; these run small shapes, including
 the tiny ``test`` config's head_dim 32, ragged lengths and edge lengths.
 """
 
+import collections
+
 import pytest
 import torch
 
@@ -248,3 +250,102 @@ def test_int8_kernels_reject_wrong_inputs(dev):
                                     kv_len)
     with pytest.raises(ValueError, match="int32"):
         decode_cross_attention_int8(q, *kv4, kv_len.long())
+
+
+# -- the decode loop as replays of captured chunks ---------------------------
+
+def _tiny_decoders(dev, int8):
+    """A captured and an eager ``BatchDecoder`` over the ``test`` config in
+    bf16 with seeded random weights (``int8``: int8 weights and int8 cross
+    K/V); 40 new tokens, so a loop runs 16 + 16 + 7 steps."""
+    from manual_whisper_tpu_torch.models.decode import (BatchDecoder,
+                                                        DecodingOptions)
+    from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
+                                                         init_params)
+    from manual_whisper_tpu_torch.ops.quant import quantize_params
+    from manual_whisper_tpu_torch.tokenizer import make_test_tokenizer
+    cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
+    params = init_params(cfg, dev, seed=7)
+    if int8:
+        params = quantize_params(params)
+    opts = DecodingOptions(language="en", max_new_tokens=40,
+                           suppress_blank=False, int8_cross_kv=int8)
+    tk = make_test_tokenizer()
+    return (cfg, BatchDecoder(params, cfg, tk, opts, dev),
+            BatchDecoder(params, cfg, tk, opts, dev, eager=True))
+
+
+def _tiny_xa(cfg, dev, rows, seed):
+    return _randn((rows, cfg.n_audio_ctx, cfg.n_text_state), dev, seed)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_captured_loop_equals_eager(dev, rows, int8, temperature):
+    """The replayed chunks give the eager chunks' tokens, lengths and
+    summed logprobs (same kernels in the same order, same random numbers
+    from the same seed), and their launches are counted as launched."""
+    cfg, graph, eager = _tiny_decoders(dev, int8)
+    xa = _tiny_xa(cfg, dev, rows, 40)
+    graph.decode_submit(xa, 0.0)        # captures (its warm-up launches)
+    out = {}
+    for name, dec in (("graph", graph), ("eager", eager)):
+        before = collections.Counter(_build.launches)
+        out[name] = dec.decode_submit(xa, temperature, rng_tag=3)
+        torch.cuda.synchronize()
+        out[name + "_launches"] = _build.launches - before
+    g, e = out["graph"], out["eager"]
+    assert graph.captured and not eager.captured
+    assert torch.equal(g.tokens, e.tokens)
+    assert torch.equal(g.lengths, e.lengths) and g.steps == e.steps
+    torch.testing.assert_close(g.sum_logprob, e.sum_logprob, atol=1e-4,
+                               rtol=0)
+    assert out["graph_launches"] == out["eager_launches"]
+
+
+def _step_launches(cfg, int8):
+    layers = cfg.n_text_layer
+    if int8:
+        return {"decode_self_attention": layers,
+                "decode_cross_attention_int8": layers,
+                "int8_matmul": 8 * layers}
+    return {"decode_self_attention": layers,
+            "decode_cross_attention": layers}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_capture_records_each_chunks_launches(dev, int8):
+    """Each captured chunk's launch delta is its steps times one step's
+    launches; the capture itself leaves the counters as they were."""
+    cfg, graph, _ = _tiny_decoders(dev, int8)
+    xa = _tiny_xa(cfg, dev, 2, 41)
+    before = collections.Counter(_build.launches)
+    out = graph.decode_submit(xa, 0.0)
+    (loop,) = graph._loops.values()
+    assert sorted(loop.graphs.graphs) == [7, 16]
+    per_step = _step_launches(cfg, int8)
+    for n, delta in loop.graphs.launch_delta.items():
+        assert delta == {k: n * v for k, v in per_step.items()}
+    # this decode: the warm-up runs before each capture (16 + 7 steps),
+    # the loop's replays (out.steps - 1 steps), and with int8 weights the
+    # cross K/V's 2 and the prefill's 8 matmuls a layer
+    ran = _build.launches - before
+    for k, v in per_step.items():
+        assert ran[k] - v * (16 + 7 + out.steps - 1) == (
+            10 * cfg.n_text_layer if k == "int8_matmul" else 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_new_capture_leaves_earlier_loops_alone(dev, int8):
+    """Decode at 2 rows, capture 1 and 4 rows, decode at 2 rows again: the
+    same results, so graphs sharing one memory pool keep their buffers."""
+    cfg, graph, _ = _tiny_decoders(dev, int8)
+    xa = _tiny_xa(cfg, dev, 2, 42)
+    first = graph.decode_submit(xa, 0.6, rng_tag=1)
+    for rows in (1, 4):
+        graph.decode_submit(_tiny_xa(cfg, dev, rows, 43 + rows), 0.0)
+    again = graph.decode_submit(xa, 0.6, rng_tag=1)
+    assert len(graph._loops) == 3
+    for name in ("tokens", "sum_logprob", "lengths", "no_speech"):
+        assert torch.equal(getattr(first, name), getattr(again, name)), name

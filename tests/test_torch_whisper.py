@@ -167,7 +167,7 @@ def test_cross_kv_and_decoder_match_jax(synth):
                                     jnp.int32(pos), jcache, cross_layers,
                                     JCFG)
         tl = tw.decode_step(
-            tparams, torch.full((b,), tok, dtype=torch.long), pos,
+            tparams, torch.full((b,), tok, dtype=torch.long),
             tw.StepLengths(positions[pos:pos + 1], lengths_cross),
             tcache, tcross, TCFG, emb32)
         _close(tl.numpy(), jl)
@@ -216,7 +216,7 @@ def _int8_decoder_logits(jparams, tparams, jcfg, tcfg, scale_dtype, xa_np):
                                     jnp.int32(pos), jcache, cross_layers,
                                     jcfg)
         tl = tw.decode_step(
-            tparams, torch.full((b,), tok, dtype=torch.long), pos,
+            tparams, torch.full((b,), tok, dtype=torch.long),
             tw.StepLengths(positions[pos:pos + 1], cross_len),
             tcache, tcross, tcfg, emb32)
         out.append(tl.numpy())
