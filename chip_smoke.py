@@ -71,7 +71,7 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
    and 16 eager decode steps of each model (device-busy share, top
    kernels), and over one replay of the 16-step chunk beside the same
-   chunk run eagerly and the cross K/V plus prefill of a loop, run right
+   chunk run eagerly and the cross K/V and the prefill of a loop, run right
    after that model's phase 4; before phase 3, the host time to issue one
    call of K6 (through ``mm``) and K5 against the bf16 step's cuBLAS
    matmul and K4.
@@ -1177,8 +1177,8 @@ def _event_ms(fn, reps: int) -> float:
 def phase_profile_chunks(model, xa, compute_type: str) -> None:
     """The pipeline's batch-4 decode loop (captured by ``warmup``): one
     replay of its 16-step chunk beside the same chunk run eagerly, both
-    from step 97 (pos 289 of 417), and the cross K/V plus prefill that run
-    eagerly once a loop."""
+    from step 97 (pos 289 of 417), and the cross K/V and the prefill that
+    run eagerly once a loop."""
     from manual_whisper_tpu_torch.models.whisper import (decoder_forward,
                                                          precompute_cross_kv)
     decoder = model._decoder("zh", 0.0)
@@ -1187,9 +1187,11 @@ def phase_profile_chunks(model, xa, compute_type: str) -> None:
     prefix, _ = decoder._prefix()
     prefix_b = torch.tensor(prefix, device=xa.device).expand(BATCH, -1)
 
-    def setup():
+    def cross_kv():
         precompute_cross_kv(params, xa, cfg, quantize=loop.quantize,
                             scale_dtype=loop.scale_dtype, out=loop.cross)
+
+    def prefill():
         decoder_forward(params, prefix_b, None, cfg, 0, loop.cache,
                         loop.cross)
 
@@ -1206,7 +1208,8 @@ def phase_profile_chunks(model, xa, compute_type: str) -> None:
     out = {"phase": "profile_chunk", "compute_type": compute_type,
            "batch": BATCH, "steps": n, "first_pos": loop.p + first - 1,
            "launch_delta": dict(loop.graphs.launch_delta[n]),
-           "loop_setup": _profiled(setup, reps=2),
+           "cross_kv": _profiled(cross_kv, reps=2),
+           "prefill": _profiled(prefill, reps=2),
            "chunk_replay": replay, "chunk_eager": eager}
     for name in ("chunk_replay", "chunk_eager"):
         out[name]["wall_ms_per_step"] = out[name]["wall_ms_per_rep"] / n

@@ -33,8 +33,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import zlib
 import threading
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -193,11 +193,12 @@ class DecodeLoop:
     dh]), the cross K/V and the ``LoopState``; each run overwrites all it
     reads.
 
-    With ``graphs`` (a CUDA device, the default there) the chunks of
-    FINISH_CHECK_EVERY steps and the shorter last chunk, (max_new - 1) %
-    FINISH_CHECK_EVERY steps, are captured when the loop is built and
-    replayed after; otherwise ``decode_chunk`` runs eagerly.  Cross K/V
-    and prefill run eagerly, once a loop."""
+    With ``graphs_pool`` (a CUDA graph memory pool, which BatchDecoder
+    passes on CUDA) the chunks of FINISH_CHECK_EVERY steps and the shorter
+    last chunk, (max_new - 1) % FINISH_CHECK_EVERY steps, are captured
+    when the loop is built and replayed after; without it
+    ``decode_chunk`` runs eagerly.  Cross K/V and prefill run eagerly,
+    once a loop."""
 
     def __init__(self, params: Params, cfg: WhisperConfig, rows: int,
                  ta: int, p: int, max_new: int, quantize: bool,

@@ -245,15 +245,15 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
     chunk reads."""
     n_head = cfg.n_text_head
     layers = []
-    for blk in params["decoder"]["blocks"]:
+    for i, blk in enumerate(params["decoder"]["blocks"]):
         xat = blk["xattn"]
         k = _split_heads(mm(xa, xat["k_w"]), n_head).contiguous()
         v = _split_heads(mm(xa, xat["v_w"]) + xat["v_b"], n_head).contiguous()
         kv = quantize_cross_kv(k, v, scale_dtype) if quantize else (k, v)
         if out is not None:
-            for dst, src in zip(out[len(layers)], kv):
+            for dst, src in zip(out[i], kv):
                 dst.copy_(src)
-            kv = out[len(layers)]
+            kv = out[i]
         layers.append(kv)
     return layers
 
@@ -307,8 +307,9 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
 
 @dataclasses.dataclass
 class StepLengths:
-    """Device-side lengths a decode step's kernels read: ``pos`` (one int32,
-    the slot just written) and ``cross_len`` (one int32, valid cross K/V)."""
+    """Device-side lengths a decode step reads: ``pos`` (one int32, the
+    cache slot the step writes and the last its self-attention reads) and
+    ``cross_len`` (one int32, valid cross K/V)."""
     pos: torch.Tensor
     cross_len: torch.Tensor
 
