@@ -87,6 +87,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import copy
 import functools
 import json
 import math
@@ -143,7 +144,13 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        # limits; the faults phase 3 runs exceed them (smallest: the last
        # layer's cross-K/V scales swapped, logits off by 0.067)
        "encoder_int8": (0.1, 0.0),
-       "logits_int8": (0.015, 0.0)}
+       "logits_int8": (0.015, 0.0),
+       # PyanNet's speech probabilities, card vs CPU, both float32 with TF32
+       # off: cuDNN sums in another order than the CPU, and the trained
+       # network amplifies float32 rounding (the JAX package's CPU forward
+       # is up to 1.6e-4 from a float64 evaluation); the faults the vad
+       # phase plants move probabilities by far more
+       "vad": (1e-3, 0.0)}
 
 SOURCES = {
     "mel": ("manual_whisper_tpu_torch/csrc/mel.cu",
@@ -873,6 +880,108 @@ def phase_tiny(dev, int8: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The vad phase: PyanNet on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _lstm_directions_swapped(model):
+    """A copy of ``model`` whose every LSTM layer runs each direction with
+    the other direction's weights."""
+    bad = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, fwd in bad.lstm.named_parameters():
+            if name.endswith("_reverse"):
+                continue
+            rev = getattr(bad.lstm, name + "_reverse")
+            tmp = fwd.clone()
+            fwd.copy_(rev)
+            rev.copy_(tmp)
+    return bad
+
+
+def _speech_probs_without_norm(det, audio, which: int):
+    """Speech probabilities with the ``which``-th instance norm of the
+    forward (0: the waveform's, 1-3: after the sinc conv and each conv)
+    left out."""
+    from manual_whisper_tpu_torch.models import vad as vad_mod
+    norm = vad_mod._instance_norm
+    calls = []
+
+    def dropped(x, g, b, eps=1e-5):
+        calls.append(1)
+        return x if (len(calls) - 1) % 4 == which else norm(x, g, b, eps)
+
+    vad_mod._instance_norm = dropped
+    try:
+        return det.speech_probs(audio)[0]
+    finally:
+        vad_mod._instance_norm = norm
+
+
+def phase_vad(dev) -> None:
+    """PyanNet from the registry's ``pytorch_model.bin`` on the card and on
+    the CPU, same weights, phase 4's 75 s of audio: speech probabilities
+    within TOL["vad"] and regions equal; two planted faults on the card (the
+    LSTM's directions swapped; the norm after the first conv dropped) must
+    each exceed the tolerance; then a 16-row and a 4-row block timed with
+    CUDA events (device time of the forward, no host copies)."""
+    from manual_whisper_tpu_torch.convert import (from_jax_pyannet,
+                                                  load_segmentation_params)
+    from manual_whisper_tpu_torch.models.vad import (
+        PYANNET_CHUNK, PYANNET_CHUNK_SMALL, VoiceActivityDetector)
+    tree = load_segmentation_params()
+    if tree is None:
+        raise AssertionError("the registry holds no pytorch_model.bin of "
+                             "pyannote-segmentation-3.0")
+    cpu_det = VoiceActivityDetector(from_jax_pyannet(tree,
+                                                     torch.device("cpu")))
+    gpu_det = VoiceActivityDetector(from_jax_pyannet(tree, dev))
+    audio = synthetic_speech(75.0, seed=0)
+    t0 = time.perf_counter()
+    ref, frame_dur = cpu_det.speech_probs(audio)
+    cpu_s = time.perf_counter() - t0
+    gpu_det.warmup()
+    t0 = time.perf_counter()
+    probs, _ = gpu_det.speech_probs(audio)
+    gpu_s = time.perf_counter() - t0
+    ref_t, probs_t = torch.from_numpy(ref), torch.from_numpy(probs)
+    regions, ref_regions = gpu_det(audio), cpu_det(audio)
+    faults = {
+        "lstm_directions_swapped": VoiceActivityDetector(
+            _lstm_directions_swapped(gpu_det.model)).speech_probs(audio)[0],
+        "conv1_norm_dropped": _speech_probs_without_norm(gpu_det, audio, 2)}
+    fault_errs = {k: max_err(torch.from_numpy(v), ref_t)
+                  for k, v in faults.items()}
+    window = int(gpu_det.cfg.window_sec * 16000)
+    block_ms = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for rows in (PYANNET_CHUNK, PYANNET_CHUNK_SMALL):
+        x = 0.1 * torch.randn(rows, window, device=dev, generator=gen)
+        with torch.inference_mode():
+            for _ in range(3):
+                gpu_det.model(x)
+            block_ms[rows] = _event_ms(lambda: gpu_det.model(x), 10)
+    log(json.dumps({
+        "phase": "vad", "audio_s": len(audio) / 16000.0,
+        "windows": -(-len(audio) // window), "frames": len(probs),
+        "frame_s": frame_dur, "max_abs_err": max_err(probs_t, ref_t),
+        "tol": TOL["vad"], "regions": len(regions),
+        "regions_equal": regions == ref_regions,
+        "faults": fault_errs, "cpu_s": cpu_s, "card_s": gpu_s,
+        "block_ms": {f"rows={r}": ms for r, ms in block_ms.items()}}))
+    if probs.shape != ref.shape:
+        raise AssertionError(f"vad: {probs.shape} frames on the card, "
+                             f"{ref.shape} on the CPU")
+    compare("vad", probs_t, ref_t)
+    if regions != ref_regions or not regions:
+        raise AssertionError(f"vad: regions differ or are empty: "
+                             f"{regions[:5]} vs {ref_regions[:5]}")
+    for name, err in fault_errs.items():
+        if err <= TOL["vad"][0]:
+            raise AssertionError(f"vad: the tolerance does not catch the "
+                                 f"fault {name}: {err}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the main path at large-v3
 # ---------------------------------------------------------------------------
 
@@ -993,6 +1102,9 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
         check=True).stdout.strip()
     stats = model.last_stats
     segs = result["segments"]
+    vad = model.vad.model
+    if vad is None or vad.sinc.device.type != "cuda":
+        raise AssertionError("the main path did not run PyanNet on the card")
     if result["language"] != "zh" or not isinstance(segs, list):
         raise AssertionError(f"bad result shape: {result!r:.200}")
     if stats["windows"] < 2:
@@ -1015,7 +1127,7 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
         "phase": "main_path", "model": "large-v3",
         "compute_type": compute_type,
         "int8_cross_kv": model.asr_options.get("int8_cross_kv", False),
-        "load_s": load_s, "warmup_s": warmup_s, "capture_s": capture_s,
+        "vad": "pyannet", "load_s": load_s, "warmup_s": warmup_s, "capture_s": capture_s,
         "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
         "vad_s": stats["vad_s"], "mel_encode_s": stats["encode_s"],
         "decode_s": stats["decode_s"], "batches": stats["batches"],
@@ -1305,6 +1417,7 @@ def main() -> int:
     timed("host costs", phase_host_costs, dev, main_shapes)
     timed("tiny bf16", phase_tiny, dev, False)
     timed("tiny int8", phase_tiny, dev, True)
+    timed("vad", phase_vad, dev)
     launches = {}
     for compute_type, kernels in (("bfloat16", BF16_KERNELS),
                                   ("int8", INT8_KERNELS)):

@@ -151,3 +151,22 @@ def weights_dir() -> Optional[str]:
         return root
     local = Path(__file__).resolve().parent.parent / ".weights"
     return str(local) if local.is_dir() else None
+
+
+SYNTH_MARKER_NAME = "SYNTH_TRAINED"
+
+
+def warn_if_synth_checkpoint(checkpoint_dir, what: str) -> None:
+    """RuntimeWarning when loading a checkpoint trained on synthetic data
+    (a ``SYNTH_TRAINED`` marker beside its weights), unless the caller
+    opted in via MWX_ALLOW_SYNTH_WEIGHTS."""
+    if get_bool("MWX_ALLOW_SYNTH_WEIGHTS", False):
+        return
+    marker = Path(checkpoint_dir) / SYNTH_MARKER_NAME
+    if marker.exists():
+        import warnings
+        warnings.warn(
+            f"{what} checkpoint at {checkpoint_dir} is trained on synthetic "
+            "tone-language data only and has never seen real speech; "
+            "convert real weights or set MWX_ALLOW_SYNTH_WEIGHTS=1 to "
+            "silence this warning", RuntimeWarning, stacklevel=3)

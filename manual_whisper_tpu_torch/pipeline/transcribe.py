@@ -1,12 +1,18 @@
 """End-to-end transcription pipeline (port of the JAX
 ``pipeline/transcribe.py``).
 
-VAD segmentation, 30 s chunk merging, bucketed batching, int16 round trip,
-log-mel (K1), encoder (K2), batched greedy decode with the temperature
-fallback ladder (K3, K4; K5 with int8 cross K/V), per-chunk segment
-assembly; with ``compute_type="int8"`` every block matmul runs K6.  Keeps the
-whisperx-like surface: ``load_model(name, device); model.transcribe(audio,
-batch_size, language)``.
+VAD segmentation (PyanNet on the pipeline's device when the registry
+holds its checkpoint, else the energy VAD), 30 s chunk merging, bucketed
+batching, int16 round trip, log-mel (K1), encoder (K2), batched greedy
+decode with the temperature fallback ladder (K3, K4; K5 with int8 cross
+K/V), per-chunk segment assembly; with ``compute_type="int8"`` every block
+matmul runs K6.  Keeps the whisperx-like surface: ``load_model(name,
+device); model.transcribe(audio, batch_size, language)``.
+
+As in the JAX pipeline, dispatch is streamed: the VAD yields speech
+probabilities block by block, each block's final chunks join the queue,
+and every full batch is encoded and decoded before the next block is
+scored.
 
 ``warmup`` runs one decode per batch bucket ahead of the first request:
 on CUDA that captures each bucket's decode chunks as CUDA graphs, which
@@ -15,7 +21,8 @@ is finalized as soon as it is decoded (the JAX package's fetch worker
 overlaps device and host work; that is not ported: its second thread
 would replay the same static buffers).  ``last_stats``
 holds the phase times and counts of the most recent ``transcribe`` call
-(``windows``: real audio windows; ``rows``: batch rows, padding included;
+(``vad_s``: the VAD's blocks, binarization and merging only; ``windows``:
+real audio windows; ``rows``: batch rows, padding included;
 ``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``);
 on CUDA each phase ends in a synchronisation so its time is the device's.
 """
@@ -23,6 +30,7 @@ on CUDA each phase ends in a synchronisation so its time is the device's.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import time
 import warnings
 from pathlib import Path
@@ -33,7 +41,8 @@ import torch
 
 from .. import config
 from ..audio import load_audio
-from ..convert import from_jax_tree
+from ..convert import (SEGMENTATION_NAME, from_jax_pyannet, from_jax_tree,
+                       load_segmentation_params)
 from ..device import DeviceLike, compute_dtype, resolve_device
 from ..models.decode import BatchDecoder, DecodingOptions
 from ..models.vad import VadOptions, VoiceActivityDetector, binarize
@@ -142,9 +151,10 @@ class TranscribePipeline:
         and 4 rows for batch 4), encode zero windows and run one T = 0
         decode, which builds the kernels and, on CUDA, captures that
         bucket's decode chunks (every rung replays them); then language
-        detection when no language is pinned.  The port raises for the
-        timestamp and beam decoders, and its energy VAD builds nothing.
-        Port of the JAX ``TranscribePipeline.warmup``."""
+        detection when no language is pinned, then both PyanNet block
+        shapes (nothing for the energy VAD).  The port raises for the
+        timestamp and beam decoders.  Port of the JAX
+        ``TranscribePipeline.warmup``."""
         from .chunking import _bucket_for
         lang = language or self.language or "zh"
         decoder = self._decoder(lang, temperature)
@@ -158,6 +168,7 @@ class TranscribePipeline:
             decoder.decode(self._encode_windows(windows), temperature=0.0)
         if language is None and self.language is None:
             self.detect_language(np.zeros(1600, np.float32))
+        self.vad.warmup()
         self._sync()
         if progress_callback:
             progress_callback(100.0, "warmup: done")
@@ -200,56 +211,88 @@ class TranscribePipeline:
         self.last_stats = stats
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
+        counts = ("token_rows", "decode_calls", "decode_steps")
+        before: tuple = ()
+        first_temp = 0.0
         t0 = time.time()
 
+        def dispatch(group: List[SpeechChunk]) -> None:
+            # the decoder (and language detection) waits for the first
+            # batch, so audio without speech never reaches the device
+            nonlocal lang, decoder, before, first_temp
+            if decoder is None:
+                if not lang:
+                    lang = self.detect_language(audio)
+                    report(2.0, f"detected language: {lang}")
+                decoder = self._decoder(lang, temperature, initial_prompt)
+                before = ({k: decoder.stats[k] for k in counts},
+                          dict(decoder.stats["rung_rows"]))
+                first_temp = (decoder.opts.temperatures[0]
+                              if decoder.opts.temperatures else 0.0)
+            for windows, grp in batch_chunks(
+                    audio, group, batch_size,
+                    window_samples=self.window_samples):
+                batch_idx = stats["batches"]
+                t_enc = time.perf_counter()
+                xa = self._encode_windows(windows)
+                self._sync()
+                t_dec = time.perf_counter()
+                stats["encode_s"] += t_dec - t_enc
+                first = decoder.decode_submit(xa, first_temp,
+                                              rng_tag=batch_idx * 16)
+                results = decoder.decode_with_fallback(
+                    xa, first=first, n_valid=len(grp), rng_tag=batch_idx)
+                stats["decode_s"] += time.perf_counter() - t_dec
+                stats["batches"] += 1
+                stats["windows"] += len(grp)
+                stats["rows"] += len(windows)
+                for ch, res in zip(grp, results):
+                    if decoder.is_no_speech(res) or not res.text:
+                        continue
+                    segments.append(_segment(ch, res))
+                pct = 5.0 + 90.0 * min(grp[-1].end / max(duration, 1e-9),
+                                       1.0)
+                report(pct, f"transcribed batch {stats['batches']} "
+                            f"({time.time() - t0:.1f}s)")
+
         report(0.0, "voice activity detection")
+        # Streamed dispatch, as the JAX pipeline: chunks are final block by
+        # block of the VAD, and each full batch is encoded and decoded as
+        # soon as it exists, before the VAD scores the next block.
         opts = vad_options or self.vad_options
-        t_vad = time.perf_counter()
-        regions: List[tuple] = []
-        for probs, frame_dur, _ in self.vad.iter_speech_probs(audio):
+        blocks = self.vad.iter_speech_probs(audio)
+        queue: List[SpeechChunk] = []
+        emitted = 0
+        while True:
+            t_vad = time.perf_counter()
+            block = next(blocks, None)
+            if block is None:
+                stats["vad_s"] += time.perf_counter() - t_vad
+                break
+            probs, frame_dur, is_last = block
             regions = [(max(0.0, s), min(duration, e))
                        for s, e in binarize(probs, frame_dur, opts)]
-        chunks = merge_chunks(regions, chunk_size)
-        stats["vad_s"] = time.perf_counter() - t_vad
+            if not is_last and regions:
+                # the last region may still extend or merge with speech
+                # in the next block; chunks touching it aren't final yet
+                regions = regions[:-1]
+            chunks_all = merge_chunks(regions, chunk_size)
+            # greedy merging is prefix-stable over the (append-only)
+            # finalized regions, except its last chunk, which may absorb
+            # the next region
+            final = chunks_all if is_last else chunks_all[:-1]
+            queue.extend(final[emitted:])
+            emitted = len(final)
+            stats["vad_s"] += time.perf_counter() - t_vad
+            while len(queue) >= batch_size:
+                dispatch(queue[:batch_size])
+                queue = queue[batch_size:]
+        if queue:
+            dispatch(queue)
 
-        if not chunks:
+        if decoder is None:
             report(100.0, "no speech detected")
             return {"segments": [], "language": lang or "zh"}
-
-        if not lang:
-            lang = self.detect_language(audio)
-            report(2.0, f"detected language: {lang}")
-        decoder = self._decoder(lang, temperature, initial_prompt)
-        counts = ("token_rows", "decode_calls", "decode_steps")
-        before = ({k: decoder.stats[k] for k in counts},
-                  dict(decoder.stats["rung_rows"]))
-        first_temp = (decoder.opts.temperatures[0]
-                      if decoder.opts.temperatures else 0.0)
-
-        for batch_idx, (windows, group) in enumerate(batch_chunks(
-                audio, chunks, batch_size,
-                window_samples=self.window_samples)):
-            t_enc = time.perf_counter()
-            xa = self._encode_windows(windows)
-            self._sync()
-            t_dec = time.perf_counter()
-            stats["encode_s"] += t_dec - t_enc
-            first = decoder.decode_submit(xa, first_temp,
-                                          rng_tag=batch_idx * 16)
-            results = decoder.decode_with_fallback(
-                xa, first=first, n_valid=len(group), rng_tag=batch_idx)
-            stats["decode_s"] += time.perf_counter() - t_dec
-            stats["batches"] += 1
-            stats["windows"] += len(group)
-            stats["rows"] += len(windows)
-            for ch, res in zip(group, results):
-                if decoder.is_no_speech(res) or not res.text:
-                    continue
-                segments.append(_segment(ch, res))
-            pct = 5.0 + 90.0 * min(group[-1].end / max(duration, 1e-9), 1.0)
-            report(pct, f"transcribed batch {batch_idx + 1} "
-                        f"({time.time() - t0:.1f}s)")
-
         for k in counts:
             stats[k] = decoder.stats[k] - before[0][k]
         stats["rung_rows"] = {
@@ -284,7 +327,8 @@ def load_model(name: Union[str, dict] = "large-v3",
     ``name`` is a ``MODEL_CONFIGS`` name (seeded random weights: needs
     ``MWX_ALLOW_RANDOM_WEIGHTS=1`` except for ``test``) or an in-memory
     JAX param tree of numpy arrays, which then needs ``cfg``.  Runs on
-    ``device`` (CUDA by default; raises when CUDA is absent).
+    ``device`` (CUDA by default; raises when CUDA is absent), PyanNet VAD
+    included when the registry holds its checkpoint.
     ``compute_type``: bfloat16 (default; float16 maps here), float32, or
     int8: bf16 activations with every block matmul weight quantized to
     int8 (``ops.quant.quantize_params``; a tree already quantized passes
@@ -311,16 +355,36 @@ def load_model(name: Union[str, dict] = "large-v3",
     if compute_type == "int8":
         params = quantize_params(params)
     tokenizer = make_test_tokenizer(cfg.num_languages)
-
-    root = config.weights_dir()
-    if root and (Path(root) / "pyannote-segmentation-3.0").exists():
-        warnings.warn(
-            "the registry holds pyannote-segmentation-3.0, but PyanNet VAD "
-            "is not ported yet: using the energy VAD; speech boundaries and "
-            "timestamps will differ from the JAX pipeline on real audio",
-            RuntimeWarning, stacklevel=2)
     vad_opts = VadOptions(**vad_options) if vad_options else VadOptions()
-    return TranscribePipeline(params, cfg, tokenizer,
+    return TranscribePipeline(params, cfg, tokenizer, vad=_load_vad(dev),
                               asr_options=asr_options,
                               vad_options=vad_opts, language=language,
                               device=dev)
+
+
+def _load_vad(device: torch.device) -> VoiceActivityDetector:
+    """PyanNet on ``device`` from the registry's segmentation checkpoint,
+    as the JAX ``load_model`` does; else the energy VAD, with the JAX
+    package's warning, since speech boundaries (and every window, segment
+    and timestamp after them) differ between the two."""
+    reason = None
+    try:
+        tree = load_segmentation_params()
+        if tree is not None:
+            return VoiceActivityDetector(from_jax_pyannet(tree, device))
+    except (OSError, RuntimeError, KeyError, ValueError,
+            pickle.UnpicklingError) as exc:
+        reason = f"segmentation weights failed to load: {exc}"
+    if reason is None:
+        root = config.weights_dir()
+        if root and (Path(root) / SEGMENTATION_NAME / "jax").exists():
+            reason = (f"the registry holds only the orbax jax/ tree of "
+                      f"{SEGMENTATION_NAME}, which the PyTorch port cannot "
+                      "read; it reads pytorch_model.bin")
+        else:
+            reason = "no pyannote segmentation checkpoint in MWX_WEIGHTS_DIR"
+    warnings.warn(
+        f"VAD falling back to energy heuristics ({reason}); speech "
+        "boundaries and downstream timestamps will differ from pyannote "
+        "segmentation on real audio", RuntimeWarning, stacklevel=3)
+    return VoiceActivityDetector()

@@ -8,6 +8,7 @@ the tiny ``test`` config's head_dim 32, ragged lengths and edge lengths.
 
 import collections
 
+import numpy as np
 import pytest
 import torch
 
@@ -349,3 +350,52 @@ def test_new_capture_leaves_earlier_loops_alone(dev, int8):
     assert len(graph._loops) == 3
     for name in ("tokens", "sum_logprob", "lengths", "no_speech"):
         assert torch.equal(getattr(first, name), getattr(again, name)), name
+
+
+def _bursts(seconds, seed):
+    """Seeded harmonic bursts with pauses over a low noise floor."""
+    rng = np.random.default_rng(seed)
+    sr = 16000
+    out = 0.003 * rng.standard_normal(int(seconds * sr)).astype(np.float32)
+    for start in np.arange(0.5, seconds - 2.0, 2.5):
+        tt = np.arange(int(1.5 * sr)) / sr
+        f0 = rng.uniform(110, 260)
+        s = int(start * sr)
+        out[s:s + len(tt)] += (0.2 * np.sin(2 * np.pi * f0 * tt)
+                               * np.sin(np.pi * tt / 1.5)).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("weights", ["random", "repository"])
+def test_vad_on_card_equals_cpu(dev, weights):
+    """PyanNet on the card against the same weights on the CPU: speech
+    probabilities within chip_smoke's TOL["vad"] (1e-3) and equal regions,
+    with cuDNN's TF32 switched on globally beforehand (the forward turns it
+    off for itself and puts it back)."""
+    from pathlib import Path
+    from manual_whisper_tpu_torch.convert import (
+        convert_pyannote_segmentation, from_jax_pyannet)
+    from manual_whisper_tpu_torch.models.vad import (VoiceActivityDetector,
+                                                     init_pyannet_params)
+    if weights == "random":
+        tree = init_pyannet_params(torch.Generator().manual_seed(0))
+    else:
+        path = (Path(__file__).resolve().parent.parent / ".weights"
+                / "pyannote-segmentation-3.0" / "pytorch_model.bin")
+        tree = convert_pyannote_segmentation(
+            torch.load(str(path), map_location="cpu", weights_only=True))
+    audio = _bursts(35.0, 1)
+    cpu = VoiceActivityDetector(from_jax_pyannet(tree, torch.device("cpu")))
+    card = VoiceActivityDetector(from_jax_pyannet(tree, dev))
+    ref, _ = cpu.speech_probs(audio)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        probs, _ = card.speech_probs(audio)
+        assert torch.backends.cudnn.allow_tf32
+        regions = card(audio)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert probs.shape == ref.shape
+    np.testing.assert_allclose(probs, ref, rtol=0, atol=1e-3)
+    assert regions == cpu(audio)

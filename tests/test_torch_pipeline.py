@@ -1,6 +1,7 @@
 """PyTorch port: the transcription pipeline and the CLI vs the JAX package.
 
-The port's ``TranscribePipeline`` on ``.synth_ckpt`` with the energy VAD,
+The port's ``TranscribePipeline`` on ``.synth_ckpt`` with the energy VAD
+(the registry is empty here; ``test_torch_vad.py`` runs PyanNet),
 fed the audio and options of ``test_synth.py``'s end-to-end tripwire, must
 return the JAX pipeline's segments exactly (text, start, end), and the
 port's CLI must write the JAX CLI's Markdown for a WAV fixture apart from
@@ -122,10 +123,13 @@ def test_load_model_surface(synth, monkeypatch):
 
 
 def test_load_model_warns_when_registry_has_pyannote(tmp_path, monkeypatch):
-    (tmp_path / "pyannote-segmentation-3.0").mkdir()
+    """A registry whose pyannote checkpoint is only the JAX package's orbax
+    tree: the port falls back to the energy VAD and its warning says why."""
+    (tmp_path / "pyannote-segmentation-3.0" / "jax").mkdir(parents=True)
     monkeypatch.setenv("MWX_WEIGHTS_DIR", str(tmp_path))
-    with pytest.warns(RuntimeWarning, match="PyanNet"):
-        load_model("test", device="cpu", compute_type="float32")
+    with pytest.warns(RuntimeWarning, match="energy heuristics .*orbax"):
+        model = load_model("test", device="cpu", compute_type="float32")
+    assert model.vad.model is None
 
 
 def _wav_fixture(path):
