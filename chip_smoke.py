@@ -53,14 +53,22 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    the card (bf16: a dropped encoder layer, a dropped decoder layer, half
    the cross length; int8: one layer's weight scales on the wrong output
    channels, one layer's cross-K/V scales dropped or swapped between K
-   and V) must each exceed it.
+   and V) must each exceed it.  Then the ``vad`` phase: PyanNet from the
+   registry's ``pyannote-segmentation-3.0/pytorch_model.bin`` on the card
+   against the same weights on the CPU, over phase 4's audio: speech
+   probabilities within TOL["vad"] and regions equal; two faults (the
+   LSTM's directions swapped, the norm after the first conv dropped) must
+   each exceed the tolerance; a 16-row and a 4-row block timed with CUDA
+   events.
 4. The main paths: ``warmup(batch_size=4, language="zh")`` (timed alone
    as ``warmup_s``; it captures the decode chunks of batch buckets 1, 2
    and 4 as CUDA graphs, ``capture_s``), then ``transcribe`` of about 75 s
    of seeded amplitude-modulated audio at batch 4, language zh, with the
    CLI's options and the full temperature ladder, with the bf16 model and
    then with the int8 model.  Launch counters are zeroed just before each
-   ``transcribe`` and read just after: bf16 must launch K1-K4 and not
+   ``transcribe`` and read just after; the pipeline's VAD must be PyanNet
+   on the card (the ``main_path`` line says ``"vad": "pyannet"``); bf16
+   must launch K1-K4 and not
    K5/K6; int8 must launch K1, K2, K3, K5 and K6 and not K4, each exactly
    as often as the batches, decode loops and steps in ``last_stats`` imply
    (a replay adds the launches its capture recorded), and every decode
@@ -148,8 +156,9 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        # PyanNet's speech probabilities, card vs CPU, both float32 with TF32
        # off: cuDNN sums in another order than the CPU, and the trained
        # network amplifies float32 rounding (the JAX package's CPU forward
-       # is up to 1.6e-4 from a float64 evaluation); the faults the vad
-       # phase plants move probabilities by far more
+       # is up to 1.6e-4 from a float64 evaluation).  On an H100 the error
+       # was 1.2e-4 over 75 s; the faults the vad phase plants move
+       # probabilities by 0.88 and more
        "vad": (1e-3, 0.0)}
 
 SOURCES = {
@@ -987,7 +996,8 @@ def phase_vad(dev) -> None:
 
 def synthetic_speech(seconds: float, seed: int) -> np.ndarray:
     """Seeded amplitude-modulated audio: harmonic bursts of 0.3-2 s with
-    pauses, over a low noise floor, so the energy VAD finds many regions."""
+    pauses, over a low noise floor, so the VAD finds many regions (PyanNet
+    with the repository's weights: 39 regions, 3 windows)."""
     rng = np.random.default_rng(seed)
     sr = 16000
     out = 0.003 * rng.standard_normal(int(seconds * sr)).astype(np.float32)

@@ -8,11 +8,13 @@ PyTorch version, which runs only for tensors on the CPU.
 
 - ``audio``     — WAV decode + resample
 - ``ops``       — log-mel, encoder flash attention, decode attention
-- ``models``    — Whisper encoder-decoder, greedy decoder, energy VAD
+- ``models``    — Whisper encoder-decoder, greedy decoder, PyanNet and
+  energy VAD
 - ``tokenizer`` — Whisper byte-level BPE + special tokens
 - ``text``      — CLI cleaning + Markdown output
 - ``pipeline``  — VAD chunking + batched transcribe
-- ``convert``   — JAX param tree (numpy) -> the port's weights
+- ``convert``   — JAX param trees (numpy) -> the port's weights
+- ``from_hf``   — HF Whisper checkpoints (safetensors, shards, .bin)
 """
 
 __version__ = "0.1.0"

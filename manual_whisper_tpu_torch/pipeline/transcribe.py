@@ -44,6 +44,7 @@ from ..audio import load_audio
 from ..convert import (SEGMENTATION_NAME, from_jax_pyannet, from_jax_tree,
                        load_segmentation_params)
 from ..device import DeviceLike, compute_dtype, resolve_device
+from ..from_hf import load_whisper_checkpoint
 from ..models.decode import BatchDecoder, DecodingOptions
 from ..models.vad import VadOptions, VoiceActivityDetector, binarize
 from ..models.whisper import (MODEL_CONFIGS, WhisperConfig, decoder_forward,
@@ -314,6 +315,19 @@ def _segment(ch: SpeechChunk, res) -> dict:
             "temperature": res.temperature}
 
 
+def _find_weights_dir(name: str) -> Optional[Path]:
+    """HF checkpoint discovery: ``$MWX_WEIGHTS_DIR/<name>``, else ``name``
+    as a directory, whichever holds a ``config.json``."""
+    root = config.weights_dir()
+    if root:
+        cand = Path(root) / name
+        if (cand / "config.json").exists():
+            return cand
+    if (Path(name) / "config.json").exists():
+        return Path(name)
+    return None
+
+
 def load_model(name: Union[str, dict] = "large-v3",
                device: DeviceLike = "cuda",
                compute_type: str = "bfloat16",
@@ -324,37 +338,50 @@ def load_model(name: Union[str, dict] = "large-v3",
                ) -> TranscribePipeline:
     """whisperx.load_model-style entry (reference: transcribe.py:107-113).
 
-    ``name`` is a ``MODEL_CONFIGS`` name (seeded random weights: needs
-    ``MWX_ALLOW_RANDOM_WEIGHTS=1`` except for ``test``) or an in-memory
-    JAX param tree of numpy arrays, which then needs ``cfg``.  Runs on
-    ``device`` (CUDA by default; raises when CUDA is absent), PyanNet VAD
-    included when the registry holds its checkpoint.
+    ``name`` is looked up as the JAX ``load_model`` does: first an HF
+    Whisper checkpoint under ``$MWX_WEIGHTS_DIR/<name>`` (or at the path
+    ``name``), with its tokenizer when ``vocab.json`` is there; else a
+    ``MODEL_CONFIGS`` name (seeded random weights: needs
+    ``MWX_ALLOW_RANDOM_WEIGHTS=1`` except for ``test``).  It may also be an
+    in-memory JAX param tree of numpy arrays, which then needs ``cfg``.
+    Runs on ``device`` (CUDA by default; raises when CUDA is absent),
+    PyanNet VAD included when the registry holds its checkpoint.
     ``compute_type``: bfloat16 (default; float16 maps here), float32, or
     int8: bf16 activations with every block matmul weight quantized to
     int8 (``ops.quant.quantize_params``; a tree already quantized passes
     through), as the JAX ``load_model`` does."""
     dev = resolve_device(device)
     dtype = compute_dtype(compute_type)
+    tokenizer = None
     if isinstance(name, dict):
         if cfg is None:
             raise ValueError("load_model(param_tree) needs cfg=WhisperConfig")
         cfg = cfg.with_dtype(dtype)
         params = from_jax_tree(name, cfg, dev)
+    elif (weights_dir := _find_weights_dir(name)) is not None:
+        params, cfg = load_whisper_checkpoint(weights_dir, dev, dtype)
+        if (weights_dir / "vocab.json").exists():
+            tokenizer = WhisperTokenizer.from_dir(
+                weights_dir, num_languages=cfg.num_languages,
+                language=language or "zh")
     elif name in MODEL_CONFIGS:
         if name != "test" and not config.get_bool(
                 "MWX_ALLOW_RANDOM_WEIGHTS", False):
             raise FileNotFoundError(
-                f"no weights for {name!r}: the PyTorch port loads no "
-                "checkpoint files yet; set MWX_ALLOW_RANDOM_WEIGHTS=1 for "
-                "synthetic-weight runs")
+                f"no weights found for {name!r}: set MWX_WEIGHTS_DIR to a "
+                "directory containing an HF Whisper checkpoint "
+                f"('{name}/config.json' + model.safetensors), or set "
+                "MWX_ALLOW_RANDOM_WEIGHTS=1 for synthetic-weight runs")
         cfg = MODEL_CONFIGS[name].with_dtype(dtype)
         params = init_params(cfg, dev, seed=0)
     else:
         raise KeyError(f"unknown model {name!r}; options: "
-                       f"{sorted(MODEL_CONFIGS)} or a param tree")
+                       f"{sorted(MODEL_CONFIGS)}, a checkpoint path or a "
+                       "param tree")
     if compute_type == "int8":
         params = quantize_params(params)
-    tokenizer = make_test_tokenizer(cfg.num_languages)
+    if tokenizer is None:
+        tokenizer = make_test_tokenizer(cfg.num_languages)
     vad_opts = VadOptions(**vad_options) if vad_options else VadOptions()
     return TranscribePipeline(params, cfg, tokenizer, vad=_load_vad(dev),
                               asr_options=asr_options,

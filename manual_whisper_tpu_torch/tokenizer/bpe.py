@@ -1,39 +1,80 @@
-"""Byte-level BPE (GPT-2 style), as used by Whisper's text tokenizer.
+r"""Byte-level BPE (GPT-2 style), as used by Whisper's text tokenizer.
 
 The reference delegates tokenization to faster-whisper/CTranslate2's bundled
 tokenizer (dependency of whisperx, reference: requirements.txt:1); this is a
 from-scratch implementation compatible with HF ``vocab.json``/``merges.txt``
 files.  Pure host-side code, copied from the JAX package.
 
-The GPT-2 pre-tokenizer needs the third-party ``regex`` module (``\\p{L}``
-classes).  It is imported only when the vocabulary has merges: with no
-merges every piece stays one byte-symbol, so a merge-free byte vocab gives
-the same ids however the text is pre-split.  A real vocab on a host without
-``regex`` raises; it never falls back to ``re``, whose classes differ.
+The GPT-2 pre-tokenizer (``_PRETOKENIZE_PATTERN``, which the JAX package
+runs with the third-party ``regex`` module) is a hand-written scanner here,
+``pretokenize``, so the port needs no ``regex``.  Its character classes
+come from ``unicodedata``: ``\p{L}`` is a general category L*, ``\p{N}`` is
+N*, and ``\s`` is ``str.isspace()`` without U+001C..U+001F (which ``regex``
+does not count as whitespace).  It gives ``regex``'s splits on every code
+point assigned in ``unicodedata.unidata_version``; code points assigned
+only in a newer Unicode (``regex`` may carry a newer table) can differ.
 """
 
 from __future__ import annotations
 
 import json
+import unicodedata
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
-# GPT-2 pre-tokenization pattern (also used by Whisper's multilingual BPE).
+# GPT-2 pre-tokenization pattern (also used by Whisper's multilingual BPE);
+# ``pretokenize`` gives its ``regex.findall`` splits.
 _PRETOKENIZE_PATTERN = (
     r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
 )
 
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+_SPACE, _LETTER, _NUMBER, _OTHER = range(4)
 
-@lru_cache(maxsize=1)
-def _pretokenizer():
-    try:
-        import regex
-    except ImportError as exc:
-        raise ImportError(
-            "this BPE vocabulary has merges, and splitting text for it needs "
-            "the 'regex' package, which is not installed") from exc
-    return regex.compile(_PRETOKENIZE_PATTERN)
+
+def _kind(ch: str) -> int:
+    if ch.isspace() and not "\x1c" <= ch <= "\x1f":
+        return _SPACE
+    cat = unicodedata.category(ch)[0]
+    return _LETTER if cat == "L" else _NUMBER if cat == "N" else _OTHER
+
+
+def pretokenize(text: str) -> List[str]:
+    """GPT-2's pre-tokenizer: the pieces ``regex.findall`` gives for
+    ``_PRETOKENIZE_PATTERN``, found by trying its alternatives in order at
+    each position."""
+    kinds = [_kind(ch) for ch in text]
+    n = len(text)
+    out: List[str] = []
+    i = 0
+    while i < n:
+        if text[i] == "'":
+            hit = next((c for c in _CONTRACTIONS if text.startswith(c, i)),
+                       None)
+            if hit:
+                out.append(hit)
+                i += len(hit)
+                continue
+        # " ?\p{L}+", " ?\p{N}+", " ?[^\s\p{L}\p{N}]+": an optional
+        # leading space, then a run of one class
+        j = i + 1 if text[i] == " " and i + 1 < n \
+            and kinds[i + 1] != _SPACE else i
+        if kinds[j] != _SPACE:
+            end = j + 1
+            while end < n and kinds[end] == kinds[j]:
+                end += 1
+        else:
+            end = i + 1
+            while end < n and kinds[end] == _SPACE:
+                end += 1
+            # "\s+(?!\S)" leaves the run's last space to the next piece
+            # when a non-space follows; "\s+" takes a single one
+            if end < n and end - i > 1:
+                end -= 1
+        out.append(text[i:end])
+        i = end
+    return out
 
 
 @lru_cache(maxsize=1)
@@ -121,8 +162,7 @@ class ByteLevelBPE:
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
         unk = self.vocab.get("<unk>")
-        chunks = _pretokenizer().findall(text) if self.bpe_ranks else [text]
-        for chunk in chunks:
+        for chunk in pretokenize(text):
             mapped = "".join(self.byte_encoder[b]
                              for b in chunk.encode("utf-8"))
             for piece in self._bpe(mapped):

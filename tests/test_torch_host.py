@@ -20,7 +20,7 @@ from manual_whisper_tpu_torch.audio.resample import resample_poly
 from manual_whisper_tpu_torch.models import vad as tvad
 from manual_whisper_tpu_torch.pipeline import chunking as tchunk
 from manual_whisper_tpu_torch.text import cleaning as tclean
-from manual_whisper_tpu_torch.tokenizer import ByteLevelBPE, bpe
+from manual_whisper_tpu_torch.tokenizer import ByteLevelBPE
 from manual_whisper_tpu_torch.tokenizer import make_test_tokenizer
 
 TEXTS = ["hello world", "中文会议讨论记录", " -'x ♪♪ (a)", "", "  tabs\tand\n"]
@@ -57,16 +57,16 @@ def test_bpe_with_merges_matches_jax():
 
 
 def test_bpe_with_merges_needs_regex(monkeypatch):
+    """It needs no ``regex`` any more: with the module made unimportable, a
+    vocabulary with merges encodes as the JAX package's (which uses
+    ``regex``) does."""
     vocab, merges = _merge_vocab()
-    bpe._pretokenizer.cache_clear()
+    texts = TEXTS + ["it's 12 o'clock", "a  b\x1c c"]
+    expected = [JBPE(vocab, merges).encode(t) for t in texts]
     monkeypatch.setitem(sys.modules, "regex", None)
-    try:
-        with pytest.raises(ImportError, match="regex"):
-            ByteLevelBPE(vocab, merges).encode("hello")
-        # a merge-free byte vocab never needs it
-        assert make_test_tokenizer().encode("hi") == [ord("h"), ord("i")]
-    finally:
-        bpe._pretokenizer.cache_clear()
+    assert [ByteLevelBPE(vocab, merges).encode(t) for t in texts] == expected
+    # a merge-free byte vocab too
+    assert make_test_tokenizer().encode("hi") == [ord("h"), ord("i")]
 
 
 @pytest.mark.parametrize("sr,channels", [(16000, 1), (44100, 2), (8000, 1)])

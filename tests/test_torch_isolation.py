@@ -1,7 +1,8 @@
 """PyTorch port: isolation from JAX and the device contract.
 
 No file of ``manual_whisper_tpu_torch/`` nor ``chip_smoke.py`` may import
-JAX, ml_dtypes, orbax or the JAX package; importing the port must leave
+JAX, ml_dtypes, orbax, regex or the JAX package (the machine with the card
+has none of them); importing the port must leave
 no ``jax`` in ``sys.modules``; entry points default to CUDA and raise
 without it rather than carrying on on the CPU.
 """
@@ -18,7 +19,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "manual_whisper_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "orbax", "manual_whisper_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "orbax", "regex",
+             "manual_whisper_tpu")
 
 
 def _imports(path: Path):
@@ -42,7 +44,8 @@ def test_port_files_exist():
                      "ops/_build.py",
                      "models/whisper.py", "models/decode.py",
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
-                     "convert.py", "device.py", "config.py"):
+                     "convert.py", "from_hf.py", "device.py", "config.py",
+                     "tokenizer/bpe.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
