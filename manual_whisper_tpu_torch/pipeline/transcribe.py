@@ -267,24 +267,25 @@ class TranscribePipeline:
         while True:
             t_vad = time.perf_counter()
             block = next(blocks, None)
-            if block is None:
-                stats["vad_s"] += time.perf_counter() - t_vad
-                break
-            probs, frame_dur, is_last = block
-            regions = [(max(0.0, s), min(duration, e))
-                       for s, e in binarize(probs, frame_dur, opts)]
-            if not is_last and regions:
-                # the last region may still extend or merge with speech
-                # in the next block; chunks touching it aren't final yet
-                regions = regions[:-1]
-            chunks_all = merge_chunks(regions, chunk_size)
-            # greedy merging is prefix-stable over the (append-only)
-            # finalized regions, except its last chunk, which may absorb
-            # the next region
-            final = chunks_all if is_last else chunks_all[:-1]
-            queue.extend(final[emitted:])
-            emitted = len(final)
+            if block is not None:
+                probs, frame_dur, is_last = block
+                regions = [(max(0.0, s), min(duration, e))
+                           for s, e in binarize(probs, frame_dur, opts)]
+                if not is_last and regions:
+                    # the last region may still extend or merge with
+                    # speech in the next block; chunks touching it aren't
+                    # final yet
+                    regions = regions[:-1]
+                chunks_all = merge_chunks(regions, chunk_size)
+                # greedy merging is prefix-stable over the (append-only)
+                # finalized regions, except its last chunk, which may
+                # absorb the next region
+                final = chunks_all if is_last else chunks_all[:-1]
+                queue.extend(final[emitted:])
+                emitted = len(final)
             stats["vad_s"] += time.perf_counter() - t_vad
+            if block is None:
+                break
             while len(queue) >= batch_size:
                 dispatch(queue[:batch_size])
                 queue = queue[batch_size:]
