@@ -118,12 +118,7 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel: int,
                        min_low_hz, sample_rate / 2)
     n = (kernel - 1) // 2
     t = torch.arange(-n, 0, dtype=torch.float32) / sample_rate
-    # jnp.linspace's float32 formula (start * (1 - s) + stop * s, s = i / (n
-    # - 1), the end point exact); torch.linspace rounds differently, and
-    # the filters' error grows through the instance norms and the LSTM
-    stop = torch.tensor(kernel / 2 - 1, dtype=torch.float32)
-    frac = torch.arange(n - 1, dtype=torch.float32) / (n - 1)
-    n_lin = torch.cat([stop * frac, stop[None]])
+    n_lin = torch.linspace(0.0, kernel / 2 - 1, n, dtype=torch.float32)
     window = 0.54 - 0.46 * torch.cos(2 * math.pi * n_lin / kernel)
 
     f_times_t_low = torch.outer(low, t) * 2 * math.pi
@@ -175,9 +170,8 @@ class PyanNet(nn.Module):
     are materialised from ``sinc_low_hz`` and ``sinc_band_hz`` once, at
     load time (``convert.from_jax_pyannet``), into the ``sinc`` buffer.
     The BiLSTM is one ``nn.LSTM`` (gate order i, f, g, o, as the JAX
-    scan); sequences are
-    never packed, so the reverse direction runs over a window's zero tail
-    as ``lax.scan(reverse=True)`` does."""
+    scan); sequences are never packed, so the reverse direction runs over
+    a window's zero tail as ``lax.scan(reverse=True)`` does."""
 
     def __init__(self, cfg: PyanNetConfig = PyanNetConfig()):
         super().__init__()
