@@ -1,15 +1,28 @@
-"""Audio decode frontend (WAV only in this slice of the port).
+"""Audio decode frontend (port of the JAX package's ``audio/io.py``).
 
-Copies ``decode_wav_bytes``/``write_wav`` and the zh-CN unsupported-format
-message from the JAX package's ``audio/io.py``.  ``.wav`` is decoded in
-numpy (PCM 8/16/24/32-bit int and float32/64), downmixed and resampled to
-16 kHz mono float32.  The C++ FLAC/FFmpeg decoders are not ported yet, so
-every other suffix raises ``UnsupportedFormatError``.
+Replaces the reference's ``whisperx.load_audio`` (ffmpeg subprocess decode
+to 16 kHz mono f32, reference: transcribe.py:117-118), with the JAX
+package's routes in its order:
+
+- ``.wav``: the native decoder (``libmwx_audio``), the numpy decoder
+  behind it (PCM 8/16/24/32-bit int and float32/64);
+- ``.flac``: the native FLAC decoder (``native/mwx_flac.cpp``);
+- other containers (m4a/mp3/ogg/opus..., reference README.md:90): the
+  in-process C++ shim over the system FFmpeg libraries
+  (``native/mwx_ffdec.cpp``);
+- then the ffmpeg CLI when it exists, else ``UnsupportedFormatError`` with
+  the zh-CN message.
+
+Resampling to 16 kHz runs the native polyphase resampler, the numpy
+``resample_poly`` behind it.  All of this is host work; the device path
+starts at the log-mel kernel.
 """
 
 from __future__ import annotations
 
+import shutil
 import struct
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +31,10 @@ from .resample import resample_poly, to_mono
 
 SAMPLE_RATE = 16000  # WhisperX fixed rate (reference: transcribe.py:118)
 
+# containers ffmpeg decodes for the reference (README.md:90, main.js:106)
+FFMPEG_SUFFIXES = (".m4a", ".mp3", ".flac", ".ogg", ".aac", ".wma",
+                   ".webm", ".mp4", ".amr", ".opus")
+
 
 class UnsupportedFormatError(RuntimeError):
     """Raised when a container can't be decoded on this host.
@@ -25,7 +42,7 @@ class UnsupportedFormatError(RuntimeError):
     Carries the zh-CN user-facing message (``zh``) the serving tier
     surfaces — the reference's default input is an .m4a
     (reference transcribe.py:239), so an ffmpeg-less host must tell the
-    user *why* and *what to do*, not stack-trace (VERDICT.md r2 #8)."""
+    user *why* and *what to do*, not stack-trace."""
 
     def __init__(self, suffix: str):
         self.suffix = suffix
@@ -33,8 +50,35 @@ class UnsupportedFormatError(RuntimeError):
                    "请先将音频转换为 WAV 格式（16kHz 单声道最佳）再上传，"
                    "或在服务器上安装 ffmpeg")
         super().__init__(
-            f"cannot decode {suffix!r}: the PyTorch port decodes .wav "
-            "only; convert the file to WAV first")
+            f"cannot decode {suffix!r}: built-in decoders support .wav and "
+            ".flac; install ffmpeg for m4a/mp3/ogg/... (the reference "
+            "pipeline also requires ffmpeg for these formats)")
+
+
+def decodable_suffixes() -> tuple:
+    """Audio suffixes this host can decode right now."""
+    from .native import get_ffdec, get_lib
+    if shutil.which("ffmpeg") or get_ffdec() is not None:
+        return (".wav",) + FFMPEG_SUFFIXES
+    if get_lib() is not None:
+        return (".wav", ".flac")
+    return (".wav",)
+
+
+def decode_route(path) -> str:
+    """Which decoder ``load_audio`` would use for ``path`` on this host:
+    ``native-wav``, ``native-flac``, ``ffdec``, ``ffmpeg-cli`` or
+    ``unsupported`` (the numpy WAV decoder stands behind ``native-wav``
+    when the library is missing: ``numpy-wav``)."""
+    from .native import get_ffdec, get_lib
+    suffix = Path(path).suffix.lower()
+    if suffix == ".wav":
+        return "native-wav" if get_lib() is not None else "numpy-wav"
+    if suffix == ".flac" and get_lib() is not None:
+        return "native-flac"
+    if suffix in FFMPEG_SUFFIXES and get_ffdec() is not None:
+        return "ffdec"
+    return "ffmpeg-cli" if shutil.which("ffmpeg") else "unsupported"
 
 
 def decode_wav_bytes(data: bytes):
@@ -125,16 +169,98 @@ def write_wav(path, audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
     Path(path).write_bytes(header + pcm)
 
 
+def _ffmpeg_decode(path: str, sample_rate: int) -> np.ndarray:
+    cmd = [
+        "ffmpeg", "-nostdin", "-threads", "0", "-i", str(path),
+        "-f", "s16le", "-ac", "1", "-acodec", "pcm_s16le",
+        "-ar", str(sample_rate), "-",
+    ]
+    try:
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    except subprocess.CalledProcessError as exc:
+        raise RuntimeError(
+            f"ffmpeg failed to decode {path}: "
+            f"{exc.stderr.decode(errors='replace')[-500:]}") from exc
+    return np.frombuffer(out, dtype="<i2").astype(np.float32) / 32768.0
+
+
+def _resample(mono: np.ndarray, sr: int, sample_rate: int) -> np.ndarray:
+    if sr == sample_rate:
+        return mono.astype(np.float32)
+    # C++ polyphase first (same algorithm, no multi-hundred-MB numpy
+    # gather temporaries); numpy when the library isn't built
+    from .native import native_resample
+    out = native_resample(mono, sr, sample_rate)
+    if out is None:
+        out = resample_poly(mono, sr, sample_rate)
+    return out.astype(np.float32)
+
+
 def load_audio(path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
-    """Decode a WAV file -> 16 kHz mono float32 (``whisperx.load_audio``
-    surface)."""
+    """Decode any supported audio file -> 16 kHz mono float32
+    (``whisperx.load_audio`` surface, transcribe.py:117)."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(str(path))
-    if path.suffix.lower() != ".wav":
-        raise UnsupportedFormatError(path.suffix or "(no extension)")
-    samples, sr = decode_wav_bytes(path.read_bytes())
-    mono = to_mono(samples)
-    if sr != sample_rate:
-        mono = resample_poly(mono, sr, sample_rate)
-    return mono.astype(np.float32)
+    suffix = path.suffix.lower()
+
+    if suffix == ".wav":
+        try:
+            from .native import native_decode_wav
+            decoded = native_decode_wav(path.read_bytes())
+        except Exception:
+            decoded = None
+        if decoded is not None:
+            samples, sr = decoded
+        else:
+            try:
+                samples, sr = decode_wav_bytes(path.read_bytes())
+            except ValueError:
+                # malformed/truncated RIFF: ffmpeg decodes more liberal
+                # variants (streaming writers leave size fields 0 or
+                # 0xFFFFFFFF)
+                if shutil.which("ffmpeg"):
+                    return _ffmpeg_decode(str(path), sample_rate)
+                raise
+        return _resample(to_mono(samples), sr, sample_rate)
+
+    if suffix == ".flac":
+        from .native import native_decode_flac
+        try:
+            decoded = native_decode_flac(path.read_bytes())
+        except ValueError as exc:
+            if shutil.which("ffmpeg"):
+                decoded = None       # malformed stream: let ffmpeg try
+            else:
+                # with the native decoder present, 'install ffmpeg' is
+                # the wrong message — the file itself is bad
+                raise ValueError(
+                    f"cannot decode {path.name}: the FLAC stream is "
+                    f"malformed or unsupported ({exc}); re-export the "
+                    "file (FLAC 文件已损坏或无法解析，请重新导出后再上传)"
+                ) from exc
+        if decoded is not None:
+            mono, sr = decoded
+            return _resample(mono, sr, sample_rate)
+
+    if suffix in FFMPEG_SUFFIXES:
+        from .native import native_decode_any
+        try:
+            decoded = native_decode_any(path.read_bytes())
+        except ValueError as exc:
+            if shutil.which("ffmpeg"):
+                decoded = None       # malformed stream: let the CLI try
+            else:
+                raise ValueError(
+                    f"cannot decode {path.name}: the stream is malformed "
+                    f"or unsupported ({exc}); re-export the file "
+                    "(音频文件已损坏或无法解析，请重新导出后再上传)"
+                ) from exc
+        if decoded is not None:
+            mono, sr = decoded
+            return _resample(mono, sr, sample_rate)
+
+    if shutil.which("ffmpeg"):
+        return _ffmpeg_decode(str(path), sample_rate)
+
+    raise UnsupportedFormatError(path.suffix or "(no extension)")

@@ -3,7 +3,8 @@
 The reference delegates decode+resample to ffmpeg
 (``whisperx.load_audio``, reference: transcribe.py:117) which uses a
 polyphase windowed-sinc resampler.  This is the numpy equivalent, copied
-from the JAX package (its C++ twin in ``native/`` is not ported yet).
+from the JAX package; ``audio/native.py`` binds its C++ twin
+(``native/mwx_audio.cpp``), which ``load_audio`` runs first.
 Decode/resample is host work; the device path starts at the log-mel kernel.
 """
 

@@ -6,18 +6,20 @@ VAD_OFFSET, HF_TOKEN), the same prints and the same Markdown/JSON output.
 Runs on CUDA and raises without it.  Alignment and diarization are not
 ported yet: each prints one line saying so.
 
-    python -m manual_whisper_tpu_torch.cli recording.wav
+    python -m manual_whisper_tpu_torch.cli recording.m4a
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import sys
 import time
 from pathlib import Path
 
 from . import config
-from .audio import UnsupportedFormatError, load_audio
+from .audio import (UnsupportedFormatError, decodable_suffixes,
+                    load_audio)
 from .device import device_label, resolve_device
 from .pipeline import load_model
 from .text import INITIAL_PROMPT, clean_result_segments, format_transcript
@@ -93,10 +95,13 @@ def main(argv=None) -> int:
     if not os.path.exists(audio_file):
         print(f"❌ 文件不存在: {audio_file}")
         return 1
-    # fail on undecodable containers BEFORE the expensive model load
+    # fail on undecodable containers BEFORE the expensive model load (the
+    # reference's default input is .m4a, transcribe.py:239); with ffmpeg
+    # present any container it can decode is accepted, like the reference
     suffix = Path(audio_file).suffix.lower()
-    if suffix != ".wav":
-        print(f"❌ {UnsupportedFormatError(suffix or '(no extension)').zh}")
+    if suffix and not shutil.which("ffmpeg") \
+            and suffix not in decodable_suffixes():
+        print(f"❌ {UnsupportedFormatError(suffix).zh}")
         return 1
 
     model_size = config.get_env("WHISPER_MODEL", "large-v3")

@@ -90,7 +90,12 @@ def test_load_audio_matches_numpy_path(tmp_path, sr, channels):
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
-def test_unsupported_suffix_raises_zh_message(tmp_path):
+def test_unsupported_suffix_raises_zh_message(tmp_path, monkeypatch):
+    """With neither the ffmpeg CLI nor the FFmpeg shim, a compressed
+    container raises the JAX package's zh-CN error."""
+    from manual_whisper_tpu_torch.audio import native as tnative
+    monkeypatch.setattr(tio.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tnative, "get_ffdec", lambda *a, **k: None)
     path = tmp_path / "a.mp3"
     path.write_bytes(b"\x00" * 16)
     with pytest.raises(tio.UnsupportedFormatError) as info:

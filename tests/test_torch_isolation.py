@@ -45,11 +45,14 @@ def test_port_files_exist():
                      "models/whisper.py", "models/decode.py",
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
                      "convert.py", "from_hf.py", "device.py", "config.py",
-                     "tokenizer/bpe.py"):
+                     "tokenizer/bpe.py", "audio/io.py", "audio/native.py",
+                     "audio/flacenc.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
         assert (PORT / "csrc" / src).exists()
+    for src in ("mwx_audio.cpp", "mwx_flac.cpp", "mwx_ffdec.cpp"):
+        assert (PORT / "native" / src).exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),

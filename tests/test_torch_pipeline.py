@@ -219,7 +219,13 @@ def test_cli_forwards_ckv_scale(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_non_wav_and_missing_file(tmp_path, monkeypatch, capsys):
+    """A missing file, and a suffix no decoder of the host takes (no
+    ffmpeg CLI, no FFmpeg shim), stop the CLI before the model loads."""
     import manual_whisper_tpu_torch.cli as tcli
+    from manual_whisper_tpu_torch.audio import native as tnative
+    monkeypatch.setattr(tcli.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tnative, "get_ffdec", lambda *a, **k: None)
+    monkeypatch.setattr(tcli, "load_model", None)   # never reached
     monkeypatch.chdir(tmp_path)
     assert tcli.main(["nope.wav"]) == 1
     (tmp_path / "a.m4a").write_bytes(b"x")
