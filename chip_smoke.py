@@ -95,6 +95,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import functools
 import json
@@ -1381,6 +1382,430 @@ def phase_host_costs(dev, main: dict) -> None:
             lambda: decode_cross_attention(q, k, v, len_t))}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the job server at batch 16 (serve)
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 16
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _ffmpeg_headers() -> bool:
+    """Whether g++ finds the FFmpeg headers libmwx_ffdec includes."""
+    probe = ("#include <libavformat/avformat.h>\n"
+             "#include <libswresample/swresample.h>\n")
+    try:
+        out = subprocess.run(["g++", "-E", "-x", "c++", "-", "-o",
+                              os.devnull], input=probe, text=True,
+                             capture_output=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return out.returncode == 0
+
+
+def _wav_bytes(x: np.ndarray, sr: int) -> bytes:
+    """16-bit PCM WAV of x [n] or [n, channels]."""
+    import struct
+    x = x.reshape(len(x), -1)
+    pcm = np.round(np.clip(x, -1, 1) * 32767).astype("<i2").tobytes()
+    ch = x.shape[1]
+    return struct.pack("<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(pcm),
+                       b"WAVE", b"fmt ", 16, 1, ch, sr, sr * 2 * ch, 2 * ch,
+                       16, b"data", len(pcm)) + pcm
+
+
+def _best_ms(fn, reps: int = 3) -> float:
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def phase_serve_native(workdir: str) -> dict:
+    """Build the port's native audio libraries (libmwx_audio must build;
+    libmwx_ffdec must where g++ finds the FFmpeg headers), print the route
+    of each suffix, then the host ms to decode and resample one minute of
+    44.1 kHz stereo audio through each route this machine has (best of
+    3); each route's own output must equal ``load_audio``'s."""
+    import shutil
+    from manual_whisper_tpu_torch.audio import encode_flac
+    from manual_whisper_tpu_torch.audio import io as aio
+    from manual_whisper_tpu_torch.audio import native
+    from manual_whisper_tpu_torch.audio.resample import (resample_poly,
+                                                         to_mono)
+    t0 = time.perf_counter()
+    native.warm_native_libs()
+    build_s = time.perf_counter() - t0
+    lib, ffdec = native.get_lib(), native.get_ffdec()
+    line = {"phase": "serve_native", "build_s": build_s,
+            "libmwx_audio": lib is not None,
+            "libmwx_ffdec": ffdec is not None,
+            "ffmpeg_headers": _ffmpeg_headers(),
+            "ffmpeg_cli": shutil.which("ffmpeg") is not None,
+            "decodable_suffixes": list(aio.decodable_suffixes()),
+            "routes": {s: aio.decode_route("x" + s)
+                       for s in (".wav",) + aio.FFMPEG_SUFFIXES},
+            "build_errors": {k: v[-400:]
+                             for k, v in native.build_errors.items()}}
+    if lib is None or (line["ffmpeg_headers"] and ffdec is None):
+        log(json.dumps(line))
+        raise AssertionError("a native audio library did not build")
+    x44 = resample_poly(synthetic_speech(60.0, seed=3), 16000, 44100)
+    stereo = np.stack([x44, 0.8 * x44], axis=1)
+    files = {"wav": _wav_bytes(stereo, 44100),
+             "flac": encode_flac(stereo, 44100)}
+    if ffdec is not None:
+        files["m4a"] = native.native_encode_fixture(x44, 44100, "ipod",
+                                                    "aac")
+    route_fns = {
+        "wav": lambda b: aio._resample(*native.native_decode_wav(b), 16000),
+        "flac": lambda b: aio._resample(*native.native_decode_flac(b),
+                                        16000),
+        "m4a": lambda b: aio._resample(*native.native_decode_any(b), 16000)}
+    host_ms = {}
+    for ext, data in files.items():
+        path = os.path.join(workdir, f"minute.{ext}")
+        with open(path, "wb") as f:
+            f.write(data)
+        out = aio.load_audio(path)
+        if not np.array_equal(out, route_fns[ext](data)):
+            raise AssertionError(f"load_audio of .{ext} is not its route's")
+        host_ms[aio.decode_route(path)] = _best_ms(
+            lambda: aio.load_audio(path))
+    host_ms["numpy-wav"] = _best_ms(
+        lambda: resample_poly(to_mono(aio.decode_wav_bytes(files["wav"])[0]),
+                              44100, 16000))
+    host_ms["resample_only_native"] = _best_ms(
+        lambda: native.native_resample(x44, 44100, 16000))
+    host_ms["resample_only_numpy"] = _best_ms(
+        lambda: resample_poly(x44, 44100, 16000))
+    line["host_ms_per_minute_44k1_stereo"] = host_ms
+    log(json.dumps(line))
+    return line
+
+
+def _replay_ms_per_step(loop, reps: int = 4) -> float:
+    """Device ms per step of one replayed 16-step chunk of ``loop``, from
+    step 97, between CUDA events."""
+    def rewind():
+        loop.state.i.fill_(97)
+        loop.state.pos.fill_(loop.p + 96)
+    rewind()
+    return _event_ms(lambda: loop.graphs.replay(16), reps) / 16
+
+
+def phase_serve(workdir: str, native_line: dict) -> None:
+    """The job server over the port's bf16 ``PipelineBackend`` at batch 16:
+    ``warmup()`` called directly (buckets 2, 4, 8, 16 captured), then
+    ``create_server`` on 127.0.0.1 at a free port and four requests through
+    ``/api/upload``, ``POST /api/transcribe`` and polls of ``GET
+    /api/transcribe``, queued at once: a 16 kHz WAV, about 9 min of phase
+    4's seeded audio (at least 16 windows: a batch of 16 rows), a 44.1 kHz
+    stereo FLAC (the port's ``encode_flac``) and an m4a (the FFmpeg shim's
+    encoder; without the shim its upload must be refused with the zh-CN
+    message).  The WAV job's result carries a planted prompt-leak segment
+    over 2-14 s, so the server's first success poll starts a second pass
+    (``transcribe_clip`` on a thread of its own) while the long job
+    decodes (a prompt leak of 12 s is what the quality report flags as a
+    suspicious range; random weights write none).  Checks: every job
+    succeeds; the audio each ``transcribe``
+    got equals ``load_audio`` of the upload; a loop of 16 rows replayed;
+    the second pass ran inside the long job's decode; the launches equal
+    those the calls' ``last_stats`` imply (plus the eager warm-up steps of
+    the second-pass decoder's new loop), and every decode step ran in a
+    replayed chunk."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from manual_whisper_tpu_torch.audio import io as aio
+    from manual_whisper_tpu_torch.audio import encode_flac, native
+    from manual_whisper_tpu_torch.audio.resample import resample_poly
+    from manual_whisper_tpu_torch.serving import server as server_mod
+    from manual_whisper_tpu_torch.serving.jobs import PipelineBackend
+    os.environ.update({"MWX_ALLOW_RANDOM_WEIGHTS": "1",
+                       "GET_RATE_LIMIT_PER_MIN": "1000000",
+                       "POST_RATE_LIMIT_PER_MIN": "1000",
+                       "MAX_ACTIVE_JOBS_PER_IP": "16",
+                       "ENABLE_SECOND_PASS": "true"})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = PipelineBackend(model_name="large-v3", batch_size=SERVE_BATCH,
+                              device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = backend.model
+    if model.vad.model is None or model.vad.model.sinc.device.type != "cuda":
+        raise AssertionError("the server's pipeline does not run PyanNet on "
+                             "the card")
+    t0 = time.perf_counter()
+    backend.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    main_dec = model._decoder("zh", 0.0)
+    if not main_dec.captured or sorted(k[0] for k in main_dec._loops) != \
+            [2, 4, 8, 16]:
+        raise AssertionError(f"warmup built loops {list(main_dec._loops)}")
+    capture_s = main_dec.stats["capture_s"]
+
+    calls, calls_lock = [], threading.Lock()
+    real_transcribe = model.transcribe
+
+    def traced(audio, **kw):
+        t_start = time.perf_counter()
+        out = real_transcribe(audio, **kw)
+        torch.cuda.synchronize()
+        with calls_lock:
+            calls.append({"kind": "clip" if "vad_options" in kw else "job",
+                          "thread": threading.current_thread().name,
+                          "t0": t_start, "t1": time.perf_counter(),
+                          "stats": dict(model.last_stats),
+                          "audio": np.asarray(audio)})
+        return out
+    model.transcribe = traced
+    post_ms = []
+    real_post = server_mod.post_process_segments
+
+    def timed_post(*a, **k):
+        t_start = time.perf_counter()
+        out = real_post(*a, **k)
+        post_ms.append(1e3 * (time.perf_counter() - t_start))
+        return out
+    server_mod.post_process_segments = timed_post
+    clip_s = []
+    real_clip = backend.transcribe_clip
+
+    def timed_clip(*a, **k):
+        t_start = time.perf_counter()
+        out = real_clip(*a, **k)
+        clip_s.append(time.perf_counter() - t_start)
+        return out
+    backend.transcribe_clip = timed_clip
+    planted = set()
+    real_job = backend.transcribe
+
+    def job_transcribe(audio_path, language, progress, options=None):
+        out = real_job(audio_path, language, progress, options)
+        if os.path.basename(audio_path) in planted:
+            out["segments"].append({"text": "请使用简体中文。", "start": 2.0,
+                                    "end": 14.0})
+        return out
+    backend.transcribe = job_transcribe
+
+    srv = server_mod.create_server(backend, host="127.0.0.1", port=0,
+                                   upload_dir=os.path.join(workdir, "up"))
+    http_thread = threading.Thread(target=srv.serve_forever, args=(0.05,),
+                                   daemon=True, name="http")
+    http_thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def req(method, path, body=None, headers=None):
+        r = urllib.request.Request(base + path, data=body, method=method,
+                                   headers=headers or {})
+        try:
+            with urllib.request.urlopen(r, timeout=120) as resp:
+                return resp.status, json.loads(resp.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode())
+
+    x441 = resample_poly(synthetic_speech(30.0, seed=12), 16000, 44100)
+    uploads = {"wav16": ("meeting.wav",
+                         _wav_bytes(synthetic_speech(40.0, seed=11), 16000)),
+               "long": ("long.wav",
+                        _wav_bytes(synthetic_speech(540.0, seed=0), 16000)),
+               "flac44": ("stereo.flac", encode_flac(
+                   np.stack([x441, 0.8 * x441], axis=1), 44100))}
+    m4a = native.native_encode_fixture(synthetic_speech(30.0, seed=13),
+                                       16000, "ipod", "aac") \
+        if native_line["libmwx_ffdec"] else None
+    line = {"phase": "serve", "model": "large-v3", "compute_type": "bfloat16",
+            "batch_size": SERVE_BATCH, "load_s": load_s,
+            "warmup_s": warmup_s, "capture_s": capture_s,
+            "buckets": sorted(k[0] for k in main_dec._loops)}
+    if m4a is not None:
+        uploads["m4a"] = ("meeting.m4a", m4a)
+    elif not native_line["ffmpeg_cli"]:
+        status, out = req("POST", "/api/upload", b"\x00" * 64,
+                          {"x-file-name": "meeting.m4a"})
+        if status != 415 or out.get("error") != \
+                aio.UnsupportedFormatError(".m4a").zh:
+            raise AssertionError(f"m4a upload without decoders: {status} "
+                                 f"{out}")
+        line["m4a"] = "refused with the zh-CN message (no FFmpeg shim)"
+    else:
+        line["m4a"] = "not made: no FFmpeg shim to encode it"
+
+    _build.launches.clear()
+    loops_before = {id(main_dec): set(main_dec._loops)}
+    replays_before = graph_replays(main_dec)
+    jobs = {}
+    for name, (fname, data) in uploads.items():
+        t_up = time.perf_counter()
+        status, out = req("POST", "/api/upload", data, {"x-file-name": fname})
+        if status != 200:
+            raise AssertionError(f"upload {fname}: {status} {out}")
+        file_url = out["fileUrl"]
+        stored = file_url.rsplit("/", 1)[1]
+        if name == "wav16":
+            planted.add(stored)
+        status, created = req("POST", "/api/transcribe", json.dumps(
+            {"fileUrl": file_url, "language": "zh"}).encode())
+        if status != 201:
+            raise AssertionError(f"create {fname}: {status} {created}")
+        jobs[name] = {"id": created["id"], "t_upload": t_up,
+                      "path": os.path.join(workdir, "up", stored),
+                      "file": fname}
+
+    def poll(name, until):
+        job = jobs[name]
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            n_post = len(post_ms)
+            status, out = req("GET", f"/api/transcribe?id={job['id']}")
+            if status != 200:
+                raise AssertionError(f"poll {name}: {status} {out}")
+            if len(post_ms) > n_post:
+                job["postprocess_ms"] = post_ms[n_post]
+            if out["status"] == "failed":
+                raise AssertionError(f"job {name} failed: {out['error']}")
+            if until(out):
+                return out
+            time.sleep(0.05)
+        raise AssertionError(f"job {name} did not finish")
+    pending = poll("wav16", lambda o: o["status"] == "succeeded" or (
+        o["status"] == "processing" and o["progress"].get("secondPass")))
+    if pending["status"] != "processing":
+        raise AssertionError("the WAV job's first success poll started no "
+                             "second pass")
+    results = {"wav16": poll("wav16", lambda o: o["status"] == "succeeded")}
+    jobs["wav16"]["t_done"] = time.perf_counter()
+    for name in jobs:
+        if name != "wav16":
+            results[name] = poll(name, lambda o: o["status"] == "succeeded")
+            jobs[name]["t_done"] = time.perf_counter()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    srv.shutdown()
+    srv.server_close()
+    http_thread.join(10)
+    model.transcribe = real_transcribe
+    server_mod.post_process_segments = real_post
+
+    clip_calls = [c for c in calls if c["kind"] == "clip"]
+    job_calls = [c for c in calls if c["kind"] == "job"]
+    if len(clip_calls) != 1 or len(job_calls) != len(jobs):
+        raise AssertionError(f"calls: {[(c['kind'], c['thread']) for c in calls]}")
+    sp = results["wav16"]["output"]["json"].get("second_pass") or {}
+    if sp.get("attempted_ranges") != 1 or "error" in sp:
+        raise AssertionError(f"second pass: {sp} (pending: {pending})")
+    for name, job in jobs.items():
+        want = aio.load_audio(job["path"])
+        match = [c for c in job_calls if np.array_equal(c["audio"], want)]
+        if len(match) != 1:
+            raise AssertionError(f"{name}: the transcribed audio is not "
+                                 "load_audio of the upload")
+        job["call"] = match[0]
+        body = results[name]["output"]
+        if not isinstance(body["json"]["segments"], list) \
+                or not body["markdown"].startswith("# 录音转写"):
+            raise AssertionError(f"{name}: bad output {body!r:.300}")
+    long_call, clip_call = jobs["long"]["call"], clip_calls[0]
+    overlap = min(long_call["t1"], clip_call["t1"]) - max(long_call["t0"],
+                                                          clip_call["t0"])
+    if overlap <= 0:
+        raise AssertionError("the second pass did not run during the long "
+                             "job's decode")
+    decoders = list(model._decoders.values())
+    clip_dec = [d for d in decoders if d.opts.temperatures == (0.0,)]
+    if len(decoders) != 2 or len(clip_dec) != 1:
+        raise AssertionError(f"decoders: {list(model._decoders)}")
+    clip_dec = clip_dec[0]
+    ld = model.cfg.n_text_layer
+    expected = collections.Counter()
+    for c in calls:
+        expected.update(expected_launches(model.cfg, c["stats"], False))
+    new_loops = [lp for dec in decoders for key, lp in dec._loops.items()
+                 if key not in loops_before.get(id(dec), ())]
+    warm_steps = sum(sum(lp.chunk_lengths()) for lp in new_loops)
+    for k in ("decode_self_attention", "decode_cross_attention"):
+        expected[k] += ld * warm_steps
+    if launches != dict(expected):
+        raise AssertionError(f"serve: launches {launches}, expected "
+                             f"{dict(expected)} (two threads)")
+    replays = {("main",) + k: n - replays_before.get(k, 0)
+               for k, n in graph_replays(main_dec).items()}
+    replays.update({("clip",) + k: n for k, n in
+                    graph_replays(clip_dec).items()})
+    replayed_steps = sum(k[2] * n for k, n in replays.items())
+    steps = sum(c["stats"]["decode_steps"] for c in calls)
+    if replayed_steps != steps:
+        raise AssertionError(f"serve: {replayed_steps} steps replayed, "
+                             f"{steps} run")
+    long_stats = long_call["stats"]
+    if not any(k[1] == 16 and n for k, n in replays.items()) \
+            or long_stats["rung_rows"].get(0, 0) < 16 \
+            or long_stats["windows"] < 16:
+        raise AssertionError(f"no batch of 16 rows: {long_stats}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for name, job in jobs.items():
+        st = job["call"]["stats"]
+        log(json.dumps({
+            "phase": "serve_request", "name": name, "file": job["file"],
+            "route": aio.decode_route(job["path"]),
+            "audio_s": len(job["call"]["audio"]) / 16000.0,
+            "upload_to_succeeded_s": job["t_done"] - job["t_upload"],
+            "queue_wait_s": _queue_wait(srv, job["id"]),
+            "transcribe_s": job["call"]["t1"] - job["call"]["t0"],
+            "postprocess_ms": job.get("postprocess_ms"),
+            "second_pass_s": clip_s[0] if name == "wav16" else None,
+            "windows": st["windows"], "batches": st["batches"],
+            "rows": st["rows"], "decode_calls": st["decode_calls"],
+            "decode_steps": st["decode_steps"],
+            "rung_rows": st["rung_rows"], "vad_s": st["vad_s"],
+            "encode_s": st["encode_s"], "decode_s": st["decode_s"],
+            "ms_per_token_row": 1e3 * st["decode_s"]
+            / max(st["token_rows"], 1),
+            "segments": len(results[name]["output"]["json"]["segments"])}))
+
+    # batch 16 against the smaller buckets, same prompt and loop: one
+    # decode loop per bucket at T = 0 (host clock, ms per token row) and
+    # one replayed 16-step chunk (CUDA events, device ms a step)
+    per_bucket = {}
+    speech = synthetic_speech(SERVE_BATCH * model.window_sec, seed=21)
+    for rows in (2, 4, 8, 16):
+        xa = model._encode_windows(speech.reshape(SERVE_BATCH, -1)[:rows])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = main_dec.decode_submit(xa, 0.0, rng_tag=5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loop = next(lp for key, lp in main_dec._loops.items()
+                    if key[0] == rows)
+        per_bucket[rows] = {
+            "ms_per_token_row": 1e3 * wall / (rows * out.steps),
+            "replay_device_ms_per_step": _replay_ms_per_step(loop)}
+    line.update({
+        "second_pass": {"clip_s": clip_s, "overlap_with_long_job_s": overlap,
+                        "thread": clip_call["thread"],
+                        "job_thread": long_call["thread"],
+                        "recovered_segments": sp.get("recovered_segments")},
+        "launches": launches, "new_loops_during_phase": [
+            (lp.state.tokens.shape[0], sum(lp.chunk_lengths()))
+            for lp in new_loops],
+        "replays": {f"{k[0]} rows={k[1]} steps={k[2]}": n
+                    for k, n in sorted(replays.items()) if n},
+        "peak_mem_gib_two_decoders": peak_gib,
+        "per_bucket": per_bucket})
+    log(json.dumps(line))
+
+
+def _queue_wait(srv, job_id: str) -> float:
+    job = srv.app_state.store.get(job_id)
+    return job.started_at - job.created_at
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1442,6 +1867,12 @@ def main() -> int:
               compute_type)
         timed(f"profile {compute_type}", phase_profile, model, main_shapes,
               compute_type)
+    del model                          # the server loads its own
+    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
+        native_line = timed("serve native", phase_serve_native, work)
+        timed("serve", phase_serve, work, native_line)
 
     kernels = []
     for name, row in rows.items():

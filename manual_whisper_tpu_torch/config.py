@@ -8,6 +8,7 @@ that it never imports the JAX package.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from pathlib import Path
@@ -170,3 +171,40 @@ def warn_if_synth_checkpoint(checkpoint_dir, what: str) -> None:
             "tone-language data only and has never seen real speech; "
             "convert real weights or set MWX_ALLOW_SYNTH_WEIGHTS=1 to "
             "silence this warning", RuntimeWarning, stacklevel=3)
+
+
+def parse_replacement_map_from_json(raw) -> Dict[str, str]:
+    """TERM_REPLACEMENTS_JSON parsing (reference: processor.js:340-354)."""
+    if not isinstance(raw, str) or not raw.strip():
+        return {}
+    try:
+        parsed = json.loads(raw)
+    except (ValueError, TypeError):
+        return {}
+    if not isinstance(parsed, dict):
+        return {}
+    out: Dict[str, str] = {}
+    for k, v in parsed.items():
+        if not isinstance(k, str) or not isinstance(v, str):
+            continue
+        src, dst = k.strip(), v.strip()
+        if src and dst:
+            out[src] = dst
+    return out
+
+
+def parse_replacement_map_from_pairs(raw) -> Dict[str, str]:
+    """`k=v;k=v` TERM_REPLACEMENTS parsing (reference: processor.js:356-368)."""
+    if not isinstance(raw, str) or not raw.strip():
+        return {}
+    out: Dict[str, str] = {}
+    for pair in (p.strip() for p in raw.split(";")):
+        if not pair:
+            continue
+        idx = pair.find("=")
+        if idx <= 0:
+            continue
+        src, dst = pair[:idx].strip(), pair[idx + 1:].strip()
+        if src and dst:
+            out[src] = dst
+    return out

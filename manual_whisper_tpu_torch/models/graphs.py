@@ -11,27 +11,34 @@ happens inside a capture; ``reset()`` puts the state back in bounds before
 that run.  The caller re-initialises its state after the capture.
 
 A replay issues no Python call, so ``_build.launches`` would count
-nothing: the counter delta of each capture (the wrappers count while they
-are captured, though nothing launches then) is taken back at the end of
-the capture and added again at every replay.  So a count stays what each
-wrapper's count means: the kernel launches that ran.
+nothing: while a capture runs, the wrappers of the capturing thread count
+into the capture's own record (``_build.recording``; nothing launches
+then), which every replay adds to ``_build.launches``.  So a count stays
+what each wrapper's count means, the kernel launches that ran, also when
+another thread launches kernels during a capture.
 
 The sampling generator is registered with every graph, so a replay draws
 from its state at the time of the replay and advances it as the eager
 chunk would: re-seeding it before a loop gives the eager chunk's random
 numbers.  All graphs of one owner share one memory pool; they are replayed
-one at a time, on one stream.  A failed capture or replay raises.
+one at a time, on one stream.  Captures are made one at a time in the
+process (``torch.cuda.graph`` empties the allocator's cache as it starts,
+which must not happen while another thread captures); replays and other
+work of other threads go on meanwhile.  A failed capture or replay raises.
 """
 
 from __future__ import annotations
 
 import collections
+import threading
 import time
 from typing import Callable, Dict
 
 import torch
 
 from ..ops import _build
+
+_capture_lock = threading.Lock()
 
 
 class ChunkGraphs:
@@ -64,22 +71,17 @@ class ChunkGraphs:
         current.wait_stream(self._stream)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
-        before = collections.Counter(_build.launches)
         # thread_local: CUDA calls of other threads (another decoder's
         # loop) may go on while this thread captures
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
+        with _capture_lock, _build.recording() as delta, \
+                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                 capture_error_mode="thread_local"):
             fn(n)
-        delta = _build.launches - before
-        _build.launches.subtract(delta)
-        for name in delta:
-            if _build.launches[name] == 0:
-                del _build.launches[name]
         self.graphs[n] = graph
         self.launch_delta[n] = delta
         self.capture_s += time.perf_counter() - t0
 
     def replay(self, n: int) -> None:
         self.graphs[n].replay()
-        _build.launches.update(self.launch_delta[n])
+        _build.add(self.launch_delta[n])
         self.replays[n] += 1

@@ -17,10 +17,11 @@ package pins it to the host CPU (``vad_compute_device``) because the TPU
 backend takes minutes to compile the BiLSTM's eight ``lax.scan``s; CUDA
 runs the LSTM as cuDNN calls with nothing to compile, so the port has no
 such knob.  On CUDA the convolutions, the LSTM and the linear layers run
-with TF32 off, set for each forward and restored after it: cuDNN allows
-TF32 by default, and TF32's 10-bit mantissa on the 251-tap sinc filters
-would move probabilities near the 0.5 / 0.363 hysteresis thresholds, and
-with them region edges, away from the CPU's.
+with TF32 off, set for each forward (one at a time in the process) and
+restored after it: cuDNN allows TF32 by default, and TF32's 10-bit
+mantissa on the 251-tap sinc filters would move probabilities near the
+0.5 / 0.363 hysteresis thresholds, and with them region edges, away from
+the CPU's.
 
 PyanNet has no Pallas kernel in the JAX package (its convs and scans are
 XLA), so its convolutions and LSTM stay library calls here.
@@ -31,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -143,6 +145,12 @@ def _instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y * gamma[:, None] + beta[:, None]
 
 
+# the TF32 switches are process-wide: one block at a time sets and
+# restores them, so a block on another thread (the server's second pass)
+# neither runs with TF32 on nor leaves it off
+_tf32_lock = threading.Lock()
+
+
 @contextlib.contextmanager
 def _no_tf32(device: torch.device) -> Iterator[None]:
     """float32 convolutions, LSTM and matmuls for the block; the previous
@@ -152,15 +160,17 @@ def _no_tf32(device: torch.device) -> Iterator[None]:
         return
     cudnn = torch.backends.cudnn
     matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_tf32
-    matmul.allow_tf32 = False
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            yield
-    finally:
-        matmul.allow_tf32 = saved
+    with _tf32_lock:
+        saved = matmul.allow_tf32
+        matmul.allow_tf32 = False
+        try:
+            with cudnn.flags(enabled=cudnn.enabled,
+                             benchmark=cudnn.benchmark,
+                             deterministic=cudnn.deterministic,
+                             allow_tf32=False):
+                yield
+        finally:
+            matmul.allow_tf32 = saved
 
 
 class PyanNet(nn.Module):

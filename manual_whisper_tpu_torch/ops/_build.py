@@ -14,13 +14,18 @@ started together.  Each C entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; ``check()`` raises when that is not 0.
 
 ``launches`` counts kernel launches by kernel name.  Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+(``count``) where it launches its kernel and nowhere else, so a run can
+show that its main path went through the kernels.  Updates take a lock,
+so threads decoding at once lose no count; while a thread captures a CUDA
+graph (``recording``) its wrappers count into that capture's own record,
+which every replay then adds (``add``), and launches of other threads in
+the meantime stay theirs.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +33,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import torch
 
@@ -74,6 +79,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 launches: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
+_capture = threading.local()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -150,6 +157,36 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``: into ``launches``, or into the
+    record of the capture this thread is making."""
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        record[name] += 1
+        return
+    with _count_lock:
+        launches[name] += 1
+
+
+def add(counts: collections.Counter) -> None:
+    """Add ``counts`` (a capture's record, at each replay) to ``launches``."""
+    with _count_lock:
+        launches.update(counts)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[collections.Counter]:
+    """While a CUDA graph is captured on this thread: the launches its
+    wrappers count go into the Counter yielded, not into ``launches``
+    (a capture launches nothing; its replays do)."""
+    record: collections.Counter = collections.Counter()
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = None
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -45,5 +45,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                   out.data_ptr(), b * h, t_q, t_k, dh,
                                   _build.stream_of(q))
     _build.check(err, "flash attention kernel")
-    _build.launches["flash_attention"] += 1
+    _build.count("flash_attention")
     return out

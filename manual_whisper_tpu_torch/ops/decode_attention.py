@@ -105,7 +105,7 @@ def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         pos.data_ptr(), 1, *dims, _build.stream_of(q))
     _build.check(err, f"{name} kernel")
-    _build.launches[name] += 1
+    _build.count(name)
     return out
 
 
@@ -124,7 +124,7 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         kv_len.data_ptr(), *dims, _build.stream_of(q))
     _build.check(err, f"{name} kernel")
-    _build.launches[name] += 1
+    _build.count(name)
     return out
 
 
@@ -160,5 +160,5 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
         v_s.data_ptr(), out.data_ptr(), kv_len.data_ptr(), b * h, ta, dh,
         int(k_s.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(err, f"{name} kernel")
-    _build.launches[name] += 1
+    _build.count(name)
     return out

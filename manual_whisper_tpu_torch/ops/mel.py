@@ -258,7 +258,7 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
         c.bands.data_ptr(), c.weights.data_ptr(), out.data_ptr(), batch,
         n_samples, n_frames, n_mels, _build.stream_of(audio))
     _build.check(err, "mel kernel")
-    _build.launches["mel"] += 1
+    _build.count("mel")
     return out
 
 

@@ -83,7 +83,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     err = lib.mwx_int8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
                               out.data_ptr(), m, k, n, _build.stream_of(x))
     _build.check(err, "int8_matmul kernel")
-    _build.launches["int8_matmul"] += 1
+    _build.count("int8_matmul")
     return out
 
 

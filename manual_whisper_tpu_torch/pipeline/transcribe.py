@@ -20,17 +20,23 @@ every later loop replays; on the CPU the chunks run eagerly.  Each batch
 is finalized as soon as it is decoded (the JAX package's fetch worker
 overlaps device and host work; that is not ported: its second thread
 would replay the same static buffers).  ``last_stats``
-holds the phase times and counts of the most recent ``transcribe`` call
-(``vad_s``: the VAD's blocks, binarization and merging only; ``windows``:
-real audio windows; ``rows``: batch rows, padding included;
-``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``);
+holds the phase times and counts of the calling thread's most recent
+``transcribe`` call (``vad_s``: the VAD's blocks, binarization and merging
+only; ``windows``: real audio windows; ``rows``: batch rows, padding
+included; ``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``);
 on CUDA each phase ends in a synchronisation so its time is the device's.
+
+Two threads may transcribe at once (the job server decodes a second pass
+while its worker runs the next job): decoders are made under a lock, one
+per (language, temperatures, prompt), and each ``BatchDecoder`` runs one
+loop at a time on its own static buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pickle
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -85,11 +91,19 @@ class TranscribePipeline:
         self.language = language
         self.asr_options = asr_options or {}
         self._decoders: Dict[tuple, BatchDecoder] = {}
+        self._decoders_lock = threading.Lock()
+        self._thread_stats = threading.local()
+        self._last_stats: dict = {}
         # model window: 2 encoder frames per mel frame, 160 samples per mel
         # frame (30 s for real checkpoints; smaller for the test config)
         self.window_samples = cfg.n_audio_ctx * 2 * 160
         self.window_sec = self.window_samples / 16000.0
-        self.last_stats: dict = {}
+
+    @property
+    def last_stats(self) -> dict:
+        """Stats of this thread's most recent ``transcribe`` (of any
+        thread's when this one made none)."""
+        return getattr(self._thread_stats, "stats", None) or self._last_stats
 
     # -- helpers ------------------------------------------------------------
     def _decoder(self, language: str, temperature,
@@ -100,21 +114,23 @@ class TranscribePipeline:
         if initial_prompt is _UNSET:
             initial_prompt = self.asr_options.get("initial_prompt")
         key = (language, temps, initial_prompt)
-        if key not in self._decoders:
-            while len(self._decoders) >= 8:
-                self._decoders.pop(next(iter(self._decoders)))
-            # forward every DecodingOptions field present in asr_options
-            # (the whisperx asr_options surface, transcribe.py:111)
-            fields = {f.name for f in dataclasses.fields(DecodingOptions)}
-            passthrough = {k: v for k, v in self.asr_options.items()
-                           if k in fields and k not in
-                           ("language", "temperatures", "initial_prompt")}
-            opts = DecodingOptions(language=language, temperatures=temps,
-                                   initial_prompt=initial_prompt,
-                                   **passthrough)
-            self._decoders[key] = BatchDecoder(
-                self.params, self.cfg, self.tokenizer, opts, self.device)
-        return self._decoders[key]
+        with self._decoders_lock:
+            if key not in self._decoders:
+                while len(self._decoders) >= 8:
+                    self._decoders.pop(next(iter(self._decoders)))
+                # forward every DecodingOptions field present in
+                # asr_options (the whisperx asr_options surface,
+                # transcribe.py:111)
+                fields = {f.name for f in dataclasses.fields(DecodingOptions)}
+                passthrough = {k: v for k, v in self.asr_options.items()
+                               if k in fields and k not in
+                               ("language", "temperatures", "initial_prompt")}
+                opts = DecodingOptions(language=language, temperatures=temps,
+                                       initial_prompt=initial_prompt,
+                                       **passthrough)
+                self._decoders[key] = BatchDecoder(
+                    self.params, self.cfg, self.tokenizer, opts, self.device)
+            return self._decoders[key]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -209,7 +225,7 @@ class TranscribePipeline:
         stats = {"vad_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
                  "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
                  "decode_calls": 0, "decode_steps": 0, "rung_rows": {}}
-        self.last_stats = stats
+        self._thread_stats.stats = self._last_stats = stats
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
         counts = ("token_rows", "decode_calls", "decode_steps")

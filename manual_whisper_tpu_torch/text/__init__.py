@@ -8,6 +8,7 @@ from .cleaning import (
     remove_hallucination_loops,
 )
 from .formatting import format_timestamp, format_transcript, format_to_markdown
+from .processor import PostProcessOptions, post_process_segments
 
 __all__ = [
     "DOMAIN_TERMS",
@@ -20,4 +21,6 @@ __all__ = [
     "format_timestamp",
     "format_transcript",
     "format_to_markdown",
+    "PostProcessOptions",
+    "post_process_segments",
 ]

@@ -399,3 +399,110 @@ def test_vad_on_card_equals_cpu(dev, weights):
     assert probs.shape == ref.shape
     np.testing.assert_allclose(probs, ref, rtol=0, atol=1e-3)
     assert regions == cpu(audio)
+
+
+# -- two threads: the server's second pass beside a job ----------------------
+
+def test_two_decoders_on_two_threads_equal_one_after_the_other(dev):
+    """Two captured decoders (another prompt each, so other loop shapes)
+    decoding at once from two threads, each capturing its loops while the
+    other replays: the tokens of the same decodes run one after the other,
+    and the launches counted are those of the sequential run."""
+    from manual_whisper_tpu_torch.models.decode import (BatchDecoder,
+                                                        DecodingOptions)
+    from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
+                                                         init_params)
+    from manual_whisper_tpu_torch.tokenizer import make_test_tokenizer
+    import threading
+    cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
+    params = init_params(cfg, dev, seed=7)
+    tk = make_test_tokenizer()
+
+    def decoders():
+        return [BatchDecoder(params, cfg, tk, DecodingOptions(
+            language="en", max_new_tokens=40, suppress_blank=False,
+            initial_prompt=prompt), dev) for prompt in (None, "hello")]
+    work = [(_tiny_xa(cfg, dev, rows, 50 + rows), 0.6 * (rows % 2), rows)
+            for rows in (1, 2, 4, 2, 1)]
+
+    def run(dec, out):
+        for xa, temp, tag in work:
+            o = dec.decode_submit(xa, temp, rng_tag=tag)
+            out.append((o.tokens, o.lengths))
+
+    seq = {}
+    before = collections.Counter(_build.launches)
+    for i, dec in enumerate(decoders()):
+        seq[i] = []
+        run(dec, seq[i])
+    torch.cuda.synchronize()
+    seq_launches = _build.launches - before
+
+    par = {0: [], 1: []}
+    before = collections.Counter(_build.launches)
+    threads = [threading.Thread(target=run, args=(dec, par[i]))
+               for i, dec in enumerate(decoders())]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert _build.launches - before == seq_launches
+    for i in (0, 1):
+        assert len(par[i]) == len(work)
+        for (tok_a, len_a), (tok_b, len_b) in zip(par[i], seq[i]):
+            assert torch.equal(tok_a, tok_b) and torch.equal(len_a, len_b)
+
+
+def test_server_answers_a_wav_request_on_the_card(dev, tmp_path, monkeypatch):
+    """The port's job server over the port's ``PipelineBackend`` on the
+    card (the ``test`` config, seeded weights, batch 16): upload, create,
+    poll to ``succeeded``; the JSON carries segments, cleanup stats and
+    the Markdown."""
+    import json
+    import threading
+    import urllib.request
+    from manual_whisper_tpu_torch.audio import write_wav
+    from manual_whisper_tpu_torch.serving import (PipelineBackend,
+                                                  create_server)
+    monkeypatch.setenv("WHISPER_MODEL", "test")
+    monkeypatch.setenv("ENABLE_SECOND_PASS", "false")
+    monkeypatch.delenv("HF_TOKEN", raising=False)
+    backend = PipelineBackend()
+    assert backend.model.device.type == "cuda" and backend.batch_size == 16
+    backend.warmup()
+    srv = create_server(backend, host="127.0.0.1", port=0,
+                        upload_dir=str(tmp_path / "up"))
+    threading.Thread(target=srv.serve_forever, args=(0.05,),
+                     daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def req(method, path, body=None, headers=None):
+        r = urllib.request.Request(base + path, data=body, method=method,
+                                   headers=headers or {})
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            return json.loads(resp.read().decode())
+    try:
+        wav = tmp_path / "a.wav"
+        write_wav(wav, _bursts(12.0, 3), 16000)
+        url = req("POST", "/api/upload", wav.read_bytes(),
+                  {"x-file-name": "a.wav"})["fileUrl"]
+        job = req("POST", "/api/transcribe",
+                  json.dumps({"fileUrl": url, "language": "zh"}).encode())
+        import time
+        deadline = time.time() + 120
+        while True:
+            out = req("GET", f"/api/transcribe?id={job['id']}")
+            if out["status"] in ("succeeded", "failed"):
+                break
+            assert time.time() < deadline
+            time.sleep(0.1)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert out["status"] == "succeeded", out
+    body = out["output"]["json"]
+    assert isinstance(body["segments"], list)
+    assert body["cleanup_stats"]["input_segments"] >= 0
+    assert out["output"]["markdown"].startswith("# 录音转写")
+    assert backend.model.last_stats["batches"] >= 1

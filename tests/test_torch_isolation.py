@@ -46,7 +46,9 @@ def test_port_files_exist():
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
                      "convert.py", "from_hf.py", "device.py", "config.py",
                      "tokenizer/bpe.py", "audio/io.py", "audio/native.py",
-                     "audio/flacenc.py"):
+                     "audio/flacenc.py", "text/processor.py",
+                     "serving/jobs.py", "serving/second_pass.py",
+                     "serving/server.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
@@ -71,7 +73,8 @@ def _run(code, cwd=ROOT, env_extra=None):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, manual_whisper_tpu_torch.pipeline, "
-            "manual_whisper_tpu_torch.cli\n"
+            "manual_whisper_tpu_torch.cli, manual_whisper_tpu_torch.serving"
+            "\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\nsys.exit(1 if bad else 0)")
