@@ -84,6 +84,23 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    call of K6 (through ``mm``) and K5 against the bf16 step's cuBLAS
    matmul and K4.
 
+6. The job server (``serve``): the phase-4 model is freed; the port's
+   native audio libraries are built (libmwx_audio must build, libmwx_ffdec
+   must where g++ finds the FFmpeg headers) and each suffix's route
+   printed, with the host ms to decode and resample a minute of 44.1 kHz
+   stereo audio through each route the machine has (``serve_native``);
+   then ``PipelineBackend`` (large-v3, bf16, batch 16) is warmed up
+   (buckets 2, 4, 8 and 16 captured) and served by ``create_server`` on
+   127.0.0.1: a 16 kHz WAV, about 9 min of audio (at least 16 windows), a
+   44.1 kHz stereo FLAC and an m4a (refused with the zh-CN message where
+   the FFmpeg shim is missing) go through upload, create and polls, with
+   a second pass (``transcribe_clip`` on the server's thread) decoding
+   beside the long job; every job must succeed on ``load_audio``'s audio,
+   a 16-row loop must replay, and the launches of both threads must be
+   the ones their calls' stats imply.  One ``serve_request`` line a job,
+   then a ``serve`` line (warmup, capture, peak memory with both decoders
+   resident, ms per token row and replayed step time per bucket).
+
 The kernels line gives each kernel's launches on the main path that
 runs it (K1-K4 bf16, K5 and K6 int8; the int8 path's K1-K3 counts are on
 its ``main_path`` line).  The line before the last is

@@ -6,13 +6,15 @@ kernels of the main path are hand-written CUDA C++ for Hopper (``csrc/``,
 built on first use by ``ops/_build.py``); each sits beside its plain
 PyTorch version, which runs only for tensors on the CPU.
 
-- ``audio``     — WAV decode + resample
+- ``audio``     — WAV, FLAC and (FFmpeg shim) compressed decode + resample,
+  over the C++ sources in ``native/`` built with g++ on first use
 - ``ops``       — log-mel, encoder flash attention, decode attention
 - ``models``    — Whisper encoder-decoder, greedy decoder, PyanNet and
   energy VAD
 - ``tokenizer`` — Whisper byte-level BPE + special tokens
-- ``text``      — CLI cleaning + Markdown output
+- ``text``      — CLI cleaning, the web post-processor, Markdown output
 - ``pipeline``  — VAD chunking + batched transcribe
+- ``serving``   — the HTTP job server and its ``PipelineBackend``
 - ``convert``   — JAX param trees (numpy) -> the port's weights
 - ``from_hf``   — HF Whisper checkpoints (safetensors, shards, .bin)
 """

@@ -304,7 +304,10 @@ class BatchDecoder:
     token budget; the cross-K/V kind is the options'), built on first use
     as ``jax.jit`` compiles on first call: on CUDA that captures its
     chunks, all in one graph memory pool, freed with the decoder.  A
-    lock keeps one decode at a time on the static buffers.  ``eager=True``
+    lock keeps one decode at a time on the static buffers; a decode's
+    results leave it as copies enqueued before the lock is released, on
+    the default stream every decoding thread uses, so the next decode
+    cannot overwrite the buffers before the copies have run.  ``eager=True``
     runs the chunks eagerly on CUDA too, for comparison only; on the CPU
     they always run eagerly.
 
@@ -320,11 +323,11 @@ class BatchDecoder:
                  device: torch.device, eager: bool = False):
         if opts.beam_size > 1:
             raise NotImplementedError(
-                "beam_size > 1 is not ported yet (ROADMAP Queue A item 9)")
+                "beam_size > 1 is not ported yet (ROADMAP Queue A item 6)")
         if not opts.without_timestamps:
             raise NotImplementedError(
                 "timestamp-token decoding is not ported yet (ROADMAP Queue "
-                "A item 9)")
+                "A item 6)")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

@@ -77,8 +77,7 @@ class Ctx:
     """One running server of one implementation."""
 
     def __init__(self, impl, tmp_path, web_dir=None):
-        self.server_mod, self.jobs_mod, self.second_mod, self.native_mod = \
-            IMPLS[impl]
+        self.server_mod = IMPLS[impl][0]
         self.backend = MockBackend()
         self.tmp = tmp_path / impl
         self.tmp.mkdir()
