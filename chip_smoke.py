@@ -1442,10 +1442,13 @@ def _best_ms(fn, reps: int = 3) -> float:
 
 def phase_serve_native(workdir: str) -> dict:
     """Build the port's native audio libraries (libmwx_audio must build;
-    libmwx_ffdec must where g++ finds the FFmpeg headers), print the route
-    of each suffix, then the host ms to decode and resample one minute of
-    44.1 kHz stereo audio through each route this machine has (best of
-    3); each route's own output must equal ``load_audio``'s."""
+    libmwx_ffdec must where g++ finds the FFmpeg headers), then the host ms
+    to decode and resample one minute of 44.1 kHz stereo audio through
+    each route this machine has (best of 3); each route's own output must
+    equal ``load_audio``'s.  Prints the route ``load_audio`` took for each
+    suffix: the minute's file where one was made, else 64 zero bytes
+    (``unsupported`` when no decoder takes the suffix, ``refused`` when
+    one does and rejects them)."""
     import shutil
     from manual_whisper_tpu_torch.audio import encode_flac
     from manual_whisper_tpu_torch.audio import io as aio
@@ -1462,8 +1465,6 @@ def phase_serve_native(workdir: str) -> dict:
             "ffmpeg_headers": _ffmpeg_headers(),
             "ffmpeg_cli": shutil.which("ffmpeg") is not None,
             "decodable_suffixes": list(aio.decodable_suffixes()),
-            "routes": {s: aio.decode_route("x" + s)
-                       for s in (".wav",) + aio.FFMPEG_SUFFIXES},
             "build_errors": {k: v[-400:]
                              for k, v in native.build_errors.items()}}
     if lib is None or (line["ffmpeg_headers"] and ffdec is None):
@@ -1481,16 +1482,28 @@ def phase_serve_native(workdir: str) -> dict:
         "flac": lambda b: aio._resample(*native.native_decode_flac(b),
                                         16000),
         "m4a": lambda b: aio._resample(*native.native_decode_any(b), 16000)}
-    host_ms = {}
+    host_ms, routes = {}, {}
     for ext, data in files.items():
         path = os.path.join(workdir, f"minute.{ext}")
         with open(path, "wb") as f:
             f.write(data)
-        out = aio.load_audio(path)
+        out, routes["." + ext] = aio._load(path)
         if not np.array_equal(out, route_fns[ext](data)):
             raise AssertionError(f"load_audio of .{ext} is not its route's")
-        host_ms[aio.decode_route(path)] = _best_ms(
-            lambda: aio.load_audio(path))
+        host_ms[routes["." + ext]] = _best_ms(lambda: aio.load_audio(path))
+    for suffix in aio.FFMPEG_SUFFIXES:
+        if suffix in routes:
+            continue
+        path = os.path.join(workdir, "probe" + suffix)
+        with open(path, "wb") as f:
+            f.write(b"\x00" * 64)
+        try:
+            routes[suffix] = aio._load(path)[1]
+        except aio.UnsupportedFormatError:
+            routes[suffix] = "unsupported"
+        except (ValueError, RuntimeError):
+            routes[suffix] = "refused"
+    line["routes"] = routes
     host_ms["numpy-wav"] = _best_ms(
         lambda: resample_poly(to_mono(aio.decode_wav_bytes(files["wav"])[0]),
                               44100, 16000))
@@ -1536,6 +1549,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     import threading
     import urllib.error
     import urllib.request
+    import manual_whisper_tpu_torch.audio as audio_pkg
     from manual_whisper_tpu_torch.audio import io as aio
     from manual_whisper_tpu_torch.audio import encode_flac, native
     from manual_whisper_tpu_torch.audio.resample import resample_poly
@@ -1578,7 +1592,8 @@ def phase_serve(workdir: str, native_line: dict) -> None:
                           "thread": threading.current_thread().name,
                           "t0": t_start, "t1": time.perf_counter(),
                           "stats": dict(model.last_stats),
-                          "audio": np.asarray(audio)})
+                          "audio": np.asarray(audio), "kw": kw,
+                          "segments": _segment_keys(out)})
         return out
     model.transcribe = traced
     post_ms = []
@@ -1609,6 +1624,14 @@ def phase_serve(workdir: str, native_line: dict) -> None:
                                     "end": 14.0})
         return out
     backend.transcribe = job_transcribe
+    # the route of each decode the server makes, as load_audio took it
+    routes = {}
+    real_load = audio_pkg.load_audio
+
+    def routed_load(path, sample_rate=aio.SAMPLE_RATE):
+        audio, routes[os.path.basename(path)] = aio._load(path, sample_rate)
+        return audio
+    audio_pkg.load_audio = routed_load
 
     srv = server_mod.create_server(backend, host="127.0.0.1", port=0,
                                    upload_dir=os.path.join(workdir, "up"))
@@ -1674,10 +1697,17 @@ def phase_serve(workdir: str, native_line: dict) -> None:
                       "path": os.path.join(workdir, "up", stored),
                       "file": fname}
 
-    def poll(name, until):
-        job = jobs[name]
-        deadline = time.time() + 300
-        while time.time() < deadline:
+    # every unfinished job polled in each round, so a job's success is
+    # seen within one round of the server's
+    results, pending = {}, None
+    deadline = time.time() + 300
+    while len(results) < len(jobs):
+        if time.time() > deadline:
+            raise AssertionError(f"jobs {set(jobs) - set(results)} did not "
+                                 "finish")
+        for name, job in jobs.items():
+            if name in results:
+                continue
             n_post = len(post_ms)
             status, out = req("GET", f"/api/transcribe?id={job['id']}")
             if status != 200:
@@ -1686,21 +1716,16 @@ def phase_serve(workdir: str, native_line: dict) -> None:
                 job["postprocess_ms"] = post_ms[n_post]
             if out["status"] == "failed":
                 raise AssertionError(f"job {name} failed: {out['error']}")
-            if until(out):
-                return out
-            time.sleep(0.05)
-        raise AssertionError(f"job {name} did not finish")
-    pending = poll("wav16", lambda o: o["status"] == "succeeded" or (
-        o["status"] == "processing" and o["progress"].get("secondPass")))
-    if pending["status"] != "processing":
+            if out["status"] == "succeeded":
+                results[name] = out
+                job["t_done"] = time.perf_counter()
+            elif name == "wav16" and out["status"] == "processing" \
+                    and out["progress"].get("secondPass"):
+                pending = pending or out
+        time.sleep(0.05)
+    if pending is None:
         raise AssertionError("the WAV job's first success poll started no "
                              "second pass")
-    results = {"wav16": poll("wav16", lambda o: o["status"] == "succeeded")}
-    jobs["wav16"]["t_done"] = time.perf_counter()
-    for name in jobs:
-        if name != "wav16":
-            results[name] = poll(name, lambda o: o["status"] == "succeeded")
-            jobs[name]["t_done"] = time.perf_counter()
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     srv.shutdown()
@@ -1708,6 +1733,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     http_thread.join(10)
     model.transcribe = real_transcribe
     server_mod.post_process_segments = real_post
+    audio_pkg.load_audio = real_load
 
     clip_calls = [c for c in calls if c["kind"] == "clip"]
     job_calls = [c for c in calls if c["kind"] == "job"]
@@ -1766,11 +1792,22 @@ def phase_serve(workdir: str, native_line: dict) -> None:
         raise AssertionError(f"no batch of 16 rows: {long_stats}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    # the long job once more, alone: no second pass beside it, every
+    # bucket it takes already captured; its result must be the same
+    t0 = time.perf_counter()
+    alone = model.transcribe(long_call["audio"], **dict(
+        long_call["kw"], progress_callback=None))
+    torch.cuda.synchronize()
+    long_alone_s = time.perf_counter() - t0
+    if _segment_keys(alone) != long_call["segments"]:
+        raise AssertionError("the long job alone gives other segments than "
+                             "beside the second pass")
+
     for name, job in jobs.items():
         st = job["call"]["stats"]
         log(json.dumps({
             "phase": "serve_request", "name": name, "file": job["file"],
-            "route": aio.decode_route(job["path"]),
+            "route": routes[os.path.basename(job["path"])],
             "audio_s": len(job["call"]["audio"]) / 16000.0,
             "upload_to_succeeded_s": job["t_done"] - job["t_upload"],
             "queue_wait_s": _queue_wait(srv, job["id"]),
@@ -1804,6 +1841,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
             "ms_per_token_row": 1e3 * wall / (rows * out.steps),
             "replay_device_ms_per_step": _replay_ms_per_step(loop)}
     line.update({
+        "long_transcribe_alone_s": long_alone_s,
         "second_pass": {"clip_s": clip_s, "overlap_with_long_job_s": overlap,
                         "thread": clip_call["thread"],
                         "job_thread": long_call["thread"],
@@ -1816,6 +1854,10 @@ def phase_serve(workdir: str, native_line: dict) -> None:
         "peak_mem_gib_two_decoders": peak_gib,
         "per_bucket": per_bucket})
     log(json.dumps(line))
+
+
+def _segment_keys(result: dict) -> list:
+    return [(g["start"], g["end"], g["text"]) for g in result["segments"]]
 
 
 def _queue_wait(srv, job_id: str) -> float:

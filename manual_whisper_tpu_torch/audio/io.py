@@ -65,22 +65,6 @@ def decodable_suffixes() -> tuple:
     return (".wav",)
 
 
-def decode_route(path) -> str:
-    """Which decoder ``load_audio`` would use for ``path`` on this host:
-    ``native-wav``, ``native-flac``, ``ffdec``, ``ffmpeg-cli`` or
-    ``unsupported`` (the numpy WAV decoder stands behind ``native-wav``
-    when the library is missing: ``numpy-wav``)."""
-    from .native import get_ffdec, get_lib
-    suffix = Path(path).suffix.lower()
-    if suffix == ".wav":
-        return "native-wav" if get_lib() is not None else "numpy-wav"
-    if suffix == ".flac" and get_lib() is not None:
-        return "native-flac"
-    if suffix in FFMPEG_SUFFIXES and get_ffdec() is not None:
-        return "ffdec"
-    return "ffmpeg-cli" if shutil.which("ffmpeg") else "unsupported"
-
-
 def decode_wav_bytes(data: bytes):
     """Parse a RIFF/WAVE blob -> (float32 samples [n, ch], sample_rate).
 
@@ -199,6 +183,13 @@ def _resample(mono: np.ndarray, sr: int, sample_rate: int) -> np.ndarray:
 def load_audio(path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
     """Decode any supported audio file -> 16 kHz mono float32
     (``whisperx.load_audio`` surface, transcribe.py:117)."""
+    return _load(path, sample_rate)[0]
+
+
+def _load(path, sample_rate: int = SAMPLE_RATE):
+    """``load_audio``, and the route that decoded the file:
+    ``native-wav``, ``numpy-wav``, ``native-flac``, ``ffdec`` or
+    ``ffmpeg-cli``."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(str(path))
@@ -210,9 +201,11 @@ def load_audio(path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
             decoded = native_decode_wav(path.read_bytes())
         except Exception:
             decoded = None
+        route = "native-wav"
         if decoded is not None:
             samples, sr = decoded
         else:
+            route = "numpy-wav"
             try:
                 samples, sr = decode_wav_bytes(path.read_bytes())
             except ValueError:
@@ -220,9 +213,10 @@ def load_audio(path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
                 # variants (streaming writers leave size fields 0 or
                 # 0xFFFFFFFF)
                 if shutil.which("ffmpeg"):
-                    return _ffmpeg_decode(str(path), sample_rate)
+                    return (_ffmpeg_decode(str(path), sample_rate),
+                            "ffmpeg-cli")
                 raise
-        return _resample(to_mono(samples), sr, sample_rate)
+        return _resample(to_mono(samples), sr, sample_rate), route
 
     if suffix == ".flac":
         from .native import native_decode_flac
@@ -241,7 +235,7 @@ def load_audio(path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
                 ) from exc
         if decoded is not None:
             mono, sr = decoded
-            return _resample(mono, sr, sample_rate)
+            return _resample(mono, sr, sample_rate), "native-flac"
 
     if suffix in FFMPEG_SUFFIXES:
         from .native import native_decode_any
@@ -258,9 +252,9 @@ def load_audio(path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
                 ) from exc
         if decoded is not None:
             mono, sr = decoded
-            return _resample(mono, sr, sample_rate)
+            return _resample(mono, sr, sample_rate), "ffdec"
 
     if shutil.which("ffmpeg"):
-        return _ffmpeg_decode(str(path), sample_rate)
+        return _ffmpeg_decode(str(path), sample_rate), "ffmpeg-cli"
 
     raise UnsupportedFormatError(path.suffix or "(no extension)")

@@ -84,7 +84,7 @@ def build(name: str, timeout: float = _FULL_BUILD_TIMEOUT) -> Optional[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(
         f".{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [os.environ.get("CXX") or "g++", *CXXFLAGS, "-o", str(tmp),
+    cmd = ["g++", *CXXFLAGS, "-o", str(tmp),
            *(str(SOURCE_DIR / s) for s in sources), *ldflags]
     try:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -93,7 +93,6 @@ class TranscribePipeline:
         self._decoders: Dict[tuple, BatchDecoder] = {}
         self._decoders_lock = threading.Lock()
         self._thread_stats = threading.local()
-        self._last_stats: dict = {}
         # model window: 2 encoder frames per mel frame, 160 samples per mel
         # frame (30 s for real checkpoints; smaller for the test config)
         self.window_samples = cfg.n_audio_ctx * 2 * 160
@@ -101,9 +100,9 @@ class TranscribePipeline:
 
     @property
     def last_stats(self) -> dict:
-        """Stats of this thread's most recent ``transcribe`` (of any
-        thread's when this one made none)."""
-        return getattr(self._thread_stats, "stats", None) or self._last_stats
+        """Stats of this thread's most recent ``transcribe`` (empty when
+        this thread made none)."""
+        return getattr(self._thread_stats, "stats", {})
 
     # -- helpers ------------------------------------------------------------
     def _decoder(self, language: str, temperature,
@@ -225,7 +224,7 @@ class TranscribePipeline:
         stats = {"vad_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
                  "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
                  "decode_calls": 0, "decode_steps": 0, "rung_rows": {}}
-        self._thread_stats.stats = self._last_stats = stats
+        self._thread_stats.stats = stats
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
         counts = ("token_rows", "decode_calls", "decode_steps")

@@ -3,7 +3,7 @@ backend (a copy of the JAX package's ``serving/server.py``; ``serve``
 builds the port's ``PipelineBackend``).
 
     python -m manual_whisper_tpu_torch.serving.server [--model large-v3]
-        [--host 0.0.0.0] [--port 8000] [--web-dir web] [--device cuda]
+        [--host 0.0.0.0] [--port 8000] [--web-dir web]
 
 Re-homes the two Vercel serverless functions so the ``web/`` frontend works
 against this server with only a base-URL change (SURVEY.md §7 step 9):
@@ -541,11 +541,10 @@ def create_server(backend: InferenceBackend, host: str = "127.0.0.1",
 
 
 def serve(model_name: Optional[str] = None, host: str = "0.0.0.0",
-          port: int = 8000, web_dir: Optional[str] = None,
-          device: str = "cuda") -> None:
-    """CLI entry: run the job server on the port's pipeline on ``device``."""
+          port: int = 8000, web_dir: Optional[str] = None) -> None:
+    """CLI entry: run the job server on the port's pipeline on the card."""
     from .jobs import PipelineBackend
-    backend = PipelineBackend(model_name=model_name, device=device)
+    backend = PipelineBackend(model_name=model_name)
     default_web = Path(__file__).resolve().parent.parent.parent / "web"
     server = create_server(
         backend, host=host, port=port,
@@ -584,6 +583,5 @@ if __name__ == "__main__":
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--web-dir", default=None)
-    parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    serve(args.model, args.host, args.port, args.web_dir, args.device)
+    serve(args.model, args.host, args.port, args.web_dir)

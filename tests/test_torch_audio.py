@@ -225,10 +225,15 @@ def test_ffdec_garbage_raises_as_jax(tmp_path, monkeypatch):
 
 
 @ffdec_only
-def test_decodable_suffixes_with_ffdec_match_jax():
+def test_decodable_suffixes_with_ffdec_match_jax(tmp_path):
     assert tio.decodable_suffixes() == jio.decodable_suffixes()
     assert ".m4a" in tio.decodable_suffixes()
-    assert tio.decode_route("a.m4a") == "ffdec"
+    path = tmp_path / "a.m4a"
+    path.write_bytes(tnative.native_encode_fixture(
+        _noise(16000)[:, 0], 16000, "ipod", "aac"))
+    audio, route = tio._load(path)
+    assert route == "ffdec"
+    np.testing.assert_array_equal(audio, jio.load_audio(path))
 
 
 @native_only
@@ -239,8 +244,10 @@ def test_without_ffmpeg_and_ffdec_suffixes_and_error_match_jax(
         monkeypatch.setattr(native_mod, "get_ffdec", lambda *a, **k: None)
     assert tio.decodable_suffixes() == jio.decodable_suffixes() \
         == (".wav", ".flac")
-    assert [tio.decode_route(f"a{s}") for s in (".wav", ".flac", ".m4a")] \
-        == ["native-wav", "native-flac", "unsupported"]
+    tio.write_wav(tmp_path / "a.wav", _noise(8000)[:, 0])
+    write_flac(tmp_path / "a.flac", _noise(8000)[:, 0])
+    assert [tio._load(tmp_path / f"a{s}")[1] for s in (".wav", ".flac")] \
+        == ["native-wav", "native-flac"]
     path = tmp_path / "meeting.m4a"
     path.write_bytes(b"\x00" * 64)
     with pytest.raises(tio.UnsupportedFormatError) as t_err:
@@ -250,6 +257,22 @@ def test_without_ffmpeg_and_ffdec_suffixes_and_error_match_jax(
     assert t_err.value.zh == j_err.value.zh
     assert str(t_err.value) == str(j_err.value)
     assert t_err.value.suffix == ".m4a"
+
+
+@native_only
+def test_load_reports_the_numpy_route_when_the_native_wav_decoder_fails(
+        tmp_path, monkeypatch):
+    path = tmp_path / "a.wav"
+    path.write_bytes(_wav_bytes(_noise(12000, channels=2), 24000, "pcm24"))
+    native_out, native_route = tio._load(path)
+
+    def broken(data):
+        raise RuntimeError("native decoder failed")
+    monkeypatch.setattr(tnative, "native_decode_wav", broken)
+    audio, route = tio._load(path)
+    assert (native_route, route) == ("native-wav", "numpy-wav")
+    np.testing.assert_allclose(audio, native_out, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(audio, tio.load_audio(path))
 
 
 def test_missing_file_raises():

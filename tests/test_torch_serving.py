@@ -700,6 +700,12 @@ def test_transcribe_clip_on_a_second_thread_changes_nothing(synth, tmp_path,
     assert len(built) == 2 and set(built.values()) == {1}
     assert stats["main"] is not stats["clip"]
     assert stats["clip"]["windows"] >= 1
+    idle = []
+    bystander = threading.Thread(
+        target=lambda: idle.append(tb.model.last_stats))
+    bystander.start()
+    bystander.join()
+    assert idle == [{}], "a thread that made no transcribe sees stats"
 
 
 def test_decoder_made_once_under_racing_threads(synth, monkeypatch):
