@@ -1,4 +1,4 @@
-"""Batched greedy Whisper decoding (port of the JAX ``models/decode.py``).
+"""Batched Whisper decoding (port of the JAX ``models/decode.py``).
 
 - ``DecodeLoop``: cross K/V and prefill over the prompt, then single-token
   steps over a preallocated KV cache, the whole batch in lockstep;
@@ -10,7 +10,10 @@
   graph, replayed (``models/graphs.py``: the counterpart of JAX
   ``greedy_decode_jit``'s compiled ``lax.while_loop``), on the CPU it runs
   eagerly.  The host checks between chunks that every row has finished.
-- ``BatchDecoder``: prompt building, one ``DecodeLoop`` per shape, the
+  The token choice is the loop's ``pick``: ``GreedyPick`` (greedy and
+  sampled), or ``timestamps.TimestampRules`` (the timestamp-token mode).
+- ``BatchDecoder``: prompt building, one loop per shape and kind (greedy,
+  ``beam.BeamLoop`` for ``beam_size > 1`` at T = 0, timestamp rules), the
   quality gates (compression ratio, avg logprob, no-speech) and the
   temperature fallback ladder on the host.
 
@@ -19,14 +22,14 @@ sampled or the greedy token by the device temperature, so one captured
 chunk serves every rung.  The noise comes from a ``torch.Generator``
 seeded by ``opts.seed + 1000003 * rng_tag`` before each loop: the same
 seed gives the same tokens, captured or eager, but not JAX's tokens
-(other random numbers).
+(other random numbers).  Beam search and the timestamp rules draw none.
 
 ``int8_cross_kv`` quantizes the cross K/V to int8 per layer (scales in
 bf16 with ``ckv_scale_bf16``); the decode steps then read it through K5
-instead of K4.  Not ported yet: ``beam_size > 1`` and timestamp-token
-decoding raise ``NotImplementedError``.  There is no ``fused_attention``
-option: on a CUDA device the decode steps always run the K3/K4/K5
-kernels, on the CPU their plain versions.
+instead of K4.  There is no ``fused_attention`` option: on a CUDA device
+the greedy and timestamp steps always run the K3/K4/K5 kernels, on the
+CPU their plain versions; the beam step's attentions are plain products
+on both, as the JAX beam's einsums are.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import collections
 import dataclasses
 import threading
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +67,7 @@ class DecodingOptions:
     initial_prompt: Optional[str] = None
     max_new_tokens: int = 224
     beam_size: int = 1
+    length_penalty: float = 1.0
     int8_cross_kv: bool = False
     ckv_scale_bf16: bool = False
     suppress_blank: bool = True
@@ -159,23 +163,49 @@ class LoopState:
                    z(1, torch.int32), z((), torch.float32))
 
 
+class GreedyPick:
+    """Token choice of JAX ``greedy_decode_jit``: the suppress mask at every
+    step (and the blank mask at the first), then ``_sample`` at the
+    loop's device temperature from ``gen``."""
+
+    def __init__(self, suppress_mask: torch.Tensor, blank_mask: torch.Tensor,
+                 gen: torch.Generator):
+        self.suppress, self.blank, self.gen = suppress_mask, blank_mask, gen
+
+    def first(self, logits: torch.Tensor, st: "LoopState"):
+        """Prefill logits [B, V] -> (first token, its logprob)."""
+        first = logits + self.suppress + self.blank
+        tok = _sample(first, st.temperature, self.gen)
+        return tok, _logprob_of(first, tok)
+
+    def step(self, logits: torch.Tensor, st: "LoopState"):
+        """Step logits -> (the logits the logprob is read from, token)."""
+        logits = logits + self.suppress
+        return logits, _sample(logits, st.temperature, self.gen)
+
+    def advance(self, st: "LoopState", nxt: torch.Tensor) -> None:
+        """State of the choice itself, before ``st.tok`` becomes ``nxt``."""
+
+
 def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
-                 cross_len: torch.Tensor, suppress_mask: torch.Tensor,
-                 tok_emb_f32: torch.Tensor, gen: torch.Generator, eot: int,
-                 cfg: WhisperConfig, n_steps: int) -> None:
+                 cross_len: torch.Tensor, pick, tok_emb_f32: torch.Tensor,
+                 eot: int, cfg: WhisperConfig, n_steps: int) -> None:
     """``n_steps`` decode steps over ``st`` in place (the body of JAX
-    ``greedy_decode_jit``'s while loop, unrolled n times).  Reads and
-    writes only the tensors it is given, with no host value per step, so
-    on CUDA its capture replays at any position; on the CPU it runs as it
-    stands.  Finished rows emit EOT with logprob 0 and no length."""
+    ``greedy_decode_jit``'s while loop, unrolled n times; with a
+    ``timestamps.TimestampRules`` pick the body of ``greedy_timestamps_jit``'s).
+    ``pick`` chooses each token (``GreedyPick``).  Reads and writes only the
+    tensors it is given, with no host value per step, so on CUDA its
+    capture replays at any position; on the CPU it runs as it stands.
+    Finished rows emit EOT with logprob 0 and no length."""
     lengths = StepLengths(st.pos, cross_len)
     for _ in range(n_steps):
-        logits = decode_step(params, st.tok, lengths, cache, cross_kv, cfg,
-                             tok_emb_f32) + suppress_mask
-        nxt = _sample(logits, st.temperature, gen)
+        logits, nxt = pick.step(
+            decode_step(params, st.tok, lengths, cache, cross_kv, cfg,
+                        tok_emb_f32), st)
         nxt = torch.where(st.finished, torch.full_like(nxt, eot), nxt)
         lp = torch.where(st.finished, torch.zeros_like(st.sum_lp),
                          _logprob_of(logits, nxt))
+        pick.advance(st, nxt)
         st.tokens.index_copy_(1, st.i.long(), nxt[:, None])
         st.lengths += (~st.finished).to(torch.int32)
         st.finished |= nxt == eot
@@ -185,13 +215,24 @@ def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
         st.pos += 1
 
 
+def chunk_lengths(max_new: int) -> List[int]:
+    """Step counts of the chunks a loop of ``max_new`` tokens runs after
+    its first token (before an early stop): FINISH_CHECK_EVERY, and the
+    shorter last chunk."""
+    steps = max_new - 1
+    full = [FINISH_CHECK_EVERY] if steps >= FINISH_CHECK_EVERY else []
+    return full + ([steps % FINISH_CHECK_EVERY]
+                   if steps % FINISH_CHECK_EVERY else [])
+
+
 class DecodeLoop:
     """Prefill + decode loop over static buffers for one shape: ``rows``
     batch rows, ``ta`` cross positions, a prompt of ``p`` tokens,
     ``max_new`` tokens, one cross-K/V kind (bf16, or int8 with ``scale_dtype``
-    scales).  The buffers: the self cache (per layer [B, H, p + max_new,
-    dh]), the cross K/V and the ``LoopState``; each run overwrites all it
-    reads.
+    scales), one token choice ``pick`` (``GreedyPick``, or
+    ``timestamps.TimestampRules``).  The buffers: the self cache (per layer
+    [B, H, p + max_new, dh]), the cross K/V and the ``LoopState``; each run
+    overwrites all it reads.
 
     With ``graphs_pool`` (a CUDA graph memory pool, which BatchDecoder
     passes on CUDA) the chunks of FINISH_CHECK_EVERY steps and the shorter
@@ -202,13 +243,12 @@ class DecodeLoop:
 
     def __init__(self, params: Params, cfg: WhisperConfig, rows: int,
                  ta: int, p: int, max_new: int, quantize: bool,
-                 scale_dtype: torch.dtype, suppress_mask: torch.Tensor,
-                 eot: int, gen: torch.Generator, device: torch.device,
-                 graphs_pool=None):
+                 scale_dtype: torch.dtype, pick, eot: int,
+                 device: torch.device, graphs_pool=None):
         self.params, self.cfg = params, cfg
         self.p, self.max_new = p, max_new
         self.quantize, self.scale_dtype = quantize, scale_dtype
-        self.suppress, self.eot, self.gen = suppress_mask, eot, gen
+        self.pick, self.eot = pick, eot
         self.cache = init_kv_cache(cfg, rows, p + max_new, device)
         self.cross = alloc_cross_kv(cfg, rows, ta, device, quantize,
                                     scale_dtype)
@@ -218,16 +258,13 @@ class DecodeLoop:
         self.tok_emb_f32 = params["decoder"]["tok_emb"].float()
         self.graphs = None
         if graphs_pool is not None:
-            self.graphs = ChunkGraphs(device, gen, graphs_pool)
+            self.graphs = ChunkGraphs(device, pick.gen, graphs_pool)
             for n in self.chunk_lengths():
                 self.graphs.capture(n, self._chunk, self._rewind)
 
     def chunk_lengths(self) -> List[int]:
         """Step counts of the chunks a loop runs (before an early stop)."""
-        steps = self.max_new - 1
-        full = [FINISH_CHECK_EVERY] if steps >= FINISH_CHECK_EVERY else []
-        return full + ([steps % FINISH_CHECK_EVERY]
-                       if steps % FINISH_CHECK_EVERY else [])
+        return chunk_lengths(self.max_new)
 
     def _rewind(self) -> None:
         self.state.i.fill_(1)
@@ -235,8 +272,8 @@ class DecodeLoop:
 
     def _chunk(self, n: int) -> None:
         decode_chunk(self.params, self.state, self.cache, self.cross,
-                     self.cross_len, self.suppress, self.tok_emb_f32,
-                     self.gen, self.eot, self.cfg, n)
+                     self.cross_len, self.pick, self.tok_emb_f32, self.eot,
+                     self.cfg, n)
 
     def run_chunk(self, n: int) -> None:
         if self.graphs is None:
@@ -244,8 +281,7 @@ class DecodeLoop:
         else:
             self.graphs.replay(n)
 
-    def run(self, xa: torch.Tensor, prefix: List[int],
-            blank_mask: torch.Tensor, temperature: float,
+    def run(self, xa: torch.Tensor, prefix: List[int], temperature: float,
             sot_index: int = 0, no_speech_token: int = 0) -> DecodeOutput:
         """Cross K/V, prefill, first token, then the chunks, checking
         between them that every row has finished (at steps 1, 17, 33, ...:
@@ -260,14 +296,13 @@ class DecodeLoop:
                                             kv_cache=self.cache,
                                             cross_kv=self.cross)
         st.temperature.fill_(temperature)
-        first = prefill_logits[:, -1, :] + self.suppress + blank_mask
-        tok = _sample(first, st.temperature, self.gen)
+        tok, lp = self.pick.first(prefill_logits[:, -1, :], st)
         st.tok.copy_(tok)
         st.tokens.fill_(self.eot)
         st.tokens[:, 0] = tok
         st.finished.copy_(tok == self.eot)
         st.lengths.fill_(1)
-        st.sum_lp.copy_(_logprob_of(first, tok))
+        st.sum_lp.copy_(lp)
         self._rewind()
         i = 1
         while i < self.max_new and not bool(st.finished.all()):
@@ -300,9 +335,12 @@ class SegmentResult:
 class BatchDecoder:
     """Host side of decoding: prompt building, decode, fallback ladder.
 
-    Owns one ``DecodeLoop`` per (rows bucket, cross positions, prompt and
-    token budget; the cross-K/V kind is the options'), built on first use
-    as ``jax.jit`` compiles on first call: on CUDA that captures its
+    Owns one loop per (rows bucket, cross positions, prompt and token
+    budget; the cross-K/V kind is the options'), by kind: the greedy
+    ``DecodeLoop`` of every rung (``_loops``), with ``beam_size > 1`` the
+    ``beam.BeamLoop`` of the T = 0 rungs (``_beam_loops``), and the
+    timestamp-rule ``DecodeLoop`` (``_ts_loops``).  Each is built on first
+    use as ``jax.jit`` compiles on first call: on CUDA that captures its
     chunks, all in one graph memory pool, freed with the decoder.  A
     lock keeps one decode at a time on the static buffers; a decode's
     results leave it as copies enqueued before the lock is released, on
@@ -312,22 +350,18 @@ class BatchDecoder:
     they always run eagerly.
 
     ``stats`` accumulates, for run reports: ``token_rows`` (rows x decode
-    positions run, padding rows included), ``rung_rows`` (rows decoded at
-    each rung of the temperature ladder), ``decode_calls`` (decode loops
-    run: one cross-K/V and one prefill each), ``decode_steps``
-    (single-token steps run over all loops) and ``capture_s`` (host
-    seconds spent capturing chunks, warm-up runs included)."""
+    positions run, padding rows included; a beam loop counts rows x beams),
+    ``rung_rows`` (rows decoded at each rung of the temperature ladder),
+    ``decode_calls`` (loops run of every kind: one cross-K/V and one
+    prefill each), ``decode_steps`` (single-token steps of the greedy and
+    timestamp loops: K3 and K4 or K5 once a layer), ``beam_calls`` and
+    ``beam_steps`` (beam loops and their steps: no K3/K4/K5, the block
+    matmuls at M = rows x beams) and ``capture_s`` (host seconds spent
+    capturing chunks, warm-up runs included)."""
 
     def __init__(self, params: Params, cfg: WhisperConfig,
                  tokenizer: WhisperTokenizer, opts: DecodingOptions,
                  device: torch.device, eager: bool = False):
-        if opts.beam_size > 1:
-            raise NotImplementedError(
-                "beam_size > 1 is not ported yet (ROADMAP Queue A item 6)")
-        if not opts.without_timestamps:
-            raise NotImplementedError(
-                "timestamp-token decoding is not ported yet (ROADMAP Queue "
-                "A item 6)")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -339,12 +373,17 @@ class BatchDecoder:
         self._blank = (torch.from_numpy(build_blank_mask(tokenizer, cfg))
                        .to(device) if opts.suppress_blank
                        else torch.zeros(cfg.n_vocab, device=device))
+        # timestamp mode's suppress mask and prefix, built on first use
+        self._ts: Optional[Tuple[torch.Tensor, List[int]]] = None
         self._gen = torch.Generator(device=device)
         self._loops: Dict[tuple, DecodeLoop] = {}
+        self._beam_loops: Dict[tuple, object] = {}
+        self._ts_loops: Dict[tuple, DecodeLoop] = {}
         self._pool = None
         self._lock = threading.Lock()
         self.stats = {"token_rows": 0, "rung_rows": collections.Counter(),
-                      "decode_calls": 0, "decode_steps": 0, "capture_s": 0.0}
+                      "decode_calls": 0, "decode_steps": 0, "beam_calls": 0,
+                      "beam_steps": 0, "capture_s": 0.0}
 
     def _prefix(self) -> Tuple[List[int], int]:
         """(prefix tokens, index of SOT within the prefix)."""
@@ -358,6 +397,9 @@ class BatchDecoder:
             without_timestamps=self.opts.without_timestamps)
         return prompt + sot_seq, len(prompt)
 
+    def _max_new(self, p: int) -> int:
+        return min(self.opts.max_new_tokens, self.cfg.n_text_ctx - p - 1)
+
     def decode(self, xa: torch.Tensor, temperature: float = 0.0,
                rng_tag: int = 0) -> List[SegmentResult]:
         """Decode a batch of encoded segments xa [B, Ta, d] at one
@@ -369,39 +411,117 @@ class BatchDecoder:
     def decode_submit(self, xa: torch.Tensor, temperature: float = 0.0,
                       rng_tag: int = 0) -> DecodeOutput:
         """Run the decode loop; results stay on the device until
-        ``decode_finalize``.  The sampling generator is seeded with
-        ``opts.seed + 1000003 * rng_tag`` before the loop."""
+        ``decode_finalize``.  With ``beam_size > 1`` at T = 0 that is the
+        beam search (JAX ``decode_submit``), else the greedy or sampled
+        loop, its generator seeded with ``opts.seed + 1000003 * rng_tag``
+        before the loop."""
         prefix, sot_index = self._prefix()
-        max_new = min(self.opts.max_new_tokens,
-                      self.cfg.n_text_ctx - len(prefix) - 1)
+        max_new = self._max_new(len(prefix))
+        rows, ta = int(xa.shape[0]), int(xa.shape[1])
+        key = (rows, ta, len(prefix), max_new)
+        no_speech = self.tokenizer.special.no_speech
+        with self._lock:
+            if self.opts.beam_size > 1 and temperature == 0.0:
+                loop = self._get(self._beam_loops, key, self._make_beam)
+                out = loop.run(xa, prefix, self._blank, sot_index=sot_index,
+                               no_speech_token=no_speech)
+                self.stats["token_rows"] += rows * loop.beams * out.steps
+                self.stats["beam_calls"] += 1
+                self.stats["beam_steps"] += out.steps - 1
+            else:
+                loop = self._get(self._loops, key, self._make_greedy)
+                self._gen.manual_seed(self.opts.seed + 1000003 * rng_tag)
+                out = loop.run(xa, prefix, float(temperature),
+                               sot_index=sot_index, no_speech_token=no_speech)
+                self.stats["token_rows"] += rows * out.steps
+                self.stats["decode_steps"] += out.steps - 1
+            self.stats["decode_calls"] += 1
+        return out
+
+    def _get(self, loops: dict, key: tuple, make):
+        """The loop of ``key`` in ``loops``, built by ``make(*key, pool)``
+        on first use (on CUDA with the decoder's graph pool)."""
+        if key not in loops:
+            if self.captured and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            loop = make(*key, self._pool if self.captured else None)
+            if loop.graphs is not None:
+                self.stats["capture_s"] += loop.graphs.capture_s
+            loops[key] = loop
+        return loops[key]
+
+    def _scale_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.opts.ckv_scale_bf16 else torch.float32
+
+    def _make_greedy(self, rows, ta, p, max_new, pool) -> DecodeLoop:
+        return DecodeLoop(
+            self.params, self.cfg, rows, ta, p, max_new,
+            self.opts.int8_cross_kv, self._scale_dtype(),
+            GreedyPick(self._suppress, self._blank, self._gen),
+            self.tokenizer.special.eot, self.device, graphs_pool=pool)
+
+    def _make_beam(self, rows, ta, p, max_new, pool):
+        from .beam import BeamLoop
+        return BeamLoop(
+            self.params, self.cfg, rows, self.opts.beam_size, ta, p, max_new,
+            self.opts.int8_cross_kv, self._scale_dtype(), self._suppress,
+            self.tokenizer.special.eot, self.opts.length_penalty,
+            self.device, graphs_pool=pool)
+
+    def _make_ts(self, rows, ta, p, max_new, pool) -> DecodeLoop:
+        from .timestamps import TimestampRules
+        sp = self.tokenizer.special
+        rules = TimestampRules(self._ts[0], sp.eot, sp.timestamp_begin,
+                               rows, self.device)
+        return DecodeLoop(
+            self.params, self.cfg, rows, ta, p, max_new,
+            self.opts.int8_cross_kv, self._scale_dtype(), rules, sp.eot,
+            self.device, graphs_pool=pool)
+
+    def timestamps_submit(self, xa: torch.Tensor) -> DecodeOutput:
+        """The timestamp-rule greedy loop (JAX ``timestamps_submit``): the
+        SOT sequence with timestamps and no initial prompt, timestamps not
+        suppressed, argmax, no fallback ladder.  Results stay on the
+        device until ``timestamps_finalize``."""
+        tk = self.tokenizer
+        if self._ts is None:
+            ts_opts = dataclasses.replace(self.opts, without_timestamps=False)
+            self._ts = (torch.from_numpy(build_suppress_mask(
+                tk, self.cfg, ts_opts)).to(self.device),
+                tk.sot_sequence(self.opts.language, self.opts.task,
+                                without_timestamps=False))
+        prefix = self._ts[1]
+        max_new = self._max_new(len(prefix))
         rows, ta = int(xa.shape[0]), int(xa.shape[1])
         with self._lock:
-            loop = self._loop(rows, ta, len(prefix), max_new)
-            self._gen.manual_seed(self.opts.seed + 1000003 * rng_tag)
-            out = loop.run(xa, prefix, self._blank, float(temperature),
-                           sot_index=sot_index,
-                           no_speech_token=self.tokenizer.special.no_speech)
+            loop = self._get(self._ts_loops, (rows, ta, len(prefix), max_new),
+                             self._make_ts)
+            out = loop.run(xa, prefix, 0.0)
             self.stats["token_rows"] += rows * out.steps
             self.stats["decode_calls"] += 1
             self.stats["decode_steps"] += out.steps - 1
         return out
 
-    def _loop(self, rows: int, ta: int, p: int, max_new: int) -> DecodeLoop:
-        key = (rows, ta, p, max_new)
-        if key not in self._loops:
-            if self.captured and self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            loop = DecodeLoop(
-                self.params, self.cfg, rows, ta, p, max_new,
-                self.opts.int8_cross_kv,
-                torch.bfloat16 if self.opts.ckv_scale_bf16
-                else torch.float32, self._suppress,
-                self.tokenizer.special.eot, self._gen, self.device,
-                graphs_pool=self._pool)
-            if loop.graphs is not None:
-                self.stats["capture_s"] += loop.graphs.capture_s
-            self._loops[key] = loop
-        return self._loops[key]
+    def timestamps_finalize(self, out: DecodeOutput,
+                            chunk_starts: Sequence[float],
+                            chunk_durations: Sequence[float]
+                            ) -> List[List[dict]]:
+        """Fetch a ``timestamps_submit`` result and cut each row into
+        sub-segments at its timestamp pairs."""
+        from .timestamps import split_segments_by_timestamps
+        tokens = out.tokens.cpu().numpy()
+        return [split_segments_by_timestamps(
+            tokens[i], self.tokenizer, float(chunk_starts[i]),
+            float(chunk_durations[i])) for i in range(len(chunk_starts))]
+
+    def decode_with_timestamps(self, xa: torch.Tensor,
+                               chunk_starts: Sequence[float],
+                               chunk_durations: Sequence[float]
+                               ) -> List[List[dict]]:
+        """Timestamp-rule greedy decode -> per-row sub-segment lists (the
+        ``without_timestamps=False`` mode; ``models/timestamps.py``)."""
+        return self.timestamps_finalize(self.timestamps_submit(xa),
+                                        chunk_starts, chunk_durations)
 
     def decode_finalize(self, out: DecodeOutput, b: int,
                         temperature: float = 0.0) -> List[SegmentResult]:

@@ -17,7 +17,9 @@ then), which every replay adds to ``_build.launches``.  So a count stays
 what each wrapper's count means, the kernel launches that ran, also when
 another thread launches kernels during a capture.
 
-The sampling generator is registered with every graph, so a replay draws
+The sampling generator, where the chunk draws random numbers (the
+greedy and sampled chunks; a beam or timestamp chunk draws none and passes
+None), is registered with every graph, so a replay draws
 from its state at the time of the replay and advances it as the eager
 chunk would: re-seeding it before a loop gives the eager chunk's random
 numbers.  All graphs of one owner share one memory pool; they are replayed
@@ -32,7 +34,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -49,8 +51,8 @@ class ChunkGraphs:
     the function it captures, so the buffers' owner is freed with no
     cycle to collect."""
 
-    def __init__(self, device: torch.device, generator: torch.Generator,
-                 pool):
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator], pool):
         self._generator = generator
         self._pool = pool
         self._stream = torch.cuda.Stream(device)
@@ -70,7 +72,8 @@ class ChunkGraphs:
             fn(n)
         current.wait_stream(self._stream)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._generator)
+        if self._generator is not None:
+            graph.register_generator_state(self._generator)
         # thread_local: CUDA calls of other threads (another decoder's
         # loop) may go on while this thread captures
         with _capture_lock, _build.recording() as delta, \

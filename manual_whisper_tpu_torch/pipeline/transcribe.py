@@ -114,7 +114,10 @@ class TranscribePipeline:
             initial_prompt = self.asr_options.get("initial_prompt")
         key = (language, temps, initial_prompt)
         with self._decoders_lock:
-            if key not in self._decoders:
+            if key in self._decoders:
+                # least recently used goes first: a hit moves to the end
+                self._decoders[key] = self._decoders.pop(key)
+            else:
                 while len(self._decoders) >= 8:
                     self._decoders.pop(next(iter(self._decoders)))
                 # forward every DecodingOptions field present in
@@ -166,14 +169,17 @@ class TranscribePipeline:
         build: for every batch bucket the chunk scheduler can emit (1, 2
         and 4 rows for batch 4), encode zero windows and run one T = 0
         decode, which builds the kernels and, on CUDA, captures that
-        bucket's decode chunks (every rung replays them); then language
+        bucket's decode chunks (every rung replays them); with
+        ``beam_size > 1`` that is the beam loop, and a T = 1.0 decode
+        captures the greedy loop of the later rungs; in timestamp mode
+        (``without_timestamps=False``) the timestamp loop.  Then language
         detection when no language is pinned, then both PyanNet block
-        shapes (nothing for the energy VAD).  The port raises for the
-        timestamp and beam decoders.  Port of the JAX
+        shapes (nothing for the energy VAD).  Port of the JAX
         ``TranscribePipeline.warmup``."""
         from .chunking import _bucket_for
         lang = language or self.language or "zh"
         decoder = self._decoder(lang, temperature)
+        use_ts = not self.asr_options.get("without_timestamps", True)
         buckets = sorted({_bucket_for(max(1, batch_size >> k), batch_size)
                           for k in range(4)})
         for i, rows in enumerate(buckets):
@@ -181,7 +187,15 @@ class TranscribePipeline:
                 progress_callback(100.0 * i / len(buckets),
                                   f"warmup: batch-{rows} decode loop")
             windows = np.zeros((rows, self.window_samples), np.float32)
-            decoder.decode(self._encode_windows(windows), temperature=0.0)
+            xa = self._encode_windows(windows)
+            if use_ts:
+                decoder.decode_with_timestamps(xa, [0.0] * rows,
+                                               [self.window_sec] * rows)
+                continue
+            decoder.decode(xa, temperature=0.0)
+            if decoder.opts.beam_size > 1:
+                # the later rungs run the greedy loop
+                decoder.decode(xa, temperature=1.0)
         if language is None and self.language is None:
             self.detect_language(np.zeros(1600, np.float32))
         self.vad.warmup()
@@ -223,11 +237,14 @@ class TranscribePipeline:
         duration = len(audio) / 16000.0
         stats = {"vad_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
                  "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
-                 "decode_calls": 0, "decode_steps": 0, "rung_rows": {}}
+                 "decode_calls": 0, "decode_steps": 0, "beam_calls": 0,
+                 "beam_steps": 0, "rung_rows": {}}
         self._thread_stats.stats = stats
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
-        counts = ("token_rows", "decode_calls", "decode_steps")
+        use_ts = not self.asr_options.get("without_timestamps", True)
+        counts = ("token_rows", "decode_calls", "decode_steps", "beam_calls",
+                  "beam_steps")
         before: tuple = ()
         first_temp = 0.0
         t0 = time.time()
@@ -254,18 +271,26 @@ class TranscribePipeline:
                 self._sync()
                 t_dec = time.perf_counter()
                 stats["encode_s"] += t_dec - t_enc
-                first = decoder.decode_submit(xa, first_temp,
-                                              rng_tag=batch_idx * 16)
-                results = decoder.decode_with_fallback(
-                    xa, first=first, n_valid=len(grp), rng_tag=batch_idx)
+                if use_ts:
+                    # sub-chunk segments from the decoded timestamp pairs;
+                    # padding rows get start and duration 0
+                    pad = [0.0] * (len(windows) - len(grp))
+                    rows = decoder.decode_with_timestamps(
+                        xa, [ch.start for ch in grp] + pad,
+                        [ch.duration for ch in grp] + pad)
+                    new = [seg for row in rows[:len(grp)] for seg in row]
+                else:
+                    first = decoder.decode_submit(xa, first_temp,
+                                                  rng_tag=batch_idx * 16)
+                    results = decoder.decode_with_fallback(
+                        xa, first=first, n_valid=len(grp), rng_tag=batch_idx)
+                    new = [_segment(ch, res) for ch, res in zip(grp, results)
+                           if res.text and not decoder.is_no_speech(res)]
                 stats["decode_s"] += time.perf_counter() - t_dec
                 stats["batches"] += 1
                 stats["windows"] += len(grp)
                 stats["rows"] += len(windows)
-                for ch, res in zip(grp, results):
-                    if decoder.is_no_speech(res) or not res.text:
-                        continue
-                    segments.append(_segment(ch, res))
+                segments.extend(new)
                 pct = 5.0 + 90.0 * min(grp[-1].end / max(duration, 1e-9),
                                        1.0)
                 report(pct, f"transcribed batch {stats['batches']} "

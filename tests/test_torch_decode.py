@@ -172,16 +172,14 @@ def test_fallback_stops_when_all_pass():
                                 {"without_timestamps": False},
                                 {"int8_cross_kv": True}])
 def test_unported_modes_raise(kw):
-    """Beam and timestamp decoding raise; int8_cross_kv is ported, so its
-    case builds a decoder that carries the option."""
-    if kw.get("int8_cross_kv"):
-        dec = td.BatchDecoder(None, TCFG, make_test_tokenizer(),
-                              td.DecodingOptions(**kw), CPU)
-        assert dec.opts.int8_cross_kv and not dec.opts.ckv_scale_bf16
-        return
-    with pytest.raises(NotImplementedError):
-        td.BatchDecoder(None, TCFG, make_test_tokenizer(),
-                        td.DecodingOptions(**kw), CPU)
+    """Beam, timestamp and int8-cross-K/V decoding are ported: each builds
+    a decoder that carries its option (the name predates their port)."""
+    dec = td.BatchDecoder(None, TCFG, make_test_tokenizer(),
+                          td.DecodingOptions(**kw), CPU)
+    for name, value in kw.items():
+        assert getattr(dec.opts, name) == value
+    assert not dec.opts.ckv_scale_bf16 and dec.opts.length_penalty == 1.0
+    assert not dec._loops and not dec._beam_loops and not dec._ts_loops
 
 
 @pytest.mark.parametrize("ckv_scale_bf16", [False, True])

@@ -232,3 +232,29 @@ def test_cli_refuses_non_wav_and_missing_file(tmp_path, monkeypatch, capsys):
     assert tcli.main(["a.m4a"]) == 1
     out = capsys.readouterr().out
     assert "❌ 文件不存在" in out and "无法解码 .m4a" in out
+
+
+def test_decoder_cache_evicts_least_recently_used(synth):
+    """The decoder cache keeps 8 decoders and evicts the least recently
+    used, as the JAX pipeline does: ``("zh", 0.0)``, seven other prompts,
+    ``("zh", 0.0)`` again (a hit moves it to the end), then a ninth key
+    evicts the first prompt's decoder and keeps the first decoder."""
+    jm = JPipeline(synth, JCONFIGS["test"], j_tokenizer(), asr_options=OPTS,
+                   language="en")
+    tm = _port_model(synth, asr_options=OPTS, language="en")
+
+    def run(model):
+        first = model._decoder("zh", 0.0)
+        for i in range(7):
+            model._decoder("zh", 0.0, initial_prompt=f"prompt {i}")
+        hit = model._decoder("zh", 0.0)
+        model._decoder("zh", 0.0, initial_prompt="a ninth key")
+        kept = model._decoder("zh", 0.0)
+        prompts = [key[2] for key in model._decoders]
+        return hit is first, kept is first, prompts
+
+    port, jax_ = run(tm), run(jm)
+    assert port == jax_
+    assert port[:2] == (True, True)
+    assert port[2] == [f"prompt {i}" for i in range(1, 7)] + [
+        "a ninth key", None]
