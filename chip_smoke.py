@@ -1865,6 +1865,47 @@ def _queue_wait(srv, job_id: str) -> float:
     return job.started_at - job.created_at
 
 
+def timestamp_rule_violations(tokens, ts_begin: int, eot: int,
+                              max_initial_index: int = 50) -> list:
+    """The timestamp rules a decoded token row breaks, checked on the host
+    from the tokens alone (empty when it keeps them all): ``first``, the
+    first token is a timestamp no later than ``max_initial_index`` steps
+    (1.0 s); ``pairs``, the first timestamp stands alone and every later
+    run of timestamps is a pair (a single one may end the row);
+    ``monotonic``, timestamps never decrease; ``closing``, a timestamp after
+    text is strictly greater than the last timestamp (a segment has a
+    duration)."""
+    seq = []
+    for t in tokens:
+        if int(t) == eot:
+            break
+        seq.append(int(t))
+    is_ts = [t >= ts_begin for t in seq]
+    out = []
+    if not seq or not is_ts[0] or seq[0] > ts_begin + max_initial_index:
+        out.append(f"first: {seq[:1]}")
+    i = 0
+    while i < len(seq):
+        j = i
+        while j < len(seq) and is_ts[j]:
+            j += 1
+        if j > i:
+            allowed = {1} if i == 0 else {1, 2} if j == len(seq) else {2}
+            if j - i not in allowed:
+                out.append(f"pairs: {j - i} timestamps at {i}")
+        i = max(j, i + 1)
+    last = None
+    for i, t in enumerate(seq):
+        if not is_ts[i]:
+            continue
+        if last is not None and t < last:
+            out.append(f"monotonic: {t} after {last} at {i}")
+        elif last is not None and not is_ts[i - 1] and t == last:
+            out.append(f"closing: {t} repeats {last} at {i}")
+        last = t
+    return out
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)

@@ -51,10 +51,10 @@ def top_k(x: torch.Tensor, k: int):
     """``jax.lax.top_k`` over the last axis of float32 ``x``: the k largest
     in descending order, equal values at the lower index first (torch.topk
     promises no order among ties).  Each value is mapped to an int64 key
-    that orders as the float does (-0.0 as +0.0) in its high 32 bits and
-    ranks the lower index higher in its low 32 bits, so no two keys tie.
-    Returns (values, indices)."""
-    bits = (x + 0.0).view(torch.int32)
+    that orders as the float's total order does (-0.0 below +0.0, as in
+    JAX) in its high 32 bits and ranks the lower index higher in its low
+    32 bits, so no two keys tie.  Returns (values, indices)."""
+    bits = x.view(torch.int32)
     ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
     low = (2 ** 32 - 1) - torch.arange(x.shape[-1], device=x.device)
     idx = (ordered * 2 ** 32 + low).topk(k, dim=-1).indices
@@ -97,7 +97,7 @@ def _beam_block(h, blk, n_head: int, ck, cv, valid, xkv, slot, oh):
     b, k, d = h.shape
     dh = d // n_head
 
-    def heads(y):                                      # [B, K, d] -> [B, K, H, dh]
+    def heads(y):                          # [B, K, d] -> [B, K, H, dh]
         return y.reshape(b, k, n_head, dh)
 
     att = blk["attn"]

@@ -192,8 +192,8 @@ def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
                  eot: int, cfg: WhisperConfig, n_steps: int) -> None:
     """``n_steps`` decode steps over ``st`` in place (the body of JAX
     ``greedy_decode_jit``'s while loop, unrolled n times; with a
-    ``timestamps.TimestampRules`` pick the body of ``greedy_timestamps_jit``'s).
-    ``pick`` chooses each token (``GreedyPick``).  Reads and writes only the
+    ``timestamps.TimestampRules`` pick, ``greedy_timestamps_jit``'s).
+    ``pick`` chooses each token.  Reads and writes only the
     tensors it is given, with no host value per step, so on CUDA its
     capture replays at any position; on the CPU it runs as it stands.
     Finished rows emit EOT with logprob 0 and no length."""

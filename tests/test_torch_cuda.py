@@ -7,6 +7,7 @@ the tiny ``test`` config's head_dim 32, ragged lengths and edge lengths.
 """
 
 import collections
+import dataclasses
 
 import numpy as np
 import pytest
@@ -350,6 +351,79 @@ def test_new_capture_leaves_earlier_loops_alone(dev, int8):
     assert len(graph._loops) == 3
     for name in ("tokens", "sum_logprob", "lengths", "no_speech"):
         assert torch.equal(getattr(first, name), getattr(again, name)), name
+
+
+def _mode_decoders(dev, int8, **kw):
+    """A captured and an eager ``BatchDecoder`` as ``_tiny_decoders``, with
+    the options ``kw`` (beam size, timestamp mode)."""
+    from manual_whisper_tpu_torch.models.decode import BatchDecoder
+    cfg, graph, _ = _tiny_decoders(dev, int8)
+    opts = dataclasses.replace(graph.opts, **kw)
+    return (cfg, BatchDecoder(graph.params, cfg, graph.tokenizer, opts, dev),
+            BatchDecoder(graph.params, cfg, graph.tokenizer, opts, dev,
+                         eager=True))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("rows,beams", [(1, 5), (2, 3)])
+def test_captured_beam_loop_equals_eager(dev, rows, beams, int8):
+    """The replayed beam chunks give the eager chunks' tokens, lengths and
+    summed logprobs; every step ran in a replay; a beam step launches no
+    K3/K4/K5, and with int8 weights 8 K6 a layer (at M = rows x beams)."""
+    cfg, graph, eager = _mode_decoders(dev, int8, beam_size=beams)
+    xa = _tiny_xa(cfg, dev, rows, 44)
+    graph.decode_submit(xa, 0.0)        # captures (its warm-up launches)
+    out = {}
+    for name, dec in (("graph", graph), ("eager", eager)):
+        before = collections.Counter(_build.launches)
+        out[name] = dec.decode_submit(xa, 0.0)
+        torch.cuda.synchronize()
+        out[name + "_launches"] = _build.launches - before
+    g, e = out["graph"], out["eager"]
+    (loop,) = graph._beam_loops.values()
+    assert not graph._loops and loop.graphs is not None
+    assert torch.equal(g.tokens, e.tokens)
+    assert torch.equal(g.lengths, e.lengths) and g.steps == e.steps
+    torch.testing.assert_close(g.sum_logprob, e.sum_logprob, atol=1e-4,
+                               rtol=0)
+    assert out["graph_launches"] == out["eager_launches"]
+    assert sum(n * c for n, c in loop.graphs.replays.items()) == \
+        2 * (g.steps - 1)
+    layers = cfg.n_text_layer
+    expected = ({"int8_matmul": 10 * layers + 8 * layers * (g.steps - 1)}
+                if int8 else {})
+    assert dict(out["graph_launches"]) == expected
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("rows", [1, 4])
+def test_captured_timestamp_loop_equals_eager(dev, rows, int8):
+    """The replayed timestamp chunks give the eager chunks' tokens,
+    lengths and summed logprobs with the decode step's launches; every
+    step ran in a replay."""
+    cfg, graph, eager = _mode_decoders(dev, int8, without_timestamps=False)
+    xa = _tiny_xa(cfg, dev, rows, 45)
+    graph.timestamps_submit(xa)         # captures
+    out = {}
+    for name, dec in (("graph", graph), ("eager", eager)):
+        before = collections.Counter(_build.launches)
+        out[name] = dec.timestamps_submit(xa)
+        torch.cuda.synchronize()
+        out[name + "_launches"] = _build.launches - before
+    g, e = out["graph"], out["eager"]
+    (loop,) = graph._ts_loops.values()
+    assert torch.equal(g.tokens, e.tokens)
+    assert torch.equal(g.lengths, e.lengths) and g.steps == e.steps
+    torch.testing.assert_close(g.sum_logprob, e.sum_logprob, atol=1e-4,
+                               rtol=0)
+    assert out["graph_launches"] == out["eager_launches"]
+    assert sum(n * c for n, c in loop.graphs.replays.items()) == \
+        2 * (g.steps - 1)
+    per_step = _step_launches(cfg, int8)
+    extra = 10 * cfg.n_text_layer if int8 else 0
+    for k, v in per_step.items():
+        assert out["graph_launches"][k] == v * (g.steps - 1) + (
+            extra if k == "int8_matmul" else 0)
 
 
 def _bursts(seconds, seed):
