@@ -41,8 +41,9 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    K4 and K5 also checked at lengths that leave some of their blocks
    without keys), K6 at a decode
    step's M=4 with K, N = 1280, 5120 (on extra lines the other decode
-   shapes and every M > 8 shape of the int8 path: M = 4 x 1500 and
-   M = 4 x 193, each with 1280x1280, 1280x5120 and 5120x1280; two
+   shapes and every M > 8 shape of the int8 path: M = 4 x 1500,
+   M = 4 x 193 and the beam step's M = 10, 20 and 80, each with 1280x1280,
+   1280x5120 and 5120x1280; two
    ``kernel_check`` lines hold ragged tiles and the matvec at M in {1, 2,
    3, 5, 8} against the plain version);
    K3 and K4 also at batch 16 (extra).
@@ -76,6 +77,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    line: one batch-4 loop at T = 0 and one at T = 0.2, replayed against
    the same chunks run eagerly, tokens and lengths equal, sum_logprob
    within SUM_LP_TOL, ms per token row of each.
+   Then, with each model after its phases 4 and 5, ``beam`` and
+   ``timestamps``: pipelines over the same weights with ``beam_size=5``,
+   and with ``without_timestamps=False``; ``warmup`` and ``transcribe`` of
+   the same audio at batch 4 (beam: one beam loop and five greedy rungs a
+   batch; timestamps: one loop a batch, no ladder), launches exact (a beam
+   step launches no K3/K4/K5, and for int8 8 K6 a layer at M = rows x
+   beams), every beam, greedy and timestamp step inside a replay, every
+   timestamp row decoded held to the four rules by a host checker
+   (``timestamp_rule_violations``), peak memory, one loop of each replayed
+   against the same loop eager; the beam phase then runs one batch-16
+   beam loop with the server's 4-token prompt for its peak memory.
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
    and 16 eager decode steps of each model (device-busy share, top
    kernels), and over one replay of the 16-step chunk beside the same
@@ -114,6 +126,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -655,15 +668,19 @@ def int8_matmul_rows(randn, main: dict):
     """K6 at every shape the int8 main path gives it: the row of the
     kernels line at a decode step's fc1 (M = batch rows), and as extras the
     other decode shapes and every M > 8 shape: the encoder's and the
-    cross-K/V's M = batch x Ta and the prefill's M = batch x prompt length,
-    each with the attention projections' and both MLP weights' (K, N).
+    cross-K/V's M = batch x Ta, the prefill's M = batch x prompt length,
+    and the beam step's M = rows x beams (10, 20, 80), each with the
+    attention projections' and both MLP weights' (K, N).
     Logs the ragged-tile and matvec checks on its way."""
     b, d, p, ta = main["batch"], main["d"], main["prefix"], main["ta"]
     log(json.dumps(int8_matmul_ragged(randn)))
     log(json.dumps(int8_matvec_check(randn)))
     row = int8_matmul_row(randn, b, d, 4 * d)
     shapes = [(b, d, d), (b, 4 * d, d)]
-    shapes += [(m, k, n) for m in (b * ta, b * p)
+    # the beam step's M = rows x beams: buckets 2 and 4 of batch 4, and
+    # the server's batch 16 (the tile product; bucket 1's M = 5 is a matvec)
+    shapes += [(m, k, n) for m in (b * ta, b * p, 2 * BEAM, b * BEAM,
+                                   SERVE_BATCH * BEAM)
                for k, n in ((d, d), (d, 4 * d), (4 * d, d))]
     return row, [int8_matmul_row(randn, *shape) for shape in shapes]
 
@@ -1069,12 +1086,13 @@ def main_path_shapes(model) -> dict:
 
 
 def expected_launches(cfg, stats: dict, int8: bool) -> dict:
-    """Launches the main path implies for the batches, decode loops and
-    steps in ``last_stats``: K1 once and K2 once per encoder layer per
-    batch; per decode step K3 and the cross kernel (K4, or K5 for int8)
-    once per decoder layer; K6 for every block matmul: 6 per encoder layer
-    per batch, per decoder layer 2 (cross K/V) + 8 (prefill) per decode
-    loop and 8 per step."""
+    """Launches a path implies for the batches, decode loops and steps in
+    ``last_stats``: K1 once and K2 once per encoder layer per batch; per
+    greedy or timestamp step K3 and the cross kernel (K4, or K5 for int8)
+    once per decoder layer, per beam step neither; K6 for every block
+    matmul: 6 per encoder layer per batch, per decoder layer 2 (cross K/V)
+    + 8 (prefill) per decode loop of any kind and 8 per step of any kind
+    (a beam step's at M = rows x beams)."""
     le, ld = cfg.n_audio_layer, cfg.n_text_layer
     batches, calls = stats["batches"], stats["decode_calls"]
     steps = stats["decode_steps"]
@@ -1083,17 +1101,18 @@ def expected_launches(cfg, stats: dict, int8: bool) -> dict:
     if int8:
         exp["decode_cross_attention_int8"] = ld * steps
         exp["int8_matmul"] = 6 * le * batches + 10 * ld * calls \
-            + 8 * ld * steps
+            + 8 * ld * (steps + stats.get("beam_steps", 0))
     else:
         exp["decode_cross_attention"] = ld * steps
     return exp
 
 
-def graph_replays(decoder) -> dict:
-    """Replays so far of each captured chunk of ``decoder``, by (rows,
-    steps of the chunk)."""
+def graph_replays(decoder, kind: str = "_loops") -> dict:
+    """Replays so far of each captured chunk of ``decoder``'s loops of one
+    kind (``_loops``, ``_beam_loops``, ``_ts_loops``), by (rows, steps of
+    the chunk)."""
     return {(key[0], n): loop.graphs.replays[n]
-            for key, loop in decoder._loops.items()
+            for key, loop in getattr(decoder, kind).items()
             for n in loop.graphs.graphs}
 
 
@@ -1219,6 +1238,232 @@ def phase_graph_vs_eager(model, compute_type: str) -> None:
             log(json.dumps(line))
             raise AssertionError(f"{compute_type}: the replayed loop differs "
                                  f"from the eager one at T={temp}")
+    log(json.dumps(line))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: beam search and timestamp-token decoding at large-v3
+# ---------------------------------------------------------------------------
+
+BEAM = 5
+
+
+def _mode_pipeline(model, **asr):
+    """A pipeline over ``model``'s weights, tokenizer and VAD with
+    ``asr_options`` changed (no second copy of the weights)."""
+    from manual_whisper_tpu_torch.pipeline.transcribe import \
+        TranscribePipeline
+    return TranscribePipeline(model.params, model.cfg, model.tokenizer,
+                              vad=model.vad,
+                              asr_options={**model.asr_options, **asr},
+                              language="zh", device=model.device)
+
+
+def _replayed_steps(replays_after: dict, replays_before: dict) -> dict:
+    """Steps run inside replays between two ``graph_replays`` readings, by
+    rows."""
+    out: dict = collections.Counter()
+    for (rows, n), count in replays_after.items():
+        out[rows] += n * (count - replays_before.get((rows, n), 0))
+    return out
+
+
+def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
+    """``warmup`` then ``transcribe`` of phase 4's audio at batch 4 through
+    ``pipe``, with the launch counters zeroed just before and read just
+    after; the launches must be the ones ``last_stats`` implies, and every
+    step of each loop kind in ``kinds`` must have run inside a replay.
+    Returns (result, stats, launches, line)."""
+    audio = synthetic_speech(75.0, seed=0)
+    decoder = pipe._decoder("zh", 0.0)
+    if not decoder.captured:
+        raise AssertionError(f"{label}: the decoder does not capture")
+    t0 = time.perf_counter()
+    pipe.warmup(batch_size=BATCH, language="zh")
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    before = {kind: graph_replays(decoder, kind) for kind in kinds}
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    result = pipe.transcribe(audio, batch_size=BATCH, language="zh")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    stats = pipe.last_stats
+    int8 = compute_type == "int8"
+    expected = expected_launches(pipe.cfg, stats, int8)
+    if launches != expected or 0 in expected.values():
+        raise AssertionError(f"{label} {compute_type}: launches {launches}, "
+                             f"expected {expected}")
+    steps_of = {"_loops": stats["decode_steps"], "_ts_loops":
+                stats["decode_steps"], "_beam_loops": stats["beam_steps"]}
+    replayed = {kind: sum(_replayed_steps(graph_replays(decoder, kind),
+                                          before[kind]).values())
+                for kind in kinds}
+    for kind in kinds:
+        if replayed[kind] != steps_of[kind]:
+            raise AssertionError(f"{label} {compute_type}: {replayed[kind]} "
+                                 f"{kind} steps replayed, {steps_of[kind]} "
+                                 "run")
+    duration = len(audio) / 16000.0
+    for seg in result["segments"]:
+        if not (0.0 <= seg["start"] <= seg["end"] <= duration + 1e-6) \
+                or not isinstance(seg["text"], str):
+            raise AssertionError(f"{label}: bad segment {seg}")
+    line = {"phase": label, "model": "large-v3",
+            "compute_type": compute_type,
+            "int8_cross_kv": decoder.opts.int8_cross_kv,
+            "warmup_s": warmup_s, "capture_s": decoder.stats["capture_s"],
+            "wall_s": wall, "rtf": wall / duration,
+            "decode_s": stats["decode_s"], "batches": stats["batches"],
+            "rows": stats["rows"], "decode_calls": stats["decode_calls"],
+            "decode_steps": stats["decode_steps"],
+            "beam_calls": stats["beam_calls"],
+            "beam_steps": stats["beam_steps"],
+            "token_rows": stats["token_rows"],
+            "rung_rows": stats["rung_rows"],
+            "segments": len(result["segments"]),
+            "replayed_steps": replayed, "launches": launches}
+    return result, stats, launches, line
+
+
+def _loop_vs_eager(decoder, eager, run, rows_per_out) -> dict:
+    """One loop of ``decoder`` (captured) and of ``eager`` through
+    ``run(dec)``: tokens and lengths equal, sum_logprob within SUM_LP_TOL;
+    host ms per token row of each (``rows_per_out`` token rows a
+    position)."""
+    outs, ms = {}, {}
+    for name, dec in (("graph", decoder), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = run(dec)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / (
+            rows_per_out * outs[name].steps)
+    g, e = outs["graph"], outs["eager"]
+    row = {"tokens_equal": torch.equal(g.tokens, e.tokens),
+           "lengths_equal": torch.equal(g.lengths, e.lengths),
+           "steps": [g.steps, e.steps],
+           "sum_logprob_max_abs_diff": max_err(g.sum_logprob, e.sum_logprob),
+           "ms_per_token_row_graph": ms["graph"],
+           "ms_per_token_row_eager": ms["eager"]}
+    if not (row["tokens_equal"] and row["lengths_equal"]
+            and g.steps == e.steps
+            and row["sum_logprob_max_abs_diff"] <= SUM_LP_TOL):
+        raise AssertionError(f"the replayed loop differs from the eager one: "
+                             f"{row}")
+    return row
+
+
+def phase_beam(model, compute_type: str) -> None:
+    """Beam 5 at large-v3: ``warmup`` (each bucket's beam loop and greedy
+    loop captured) and ``transcribe`` of phase 4's audio at batch 4 with
+    the CLI's prompt; random weights fail every gate, so each batch runs
+    one beam loop and five greedy rungs.  Exact launches (a beam step
+    launches no K3/K4/K5; K6 at M = 4 x 5 for int8), every beam step
+    replayed, peak memory; one batch-4 beam loop replayed against the same
+    loop eager; then one batch-16 beam loop with the server's 4-token
+    prompt, for its peak memory."""
+    from manual_whisper_tpu_torch.models.decode import BatchDecoder
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = _mode_pipeline(model, beam_size=BEAM)
+    result, stats, launches, line = _mode_transcribe(
+        pipe, compute_type, ("_loops", "_beam_loops"), "beam")
+    if stats["beam_calls"] != stats["batches"]:
+        raise AssertionError(f"beam: {stats['beam_calls']} beam loops for "
+                             f"{stats['batches']} batches")
+    line["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    line["resident_before_gib"] = base / 2 ** 30
+    decoder = pipe._decoder("zh", 0.0)
+    eager = BatchDecoder(model.params, model.cfg, model.tokenizer,
+                         decoder.opts, model.device, eager=True)
+    windows = synthetic_speech(BATCH * model.window_sec, seed=1).reshape(
+        BATCH, -1)
+    xa = model._encode_windows(windows)
+    line["beam_vs_eager"] = _loop_vs_eager(
+        decoder, eager, lambda d: d.decode_submit(xa, 0.0), BATCH * BEAM)
+    del eager, pipe, decoder
+    torch.cuda.empty_cache()
+
+    # batch 16, the server's batch and prompt (SOT sequence only)
+    windows = synthetic_speech(SERVE_BATCH * model.window_sec, seed=2
+                               ).reshape(SERVE_BATCH, -1)
+    xa = model._encode_windows(windows)
+    torch.cuda.synchronize()
+    base16 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opts = dataclasses.replace(model._decoder("zh", 0.0).opts,
+                               initial_prompt=None, beam_size=BEAM)
+    server = BatchDecoder(model.params, model.cfg, model.tokenizer, opts,
+                          model.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.decode_submit(xa, 0.0)
+    torch.cuda.synchronize()
+    line["batch16"] = {
+        "prompt_tokens": len(server._prefix()[0]), "steps": out.steps,
+        "loop_s_with_capture": time.perf_counter() - t0,
+        "capture_s": server.stats["capture_s"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "peak_above_resident_gib":
+            (torch.cuda.max_memory_allocated() - base16) / 2 ** 30}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.decode_submit(xa, 0.0)
+    torch.cuda.synchronize()
+    line["batch16"]["ms_per_token_row"] = 1e3 * (
+        time.perf_counter() - t0) / (SERVE_BATCH * BEAM * out.steps)
+    del server, xa
+    torch.cuda.empty_cache()
+    log(json.dumps(line))
+
+
+def phase_timestamps(model, compute_type: str) -> None:
+    """Timestamp-token mode at large-v3: ``warmup`` (each bucket's
+    timestamp loop captured) and ``transcribe`` of phase 4's audio at
+    batch 4 (no ladder; the SOT sequence with timestamps, no prompt).
+    Exact launches, every step replayed, each row decoded in the phase
+    (the warm-up's zero windows included) held to the four rules by the
+    host checker, peak memory; one batch-4 timestamp loop replayed against
+    the same loop eager."""
+    from manual_whisper_tpu_torch.models.decode import BatchDecoder
+    torch.cuda.reset_peak_memory_stats()
+    pipe = _mode_pipeline(model, without_timestamps=False)
+    decoder = pipe._decoder("zh", 0.0)
+    rows_seen = []
+    finalize = decoder.timestamps_finalize
+
+    def recording(out, starts, durations):
+        rows_seen.extend(out.tokens.cpu().tolist())
+        return finalize(out, starts, durations)
+    decoder.timestamps_finalize = recording
+    result, stats, launches, line = _mode_transcribe(
+        pipe, compute_type, ("_ts_loops",), "timestamps")
+    sp = model.tokenizer.special
+    broken = {i: v for i, row in enumerate(rows_seen)
+              if (v := timestamp_rule_violations(row, sp.timestamp_begin,
+                                                 sp.eot))}
+    n_rows = len(rows_seen)
+    line.update({"rows_checked": n_rows, "rule_violations": broken,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "ms_per_token_row": 1e3 * stats["decode_s"]
+                 / max(stats["token_rows"], 1)})
+    if broken or n_rows < stats["rows"]:
+        log(json.dumps(line))
+        raise AssertionError(f"timestamps: {len(broken)} of {n_rows} rows "
+                             "break the rules")
+    decoder.timestamps_finalize = finalize
+    eager = BatchDecoder(model.params, model.cfg, model.tokenizer,
+                         decoder.opts, model.device, eager=True)
+    windows = synthetic_speech(BATCH * model.window_sec, seed=1).reshape(
+        BATCH, -1)
+    xa = model._encode_windows(windows)
+    line["ts_vs_eager"] = _loop_vs_eager(
+        decoder, eager, lambda d: d.timestamps_submit(xa), BATCH)
+    del eager, pipe, decoder, xa
+    torch.cuda.empty_cache()
     log(json.dumps(line))
 
 
@@ -1966,6 +2211,9 @@ def main() -> int:
         timed(f"graph vs eager {compute_type}", phase_graph_vs_eager, model,
               compute_type)
         timed(f"profile {compute_type}", phase_profile, model, main_shapes,
+              compute_type)
+        timed(f"beam {compute_type}", phase_beam, model, compute_type)
+        timed(f"timestamps {compute_type}", phase_timestamps, model,
               compute_type)
     del model                          # the server loads its own
     torch.cuda.empty_cache()

@@ -9,8 +9,8 @@ PyTorch version, which runs only for tensors on the CPU.
 - ``audio``     — WAV, FLAC and (FFmpeg shim) compressed decode + resample,
   over the C++ sources in ``native/`` built with g++ on first use
 - ``ops``       — log-mel, encoder flash attention, decode attention
-- ``models``    — Whisper encoder-decoder, greedy decoder, PyanNet and
-  energy VAD
+- ``models``    — Whisper encoder-decoder; greedy, beam and timestamp-token
+  decoders; PyanNet and energy VAD
 - ``tokenizer`` — Whisper byte-level BPE + special tokens
 - ``text``      — CLI cleaning, the web post-processor, Markdown output
 - ``pipeline``  — VAD chunking + batched transcribe

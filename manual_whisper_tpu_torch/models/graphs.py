@@ -1,5 +1,6 @@
 """CUDA graphs of a chunk of decode steps: the port's counterpart of the
-compiled ``lax.while_loop`` in the JAX package's ``greedy_decode_jit``.
+compiled ``lax.while_loop`` in the JAX package's ``greedy_decode_jit``
+(and ``beam_decode_jit``, ``greedy_timestamps_jit``).
 
 ``ChunkGraphs`` captures ``fn(n)``, a function that runs n decode steps
 reading and writing only static tensors (no host value per step), once

@@ -5,8 +5,11 @@ VAD segmentation (PyanNet on the pipeline's device when the registry
 holds its checkpoint, else the energy VAD), 30 s chunk merging, bucketed
 batching, int16 round trip, log-mel (K1), encoder (K2), batched greedy
 decode with the temperature fallback ladder (K3, K4; K5 with int8 cross
-K/V), per-chunk segment assembly; with ``compute_type="int8"`` every block
-matmul runs K6.  Keeps the whisperx-like surface: ``load_model(name,
+K/V; with ``beam_size > 1`` beam search at its first rung), per-chunk
+segment assembly; with ``compute_type="int8"`` every block matmul runs K6.
+With ``asr_options={"without_timestamps": False}`` each batch decodes once
+with the timestamp rules instead, and each window is cut into sub-segments
+at its decoded timestamp pairs.  Keeps the whisperx-like surface: ``load_model(name,
 device); model.transcribe(audio, batch_size, language)``.
 
 As in the JAX pipeline, dispatch is streamed: the VAD yields speech
