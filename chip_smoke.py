@@ -1362,8 +1362,9 @@ def phase_beam(model, compute_type: str) -> None:
     one beam loop and five greedy rungs.  Exact launches (a beam step
     launches no K3/K4/K5; K6 at M = 4 x 5 for int8), every beam step
     replayed, peak memory; one batch-4 beam loop replayed against the same
-    loop eager; then one batch-16 beam loop with the server's 4-token
-    prompt, for its peak memory."""
+    loop eager, and a profile of one replayed 16-step chunk of it; then one
+    batch-16 beam loop with the server's 4-token prompt, for its peak
+    memory."""
     from manual_whisper_tpu_torch.models.decode import BatchDecoder
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1384,7 +1385,21 @@ def phase_beam(model, compute_type: str) -> None:
     xa = model._encode_windows(windows)
     line["beam_vs_eager"] = _loop_vs_eager(
         decoder, eager, lambda d: d.decode_submit(xa, 0.0), BATCH * BEAM)
-    del eager, pipe, decoder
+    # where a replayed 16-step beam chunk's device time goes
+    loop = next(lp for key, lp in decoder._beam_loops.items()
+                if key[0] == BATCH)
+
+    def chunk16():
+        loop._rewind()
+        loop.run_chunk(16)
+    chunk = _profiled(chunk16, reps=2)
+    line["profile_chunk"] = {
+        "device_ms_per_step": chunk["device_ms_per_rep"] / 16,
+        "wall_ms_per_step": chunk["wall_ms_per_rep"] / 16,
+        "device_busy_share": chunk["device_busy_share"],
+        "kernels_per_step": chunk["kernel_launches_per_rep"] / 16,
+        "top": chunk["top"]}
+    del eager, pipe, decoder, loop
     torch.cuda.empty_cache()
 
     # batch 16, the server's batch and prompt (SOT sequence only)
