@@ -1121,75 +1121,29 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
     buckets 1, 2 and 4), then the launch counters are zeroed and
     ``transcribe`` runs.  Every decode step must have run inside a replayed
     chunk, and the launches must be the ones ``last_stats`` implies."""
-    audio = synthetic_speech(75.0, seed=0)
-    duration = len(audio) / 16000.0
-    int8 = compute_type == "int8"
-
     torch.cuda.reset_peak_memory_stats()
-    decoder = model._decoder("zh", 0.0)
-    if not decoder.captured:
-        raise AssertionError("the pipeline's decoder does not capture")
-    t0 = time.perf_counter()
-    model.warmup(batch_size=BATCH, language="zh")
-    warmup_s = time.perf_counter() - t0
-    capture_s = decoder.stats["capture_s"]
-    replays_before = graph_replays(decoder)
-    _build.launches.clear()
-    t0 = time.perf_counter()
-    result = model.transcribe(audio, batch_size=BATCH, language="zh")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_build.launches)
-    replays = {k: n - replays_before.get(k, 0)
-               for k, n in graph_replays(decoder).items()}
-
+    result, stats, launches, line = _mode_transcribe(
+        model, compute_type, ("_loops",), "main_path")
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    stats = model.last_stats
-    segs = result["segments"]
     vad = model.vad.model
     if vad is None or vad.sinc.device.type != "cuda":
         raise AssertionError("the main path did not run PyanNet on the card")
-    if result["language"] != "zh" or not isinstance(segs, list):
-        raise AssertionError(f"bad result shape: {result!r:.200}")
     if stats["windows"] < 2:
         raise AssertionError(f"expected several windows, got {stats}")
-    for s in segs:
-        if not (0.0 <= s["start"] < s["end"] <= duration + 1e-6) \
-                or not isinstance(s["text"], str) \
-                or not math.isfinite(s["avg_logprob"]):
+    for s in result["segments"]:
+        if not s["start"] < s["end"] or not math.isfinite(s["avg_logprob"]):
             raise AssertionError(f"bad segment {s}")
-    expected = expected_launches(model.cfg, stats, int8)
-    if launches != expected or 0 in expected.values():
-        raise AssertionError(f"{compute_type} main path: launches {launches}"
-                             f", expected {expected} (every kernel of the "
-                             f"path, and no other)")
-    replayed_steps = sum(n * count for (_, n), count in replays.items())
-    if replayed_steps != stats["decode_steps"]:
-        raise AssertionError(f"{compute_type} main path: {replayed_steps} "
-                             f"steps replayed, {stats['decode_steps']} run")
-    log(json.dumps({
-        "phase": "main_path", "model": "large-v3",
-        "compute_type": compute_type,
-        "int8_cross_kv": model.asr_options.get("int8_cross_kv", False),
-        "vad": "pyannet", "load_s": load_s, "warmup_s": warmup_s, "capture_s": capture_s,
-        "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
-        "vad_s": stats["vad_s"], "mel_encode_s": stats["encode_s"],
-        "decode_s": stats["decode_s"], "batches": stats["batches"],
-        "windows": stats["windows"], "rows": stats["rows"],
-        "decode_calls": stats["decode_calls"],
-        "decode_steps": stats["decode_steps"],
-        "token_rows": stats["token_rows"],
+    line.update({
+        "vad": "pyannet", "load_s": load_s, "vad_s": stats["vad_s"],
+        "mel_encode_s": stats["encode_s"], "windows": stats["windows"],
         "ms_per_token_row": 1e3 * stats["decode_s"]
         / max(stats["token_rows"], 1),
-        "rung_rows": stats["rung_rows"], "segments": len(segs),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "clocks_power_temp_after": clocks,
-        "replays": {f"rows={r} steps={n}": c
-                    for (r, n), c in sorted(replays.items()) if c},
-        "launches": launches}))
+        "clocks_power_temp_after": clocks})
+    log(json.dumps(line))
     return launches
 
 
@@ -1246,6 +1200,9 @@ def phase_graph_vs_eager(model, compute_type: str) -> None:
 # ---------------------------------------------------------------------------
 
 BEAM = 5
+# BatchDecoder's loops by kind
+LOOP_KINDS = {"_loops": "greedy", "_beam_loops": "beam",
+              "_ts_loops": "timestamps"}
 
 
 def _mode_pipeline(model, **asr):
@@ -1257,15 +1214,6 @@ def _mode_pipeline(model, **asr):
                               vad=model.vad,
                               asr_options={**model.asr_options, **asr},
                               language="zh", device=model.device)
-
-
-def _replayed_steps(replays_after: dict, replays_before: dict) -> dict:
-    """Steps run inside replays between two ``graph_replays`` readings, by
-    rows."""
-    out: dict = collections.Counter()
-    for (rows, n), count in replays_after.items():
-        out[rows] += n * (count - replays_before.get((rows, n), 0))
-    return out
 
 
 def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
@@ -1297,15 +1245,20 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
                              f"expected {expected}")
     steps_of = {"_loops": stats["decode_steps"], "_ts_loops":
                 stats["decode_steps"], "_beam_loops": stats["beam_steps"]}
-    replayed = {kind: sum(_replayed_steps(graph_replays(decoder, kind),
-                                          before[kind]).values())
-                for kind in kinds}
+    replays = {(kind, rows, n): count - before[kind].get((rows, n), 0)
+               for kind in kinds
+               for (rows, n), count in graph_replays(decoder, kind).items()}
+    replayed = {kind: sum(n * c for (k, _, n), c in replays.items()
+                          if k == kind) for kind in kinds}
     for kind in kinds:
         if replayed[kind] != steps_of[kind]:
             raise AssertionError(f"{label} {compute_type}: {replayed[kind]} "
                                  f"{kind} steps replayed, {steps_of[kind]} "
                                  "run")
     duration = len(audio) / 16000.0
+    if result["language"] != "zh" or not isinstance(result["segments"],
+                                                    list):
+        raise AssertionError(f"{label}: bad result shape: {result!r:.200}")
     for seg in result["segments"]:
         if not (0.0 <= seg["start"] <= seg["end"] <= duration + 1e-6) \
                 or not isinstance(seg["text"], str):
@@ -1314,7 +1267,7 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
             "compute_type": compute_type,
             "int8_cross_kv": decoder.opts.int8_cross_kv,
             "warmup_s": warmup_s, "capture_s": decoder.stats["capture_s"],
-            "wall_s": wall, "rtf": wall / duration,
+            "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
             "decode_s": stats["decode_s"], "batches": stats["batches"],
             "rows": stats["rows"], "decode_calls": stats["decode_calls"],
             "decode_steps": stats["decode_steps"],
@@ -1323,7 +1276,9 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
             "token_rows": stats["token_rows"],
             "rung_rows": stats["rung_rows"],
             "segments": len(result["segments"]),
-            "replayed_steps": replayed, "launches": launches}
+            "replays": {f"{LOOP_KINDS[kind]} rows={r} steps={n}": c
+                        for (kind, r, n), c in sorted(replays.items()) if c},
+            "launches": launches}
     return result, stats, launches, line
 
 

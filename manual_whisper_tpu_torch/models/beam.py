@@ -36,8 +36,7 @@ from typing import List
 
 import torch
 
-from .decode import FINISH_CHECK_EVERY, DecodeOutput, chunk_lengths
-from .graphs import ChunkGraphs
+from .decode import ChunkedLoop, DecodeOutput
 from .whisper import (Params, WhisperConfig, _layer_norm, _mlp,
                       alloc_cross_kv, decoder_forward, init_kv_cache,
                       logits_f32, precompute_cross_kv)
@@ -185,7 +184,7 @@ class BeamState:
                    z(1, torch.int32), z(1, torch.int32))
 
 
-class BeamLoop:
+class BeamLoop(ChunkedLoop):
     """Beam search over static buffers for one shape: ``rows`` batch rows
     of ``beams`` hypotheses, ``ta`` cross positions, a prompt of ``p``
     tokens, ``max_new`` tokens, one cross-K/V kind (bf16, or int8 with
@@ -220,27 +219,10 @@ class BeamLoop:
         self.t_ids = torch.arange(t, device=device)
         self.frozen = torch.full((cfg.n_vocab,), NEG_INF, device=device)
         self.frozen[eot] = 0.0
-        self.graphs = None
-        if graphs_pool is not None:
-            self.graphs = ChunkGraphs(device, None, graphs_pool)
-            for n in self.chunk_lengths():
-                self.graphs.capture(n, self._chunk, self._rewind)
-
-    def chunk_lengths(self) -> List[int]:
-        return chunk_lengths(self.max_new)
-
-    def _rewind(self) -> None:
-        self.state.i.fill_(1)
-        self.state.pos.fill_(self.p)
+        self._capture(device, None, graphs_pool)
 
     def _chunk(self, n: int) -> None:
         beam_chunk(self, n)
-
-    def run_chunk(self, n: int) -> None:
-        if self.graphs is None:
-            self._chunk(n)
-        else:
-            self.graphs.replay(n)
 
     def run(self, xa: torch.Tensor, prefix: List[int],
             blank_mask: torch.Tensor, sot_index: int = 0,
@@ -286,12 +268,7 @@ class BeamLoop:
         st.fin_tokens.fill_(eot)
         st.fin_lp.copy_(first_eot)
         st.fin_len.fill_(1)
-        self._rewind()
-        i = 1
-        while i < self.max_new and not bool(st.finished.all()):
-            n = min(FINISH_CHECK_EVERY, self.max_new - i)
-            self.run_chunk(n)
-            i += n
+        i = self._run_chunks(st.finished)
 
         score = norm_score(st.cum_lp, st.lengths, lp_pow)
         best = score.argmax(dim=1, keepdim=True)           # [B, 1]

@@ -215,17 +215,52 @@ def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
         st.pos += 1
 
 
-def chunk_lengths(max_new: int) -> List[int]:
-    """Step counts of the chunks a loop of ``max_new`` tokens runs after
-    its first token (before an early stop): FINISH_CHECK_EVERY, and the
-    shorter last chunk."""
-    steps = max_new - 1
-    full = [FINISH_CHECK_EVERY] if steps >= FINISH_CHECK_EVERY else []
-    return full + ([steps % FINISH_CHECK_EVERY]
-                   if steps % FINISH_CHECK_EVERY else [])
+class ChunkedLoop:
+    """What ``DecodeLoop`` and ``beam.BeamLoop`` share: steps in chunks of
+    FINISH_CHECK_EVERY over static buffers, captured as CUDA graphs when a
+    graph pool is given (else run eagerly), and the host's check between
+    chunks that every row has finished.  A subclass sets ``p``,
+    ``max_new`` and ``state`` (with device ``i`` and ``pos``) and defines
+    ``_chunk(n)``."""
+
+    def _capture(self, device: torch.device, gen, graphs_pool) -> None:
+        self.graphs = None
+        if graphs_pool is not None:
+            self.graphs = ChunkGraphs(device, gen, graphs_pool)
+            for n in self.chunk_lengths():
+                self.graphs.capture(n, self._chunk, self._rewind)
+
+    def chunk_lengths(self) -> List[int]:
+        """Step counts of the chunks a loop runs (before an early stop)."""
+        steps = self.max_new - 1
+        full = [FINISH_CHECK_EVERY] if steps >= FINISH_CHECK_EVERY else []
+        return full + ([steps % FINISH_CHECK_EVERY]
+                       if steps % FINISH_CHECK_EVERY else [])
+
+    def _rewind(self) -> None:
+        self.state.i.fill_(1)
+        self.state.pos.fill_(self.p)
+
+    def run_chunk(self, n: int) -> None:
+        if self.graphs is None:
+            self._chunk(n)
+        else:
+            self.graphs.replay(n)
+
+    def _run_chunks(self, finished: torch.Tensor) -> int:
+        """The chunks after the first token, checking before each that not
+        every row has ``finished`` (at steps 1, 17, 33, ...: the eager
+        loop's checks).  Returns the positions run."""
+        self._rewind()
+        i = 1
+        while i < self.max_new and not bool(finished.all()):
+            n = min(FINISH_CHECK_EVERY, self.max_new - i)
+            self.run_chunk(n)
+            i += n
+        return i
 
 
-class DecodeLoop:
+class DecodeLoop(ChunkedLoop):
     """Prefill + decode loop over static buffers for one shape: ``rows``
     batch rows, ``ta`` cross positions, a prompt of ``p`` tokens,
     ``max_new`` tokens, one cross-K/V kind (bf16, or int8 with ``scale_dtype``
@@ -256,30 +291,12 @@ class DecodeLoop:
         self.cross_len = torch.full((1,), ta, dtype=torch.int32,
                                     device=device)
         self.tok_emb_f32 = params["decoder"]["tok_emb"].float()
-        self.graphs = None
-        if graphs_pool is not None:
-            self.graphs = ChunkGraphs(device, pick.gen, graphs_pool)
-            for n in self.chunk_lengths():
-                self.graphs.capture(n, self._chunk, self._rewind)
-
-    def chunk_lengths(self) -> List[int]:
-        """Step counts of the chunks a loop runs (before an early stop)."""
-        return chunk_lengths(self.max_new)
-
-    def _rewind(self) -> None:
-        self.state.i.fill_(1)
-        self.state.pos.fill_(self.p)
+        self._capture(device, pick.gen, graphs_pool)
 
     def _chunk(self, n: int) -> None:
         decode_chunk(self.params, self.state, self.cache, self.cross,
                      self.cross_len, self.pick, self.tok_emb_f32, self.eot,
                      self.cfg, n)
-
-    def run_chunk(self, n: int) -> None:
-        if self.graphs is None:
-            self._chunk(n)
-        else:
-            self.graphs.replay(n)
 
     def run(self, xa: torch.Tensor, prefix: List[int], temperature: float,
             sot_index: int = 0, no_speech_token: int = 0) -> DecodeOutput:
@@ -303,12 +320,7 @@ class DecodeLoop:
         st.finished.copy_(tok == self.eot)
         st.lengths.fill_(1)
         st.sum_lp.copy_(lp)
-        self._rewind()
-        i = 1
-        while i < self.max_new and not bool(st.finished.all()):
-            n = min(FINISH_CHECK_EVERY, self.max_new - i)
-            self.run_chunk(n)
-            i += n
+        i = self._run_chunks(st.finished)
         no_speech = torch.softmax(prefill_logits[:, sot_index, :], dim=-1)[
             :, no_speech_token]
         return DecodeOutput(st.tokens.clone(), st.sum_lp.clone(),

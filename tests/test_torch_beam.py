@@ -158,7 +158,7 @@ def _run_both(synth, beams, max_new):
                           xa.shape[1], len(prefix), max_new, False,
                           torch.float32, torch.zeros(V), EOT, 1.0, CPU)
     tout = loop.run(torch.from_numpy(xa), prefix.tolist(), torch.zeros(V))
-    return jout, tout, len(prefix)
+    return jout, tout
 
 
 def _logsm(row):
@@ -194,7 +194,7 @@ def test_finished_hypothesis_survives_eviction(synth, monkeypatch):
     tk = make_test_tokenizer()
     p_holder["p"] = len(tk.sot_sequence("zh", "transcribe"))
     _scripted(monkeypatch, first_row, step_rows)
-    jout, tout, _ = _run_both(synth, beams=3, max_new=13)
+    jout, tout = _run_both(synth, beams=3, max_new=13)
     np.testing.assert_array_equal(tout.tokens.numpy(), jout[0])
     np.testing.assert_array_equal(tout.lengths.numpy(), jout[2])
     np.testing.assert_allclose(tout.sum_logprob.numpy(), jout[1], atol=1e-4)
@@ -221,7 +221,7 @@ def test_scripted_tie_matches_jax(synth, monkeypatch):
         return xp.broadcast_to(asarr(flat), tuple(token.shape) + (V,))
 
     _scripted(monkeypatch, first_row, step_rows)
-    jout, tout, _ = _run_both(synth, beams=5, max_new=15)
+    jout, tout = _run_both(synth, beams=5, max_new=15)
     np.testing.assert_array_equal(tout.tokens.numpy(), jout[0])
     np.testing.assert_array_equal(tout.lengths.numpy(), jout[2])
     np.testing.assert_allclose(tout.sum_logprob.numpy(), jout[1], atol=1e-4)
