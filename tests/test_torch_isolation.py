@@ -43,6 +43,7 @@ def test_port_files_exist():
                      "ops/decode_attention.py", "ops/quant.py",
                      "ops/_build.py",
                      "models/whisper.py", "models/decode.py",
+                     "models/beam.py", "models/timestamps.py",
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
                      "convert.py", "from_hf.py", "device.py", "config.py",
                      "tokenizer/bpe.py", "audio/io.py", "audio/native.py",
@@ -73,8 +74,9 @@ def _run(code, cwd=ROOT, env_extra=None):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, manual_whisper_tpu_torch.pipeline, "
-            "manual_whisper_tpu_torch.cli, manual_whisper_tpu_torch.serving"
-            "\n"
+            "manual_whisper_tpu_torch.cli, manual_whisper_tpu_torch.serving, "
+            "manual_whisper_tpu_torch.models.beam, "
+            "manual_whisper_tpu_torch.models.timestamps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\nsys.exit(1 if bad else 0)")
