@@ -82,8 +82,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    and with ``without_timestamps=False``; ``warmup`` and ``transcribe`` of
    the same audio at batch 4 (beam: one beam loop and five greedy rungs a
    batch; timestamps: one loop a batch, no ladder), launches exact (a beam
-   step launches no K3/K4/K5, and for int8 8 K6 a layer at M = rows x
-   beams), every beam, greedy and timestamp step inside a replay, every
+   step launches no K3/K4/K5, and for int8 8 K6 a layer, at M = rows x
+   beams in the eager loop's calls), every beam, greedy and timestamp step inside a replay, every
    timestamp row decoded held to the four rules by a host checker
    (``timestamp_rule_violations``), peak memory, one loop of each replayed
    against the same loop eager; the beam phase then runs one batch-16
@@ -1317,7 +1317,9 @@ def phase_beam(model, compute_type: str) -> None:
     one beam loop and five greedy rungs.  Exact launches (a beam step
     launches no K3/K4/K5; K6 at M = 4 x 5 for int8), every beam step
     replayed, peak memory; one batch-4 beam loop replayed against the same
-    loop eager, and a profile of one replayed 16-step chunk of it; then one
+    loop eager (whose K6 calls are counted by M: with int8, 8 a layer and
+    step at M = 4 x 5), and a profile of one replayed 16-step chunk of it;
+    then one
     batch-16 beam loop with the server's 4-token prompt, for its peak
     memory."""
     from manual_whisper_tpu_torch.models.decode import BatchDecoder
@@ -1338,8 +1340,31 @@ def phase_beam(model, compute_type: str) -> None:
     windows = synthetic_speech(BATCH * model.window_sec, seed=1).reshape(
         BATCH, -1)
     xa = model._encode_windows(windows)
-    line["beam_vs_eager"] = _loop_vs_eager(
-        decoder, eager, lambda d: d.decode_submit(xa, 0.0), BATCH * BEAM)
+    # K6's rows in the eager loop: every beam step's 8 matmuls a layer at
+    # M = rows x beams
+    from manual_whisper_tpu_torch.ops import quant
+    kernel, rows_m = quant.int8_matmul, collections.Counter()
+
+    def counting(x, q, s):
+        rows_m[x.shape[0]] += 1
+        return kernel(x, q, s)
+
+    def run(dec):
+        if dec is not eager:
+            return dec.decode_submit(xa, 0.0)
+        quant.int8_matmul = counting
+        try:
+            return dec.decode_submit(xa, 0.0)
+        finally:
+            quant.int8_matmul = kernel
+    line["beam_vs_eager"] = _loop_vs_eager(decoder, eager, run, BATCH * BEAM)
+    steps = line["beam_vs_eager"]["steps"][1] - 1
+    ld = model.cfg.n_text_layer
+    line["k6_calls_by_m_eager"] = dict(rows_m)
+    if compute_type == "int8" and rows_m[BATCH * BEAM] != 8 * ld * steps:
+        raise AssertionError(f"beam int8: K6 calls by M {dict(rows_m)}, "
+                             f"expected {8 * ld * steps} at M = "
+                             f"{BATCH * BEAM}")
     # where a replayed 16-step beam chunk's device time goes
     loop = next(lp for key, lp in decoder._beam_loops.items()
                 if key[0] == BATCH)
