@@ -1433,9 +1433,14 @@ def phase_timestamps(model, compute_type: str) -> None:
     def recording(out, starts, durations):
         rows_seen.extend(out.tokens.cpu().tolist())
         return finalize(out, starts, durations)
+    # an instance attribute while the phase runs; deleted after, so no
+    # cycle through the bound method keeps the decoder's buffers alive
     decoder.timestamps_finalize = recording
-    result, stats, launches, line = _mode_transcribe(
-        pipe, compute_type, ("_ts_loops",), "timestamps")
+    try:
+        result, stats, launches, line = _mode_transcribe(
+            pipe, compute_type, ("_ts_loops",), "timestamps")
+    finally:
+        del decoder.timestamps_finalize
     sp = model.tokenizer.special
     broken = {i: v for i, row in enumerate(rows_seen)
               if (v := timestamp_rule_violations(row, sp.timestamp_begin,
@@ -1449,7 +1454,6 @@ def phase_timestamps(model, compute_type: str) -> None:
         log(json.dumps(line))
         raise AssertionError(f"timestamps: {len(broken)} of {n_rows} rows "
                              "break the rules")
-    decoder.timestamps_finalize = finalize
     eager = BatchDecoder(model.params, model.cfg, model.tokenizer,
                          decoder.opts, model.device, eager=True)
     windows = synthetic_speech(BATCH * model.window_sec, seed=1).reshape(
