@@ -24,10 +24,16 @@ C_out]`` convs, ``x @ w`` linears, a list of per-layer LSTM dicts in
 torch's gate layout) becomes a ``models.vad.PyanNet`` on ``device``, in
 float32.  ``convert_pyannote_segmentation`` maps a pyannote state dict to
 that tree, and ``load_segmentation_params`` reads one from the registry.
+
+wav2vec2 (``from_jax_wav2vec2``): the JAX ``models/wav2vec2.py`` tree
+becomes a ``models.wav2vec2.Wav2Vec2`` on ``device``, in float32;
+``convert_wav2vec2_state_dict`` maps an HF ``Wav2Vec2ForCTC`` state dict to
+that tree and ``wav2vec2_hf_state_dict`` writes the tree back in HF keys.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
 
@@ -36,6 +42,8 @@ import torch
 
 from . import config
 from .models.vad import PyanNet, PyanNetConfig, sinc_filters
+from .models.wav2vec2 import CONV_LAYERS as W2V_CONV_LAYERS
+from .models.wav2vec2 import Wav2Vec2, Wav2Vec2Config
 from .models.whisper import Params, WhisperConfig
 from .ops.quant import is_quantized
 
@@ -217,3 +225,188 @@ def load_segmentation_params(name: str = SEGMENTATION_NAME
         sd = sd["state_dict"]
     config.warn_if_synth_checkpoint(path.parent, "segmentation VAD")
     return convert_pyannote_segmentation(sd)
+
+
+# ---------------------------------------------------------------------------
+# wav2vec2 (alignment)
+# ---------------------------------------------------------------------------
+
+def _f32(arr: Any) -> torch.Tensor:
+    return tensor_from_numpy(arr).to(torch.float32)
+
+
+def from_jax_wav2vec2(tree: Dict[str, Any], cfg: Wav2Vec2Config,
+                      device: torch.device) -> Wav2Vec2:
+    """JAX wav2vec2 param tree (numpy leaves, blocks stacked ``[L, ...]``)
+    -> ``Wav2Vec2`` on ``device`` in float32.  ``[K, C_in, C_out]`` convs
+    become torch's ``[C_out, C_in, K]``, ``x @ w`` weights ``nn.Linear``'s
+    ``[out, in]``; the extractor's conv biases are kept when the tree has
+    them."""
+    conv_bias = "b" in tree["conv"][0]
+    sd = {}
+    for i, conv in enumerate(tree["conv"]):
+        sd[f"conv.{i}.weight"] = _f32(conv["w"]).permute(2, 1, 0)
+        if conv_bias:
+            sd[f"conv.{i}.bias"] = _f32(conv["b"])
+        sd[f"conv_ln.{i}.weight"] = _f32(conv["ln_g"])
+        sd[f"conv_ln.{i}.bias"] = _f32(conv["ln_b"])
+    for name, key in (("fp_ln", "fp_ln"), ("final_ln", "final_ln")):
+        sd[f"{name}.weight"] = _f32(tree[f"{key}_g"])
+        sd[f"{name}.bias"] = _f32(tree[f"{key}_b"])
+    sd["fp.weight"] = _f32(tree["fp_w"]).T
+    sd["fp.bias"] = _f32(tree["fp_b"])
+    sd["pos_conv.weight"] = _f32(tree["pos_conv_w"]).permute(2, 1, 0)
+    sd["pos_conv.bias"] = _f32(tree["pos_conv_b"])
+    sd["lm_head.weight"] = _f32(tree["lm_w"]).T
+    sd["lm_head.bias"] = _f32(tree["lm_b"])
+    blocks = tree["blocks"]
+    for i in range(cfg.n_layers):
+        p = f"blocks.{i}"
+        for ln in ("ln1", "ln2"):
+            sd[f"{p}.{ln}.weight"] = _f32(np.asarray(blocks[f"{ln}_g"])[i])
+            sd[f"{p}.{ln}.bias"] = _f32(np.asarray(blocks[f"{ln}_b"])[i])
+        for lin in ("q", "k", "v", "o", "fc1", "fc2"):
+            sd[f"{p}.{lin}.weight"] = _f32(
+                np.asarray(blocks[f"{lin}_w"])[i]).T
+            sd[f"{p}.{lin}.bias"] = _f32(np.asarray(blocks[f"{lin}_b"])[i])
+    model = Wav2Vec2(cfg, conv_bias=conv_bias)
+    model.load_state_dict({k: v.contiguous() for k, v in sd.items()})
+    return model.to(device)
+
+
+def _numpy(t: Any) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+_W2V_ATTN = (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+             ("o", "out_proj"))
+_W2V_FFN = (("fc1", "intermediate_dense"), ("fc2", "output_dense"))
+
+
+def convert_wav2vec2_state_dict(state_dict: Mapping[str, Any],
+                                cfg: Wav2Vec2Config) -> Dict[str, Any]:
+    """HF ``Wav2Vec2ForCTC`` weights (stable-LN variant) -> the JAX
+    package's wav2vec2 tree (numpy leaves), as its
+    ``convert_wav2vec2_state_dict`` makes it.  The positional conv's
+    weight norm comes as ``weight_g``/``weight_v`` or, from torch 2.1 on,
+    ``parametrizations.weight.original0``/``original1``."""
+    sd = {k[len("wav2vec2."):] if k.startswith("wav2vec2.") else k: v
+          for k, v in state_dict.items()}
+
+    conv = []
+    for i in range(len(W2V_CONV_LAYERS)):
+        p = f"feature_extractor.conv_layers.{i}"
+        layer = {"w": _numpy(sd[f"{p}.conv.weight"]).transpose(2, 1, 0),
+                 "ln_g": _numpy(sd[f"{p}.layer_norm.weight"]),
+                 "ln_b": _numpy(sd[f"{p}.layer_norm.bias"])}
+        # conv_bias=true checkpoints (every XLSR-53 fine-tune) carry a
+        # per-channel conv bias that LN does not absorb
+        if f"{p}.conv.bias" in sd:
+            layer["b"] = _numpy(sd[f"{p}.conv.bias"])
+        conv.append(layer)
+
+    blocks = []
+    i = 0
+    while f"encoder.layers.{i}.attention.q_proj.weight" in sd:
+        p = f"encoder.layers.{i}"
+        blk = {"ln1_g": _numpy(sd[f"{p}.layer_norm.weight"]),
+               "ln1_b": _numpy(sd[f"{p}.layer_norm.bias"])}
+        for ours, theirs in _W2V_ATTN:
+            blk[f"{ours}_w"] = _numpy(
+                sd[f"{p}.attention.{theirs}.weight"]).T
+            blk[f"{ours}_b"] = _numpy(sd[f"{p}.attention.{theirs}.bias"])
+        blk["ln2_g"] = _numpy(sd[f"{p}.final_layer_norm.weight"])
+        blk["ln2_b"] = _numpy(sd[f"{p}.final_layer_norm.bias"])
+        for ours, theirs in _W2V_FFN:
+            blk[f"{ours}_w"] = _numpy(
+                sd[f"{p}.feed_forward.{theirs}.weight"]).T
+            blk[f"{ours}_b"] = _numpy(sd[f"{p}.feed_forward.{theirs}.bias"])
+        blocks.append(blk)
+        i += 1
+    stacked = {k: np.stack([b[k] for b in blocks]) for k in blocks[0]}
+
+    if "encoder.pos_conv_embed.conv.weight_g" in sd:
+        g = _numpy(sd["encoder.pos_conv_embed.conv.weight_g"])
+        v = _numpy(sd["encoder.pos_conv_embed.conv.weight_v"])
+    else:
+        g = _numpy(sd["encoder.pos_conv_embed.conv.parametrizations"
+                      ".weight.original0"])
+        v = _numpy(sd["encoder.pos_conv_embed.conv.parametrizations"
+                      ".weight.original1"])
+    norm = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True) + 1e-12)
+    pos_w = (g / norm * v).transpose(2, 1, 0)   # [out, in/g, k] -> [k, ..]
+
+    return {
+        "conv": conv,
+        "fp_ln_g": _numpy(sd["feature_projection.layer_norm.weight"]),
+        "fp_ln_b": _numpy(sd["feature_projection.layer_norm.bias"]),
+        "fp_w": _numpy(sd["feature_projection.projection.weight"]).T,
+        "fp_b": _numpy(sd["feature_projection.projection.bias"]),
+        "pos_conv_w": pos_w,
+        "pos_conv_b": _numpy(sd["encoder.pos_conv_embed.conv.bias"]),
+        "blocks": stacked,
+        "final_ln_g": _numpy(sd["encoder.layer_norm.weight"]),
+        "final_ln_b": _numpy(sd["encoder.layer_norm.bias"]),
+        "lm_w": _numpy(sd["lm_head.weight"]).T,
+        "lm_b": _numpy(sd["lm_head.bias"]),
+    }
+
+
+def wav2vec2_hf_state_dict(tree: Dict[str, Any]
+                           ) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's wav2vec2 tree as an HF ``Wav2Vec2ForCTC`` state
+    dict (float32 CPU tensors), the inverse of
+    ``convert_wav2vec2_state_dict``: the positional conv is written in
+    weight-norm form with ``weight_v`` the conv weight and ``weight_g`` its
+    norm computed as the converter computes it, so that g / norm is 1 and
+    the converter gives back the tree's array bit for bit."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a,
+                                                                np.float32)))
+
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    w = "wav2vec2."
+    for i, conv in enumerate(tree["conv"]):
+        p = f"{w}feature_extractor.conv_layers.{i}"
+        sd[f"{p}.conv.weight"] = t(np.asarray(conv["w"]).transpose(2, 1, 0))
+        if "b" in conv:
+            sd[f"{p}.conv.bias"] = t(conv["b"])
+        sd[f"{p}.layer_norm.weight"] = t(conv["ln_g"])
+        sd[f"{p}.layer_norm.bias"] = t(conv["ln_b"])
+    sd[f"{w}feature_projection.layer_norm.weight"] = t(tree["fp_ln_g"])
+    sd[f"{w}feature_projection.layer_norm.bias"] = t(tree["fp_ln_b"])
+    sd[f"{w}feature_projection.projection.weight"] = t(
+        np.asarray(tree["fp_w"]).T)
+    sd[f"{w}feature_projection.projection.bias"] = t(tree["fp_b"])
+    v = np.ascontiguousarray(
+        np.asarray(tree["pos_conv_w"], np.float32).transpose(2, 1, 0))
+    g = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True) + 1e-12)
+    sd[f"{w}encoder.pos_conv_embed.conv.bias"] = t(tree["pos_conv_b"])
+    sd[f"{w}encoder.pos_conv_embed.conv.weight_g"] = t(g)
+    sd[f"{w}encoder.pos_conv_embed.conv.weight_v"] = t(v)
+    blocks = tree["blocks"]
+    for i in range(len(np.asarray(blocks["q_w"]))):
+        p = f"{w}encoder.layers.{i}"
+
+        def leaf(k):
+            return np.asarray(blocks[k])[i]
+        sd[f"{p}.layer_norm.weight"] = t(leaf("ln1_g"))
+        sd[f"{p}.layer_norm.bias"] = t(leaf("ln1_b"))
+        for ours, theirs in _W2V_ATTN:
+            sd[f"{p}.attention.{theirs}.weight"] = t(leaf(f"{ours}_w").T)
+            sd[f"{p}.attention.{theirs}.bias"] = t(leaf(f"{ours}_b"))
+        sd[f"{p}.final_layer_norm.weight"] = t(leaf("ln2_g"))
+        sd[f"{p}.final_layer_norm.bias"] = t(leaf("ln2_b"))
+        for ours, theirs in _W2V_FFN:
+            sd[f"{p}.feed_forward.{theirs}.weight"] = t(
+                leaf(f"{ours}_w").T)
+            sd[f"{p}.feed_forward.{theirs}.bias"] = t(leaf(f"{ours}_b"))
+    sd[f"{w}encoder.layer_norm.weight"] = t(tree["final_ln_g"])
+    sd[f"{w}encoder.layer_norm.bias"] = t(tree["final_ln_b"])
+    sd["lm_head.weight"] = t(np.asarray(tree["lm_w"]).T)
+    sd["lm_head.bias"] = t(tree["lm_b"])
+    return sd
