@@ -69,7 +69,17 @@ def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
     rtf = transcribe_time / max(audio_duration, 1e-9)
     print(f"   转写耗时: {transcribe_time:.1f}s (实时比: {rtf:.1f}x)")
 
-    print("🎯 对齐时间戳: PyTorch 版本尚未移植对齐模型，保留 VAD 段级时间戳。")
+    # word-level alignment (reference: whisperx.align, transcribe.py:130-131)
+    step_start = time.time()
+    print("🎯 对齐时间戳...")
+    try:
+        from .models.align import align_result
+        result = align_result(result, audio, language="zh", device=dev)
+        print(f"   对齐耗时: {time.time() - step_start:.1f}s")
+    except Exception as exc:  # degradation ladder: keep segment timestamps
+        print(f"⚠️ 对齐失败: {exc}")
+        print("   保留 VAD 段级时间戳继续。")
+
     if hf_token:
         print("👥 说话人分离: PyTorch 版本尚未移植，跳过。")
     else:

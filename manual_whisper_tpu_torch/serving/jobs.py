@@ -270,9 +270,6 @@ class JobStore:
                 self.release_if_done(job)
 
 
-def _align_result(result: dict, audio, language: str) -> dict:
-    raise NotImplementedError(
-        "word alignment is not ported yet (ROADMAP Queue A item 7)")
 
 
 def _diarize(audio, result: dict, hf_token) -> dict:
@@ -325,6 +322,8 @@ class PipelineBackend:
                 "vad_onset": config.get_float("VAD_ONSET", 0.50),
                 "vad_offset": config.get_float("VAD_OFFSET", 0.36),
             })
+        # the aligner and the diarizer run beside the pipeline
+        self.device = self.model.device
 
     def warmup(self) -> None:
         """Capture the serving batch's decode buckets ahead of the first
@@ -349,10 +348,12 @@ class PipelineBackend:
         if options.get("align") or config.get_bool("ENABLE_ALIGNMENT",
                                                    False):
             try:
+                from ..models.align import align_result
                 progress(92.0, "aligning word timestamps")
-                result = _align_result(result, audio,
-                                       result.get("language", "zh"))
-            except NotImplementedError as exc:
+                result = align_result(result, audio,
+                                      result.get("language", "zh"),
+                                      device=self.device)
+            except Exception as exc:
                 progress(92.0, f"alignment unavailable: {exc}")
 
         hf_token = config.get_env("HF_TOKEN")
