@@ -3,8 +3,9 @@
 Mirrors the JAX package's ``cli.py`` (reference: transcribe.py:98-247):
 the same .env knobs (WHISPER_MODEL, BATCH_SIZE, BEAM_SIZE, VAD_ONSET,
 VAD_OFFSET, HF_TOKEN), the same prints and the same Markdown/JSON output.
-Runs on CUDA and raises without it.  Alignment and diarization are not
-ported yet: each prints one line saying so.
+Runs on CUDA and raises without it.  Word alignment and (with HF_TOKEN)
+speaker diarization run on the same device after the transcription; when
+either fails the CLI goes on without it, with the JAX CLI's lines.
 
     python -m manual_whisper_tpu_torch.cli recording.m4a
 """
@@ -80,10 +81,23 @@ def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
         print(f"⚠️ 对齐失败: {exc}")
         print("   保留 VAD 段级时间戳继续。")
 
+    # diarization (reference: transcribe.py:137-151 — failure tolerant)
     if hf_token:
-        print("👥 说话人分离: PyTorch 版本尚未移植，跳过。")
+        step_start = time.time()
+        print("👥 识别说话人...")
+        try:
+            from .models.diarize import DiarizationPipeline, \
+                assign_word_speakers
+            diarizer = DiarizationPipeline(use_auth_token=hf_token,
+                                           device=dev)
+            diarize_segments = diarizer(audio)
+            result = assign_word_speakers(diarize_segments, result)
+            print(f"   说话人分离耗时: {time.time() - step_start:.1f}s")
+        except Exception as exc:
+            print(f"⚠️ 说话人分离失败: {exc}")
+            print("   继续生成不带说话人标签的转写稿...")
     else:
-        print("⚠️ 未设置 HF_TOKEN，跳过说话人分离（PyTorch 版本亦尚未移植）。")
+        print("⚠️ 未设置 HF_TOKEN，跳过说话人分离。请在 .env 中设置 HF_TOKEN。")
 
     print("🧹 清理转写文本...")
     cleaned, cleaned_count, dropped = clean_result_segments(

@@ -29,6 +29,11 @@ wav2vec2 (``from_jax_wav2vec2``): the JAX ``models/wav2vec2.py`` tree
 becomes a ``models.wav2vec2.Wav2Vec2`` on ``device``, in float32;
 ``convert_wav2vec2_state_dict`` maps an HF ``Wav2Vec2ForCTC`` state dict to
 that tree and ``wav2vec2_hf_state_dict`` writes the tree back in HF keys.
+
+ResNet34 (``from_jax_resnet``): the JAX ``models/diarize.py`` embedding
+tree becomes a ``models.diarize.ResNet34`` on ``device``, in float32;
+``wespeaker_state_dict`` writes the tree in wespeaker keys, which
+``models.diarize.convert_wespeaker_resnet`` reads back.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from . import config
+from .models.diarize import EmbeddingConfig, ResNet34
 from .models.vad import PyanNet, PyanNetConfig, sinc_filters
 from .models.wav2vec2 import CONV_LAYERS as W2V_CONV_LAYERS
 from .models.wav2vec2 import Wav2Vec2, Wav2Vec2Config
@@ -409,4 +415,69 @@ def wav2vec2_hf_state_dict(tree: Dict[str, Any]
     sd[f"{w}encoder.layer_norm.bias"] = t(tree["final_ln_b"])
     sd["lm_head.weight"] = t(np.asarray(tree["lm_w"]).T)
     sd["lm_head.bias"] = t(tree["lm_b"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# ResNet34 speaker embedding (diarization)
+# ---------------------------------------------------------------------------
+
+def _resnet_items(tree: Dict[str, Any]):
+    """(torch-style name, wespeaker name, leaf) for each conv, BatchNorm
+    and the embedding linear of a JAX ResNet tree; convs in the tree's
+    HWIO layout with time on H."""
+    def bn(ours, theirs, node):
+        for o, t, k in (("weight", "weight", "g"), ("bias", "bias", "b"),
+                        ("running_mean", "running_mean", "mean"),
+                        ("running_var", "running_var", "var")):
+            yield f"{ours}.{o}", f"{theirs}.{t}", node[k]
+
+    yield "stem.weight", "conv1.weight", tree["stem_w"]
+    yield from bn("stem_bn", "bn1", tree["stem_bn"])
+    for si, stage in enumerate(tree["stages"]):
+        for bi, blk in enumerate(stage):
+            ours, theirs = f"stages.{si}.{bi}", f"layer{si + 1}.{bi}"
+            for k in ("1", "2"):
+                yield (f"{ours}.conv{k}.weight", f"{theirs}.conv{k}.weight",
+                       blk[f"conv{k}_w"])
+                yield from bn(f"{ours}.bn{k}", f"{theirs}.bn{k}",
+                              blk[f"bn{k}"])
+            if "down_w" in blk:
+                yield (f"{ours}.down.0.weight",
+                       f"{theirs}.downsample.0.weight", blk["down_w"])
+                yield from bn(f"{ours}.down.1", f"{theirs}.downsample.1",
+                              blk["down_bn"])
+
+
+def from_jax_resnet(tree: Dict[str, Any], cfg: EmbeddingConfig,
+                    device: torch.device) -> ResNet34:
+    """JAX ResNet34 embedding tree (numpy leaves, HWIO convs with time on
+    H) -> ``models.diarize.ResNet34`` on ``device`` in float32: each conv
+    becomes torch's ``[out, in, kh (freq), kw (time)]``, the embedding
+    linear ``nn.Linear``'s ``[out, in]``."""
+    model = ResNet34(cfg)
+    sd = dict(model.state_dict())
+    for ours, _, leaf in _resnet_items(tree):
+        t = _f32(leaf)
+        sd[ours] = t.permute(3, 2, 1, 0) if t.ndim == 4 else t
+    sd["fc.weight"] = _f32(tree["fc_w"]).T
+    sd["fc.bias"] = _f32(tree["fc_b"])
+    model.load_state_dict({k: v.contiguous() for k, v in sd.items()})
+    return model.to(device)
+
+
+def wespeaker_state_dict(tree: Dict[str, Any]
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's ResNet34 tree as a wespeaker state dict (float32
+    CPU tensors, the embedding linear at ``seg_1``), the inverse of
+    ``convert_wespeaker_resnet``: every value keeps its bits."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for _, theirs, leaf in _resnet_items(tree):
+        a = np.asarray(leaf, np.float32)
+        sd[theirs] = torch.from_numpy(np.ascontiguousarray(
+            a.transpose(3, 2, 1, 0) if a.ndim == 4 else a))
+    sd["seg_1.weight"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(tree["fc_w"], np.float32).T))
+    sd["seg_1.bias"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(tree["fc_b"], np.float32)))
     return sd

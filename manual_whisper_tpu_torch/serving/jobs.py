@@ -16,10 +16,10 @@ contract already expects.  The server's second pass calls
 ``PipelineBackend.transcribe_clip`` from a thread of its own, so two
 decodes can run at once (``pipeline/transcribe.py``).
 
-Word alignment and diarization are not ported: where the JAX backend
-would run them, this one reports the JAX messages ("alignment
-unavailable: ...", "diarization unavailable: ...") with an error saying
-so, and the job goes on as the JAX backend's does when they fail.
+Word alignment and diarization run where the JAX backend runs them, on
+the backend's device; when either fails the job goes on without it and
+logs the JAX messages ("alignment unavailable: ...", "diarization
+unavailable: ...").
 """
 
 from __future__ import annotations
@@ -272,11 +272,6 @@ class JobStore:
 
 
 
-def _diarize(audio, result: dict, hf_token) -> dict:
-    raise NotImplementedError(
-        "diarization is not ported yet (ROADMAP Queue A item 8)")
-
-
 def _serving_language(language: str) -> Optional[str]:
     lang = None if language in ("", "auto") else language
     return "zh" if lang == "zh+en" else lang
@@ -361,9 +356,14 @@ class PipelineBackend:
                                      bool(hf_token))
         if options.get("diarization", diarize_on):
             try:
+                from ..models.diarize import (DiarizationPipeline,
+                                              assign_word_speakers)
                 progress(95.0, "diarizing speakers")
-                result = _diarize(audio, result, hf_token)
-            except NotImplementedError as exc:
+                diarizer = DiarizationPipeline(use_auth_token=hf_token,
+                                               device=self.device)
+                diar_segments = diarizer(audio)
+                result = assign_word_speakers(diar_segments, result)
+            except Exception as exc:
                 progress(95.0, f"diarization unavailable: {exc}")
 
         return result
@@ -374,7 +374,8 @@ class PipelineBackend:
                         diarization: bool = False,
                         use_initial_prompt: bool = False) -> dict:
         """Second-pass hook (serving/second_pass.py): re-run a short clip
-        with stricter VAD, one temperature and (by default) no prompt.
+        with stricter VAD, one temperature and (by default) no prompt,
+        optionally diarizing the recovered segments.
 
         VAD and prompt overrides flow through ``model.transcribe`` call
         arguments — the second pass runs on a daemon thread concurrently
@@ -395,7 +396,12 @@ class PipelineBackend:
             initial_prompt=prompt)
         if diarization:
             try:
-                result = _diarize(clip, result, config.get_env("HF_TOKEN"))
-            except NotImplementedError:
+                from ..models.diarize import (DiarizationPipeline,
+                                              assign_word_speakers)
+                diarizer = DiarizationPipeline(
+                    use_auth_token=config.get_env("HF_TOKEN"),
+                    device=self.device)
+                result = assign_word_speakers(diarizer(clip), result)
+            except Exception:
                 pass  # recovered segments keep no speaker labels
         return result

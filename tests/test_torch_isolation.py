@@ -49,7 +49,10 @@ def test_port_files_exist():
                      "tokenizer/bpe.py", "audio/io.py", "audio/native.py",
                      "audio/flacenc.py", "text/processor.py",
                      "serving/jobs.py", "serving/second_pass.py",
-                     "serving/server.py"):
+                     "serving/server.py", "eval/metrics.py",
+                     "eval/synth.py", "eval/vad_eval.py",
+                     "models/wav2vec2.py", "models/align.py",
+                     "models/diarize.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
@@ -76,7 +79,13 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, manual_whisper_tpu_torch.pipeline, "
             "manual_whisper_tpu_torch.cli, manual_whisper_tpu_torch.serving, "
             "manual_whisper_tpu_torch.models.beam, "
-            "manual_whisper_tpu_torch.models.timestamps\n"
+            "manual_whisper_tpu_torch.models.timestamps, "
+            "manual_whisper_tpu_torch.models.wav2vec2, "
+            "manual_whisper_tpu_torch.models.align, "
+            "manual_whisper_tpu_torch.models.diarize, "
+            "manual_whisper_tpu_torch.eval.metrics, "
+            "manual_whisper_tpu_torch.eval.synth, "
+            "manual_whisper_tpu_torch.eval.vad_eval\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\nsys.exit(1 if bad else 0)")

@@ -6,7 +6,9 @@ two decodes at once.
   every response must be the same JSON apart from ids, ports and times.
 - ``PipelineBackend(device="cpu")`` over the ``.synth_ckpt`` weights gives
   the JAX ``PipelineBackend``'s segments, post-processed output and
-  Markdown on a WAV and a FLAC upload.
+  Markdown on a WAV and a FLAC upload, and with word alignment and
+  diarization asked for, the same result (words, times, scores,
+  speakers) or the same degradation messages.
 - ``transcribe_clip`` on a second thread while ``transcribe`` runs gives
   the results of each run alone, and each decoder is built once; the
   launch counters stay exact with threads counting and capturing at once.
@@ -22,8 +24,11 @@ import time
 import urllib.error
 import urllib.request
 
+from pathlib import Path
+
 import numpy as np
 import pytest
+import torch
 
 import manual_whisper_tpu.pipeline as jpipeline_pkg
 import manual_whisper_tpu.serving.server as jserver
@@ -624,24 +629,107 @@ def test_pipeline_backend_matches_jax_on_wav_and_flac(synth, tmp_path,
         assert [p for p, _ in logs["port"]][-1] == 90.0
 
 
+def _view(result):
+    """What alignment and diarization produce: each segment's text, times,
+    speaker and words (the decoder's float statistics are left out; the
+    backend tests above hold the transcription itself)."""
+    keep = ("text", "start", "end", "speaker", "words")
+    return {"language": result["language"],
+            "segments": [{k: s[k] for k in keep if k in s}
+                         for s in result["segments"]],
+            "word_segments": result.get("word_segments")}
+
+
+def _late(logs):
+    """The progress lines after the transcription (the earlier ones carry
+    times)."""
+    return [(p, m) for p, m in logs if p > 90.0]
+
+
 def test_alignment_and_diarization_report_not_ported(synth, tmp_path,
                                                      monkeypatch):
+    """ENABLE_ALIGNMENT and ENABLE_DIARIZATION with an empty registry: both
+    backends report the same missing aligner ("alignment unavailable:
+    ...") and go on; both diarize with the weightless flow (energy VAD
+    windows, 40-mel statistics embeddings) to the same speakers, in the
+    job and in a second-pass clip."""
     monkeypatch.setenv("ENABLE_ALIGNMENT", "true")
     monkeypatch.setenv("ENABLE_DIARIZATION", "true")
     wav = tmp_path / "m.wav"
     write_wav(wav, _synth_audio(7, n_utts=1), 16000)
-    tb = _port_backend(synth, monkeypatch)
-    logs = []
-    out = tb.transcribe(str(wav), "en", lambda p, m: logs.append((p, m)))
+    jb, tb = _jax_backend(synth, monkeypatch), _port_backend(synth,
+                                                             monkeypatch)
+    logs = {"jax": [], "port": []}
+    ref = jb.transcribe(str(wav), "en", lambda p, m: logs["jax"].append((p, m)))
+    out = tb.transcribe(str(wav), "en",
+                        lambda p, m: logs["port"].append((p, m)))
     assert out["segments"]
-    msgs = dict(logs)
-    assert msgs[92.0].startswith("alignment unavailable: ")
-    assert msgs[95.0].startswith("diarization unavailable: ")
-    assert "not ported yet" in msgs[92.0] and "not ported yet" in msgs[95.0]
-    # a second pass with diarization keeps its segments unlabelled
-    clip = tb.transcribe_clip(_synth_audio(7, n_utts=1), "en", 0.6, 0.42,
-                              diarization=True)
-    assert all("speaker" not in s for s in clip["segments"])
+    assert _late(logs["port"]) == _late(logs["jax"])
+    msgs = dict(logs["port"])
+    assert msgs[92.0].startswith("alignment unavailable: alignment "
+                                 "checkpoint not found")
+    assert msgs[95.0] == "diarizing speakers"
+    assert "not ported" not in json.dumps(logs["port"])
+    assert _view(out) == _view(ref)
+    assert all("speaker" in s for s in out["segments"])
+    clip = _synth_audio(7, n_utts=1)
+    got = tb.transcribe_clip(clip, "en", 0.6, 0.42, diarization=True)
+    assert _view(got) == _view(jb.transcribe_clip(clip, "en", 0.6, 0.42,
+                                                  diarization=True))
+    assert all("speaker" in s for s in got["segments"])
+
+
+def test_align_and_diarization_job_flows_match_jax(synth, tmp_path,
+                                                   monkeypatch):
+    """A job asking for ``align`` and ``diarization`` with the repository's
+    synthetic checkpoints in the registry (the aligner, PyanNet and the
+    ResNet34: the JAX backend reads their orbax trees, the port their
+    torch exports) gives the JAX backend's result: the same words with
+    the same times and scores, and the same speakers."""
+    import jax
+    from manual_whisper_tpu.convert.from_hf import load_params
+    from manual_whisper_tpu_torch import config as tconfig
+    from manual_whisper_tpu_torch.convert import wespeaker_state_dict
+    from manual_whisper_tpu import config as jconfig
+    weights = Path(__file__).resolve().parent.parent / ".weights"
+    registry = tmp_path / "registry"
+    registry.mkdir()
+    for name in ("jonatasgrosman--wav2vec2-large-xlsr-53-english",
+                 "pyannote-segmentation-3.0"):
+        (registry / name).symlink_to(weights / name)
+    emb = registry / "wespeaker-voxceleb-resnet34-LM"
+    emb.mkdir()
+    (emb / "jax").symlink_to(weights / emb.name / "jax")
+    (emb / "SYNTH_TRAINED").symlink_to(weights / emb.name / "SYNTH_TRAINED")
+    tree = load_params(weights / emb.name / "jax")
+    if tree is None:
+        pytest.skip("no synthetic speaker embedder in the repository")
+    torch.save(wespeaker_state_dict(jax.tree.map(np.asarray, tree)),
+               emb / "pytorch_model.bin")
+    monkeypatch.delenv("ENABLE_ALIGNMENT", raising=False)
+    monkeypatch.setenv("MWX_ALLOW_SYNTH_WEIGHTS", "1")
+    wav = tmp_path / "m.wav"
+    write_wav(wav, _synth_audio(21, n_utts=4), 16000)
+    # the pipelines load with the empty registry, as the other backend
+    # tests do; the aligner and the diarizer read it at job time
+    jb, tb = _jax_backend(synth, monkeypatch), _port_backend(synth,
+                                                             monkeypatch)
+    monkeypatch.setenv("MWX_WEIGHTS_DIR", str(registry))
+    jconfig.clear_env_cache()
+    tconfig.clear_env_cache()
+    options = {"align": True, "diarization": True}
+    logs = {"jax": [], "port": []}
+    ref = jb.transcribe(str(wav), "en",
+                        lambda p, m: logs["jax"].append((p, m)), options)
+    out = tb.transcribe(str(wav), "en",
+                        lambda p, m: logs["port"].append((p, m)), options)
+    assert _late(logs["port"]) == _late(logs["jax"])
+    assert dict(logs["port"])[92.0] == "aligning word timestamps"
+    assert dict(logs["port"])[95.0] == "diarizing speakers"
+    assert _view(out) == _view(ref)
+    words = [w for s in out["segments"] for w in s["words"]]
+    assert words and all("speaker" in w for w in words)
+    assert out["word_segments"]
 
 
 def test_transcribe_clip_on_a_second_thread_changes_nothing(synth, tmp_path,
