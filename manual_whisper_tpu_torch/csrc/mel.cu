@@ -22,8 +22,8 @@
 // 0..100 of C and S, so it multiplies by the plain version's numbers for
 // bins 0..100 and by their mirror (equal to 2e-13) for bins 101..200.
 // The slaney filterbank has at most 2 nonzeros a bin, 391 at 80 mels and
-// 394 at 128, in one run of at most 14 bins per band: each output sums
-// its band's run, not 201 dense terms.  No TF32: the sums feed a log10,
+// 394 at 128, in one run of at most 14 bins per band (28 at 40 mels):
+// each output sums its band's run, not 201 dense terms.  No TF32: the sums feed a log10,
 // which amplifies error near the 1e-10 floor.
 //
 // The frames are built from the audio by index: frame f is samples
@@ -76,17 +76,18 @@ constexpr int kFreqs = kFft / 2 + 1;        // 201
 constexpr int kFoldRows = kFft / 2;         // taps 1..200 (sine: 1..199, 0)
 constexpr int kCols = kFft / 4 + 1;         // 101: bins 0..100 (and 200 - f)
 constexpr int kMaxMels = 128;               // the band table's room
-constexpr int kBandWidth = 16;              // the widest band it takes
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // TM frames x TN frequencies a thread; two halves of GX x GY threads, a
 // warp LX of them along the frequencies; KC constant rows a chunk (KC / 2
-// of each parity of k), STAGES chunks in the ring.
-template <int TM_, int TN_, int GX_, int GY_, int LX_, int KC_, int STAGES_>
+// of each parity of k), STAGES chunks in the ring; BAND bins a band at
+// most in the band table (16 takes 80 and 128 mels, 32 takes 40).
+template <int TM_, int TN_, int GX_, int GY_, int LX_, int KC_, int STAGES_,
+          int BAND_ = 16>
 struct MelCfg {
   static constexpr int TM = TM_, TN = TN_, GX = GX_, GY = GY_, LX = LX_;
-  static constexpr int KC = KC_, kStages = STAGES_;
+  static constexpr int KC = KC_, kStages = STAGES_, kBand = BAND_;
   static constexpr int kHalfThreads = GX * GY;
   static constexpr int kThreads = 2 * kHalfThreads;
   static constexpr int kWarps = kThreads / 32;
@@ -109,7 +110,7 @@ struct MelCfg {
       (cmax(kFoldFloats, cmax(kExchangeFloats, kTileFloats)) + 3) / 4 * 4;
   static constexpr int kRegionB = (cmax(kSpan, kPowerFloats) + 3) / 4 * 4;
   static constexpr int kRingFloats = kStages * KC * kRow;
-  static constexpr int kBandFloats = kMaxMels * (kBandWidth + 1);
+  static constexpr int kBandFloats = kMaxMels * (kBand + 1);
   static constexpr int kBytes =
       (kRegionA + kRegionB + kRingFloats + kBandFloats) * 4;
   static_assert(GX * TN >= kCols, "the frequency tile must cover 101");
@@ -119,6 +120,7 @@ struct MelCfg {
   static_assert(32 % LX == 0 && GX % LX == 0 && GY % (32 / LX) == 0,
                 "a warp must tile a half's thread grid");
   static_assert(kStages >= 2, "the ring needs two slots");
+  static_assert(kBand % 4 == 0, "the filterbank reads bins in fours");
   static_assert(kBytes <= 232448, "over the shared memory of a block");
 };
 
@@ -259,8 +261,8 @@ log_mel_kernel(const float* __restrict__ audio,
   float* span = smem + C::kRegionA;    // [kSpan] padded samples
   float* power = span;                 // then [kFrames][201]
   float* ring = span + C::kRegionB;    // [kStages][KC][kRow]
-  float* band_w = ring + C::kRingFloats;               // [n_mels][16]
-  int* band_lo = reinterpret_cast<int*>(band_w + kMaxMels * kBandWidth);
+  float* band_w = ring + C::kRingFloats;           // [n_mels][kBand]
+  int* band_lo = reinterpret_cast<int*>(band_w + kMaxMels * C::kBand);
   const int tid = threadIdx.x;
   const int half = tid / C::kHalfThreads, t = tid % C::kHalfThreads;
   const int warp = t / 32, lane = t % 32;
@@ -281,12 +283,12 @@ log_mel_kernel(const float* __restrict__ audio,
   for (int q = 0; q < C::kStages - 1; ++q)
     stage_chunk<C>(ring, cos_p, sin_p, q);
   const int nq = (__ldg(bands).w + 3) / 4;
-  for (int i = tid; i < n_mels * kBandWidth; i += C::kThreads) {
-    const int4 band = __ldg(bands + i / kBandWidth);   // bin, bins, offset
+  for (int i = tid; i < n_mels * C::kBand; i += C::kThreads) {
+    const int4 band = __ldg(bands + i / C::kBand);     // bin, bins, offset
     const int start = min(band.x, kFreqs - 4 * nq);
-    const int k = i % kBandWidth - (band.x - start);
+    const int k = i % C::kBand - (band.x - start);
     band_w[i] = k >= 0 && k < band.y ? __ldg(weights + band.z + k) : 0.f;
-    if (i % kBandWidth == 0) band_lo[i / kBandWidth] = start;
+    if (i % C::kBand == 0) band_lo[i / C::kBand] = start;
   }
   {
     constexpr int kPer = (C::kSpan + C::kThreads - 1) / C::kThreads;
@@ -360,13 +362,13 @@ log_mel_kernel(const float* __restrict__ audio,
   constexpr int kPerLane = (C::kFrames + 31) / 32;
   for (int m = tid / 32; m < n_mels; m += C::kWarps) {
     const float4* w = reinterpret_cast<const float4*>(band_w
-                                                      + m * kBandWidth);
+                                                      + m * C::kBand);
     const float* p = power + band_lo[m] + tid % 32 * kFreqs;
     float sum[kPerLane];
 #pragma unroll
     for (int u = 0; u < kPerLane; ++u) sum[u] = 0.f;
 #pragma unroll
-    for (int g = 0; g < kBandWidth / 4; ++g) {
+    for (int g = 0; g < C::kBand / 4; ++g) {
       if (g < nq) {
         const float4 wg = w[g];
 #pragma unroll
@@ -433,8 +435,11 @@ int report_tile(void* tile) {
 
 // 96 frames a block; two halves of 128 threads of 6 frames x 13
 // frequencies, a warp 4 frequency groups x 8 frame groups; chunks of 20
-// rows, 3 in the ring
+// rows, 3 in the ring; bands of up to 16 bins (80 and 128 mels).  The
+// same tile with bands of up to 32 bins takes 40 mels (widest 28):
+// diarization's statistics embedding.
 using ShippedMel = MelCfg<6, 13, 8, 16, 4, 20, 3>;
+using ShippedMelWide = MelCfg<6, 13, 8, 16, 4, 20, 3, 32>;
 
 }  // namespace
 
@@ -449,17 +454,23 @@ extern "C" int mwx_log_mel_tile(void* tile) {
 // 0..100 of the folded cosine (rows 1..200) and sine (rows 1..199, then a
 // zero row) packed by ops/mel.py `pack_folded` for the reported tile;
 // bands [n_mels, 4] int32 (first bin, bins, offset in weights, the widest
-// band's bins: at most 16); weights [nnz] f32 -> out [batch, n_frames, n_mels] f32.  Requires
-// n_samples > 200 and n_mels <= 128.
+// band's bins: `widest`, at most 32); weights [nnz] f32 -> out [batch,
+// n_frames, n_mels] f32.  Requires n_samples > 200 and n_mels <= 128.
+// Bands of up to 16 bins run the 16-wide build, up to 32 the 32-wide one.
 extern "C" int mwx_log_mel(const void* audio, const void* cos_p,
                            const void* sin_p, const void* bands,
                            const void* weights, void* out, int batch,
                            int n_samples, int n_frames, int n_mels,
-                           void* stream) {
+                           int widest, void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
-  if (n_samples <= kFft / 2 || n_mels <= 0 || n_mels > kMaxMels)
+  if (n_samples <= kFft / 2 || n_mels <= 0 || n_mels > kMaxMels
+      || widest <= 0 || widest > ShippedMelWide::kBand)
     return (int)cudaErrorInvalidValue;
-  return launch_mel<ShippedMel>(audio, cos_p, sin_p, bands, weights, out,
-                                batch, n_samples, n_frames, n_mels,
-                                (cudaStream_t)stream);
+  if (widest <= ShippedMel::kBand)
+    return launch_mel<ShippedMel>(audio, cos_p, sin_p, bands, weights, out,
+                                  batch, n_samples, n_frames, n_mels,
+                                  (cudaStream_t)stream);
+  return launch_mel<ShippedMelWide>(audio, cos_p, sin_p, bands, weights,
+                                    out, batch, n_samples, n_frames, n_mels,
+                                    (cudaStream_t)stream);
 }

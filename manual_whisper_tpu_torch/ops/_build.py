@@ -52,8 +52,8 @@ _I = ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "mel": {
         # audio, cos_packed, sin_packed, bands, weights, out, batch,
-        # n_samples, n_frames, n_mels, stream
-        "mwx_log_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # n_samples, n_frames, n_mels, widest band's bins, stream
+        "mwx_log_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # tile (int[2]: frequencies a thread, threads along them)
         "mwx_log_mel_tile": [_P],
     },

@@ -39,7 +39,7 @@ N_SAMPLES = CHUNK_LENGTH * SAMPLE_RATE          # 480000
 N_FRAMES = N_SAMPLES // HOP_LENGTH              # 3000
 N_FREQS = N_FFT // 2 + 1                        # 201
 MAX_KERNEL_MELS = 128                           # K1's band table: bands
-MAX_KERNEL_BAND = 16                            # and bins a band
+MAX_KERNEL_BAND = 32                            # and bins a band
 
 
 def _hz_to_mel_slaney(freq):
@@ -233,7 +233,9 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
                          ) -> torch.Tensor:
     """[B, T] f32 -> raw log10-mel [B, T//160, n_mels].
 
-    Kernel K1 on a CUDA tensor, the plain version on a CPU tensor."""
+    Kernel K1 on a CUDA tensor, the plain version on a CPU tensor.  The
+    kernel's build follows the filterbank's widest band: up to 16 bins (80
+    and 128 mels) or up to 32 (40 mels, widest 28); wider raises."""
     if audio.ndim != 2:
         raise ValueError(f"audio must be [B, T], got {tuple(audio.shape)}")
     if audio.device.type == "cpu":
@@ -256,7 +258,7 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
     err = _build.library("mel").mwx_log_mel(
         audio.data_ptr(), cos_packed.data_ptr(), sin_packed.data_ptr(),
         c.bands.data_ptr(), c.weights.data_ptr(), out.data_ptr(), batch,
-        n_samples, n_frames, n_mels, _build.stream_of(audio))
+        n_samples, n_frames, n_mels, c.widest, _build.stream_of(audio))
     _build.check(err, "mel kernel")
     _build.count("mel")
     return out

@@ -77,6 +77,31 @@ def test_mel_kernel_hard_rows(dev, n_samples, n_mels):
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
 
 
+# diarization's shapes: the ResNet34's 80-mel clips and the statistics
+# embedding's 40-mel clips in their length buckets (0.5 to 10 s), the
+# 40-mel 3 s windows; K1 takes 40 mels with its 32-wide band table
+DIARIZE_MEL_SIZES = [(8000, 80), (160000, 80), (8000, 40), (16000, 40),
+                     (64000, 40), (160000, 40), (48000, 40)]
+
+
+@pytest.mark.parametrize("n_samples,n_mels", DIARIZE_MEL_SIZES)
+def test_mel_kernel_diarization_shapes(dev, n_samples, n_mels):
+    """Raw log-mel of rows zero-padded past ragged lengths, as the
+    embedding buckets hold clips: the kernel against its plain version
+    within 2e-3, the padded frames at the 1e-10 floor in both."""
+    rows = 0.1 * _randn((8, n_samples), dev, n_mels, torch.float32)
+    lengths = torch.linspace(n_samples // 3, n_samples, 8).long()
+    for r, n in enumerate(lengths.tolist()):
+        rows[r, n:] = 0.0
+    before = _build.launches["mel"]
+    out = unnormalized_log_mel(rows, n_mels)
+    assert _build.launches["mel"] == before + 1
+    ref = unnormalized_log_mel_plain(rows, n_mels)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=0)
+    assert torch.equal(out[0, -1], ref[0, -1])
+    assert float(out[0, -1].max()) == -10.0
+
+
 def _f64_error_kept(out, ref):
     """Max abs error against the float64 reference where the normalisation
     keeps the reference (within 8 decades of its row's max)."""
