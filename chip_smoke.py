@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rows decode_self_attention,int8_matmul
+    python3 chip_smoke.py --phases align,diarize,cli
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``mel``, ``flash_attention``,
 ``decode_self_attention``, ``decode_cross_attention``,
-``decode_cross_attention_int8`` and ``int8_matmul``); no result line is
-printed.
+``decode_cross_attention_int8`` and ``int8_matmul``); with ``--phases``
+only the kernels' build and the named phases of stage 6; neither prints
+a result line.
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -46,7 +48,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    1280x5120 and 5120x1280; two
    ``kernel_check`` lines hold ragged tiles and the matvec at M in {1, 2,
    3, 5, 8} against the plain version);
-   K3 and K4 also at batch 16 (extra).
+   K3 and K4 also at batch 16 (extra).  K1 is also checked and timed at
+   diarization's shapes on raw log-mel of zero-padded rows (extra lines,
+   TOL["mel_raw"]): 32 rows of each embedding length bucket (0.5, 1, 2, 4
+   and 10 s) at 80 mels (the ResNet34) and at 40 (the statistics
+   embedding; K1's 32-wide band table), and 256 rows of 3 s at 40 mels.
 3. Run the tiny ``test`` config through the port on the card and on the
    CPU (plain versions), in bf16 and in int8 (int8 weights and int8 cross
    K/V on bf16 activations): encoder output and the logits of a prefill
@@ -96,7 +102,24 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    call of K6 (through ``mm``) and K5 against the bf16 step's cuBLAS
    matmul and K4.
 
-6. The job server (``serve``): the phase-4 model is freed; the port's
+6. The speech stages after transcription, with the phase-4 model freed.
+   ``align``: the repository's synthetic aligner from its torch export on
+   the card against the CPU over 6 seeded synthetic files (log-probs
+   within TOL["align_logprobs"], words equal, word-timing scores equal, a
+   dropped ``n_valid`` mask caught), then wav2vec2 at full width and depth
+   (XLSR-53 large, seeded random weights) aligning segments of phase 4's
+   audio in every length bucket, with device ms of an 8-row forward per
+   bucket, and full-width logits (2 layers) card vs CPU.  ``diarize``:
+   ``DiarizationPipeline`` on a 3-speaker conversation of about 2 minutes,
+   the registry's PyanNet and a full-size ResNet34 with seeded random
+   weights, card vs CPU (embeddings within TOL["diarize_emb"], segments
+   and DER equal, K1 launched once a 32-row forward at 80 mels, a swapped
+   BatchNorm caught), then the statistics-embedding and windows
+   fallbacks card vs CPU, with device and host times.  ``cli``:
+   ``cli.main`` on a WAV of that conversation with ``HF_TOKEN`` set and
+   random large-v3: every stage runs (no alignment or diarization failure
+   line), the Markdown has speaker headings, every segment a speaker.
+7. The job server (``serve``): the port's
    native audio libraries are built (libmwx_audio must build, libmwx_ffdec
    must where g++ finds the FFmpeg headers) and each suffix's route
    printed, with the host ms to decode and resample a minute of 44.1 kHz
@@ -107,7 +130,9 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    44.1 kHz stereo FLAC and an m4a (refused with the zh-CN message where
    the FFmpeg shim is missing) go through upload, create and polls, with
    a second pass (``transcribe_clip`` on the server's thread) decoding
-   beside the long job; every job must succeed on ``load_audio``'s audio,
+   beside the long job; the WAV job also asks for word alignment and
+   diarization, and its segments must carry speakers (the diarizer's K1
+   launches are counted apart); every job must succeed on ``load_audio``'s audio,
    a 16-row loop must replay, and the launches of both threads must be
    the ones their calls' stats imply.  One ``serve_request`` line a job,
    then a ``serve`` line (warmup, capture, peak memory with both decoders
@@ -190,7 +215,21 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        # is up to 1.6e-4 from a float64 evaluation).  On an H100 the error
        # was 1.2e-4 over 75 s; the faults the vad phase plants move
        # probabilities by 0.88 and more
-       "vad": (1e-3, 0.0)}
+       "vad": (1e-3, 0.0),
+       # raw log10-mel (not normalised) at diarization's shapes, rows
+       # zero-padded past ragged lengths: both f32, the kernel's folded sums
+       # against the plain version's dense products (tests/test_torch_cuda.py
+       # holds the same limit)
+       "mel_raw": (2e-3, 0.0),
+       # wav2vec2 CTC log-probs, card vs CPU, both f32 with TF32 off: the
+       # repository's tiny aligner, and full width (2 layers, 4 s); the
+       # planted fault (a padded row's n_valid mask dropped) must exceed it
+       "align_logprobs": (1e-3, 0.0),
+       # speaker embeddings (unit vectors) card vs CPU, both f32 with TF32
+       # off: the ResNet34's and the 40-mel statistics embedding's; the
+       # planted fault (one BatchNorm's running mean and variance swapped)
+       # must exceed it
+       "diarize_emb": (1e-3, 0.0)}
 
 SOURCES = {
     "mel": ("manual_whisper_tpu_torch/csrc/mel.cu",
@@ -559,6 +598,47 @@ def mel_row(randn, dev) -> dict:
             once[0], "dense_product_bound_ms": dense[0]})
 
 
+# diarization's K1 shapes: clips in the embedding's length buckets (0.5
+# to 10 s, 32 rows a forward) at 80 mels (the ResNet34) and 40 (the
+# statistics embedding), and the windows flow's 3 s windows (256 rows, 40
+# mels, K1's 32-wide band table)
+DIARIZE_MEL_SHAPES = tuple(
+    [(32, int(sec * 16000), m) for m in (80, 40)
+     for sec in (0.5, 1.0, 2.0, 4.0, 10.0)] + [(256, 48000, 40)])
+
+
+def mel_diarize_rows(randn, dev) -> list:
+    """K1 against its plain version at ``DIARIZE_MEL_SHAPES`` on raw
+    log-mel (TOL["mel_raw"]) of noise rows zero-padded past lengths from a
+    quarter of the row to all of it, as the buckets hold clips; each timed
+    as ``mel_row`` is, with the function's bound (the bytes bind)."""
+    rows = []
+    for b, n, n_mels in DIARIZE_MEL_SHAPES:
+        def make():
+            x = 0.1 * randn((b, n), torch.float32)
+            lengths = torch.linspace(n // 4, n, b, device=dev).long()
+            keep = torch.arange(n, device=dev)[None] < lengths[:, None]
+            return (x * keep).contiguous()
+        audio = make()
+        err = compare("mel_raw", unnormalized_log_mel(audio, n_mels),
+                      unnormalized_log_mel_plain(audio, n_mels))
+        n_frames = n // 160
+        nnz = int(np.count_nonzero(
+            mel_filter_bank(n_mels).astype(np.float32)))
+        sets = [(make(),) for _ in range(copies_for(audio.numel() * 4))]
+        least = bound(b * n_frames * mel_fft_ops(n_mels, nnz),
+                      4.0 * (b * n + b * n_frames * n_mels)
+                      + 4.0 * (400 + 2 * 200 + nnz + 4 * n_mels), F32_FLOPS)
+        rows.append(dict(
+            shape=f"B={b} T={n} n_mels={n_mels} raw, zero-padded tails",
+            max_abs_err=err, tol="mel_raw",
+            ms=graph_ms(lambda x: unnormalized_log_mel(x, n_mels), sets),
+            plain_ms=graph_ms(
+                lambda x: unnormalized_log_mel_plain(x, n_mels), sets),
+            library_ms=None, bound=least))
+    return rows
+
+
 def flash_row(randn, b, h, tt, dh):
     """K2 vs its plain version at [b, h, tt, dh], then timed over copies
     that exceed L2; the yardstick is SDPA.  Bound: q, k, v read and the
@@ -687,7 +767,8 @@ def int8_matmul_rows(randn, main: dict):
 
 def _row_line(phase: str, name: str, row: dict) -> str:
     line = {"phase": phase, "name": name, "shape": row["shape"],
-            "max_abs_err": row["max_abs_err"], "tol": TOL[name],
+            "max_abs_err": row["max_abs_err"],
+            "tol": TOL[row.get("tol", name)],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "library_ms": row["library_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1]}
@@ -717,7 +798,7 @@ def phase_rows(dev, main: dict, names) -> None:
     b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
     for name in names:
         if name == "mel":
-            rows = [mel_row(randn, dev)]
+            rows = [mel_row(randn, dev)] + mel_diarize_rows(randn, dev)
         elif name == "int8_matmul":
             row, extra = int8_matmul_rows(randn, main)
             rows = [row] + extra
@@ -767,6 +848,7 @@ def phase_kernels(dev, main: dict) -> dict:
         randn, dev, 16, h, dh, ta))]
     extra += [("decode_cross_attention_int8", row) for row in k5_extra]
     extra += [("int8_matmul", row) for row in k6_extra]
+    extra += [("mel", row) for row in mel_diarize_rows(randn, dev)]
     for name, row in extra:
         log(_row_line("kernel_extra", name, row))
     for name, row in rows.items():
@@ -1470,6 +1552,433 @@ def phase_timestamps(model, compute_type: str) -> None:
 # Phase 5: where the time goes (torch.profiler over short windows)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The align and diarize phases, and the full CLI
+# ---------------------------------------------------------------------------
+
+def _utterance_segments(utts, words_t):
+    """One segment an utterance of ``render_file_with_times``: its words'
+    text, from 0.15 s before the first word to 0.15 s after the last."""
+    segments, i = [], 0
+    for utt in utts:
+        times = words_t[i: i + len(utt)]
+        i += len(utt)
+        segments.append({"text": " " + " ".join(utt),
+                         "start": round(max(0.0, times[0][1] - 0.15), 3),
+                         "end": round(times[-1][2] + 0.15, 3)})
+    return segments
+
+
+# the full-width aligner's own vocabulary: blank, word separator, 30 chars
+W2V_VOCAB = {ch: i for i, ch in enumerate(
+    ["<pad>", "|"] + list("abcdefghijklmnopqrstuvwxyz'-.,"))}
+
+
+def phase_align(dev) -> None:
+    """(a) The repository's synthetic aligner, from its torch export, on
+    the card and on the CPU over 6 seeded ``render_file_with_times`` files:
+    the log-probs of every padded batch within TOL["align_logprobs"] on
+    the valid frames, ``align``'s words equal (text, start, end, score),
+    ``word_timing_scores`` against the rendered times equal; a planted
+    fault (a padded row's ``n_valid`` mask dropped) must exceed the
+    tolerance.  (b) ``Wav2Vec2Config()`` at full width and depth with
+    seeded random weights: ``align`` over segments cut from phase 4's 75 s
+    audio so that every length bucket (2, 4, 8, 15, 30 s) runs, text seeded
+    over the model's vocabulary at a feasible length; ``align_s``, the
+    device ms of one 8-row forward per bucket (CUDA events), peak memory.
+    (c) Full-width log-probs with 2 layers, 1 row of 4 s, card vs CPU."""
+    from manual_whisper_tpu_torch.convert import from_jax_wav2vec2
+    from manual_whisper_tpu_torch.eval.metrics import word_timing_scores
+    from manual_whisper_tpu_torch.eval.synth import (render_file_with_times,
+                                                     sample_text)
+    from manual_whisper_tpu_torch.models import align as align_mod
+    from manual_whisper_tpu_torch.models.wav2vec2 import (
+        Wav2Vec2Config, init_wav2vec2_params)
+    os.environ["MWX_ALLOW_SYNTH_WEIGHTS"] = "1"
+    cpu = torch.device("cpu")
+    # (a)
+    gpu_m = align_mod.load_align_model("en", device=dev)
+    cpu_m = align_mod.load_align_model("en", device=cpu)
+    rng = np.random.default_rng(0)
+    lp_err, words_equal, timing, n_words = 0.0, True, [], 0
+    fault_err = None
+    for seed in range(6):
+        utts = [sample_text(rng, 3, 6) for _ in range(3)]
+        audio, words_t = render_file_with_times(utts, seed=seed)
+        segments = _utterance_segments(utts, words_t)
+        prep, _, groups = align_mod._prepare(segments, gpu_m, audio)
+        for idxs in groups.values():
+            batch = np.stack([prep[i]["row"] for i in idxs])
+            n_valid = np.array([prep[i]["n_samples"] for i in idxs],
+                               np.int32)
+            card = align_mod.forward_batch(gpu_m, batch, n_valid).cpu()
+            ref = align_mod.forward_batch(cpu_m, batch, n_valid)
+            for r, i in enumerate(idxs):
+                nf = prep[i]["n_frames"]
+                lp_err = max(lp_err, max_err(card[r, :nf], ref[r, :nf]))
+            if fault_err is None:     # the mask dropped on a padded row
+                with torch.inference_mode():
+                    bad = gpu_m.model(torch.from_numpy(batch).to(dev)).cpu()
+                nf = prep[idxs[0]]["n_frames"]
+                fault_err = max_err(bad[0, :nf], ref[0, :nf])
+        got = align_mod.align(segments, gpu_m, audio)
+        ref_out = align_mod.align(segments, cpu_m, audio)
+        words_equal &= got == ref_out
+        n_words += len(got["word_segments"])
+        timing.append((word_timing_scores(words_t, got["word_segments"]),
+                       word_timing_scores(words_t,
+                                          ref_out["word_segments"])))
+    del gpu_m, cpu_m
+
+    # (b) full width and depth, seeded random weights
+    cfg = Wav2Vec2Config(vocab_size=len(W2V_VOCAB))
+    t0 = time.perf_counter()
+    tree = init_wav2vec2_params(torch.Generator().manual_seed(0), cfg)
+    model = align_mod.AlignModel(tree, cfg=cfg, vocab=W2V_VOCAB, blank_id=0,
+                                 language="en", device=dev)
+    del tree
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    speech = synthetic_speech(75.0, seed=0)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    segments, cursor = [], 0.0
+    for sec in (1.5, 1.9, 3.5, 3.9, 7.0, 7.8, 12.0, 14.5, 25.0, 29.0, 40.0):
+        start = cursor if cursor + sec <= 75.0 else 0.0
+        n_chars = int(4 * sec)
+        words = "".join(rng.choice(letters, n_chars))
+        text = " ".join(words[i: i + 5] for i in range(0, n_chars, 5))
+        segments.append({"text": text, "start": round(start, 3),
+                         "end": round(start + sec, 3)})
+        cursor = start + sec
+    buckets = collections.Counter()
+    real_forward = align_mod.forward_batch
+
+    def counted(m, batch, n_valid):
+        buckets[batch.shape[1] // 16000] += 1
+        return real_forward(m, batch, n_valid)
+    align_mod.forward_batch = counted
+    try:
+        out = align_mod.align(segments, model, speech)    # cuDNN set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        buckets.clear()
+        t0 = time.perf_counter()
+        out = align_mod.align(segments, model, speech)
+        torch.cuda.synchronize()
+        align_s = time.perf_counter() - t0
+    finally:
+        align_mod.forward_batch = real_forward
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if sorted(buckets) != [2, 4, 8, 15, 30]:
+        raise AssertionError(f"align: length buckets run {dict(buckets)}")
+    for seg, src in zip(out["segments"], segments):
+        if not seg["words"]:
+            raise AssertionError(f"align: no words in {src}")
+        for w in seg["words"]:
+            if not (src["start"] - 1e-6 <= w["start"] <= w["end"]
+                    <= src["end"] + 0.03) or not math.isfinite(w["score"]):
+                raise AssertionError(f"align: word {w} outside {src}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    forward_ms = {}
+    with torch.inference_mode():
+        for sec in (2, 4, 8, 15, 30):
+            x = torch.randn(8, sec * 16000, generator=gen, device=dev)
+            nv = torch.full((8,), sec * 16000, device=dev)
+            model.model(x, nv)
+            forward_ms[f"{sec}s"] = _event_ms(lambda: model.model(x, nv), 3)
+    del model, x
+    torch.cuda.empty_cache()
+
+    # (c) full width, 2 layers, one 4 s row: card vs CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    tree2 = init_wav2vec2_params(torch.Generator().manual_seed(1), cfg2)
+    clip = speech[16000: 5 * 16000]
+    row = torch.from_numpy(((clip - clip.mean()) / clip.std())[None])
+    with torch.inference_mode():
+        full_card = from_jax_wav2vec2(tree2, cfg2, dev)(row.to(dev)).cpu()
+        full_cpu = from_jax_wav2vec2(tree2, cfg2, cpu)(row)
+    full_err = max_err(full_card, full_cpu)
+
+    log(json.dumps({
+        "phase": "align",
+        "synthetic_aligner": {
+            "files": 6, "words": n_words, "logprobs_max_abs_err": lp_err,
+            "tol": TOL["align_logprobs"], "words_equal": words_equal,
+            "word_timing_card": [t[0] for t in timing],
+            "word_timing_cpu": [t[1] for t in timing],
+            "fault_mask_dropped_err": fault_err},
+        "full_width": {
+            "config": dataclasses.asdict(cfg), "load_s": load_s,
+            "segments": len(segments), "words": len(out["word_segments"]),
+            "forwards_by_bucket_s": {str(k): v
+                                     for k, v in sorted(buckets.items())},
+            "align_s": align_s, "peak_mem_gib": peak_gib,
+            "forward_8_rows_device_ms": forward_ms,
+            "logits_2_layers_4s_max_abs_err": full_err,
+            "logits_std": float(full_cpu.std())}}))
+    if not lp_err <= TOL["align_logprobs"][0]:
+        raise AssertionError(f"align: log-probs card vs CPU {lp_err}")
+    compare("align_logprobs", full_card, full_cpu)
+    if not words_equal or n_words == 0:
+        raise AssertionError("align: the card's words differ from the CPU's")
+    if any(a != b for a, b in timing):
+        raise AssertionError("align: word timing scores differ")
+    if not fault_err > TOL["align_logprobs"][0]:
+        raise AssertionError(f"align: the tolerance does not catch the "
+                             f"dropped mask ({fault_err})")
+
+
+CONVERSATION = dict(n_turns=48, seed=5, n_speakers=3, overlap_prob=0.1)
+
+
+def _swap_bn_stats(model):
+    """A copy of the ResNet34 with one BatchNorm's running mean and
+    running variance swapped."""
+    bad = copy.deepcopy(model)
+    bn = bad.stages[1][0].bn1
+    with torch.no_grad():
+        mean = bn.running_mean.clone()
+        bn.running_mean.copy_(bn.running_var)
+        bn.running_var.copy_(mean.abs())
+    return bad
+
+
+def _diarize_pair(dev, **kw):
+    from manual_whisper_tpu_torch.models.diarize import DiarizationPipeline
+    return (DiarizationPipeline(device=dev, **kw),
+            DiarizationPipeline(device="cpu", **kw))
+
+
+def _embed_calls(pipe):
+    """Count ``pipe``'s embedding forwards (rows, samples) while it runs."""
+    calls = []
+    real = pipe.embed_rows
+
+    def counted(rows, frames):
+        calls.append(rows.shape)
+        return real(rows, frames)
+    pipe.embed_rows = counted
+    return calls
+
+
+def _entry_embeddings(state):
+    return torch.from_numpy(np.stack([e[2] for e in state["entries"]]))
+
+
+def phase_diarize(dev) -> None:
+    """``DiarizationPipeline`` on the card and on the CPU over a seeded
+    ``render_conversation`` (3 speakers, about 2 minutes), the
+    segmentation PyanNet from the registry's ``pytorch_model.bin`` and a
+    full-size ResNet34 with seeded random weights (the repository commits
+    no torch export of its ResNet34): the entries' embeddings within
+    TOL["diarize_emb"], segments equal, DER against the reference turns
+    printed for both and equal.  The ResNet path must have run: its
+    weights loaded and K1 launched once a 32-row forward, at 80 mels.  A
+    planted fault (one BatchNorm's running mean and variance swapped) must
+    exceed the tolerance.  Then the two fallbacks, each card vs CPU with
+    K1 counted: no embedding weights (40-mel statistics of the 32-row clip
+    buckets), and no segmentation weights (the windows flow: 256-row
+    forwards of 3 s windows).  Times: ``diarize_s``, device ms of a
+    16-window segmentation batch and of one 32-row ResNet forward (K1 and
+    the network) per bucket, host ms of the clustering."""
+    import tempfile
+    from manual_whisper_tpu_torch.eval.metrics import der
+    from manual_whisper_tpu_torch.eval.synth import (render_conversation,
+                                                     turns_to_rttm)
+    from manual_whisper_tpu_torch.models import diarize as dmod
+    from manual_whisper_tpu_torch.models.vad import PYANNET_CHUNK
+    os.environ["MWX_ALLOW_SYNTH_WEIGHTS"] = "1"
+    audio, turns = render_conversation(**CONVERSATION)
+    ref_turns = turns_to_rttm(turns)
+    emb_tree = dmod.init_embedding_params(torch.Generator().manual_seed(3),
+                                          dmod.EmbeddingConfig())
+    gpu, cpu = _diarize_pair(dev, embedding_params=emb_tree)
+    if gpu.vad.model is None or gpu.vad.model.sinc.device != gpu.device \
+            or gpu.embedding is None or gpu.embedding_cfg.n_mels != 80 \
+            or next(gpu.embedding.parameters()).device != gpu.device:
+        raise AssertionError("diarize: PyanNet and the ResNet34 are not "
+                             "both on the card")
+    gpu(audio)                                   # cuDNN set-up
+    calls = _embed_calls(gpu)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    segs = gpu(audio)
+    torch.cuda.synchronize()
+    diarize_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if not calls or launches != {"mel": len(calls)} \
+            or any(c[0] != 32 for c in calls):
+        raise AssertionError(f"diarize: K1 launches {launches} for the "
+                             f"ResNet's forwards {calls}")
+    st_gpu = gpu._segment_and_embed(audio)
+    st_cpu = cpu._segment_and_embed(audio)
+    if [e[:2] for e in st_gpu["entries"]] != \
+            [e[:2] for e in st_cpu["entries"]]:
+        raise AssertionError("diarize: the card's active local speakers "
+                             "differ from the CPU's")
+    emb_err = max_err(_entry_embeddings(st_gpu), _entry_embeddings(st_cpu))
+    cpu_segs = cpu._cluster_and_stitch(st_cpu, len(audio), None, None)
+    host_ms = _best_ms(lambda: gpu._cluster_and_stitch(st_gpu, len(audio),
+                                                       None, None))
+    good = gpu.embedding
+    gpu.embedding = _swap_bn_stats(good)
+    fault_err = max_err(_entry_embeddings(gpu._segment_and_embed(audio)),
+                        _entry_embeddings(st_cpu))
+    gpu.embedding = good
+
+    # device times: one segmentation batch, one ResNet forward per bucket
+    gen = torch.Generator(device=dev).manual_seed(4)
+    window = int(gpu.vad.cfg.window_sec * 16000)
+    with torch.inference_mode():
+        x = 0.1 * torch.randn(PYANNET_CHUNK, window, generator=gen,
+                              device=dev)
+        seg_ms = _event_ms(lambda: gpu.vad.model(x), 5)
+        resnet_ms = {}
+        for sec in gpu._EMBED_LEN_BUCKETS_SEC:
+            x = 0.1 * torch.randn(32, int(sec * 16000), generator=gen,
+                                  device=dev)
+            gpu.embedding(unnormalized_log_mel(x, 80))
+            resnet_ms[f"{sec}s"] = _event_ms(
+                lambda: gpu.embedding(unnormalized_log_mel(x, 80)), 3)
+    del cpu
+
+    # the fallbacks: no embedding weights (the registry has no ResNet
+    # export), then no segmentation weights either (an empty registry)
+    fallbacks = {}
+    with tempfile.TemporaryDirectory() as empty:
+        for flow in ("stats_embeddings", "windows"):
+            saved = os.environ.get("MWX_WEIGHTS_DIR")
+            if flow == "windows":
+                os.environ["MWX_WEIGHTS_DIR"] = empty
+            try:
+                f_gpu, f_cpu = _diarize_pair(dev)
+            finally:
+                if saved is None:
+                    os.environ.pop("MWX_WEIGHTS_DIR", None)
+                else:
+                    os.environ["MWX_WEIGHTS_DIR"] = saved
+            if f_gpu.embedding is not None or \
+                    (f_gpu.vad.model is None) != (flow == "windows"):
+                raise AssertionError(f"diarize {flow}: the pipeline loaded "
+                                     "other weights than expected")
+            f_calls = _embed_calls(f_gpu)
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            f_segs = f_gpu(audio)
+            torch.cuda.synchronize()
+            f_s = time.perf_counter() - t0
+            f_launches = dict(_build.launches)
+            rows = 256 if flow == "windows" else 32
+            if not f_calls or f_launches != {"mel": len(f_calls)} \
+                    or any(c[0] != rows for c in f_calls):
+                raise AssertionError(f"diarize {flow}: K1 launches "
+                                     f"{f_launches} for {f_calls}")
+            f_ref = f_cpu(audio)
+            f_err = None if flow == "windows" else max_err(
+                _entry_embeddings(f_gpu._segment_and_embed(audio)),
+                _entry_embeddings(f_cpu._segment_and_embed(audio)))
+            fallbacks[flow] = {
+                "segments": len(f_segs), "equal": f_segs == f_ref,
+                "speakers": len({s["speaker"] for s in f_segs}),
+                "der_card": der(ref_turns, f_segs),
+                "der_cpu": der(ref_turns, f_ref), "diarize_s": f_s,
+                "k1_launches": f_launches.get("mel", 0),
+                "forward_shapes": sorted({tuple(c) for c in f_calls}),
+                "embedding_max_abs_err": f_err}
+
+    line = {
+        "phase": "diarize", "audio_s": len(audio) / 16000.0,
+        "speakers_ref": len({t["speaker"] for t in ref_turns}),
+        "resnet34": "full size, seeded random weights",
+        "entries": len(st_gpu["entries"]), "segments": len(segs),
+        "segments_equal": segs == cpu_segs,
+        "speakers": len({s["speaker"] for s in segs}),
+        "der_card": der(ref_turns, segs), "der_cpu": der(ref_turns, cpu_segs),
+        "embedding_max_abs_err": emb_err, "tol": TOL["diarize_emb"],
+        "fault_bn_stats_swapped_err": fault_err,
+        "k1_launches": launches.get("mel", 0),
+        "forward_shapes": sorted({tuple(c) for c in calls}),
+        "diarize_s": diarize_s,
+        "segmentation_16_windows_device_ms": seg_ms,
+        "resnet_32_rows_device_ms": resnet_ms,
+        "cluster_host_ms": host_ms, "fallbacks": fallbacks}
+    log(json.dumps(line))
+    compare("diarize_emb", _entry_embeddings(st_gpu),
+            _entry_embeddings(st_cpu))
+    if segs != cpu_segs or not segs:
+        raise AssertionError(f"diarize: segments differ or are empty: "
+                             f"{segs[:4]} vs {cpu_segs[:4]}")
+    if not fault_err > TOL["diarize_emb"][0]:
+        raise AssertionError(f"diarize: the tolerance does not catch the "
+                             f"swapped BatchNorm statistics ({fault_err})")
+    for flow, f in fallbacks.items():
+        if not f["equal"] or not f["segments"] or f["der_card"] != \
+                f["der_cpu"]:
+            raise AssertionError(f"diarize {flow}: card and CPU differ: {f}")
+        if f["embedding_max_abs_err"] is not None:
+            if not f["embedding_max_abs_err"] <= TOL["diarize_emb"][0]:
+                raise AssertionError(f"diarize {flow}: embeddings {f}")
+
+
+def phase_cli(workdir: str) -> None:
+    """``cli.main`` on a WAV of the diarize phase's conversation, on the
+    card, with ``HF_TOKEN`` set and ``MWX_ALLOW_RANDOM_WEIGHTS=1`` (random
+    large-v3 in bf16; the zh default aligner is not in the repository, so
+    the tiny random aligner; the registry's PyanNet and no ResNet export,
+    so the statistics embeddings): every stage must run (no "对齐失败" or
+    "说话人分离失败" line), the Markdown must have ``### SPEAKER_``
+    headings, and every segment of the JSON must carry ``speaker``
+    (``words`` are counted: the random aligner's vocabulary may hold none of
+    the random model's characters)."""
+    import contextlib
+    import io
+    from manual_whisper_tpu_torch import cli
+    from manual_whisper_tpu_torch import config as port_config
+    from manual_whisper_tpu_torch.eval.synth import render_conversation
+    audio, _ = render_conversation(**CONVERSATION)
+    path = os.path.join(workdir, "meeting.wav")
+    with open(path, "wb") as f:
+        f.write(_wav_bytes(audio, 16000))
+    os.environ.update({"HF_TOKEN": "hf_smoke", "MWX_ALLOW_RANDOM_WEIGHTS": "1",
+                       "WHISPER_MODEL": "large-v3"})
+    port_config.clear_env_cache()
+    cwd = os.getcwd()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(workdir)
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main([path])
+    finally:
+        os.chdir(cwd)
+        os.environ.pop("HF_TOKEN", None)
+    cli_s = time.perf_counter() - t0
+    out = printed.getvalue()
+    for ln in out.splitlines():
+        log(f"  cli: {ln}")
+    md = open(os.path.join(workdir, "meeting_transcript.md"),
+              encoding="utf-8").read()
+    with open(os.path.join(workdir, "meeting_transcript.json"),
+              encoding="utf-8") as f:
+        result = json.load(f)
+    segs = result["segments"]
+    line = {"phase": "cli", "audio_s": len(audio) / 16000.0, "rc": rc,
+            "cli_s": cli_s, "segments": len(segs),
+            "speakers": sorted({s.get("speaker") for s in segs
+                                if s.get("speaker")}),
+            "words": sum(len(s.get("words", [])) for s in segs),
+            "speaker_headings": md.count("### SPEAKER_")}
+    log(json.dumps(line))
+    if rc != 0 or "对齐失败" in out or "说话人分离失败" in out \
+            or "👥 识别说话人..." not in out or "   对齐耗时" not in out:
+        raise AssertionError("cli: a stage did not run")
+    if not segs or not all("speaker" in s for s in segs) \
+            or "### SPEAKER_" not in md:
+        raise AssertionError("cli: segments without speakers, or no "
+                             "speaker headings")
+
+
 def _profiled(fn, reps: int) -> dict:
     """Time ``reps`` calls of fn() on the host clock (ending in a
     synchronise), then run them again under torch.profiler and sum the
@@ -1858,16 +2367,33 @@ def phase_serve(workdir: str, native_line: dict) -> None:
         clip_s.append(time.perf_counter() - t_start)
         return out
     backend.transcribe_clip = timed_clip
-    planted = set()
+    planted, diarized = set(), []
     real_job = backend.transcribe
 
     def job_transcribe(audio_path, language, progress, options=None):
-        out = real_job(audio_path, language, progress, options)
         if os.path.basename(audio_path) in planted:
+            # the WAV job asks for word alignment and diarization too
+            out = real_job(audio_path, language, progress,
+                           dict(options or {}, align=True, diarization=True))
+            diarized.append([dict(g) for g in out["segments"]])
             out["segments"].append({"text": "请使用简体中文。", "start": 2.0,
                                     "end": 14.0})
-        return out
+            return out
+        return real_job(audio_path, language, progress, options)
     backend.transcribe = job_transcribe
+    # the diarizer's K1 launches, apart from the decodes' that the calls'
+    # stats imply
+    from manual_whisper_tpu_torch.models import diarize as diarize_mod
+    diarize_launches = collections.Counter()
+    real_diarize = diarize_mod.DiarizationPipeline.__call__
+
+    def counted_diarize(self, *a, **k):
+        with _build.recording() as record:
+            out = real_diarize(self, *a, **k)
+        _build.add(record)
+        diarize_launches.update(record)
+        return out
+    diarize_mod.DiarizationPipeline.__call__ = counted_diarize
     # the route of each decode the server makes, as load_audio took it
     routes = {}
     real_load = audio_pkg.load_audio
@@ -1978,6 +2504,12 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     model.transcribe = real_transcribe
     server_mod.post_process_segments = real_post
     audio_pkg.load_audio = real_load
+    diarize_mod.DiarizationPipeline.__call__ = real_diarize
+    if len(diarized) != 1 or not diarized[0] \
+            or not all("speaker" in g for g in diarized[0]) \
+            or not diarize_launches["mel"]:
+        raise AssertionError(f"serve: the WAV job's diarization: "
+                             f"{diarized!r:.300} {dict(diarize_launches)}")
 
     clip_calls = [c for c in calls if c["kind"] == "clip"]
     job_calls = [c for c in calls if c["kind"] == "job"]
@@ -2012,6 +2544,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     expected = collections.Counter()
     for c in calls:
         expected.update(expected_launches(model.cfg, c["stats"], False))
+    expected.update(diarize_launches)
     new_loops = [lp for dec in decoders for key, lp in dec._loops.items()
                  if key not in loops_before.get(id(dec), ())]
     warm_steps = sum(sum(lp.chunk_lengths()) for lp in new_loops)
@@ -2090,6 +2623,11 @@ def phase_serve(workdir: str, native_line: dict) -> None:
                         "thread": clip_call["thread"],
                         "job_thread": long_call["thread"],
                         "recovered_segments": sp.get("recovered_segments")},
+        "wav16_align_diarize": {
+            "segments": len(diarized[0]),
+            "speakers": sorted({g["speaker"] for g in diarized[0]}),
+            "words": sum(len(g.get("words", [])) for g in diarized[0]),
+            "diarize_k1_launches": diarize_launches["mel"]},
         "launches": launches, "new_loops_during_phase": [
             (lp.state.tokens.shape[0], sum(lp.chunk_lengths()))
             for lp in new_loops],
@@ -2165,6 +2703,10 @@ def main() -> int:
                          "decode_cross_attention, "
                          "decode_cross_attention_int8, int8_matmul), then "
                          "stop without a result line")
+    ap.add_argument("--phases", default="", metavar="PHASE[,PHASE]",
+                    help="only build the kernels and run these phases of "
+                         "the speech stages (align, diarize, cli), then "
+                         "stop without a result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2186,6 +2728,21 @@ def main() -> int:
                                        "setmaxnreg")):
                 log(f"  ptxas {name}: {line.strip()}")
 
+    stages = {"align": lambda: phase_align(dev),
+              "diarize": lambda: phase_diarize(dev),
+              "cli": lambda: phase_cli(work)}
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
+        if args.phases:
+            for name in args.phases.split(","):
+                if name not in stages:
+                    raise SystemExit(f"--phases: no phase {name!r}")
+                timed(name, stages[name])
+            return 0
+        return run_all(args, dev, card, stages, work)
+
+
+def run_all(args, dev, card, stages, work) -> int:
     model, load_s = load_main_model("bfloat16", False)
     main_shapes = main_path_shapes(model)
     log(json.dumps({"phase": "main_path_shapes", **main_shapes}))
@@ -2214,12 +2771,13 @@ def main() -> int:
         timed(f"beam {compute_type}", phase_beam, model, compute_type)
         timed(f"timestamps {compute_type}", phase_timestamps, model,
               compute_type)
-    del model                          # the server loads its own
+    del model                          # the stages load their own
     torch.cuda.empty_cache()
-    import tempfile
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
-        native_line = timed("serve native", phase_serve_native, work)
-        timed("serve", phase_serve, work, native_line)
+    for name, run in stages.items():
+        timed(name, run)
+        torch.cuda.empty_cache()
+    native_line = timed("serve native", phase_serve_native, work)
+    timed("serve", phase_serve, work, native_line)
 
     kernels = []
     for name, row in rows.items():
