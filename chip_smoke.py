@@ -132,7 +132,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    a second pass (``transcribe_clip`` on the server's thread) decoding
    beside the long job; the WAV job also asks for word alignment and
    diarization, and its segments must carry speakers (the diarizer's K1
-   launches are counted apart); every job must succeed on ``load_audio``'s audio,
+   launches are counted apart); every job must succeed on
+   ``load_audio``'s audio,
    a 16-row loop must replay, and the launches of both threads must be
    the ones their calls' stats imply.  One ``serve_request`` line a job,
    then a ``serve`` line (warmup, capture, peak memory with both decoders

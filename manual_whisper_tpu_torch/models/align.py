@@ -63,8 +63,7 @@ class AlignModel:
     """An aligner on one device (CUDA unless the caller asks for the CPU).
 
     ``params`` is the JAX package's wav2vec2 tree (numpy leaves), turned
-    into ``model``, a ``Wav2Vec2`` on ``device``, once at construction;
-    a ``Wav2Vec2`` is taken as it is and moved there."""
+    into ``model``, a ``Wav2Vec2`` on ``device``, once at construction."""
     params: dataclasses.InitVar[Any]
     cfg: Wav2Vec2Config
     vocab: Dict[str, int]        # char -> CTC label id
@@ -76,10 +75,7 @@ class AlignModel:
     def __post_init__(self, params):
         from ..convert import from_jax_wav2vec2
         self.device = resolve_device(self.device)
-        if isinstance(params, Wav2Vec2):
-            self.model = params.to(self.device)
-        else:
-            self.model = from_jax_wav2vec2(params, self.cfg, self.device)
+        self.model = from_jax_wav2vec2(params, self.cfg, self.device)
 
     @property
     def frame_duration(self) -> float:

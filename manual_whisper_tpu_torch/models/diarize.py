@@ -636,9 +636,6 @@ class DiarizationPipeline:
                 return int(sec * SAMPLE_RATE)
         return int(self._EMBED_LEN_BUCKETS_SEC[-1] * SAMPLE_RATE)
 
-    def _embed(self, clip: np.ndarray) -> np.ndarray:
-        return self._embed_clips([clip])[0]
-
     def embed_rows(self, rows: np.ndarray, frames: np.ndarray
                    ) -> torch.Tensor:
         """One padded embedding forward on the pipeline's device: ``[R, L]``

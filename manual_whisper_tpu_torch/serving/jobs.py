@@ -270,8 +270,6 @@ class JobStore:
                 self.release_if_done(job)
 
 
-
-
 def _serving_language(language: str) -> Optional[str]:
     lang = None if language in ("", "auto") else language
     return "zh" if lang == "zh+en" else lang
@@ -317,7 +315,7 @@ class PipelineBackend:
                 "vad_onset": config.get_float("VAD_ONSET", 0.50),
                 "vad_offset": config.get_float("VAD_OFFSET", 0.36),
             })
-        # the aligner and the diarizer run beside the pipeline
+        # the aligner and the diarizer run on the pipeline's device
         self.device = self.model.device
 
     def warmup(self) -> None:

@@ -72,7 +72,7 @@ def embedder():
 def _port_embed(tree, cfg, feats, dtype=torch.float32):
     model = from_jax_resnet(tree, cfg, CPU).to(dtype)
     with torch.inference_mode():
-        return model(torch.from_numpy(feats).to(dtype)).numpy()
+        return model(torch.tensor(feats, dtype=dtype)).numpy()
 
 
 @pytest.mark.parametrize("frames", [48, 63])
