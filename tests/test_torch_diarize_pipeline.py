@@ -6,11 +6,11 @@ both pipelines with the same weights (the JAX trees of the repository's
 PyanNet and ResNet34, numpy leaves) and the defaults as they are
 (threshold 0.8, trust floor 0.3, min cluster 2, onset 0.5 / offset 0.35,
 argmax powerset decode).  Held equal, segment for segment (start, end,
-speaker): the segmentation flow with the ResNet34 and with the 40-mel
-statistics embedding, and the windows flow (no segmentation weights, the
-energy VAD's regions) with each embedding; then DER against the
-conversation's reference turns, and ``assign_word_speakers`` on the
-segments.
+speaker): the segmentation flow with the repository's ResNet34 and with
+the 40-mel statistics embedding, and the windows flow (no segmentation
+weights, the energy VAD's regions) with a seeded ``tiny_test`` ResNet and
+with the statistics; then DER against the conversation's reference turns,
+and ``assign_word_speakers`` on the segments.
 """
 
 from pathlib import Path
@@ -55,23 +55,37 @@ def conversation():
     return audio, turns_to_rttm(turns)
 
 
-def _pipelines(seg, emb):
+def _pipelines(seg, emb, tiny=False):
     """The JAX and the port pipeline over the same trees (None: the
-    registry's, which the tests pin to an empty directory)."""
+    registry's, which the tests pin to an empty directory); ``tiny``: the
+    embedding tree is a ``tiny_test`` ResNet's."""
+    jcfg = jd.EmbeddingConfig.tiny_test() if tiny else None
+    tcfg = td.EmbeddingConfig.tiny_test() if tiny else None
     jp = jd.DiarizationPipeline(segmentation_params=seg,
-                                embedding_params=emb)
+                                embedding_params=emb, embedding_cfg=jcfg)
     tp = td.DiarizationPipeline(device="cpu", segmentation_params=seg,
-                                embedding_params=emb)
+                                embedding_params=emb, embedding_cfg=tcfg)
     return jp, tp
 
 
-@pytest.mark.parametrize("flow", ["segmentation", "windows"])
-@pytest.mark.parametrize("embedding", ["resnet34", "stats"])
+def _tiny_resnet():
+    """A seeded ``tiny_test`` ResNet tree: the windows flow embeds 256-row
+    forwards of 3 s windows, which the full ResNet34 would spend minutes of
+    CPU on; the full network's parity is held in test_torch_diarize.py."""
+    return jax.tree.map(np.asarray, jd.init_embedding_params(
+        jax.random.PRNGKey(7), jd.EmbeddingConfig.tiny_test()))
+
+
+@pytest.mark.parametrize("flow,embedding", [
+    ("segmentation", "resnet34"), ("segmentation", "stats"),
+    ("windows", "resnet_tiny"), ("windows", "stats")])
 def test_pipeline_segments_equal(flow, embedding, segmentation, embedder,
                                  conversation):
     audio, ref_turns = conversation
+    emb = {"resnet34": embedder, "resnet_tiny": _tiny_resnet(),
+           "stats": None}[embedding]
     jp, tp = _pipelines(segmentation if flow == "segmentation" else None,
-                        embedder if embedding == "resnet34" else None)
+                        emb, tiny=embedding == "resnet_tiny")
     assert (tp.vad.model is None) == (flow == "windows")
     assert (tp.embedding is None) == (embedding == "stats")
     ref = jp(audio)
