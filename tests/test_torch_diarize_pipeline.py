@@ -2,15 +2,14 @@
 flows, on the CPU.
 
 Seeded ``render_conversation`` audio (3 speakers, about 25 s) goes through
-both pipelines with the same weights (the JAX trees of the repository's
-PyanNet and ResNet34, numpy leaves) and the defaults as they are
-(threshold 0.8, trust floor 0.3, min cluster 2, onset 0.5 / offset 0.35,
-argmax powerset decode).  Held equal, segment for segment (start, end,
-speaker): the segmentation flow with the repository's ResNet34 and with
-the 40-mel statistics embedding, and the windows flow (no segmentation
-weights, the energy VAD's regions) with a seeded ``tiny_test`` ResNet and
-with the statistics; then DER against the conversation's reference turns,
-and ``assign_word_speakers`` on the segments.
+both pipelines with the same weights (JAX trees, numpy leaves: the
+repository's PyanNet, a seeded ``tiny_test`` ResNet) and the defaults as
+they are (threshold 0.8, trust floor 0.3, min cluster 2, onset 0.5 /
+offset 0.35, argmax powerset decode).  Held equal, segment for segment (start, end,
+speaker): the segmentation flow and the windows flow (no segmentation
+weights, the energy VAD's regions), each with the ResNet and with the
+40-mel statistics embedding; then DER against the conversation's
+reference turns, and ``assign_word_speakers`` on the segments.
 """
 
 from pathlib import Path
@@ -43,11 +42,6 @@ def segmentation():
 
 
 @pytest.fixture(scope="module")
-def embedder():
-    return _tree("wespeaker-voxceleb-resnet34-LM")
-
-
-@pytest.fixture(scope="module")
 def conversation():
     audio, turns = render_conversation(n_turns=10, seed=11, n_speakers=3,
                                        overlap_prob=0.2)
@@ -69,21 +63,20 @@ def _pipelines(seg, emb, tiny=False):
 
 
 def _tiny_resnet():
-    """A seeded ``tiny_test`` ResNet tree: the windows flow embeds 256-row
-    forwards of 3 s windows, which the full ResNet34 would spend minutes of
-    CPU on; the full network's parity is held in test_torch_diarize.py."""
+    """A seeded ``tiny_test`` ResNet tree.  The flows embed 32-row forwards of clips up to 10 s and 256-row forwards of
+    3 s windows, which the full ResNet34 spends minutes of CPU on under the
+    suite's parallel workers; the full network (the repository's weights)
+    is held to JAX on short clips in test_torch_diarize.py."""
     return jax.tree.map(np.asarray, jd.init_embedding_params(
         jax.random.PRNGKey(7), jd.EmbeddingConfig.tiny_test()))
 
 
-@pytest.mark.parametrize("flow,embedding", [
-    ("segmentation", "resnet34"), ("segmentation", "stats"),
-    ("windows", "resnet_tiny"), ("windows", "stats")])
-def test_pipeline_segments_equal(flow, embedding, segmentation, embedder,
+@pytest.mark.parametrize("flow", ["segmentation", "windows"])
+@pytest.mark.parametrize("embedding", ["resnet_tiny", "stats"])
+def test_pipeline_segments_equal(flow, embedding, segmentation,
                                  conversation):
     audio, ref_turns = conversation
-    emb = {"resnet34": embedder, "resnet_tiny": _tiny_resnet(),
-           "stats": None}[embedding]
+    emb = _tiny_resnet() if embedding == "resnet_tiny" else None
     jp, tp = _pipelines(segmentation if flow == "segmentation" else None,
                         emb, tiny=embedding == "resnet_tiny")
     assert (tp.vad.model is None) == (flow == "windows")

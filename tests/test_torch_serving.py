@@ -28,7 +28,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import manual_whisper_tpu.pipeline as jpipeline_pkg
 import manual_whisper_tpu.serving.server as jserver
@@ -682,14 +681,12 @@ def test_alignment_and_diarization_report_not_ported(synth, tmp_path,
 def test_align_and_diarization_job_flows_match_jax(synth, tmp_path,
                                                    monkeypatch):
     """A job asking for ``align`` and ``diarization`` with the repository's
-    synthetic checkpoints in the registry (the aligner, PyanNet and the
-    ResNet34: the JAX backend reads their orbax trees, the port their
-    torch exports) gives the JAX backend's result: the same words with
-    the same times and scores, and the same speakers."""
-    import jax
-    from manual_whisper_tpu.convert.from_hf import load_params
+    synthetic aligner and PyanNet in the registry (the JAX backend reads
+    their orbax trees, the port their torch exports; no speaker-embedding
+    weights, so both embed 40-mel statistics, as the card's registry does)
+    gives the JAX backend's result: the same words with the same times and
+    scores, and the same speakers."""
     from manual_whisper_tpu_torch import config as tconfig
-    from manual_whisper_tpu_torch.convert import wespeaker_state_dict
     from manual_whisper_tpu import config as jconfig
     weights = Path(__file__).resolve().parent.parent / ".weights"
     registry = tmp_path / "registry"
@@ -697,15 +694,6 @@ def test_align_and_diarization_job_flows_match_jax(synth, tmp_path,
     for name in ("jonatasgrosman--wav2vec2-large-xlsr-53-english",
                  "pyannote-segmentation-3.0"):
         (registry / name).symlink_to(weights / name)
-    emb = registry / "wespeaker-voxceleb-resnet34-LM"
-    emb.mkdir()
-    (emb / "jax").symlink_to(weights / emb.name / "jax")
-    (emb / "SYNTH_TRAINED").symlink_to(weights / emb.name / "SYNTH_TRAINED")
-    tree = load_params(weights / emb.name / "jax")
-    if tree is None:
-        pytest.skip("no synthetic speaker embedder in the repository")
-    torch.save(wespeaker_state_dict(jax.tree.map(np.asarray, tree)),
-               emb / "pytorch_model.bin")
     monkeypatch.delenv("ENABLE_ALIGNMENT", raising=False)
     monkeypatch.setenv("MWX_ALLOW_SYNTH_WEIGHTS", "1")
     wav = tmp_path / "m.wav"
