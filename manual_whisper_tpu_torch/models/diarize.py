@@ -36,6 +36,7 @@ copies of the JAX package's (numpy and scipy).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,11 +47,19 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..ops.mel import unnormalized_log_mel
 from .vad import (PyanNetConfig, VadOptions, VoiceActivityDetector, binarize,
-                  powerset_to_speaker_activity, powerset_to_speaker_probs,
-                  pyannet_forward_chunked)
+                  powerset_to_speaker_activity, pyannet_forward_chunked)
 
 SAMPLE_RATE = 16000
 EMBEDDING_NAME = "wespeaker-voxceleb-resnet34-LM"
+
+# DiarizationPipeline's settings: the JAX package's constructor defaults
+WINDOW_SEC = 3.0        # windows flow (no segmentation weights): length
+STEP_SEC = 1.5          # and stride; PyanNet's windows step by half a window
+THRESHOLD = 0.8         # clustering cut, cosine distance
+CL_TRUST_FLOOR = 0.3    # cannot-link pairs closer than this are one voice
+MIN_CLUSTER_SIZE = 2    # smaller clusters join the nearest big one
+ACTIVITY_ONSET = 0.5    # binarisation of the stitched per-speaker activity
+ACTIVITY_OFFSET = 0.35
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +263,9 @@ def load_embedding_params(name: str = EMBEDDING_NAME,
     ``$MWX_WEIGHTS_DIR/<name>/pytorch_model.bin`` (a wespeaker state dict)
     as the JAX package's tree, or None when the registry has no such file.
     The JAX package prefers an orbax ``jax/`` tree there; the port cannot
-    read orbax, so that form is not looked at."""
+    read orbax, so a ``jax/`` tree without the torch file draws a
+    RuntimeWarning: the JAX package would embed with the ResNet34 where the
+    port falls back to the statistics embedding."""
     from pathlib import Path
 
     from .. import config
@@ -263,6 +274,13 @@ def load_embedding_params(name: str = EMBEDDING_NAME,
         return None
     path = Path(root) / name / "pytorch_model.bin"
     if not path.exists():
+        if (path.parent / "jax").is_dir():
+            warnings.warn(
+                f"{path.parent} holds an orbax jax/ tree but no "
+                "pytorch_model.bin, the only form this package reads: "
+                "diarization embeds 40-mel statistics where the JAX package "
+                "runs the ResNet34; `python tests/test_torch_export.py "
+                "--export` writes the file", RuntimeWarning, stacklevel=2)
         return None
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
@@ -300,20 +318,15 @@ def stats_embeddings(batch: torch.Tensor, frames: torch.Tensor,
 
 def spectral_stats_embedding(audio: np.ndarray, n_mels: int = 40,
                              device: DeviceLike = "cuda") -> np.ndarray:
-    """Weightless fallback speaker signature of one clip: mean/std/delta
-    statistics of its log-mel spectrum (computed on ``device``)."""
+    """Weightless fallback speaker signature of one clip: one row of
+    ``stats_embeddings`` over all of its log-mel frames (``L // 160``),
+    computed on ``device``."""
     dev = resolve_device(device)
     if len(audio) < 400:
         audio = np.pad(audio, (0, 400 - len(audio)))
     rows = torch.from_numpy(np.ascontiguousarray(audio[None], np.float32))
-    mel = unnormalized_log_mel(rows.to(dev), n_mels)[0].cpu().numpy()
-    mean = mel.mean(axis=0)
-    std = mel.std(axis=0)
-    delta = np.abs(np.diff(mel, axis=0)).mean(axis=0) if len(mel) > 1 \
-        else np.zeros_like(mean)
-    emb = np.concatenate([mean, std, delta])
-    norm = np.linalg.norm(emb)
-    return (emb / norm if norm > 0 else emb).astype(np.float32)
+    frames = torch.tensor([len(audio) // 160])
+    return stats_embeddings(rows.to(dev), frames, n_mels)[0].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +575,10 @@ class DiarizationPipeline:
     package's trees (numpy leaves) instead.  A weight that fails to load
     leaves its part on the weightless flow, as in the JAX package: no
     segmentation runs the windows flow over VAD regions, no embedding
-    weights the 40-mel statistics embedding.
+    weights the 40-mel statistics embedding.  The settings are the module
+    constants (``WINDOW_SEC`` ... ``ACTIVITY_OFFSET``), the JAX
+    constructor's defaults, with the segmentation windows at half-window
+    stride and pyannote's argmax powerset decode.
     """
 
     def __init__(self, use_auth_token: Optional[str] = None,
@@ -570,16 +586,7 @@ class DiarizationPipeline:
                  segmentation_params: Optional[dict] = None,
                  segmentation_cfg: Optional[PyanNetConfig] = None,
                  embedding_params: Optional[dict] = None,
-                 embedding_cfg: Optional[EmbeddingConfig] = None,
-                 window_sec: float = 3.0,
-                 step_sec: float = 1.5,
-                 seg_step_sec: Optional[float] = None,
-                 threshold: float = 0.8,
-                 min_cluster_size: int = 2,
-                 activity_onset: float = 0.5,
-                 activity_offset: float = 0.35,
-                 powerset_decode: str = "argmax",
-                 cl_trust_floor: float = 0.3):
+                 embedding_cfg: Optional[EmbeddingConfig] = None):
         from ..convert import (from_jax_pyannet, from_jax_resnet,
                                load_segmentation_params)
         self.device = resolve_device(device)
@@ -604,25 +611,6 @@ class DiarizationPipeline:
         self.embedding = None if embedding_params is None else \
             from_jax_resnet(embedding_params, self.embedding_cfg,
                             self.device)
-        self.window_sec = window_sec
-        self.step_sec = step_sec
-        # sliding stride of the PyanNet segmentation windows; None keeps
-        # the default half-window overlap (step_sec only governs the
-        # weightless windows flow)
-        self.seg_step_sec = seg_step_sec
-        self.threshold = threshold
-        # cannot-link pairs closer than this are segmentation artifacts
-        # (one voice split across two local slots), not two people
-        self.cl_trust_floor = cl_trust_floor
-        # clusters smaller than this reassign to the nearest big cluster
-        # (_absorb_small_clusters); pyannote-3.1's min_cluster_size rule
-        self.min_cluster_size = min_cluster_size
-        # binarisation of the stitched per-global-speaker activities
-        self.activity_onset = activity_onset
-        self.activity_offset = activity_offset
-        # "argmax" = pyannote's Powerset.to_multilabel hard decode;
-        # "marginal" sums class probs per speaker
-        self.powerset_decode = powerset_decode
 
     # _embed pads clips to this ladder (seconds), 32 rows a forward: at
     # most five shapes however many clips
@@ -677,7 +665,7 @@ class DiarizationPipeline:
         """Embed every sliding window in _EMBED_CHUNK-row forwards
         (zero-padded rows + valid-frame masks for trailing short
         windows)."""
-        row_len = max(int(round(self.window_sec * SAMPLE_RATE)), 400)
+        row_len = max(int(round(WINDOW_SEC * SAMPLE_RATE)), 400)
         n = len(windows)
         rows = np.zeros((n, row_len), np.float32)
         frames = np.zeros(n, np.int32)
@@ -719,9 +707,7 @@ class DiarizationPipeline:
     def _segment_and_embed(self, audio: np.ndarray):
         seg_cfg = self.vad.cfg
         window = int(seg_cfg.window_sec * SAMPLE_RATE)
-        step = (max(int(self.seg_step_sec * SAMPLE_RATE),
-                    SAMPLE_RATE // 4)
-                if self.seg_step_sec else window // 2)
+        step = window // 2
         n = len(audio)
         starts = list(range(0, max(n - window // 2, 1), step))
         batch = np.zeros((len(starts), window), np.float32)
@@ -730,9 +716,8 @@ class DiarizationPipeline:
             batch[i, : len(clip)] = clip
 
         log_probs = pyannet_forward_chunked(self.vad.model, batch)
-        spk = (powerset_to_speaker_activity(log_probs)
-               if self.powerset_decode == "argmax"
-               else powerset_to_speaker_probs(log_probs))       # [W,F,3]
+        # pyannote's Powerset.to_multilabel hard decode
+        spk = powerset_to_speaker_activity(log_probs)            # [W,F,3]
         n_frames = spk.shape[1]
         frame_dur = seg_cfg.window_sec / n_frames
 
@@ -785,11 +770,11 @@ class DiarizationPipeline:
         # are distinct local speakers, hence distinct people
         groups = np.asarray([wi for wi, _, _ in entries])
         labels = constrained_agglomerative_cluster(
-            embs, groups, threshold=self.threshold,
+            embs, groups, threshold=THRESHOLD,
             min_speakers=min_speakers or 1, max_speakers=max_speakers,
-            cl_trust_floor=self.cl_trust_floor)
+            cl_trust_floor=CL_TRUST_FLOOR)
         labels = _absorb_small_clusters(labels, embs,
-                                        min_size=self.min_cluster_size,
+                                        min_size=MIN_CLUSTER_SIZE,
                                         floor=min_speakers or 1,
                                         groups=groups)
 
@@ -810,8 +795,8 @@ class DiarizationPipeline:
         duration = n / SAMPLE_RATE
         for g in range(n_global):
             for s, e in binarize(activity[g].astype(np.float32), frame_dur,
-                                 VadOptions(vad_onset=self.activity_onset,
-                                            vad_offset=self.activity_offset,
+                                 VadOptions(vad_onset=ACTIVITY_ONSET,
+                                            vad_offset=ACTIVITY_OFFSET,
                                             min_duration_on=0.3,
                                             min_duration_off=0.3)):
                 segments.append({"start": round(max(0.0, s), 3),
@@ -835,12 +820,12 @@ class DiarizationPipeline:
         for s, e in regions:
             t = s
             while t < e:
-                w_end = min(t + self.window_sec, e)
+                w_end = min(t + WINDOW_SEC, e)
                 if w_end - t >= 0.4:
                     windows.append((t, w_end))
                 if w_end >= e:
                     break
-                t += self.step_sec
+                t += STEP_SEC
         if not windows:
             return []
 
@@ -853,7 +838,7 @@ class DiarizationPipeline:
             embs = embs / np.clip(norms, 1e-8, None)
 
         labels = agglomerative_cluster(
-            embs, threshold=self.threshold,
+            embs, threshold=THRESHOLD,
             min_speakers=min_speakers or 1,
             max_speakers=max_speakers)
 

@@ -288,16 +288,6 @@ def powerset_to_speech_prob(log_probs) -> np.ndarray:
     return 1.0 - np.exp(np.asarray(log_probs)[..., 0])
 
 
-def powerset_to_speaker_probs(log_probs: np.ndarray) -> np.ndarray:
-    """[..., 7] -> per-speaker activity probs [..., 3] (marginalise)."""
-    probs = np.exp(np.asarray(log_probs))
-    out = np.zeros(probs.shape[:-1] + (3,), np.float32)
-    for cls_idx, speakers in enumerate(POWERSET_CLASSES):
-        for s in speakers:
-            out[..., s] += probs[..., cls_idx]
-    return np.clip(out, 0.0, 1.0)
-
-
 def powerset_to_speaker_activity(log_probs: np.ndarray) -> np.ndarray:
     """[..., 7] -> binary per-speaker activity [..., 3] via ARGMAX
     (pyannote-3.x's Powerset.to_multilabel: the winning class alone decides

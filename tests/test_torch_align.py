@@ -30,6 +30,7 @@ from manual_whisper_tpu.models import wav2vec2 as jw2v
 from manual_whisper_tpu_torch import config as tconfig
 from manual_whisper_tpu_torch.models import align as talign
 from manual_whisper_tpu_torch.models import wav2vec2 as tw2v
+from cpu_budget import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 WEIGHTS = ROOT / ".weights"
@@ -185,9 +186,8 @@ def test_align_result_equal(aligner_tree):
 def test_align_random_tiny_equal():
     """A seeded random tiny_test tree over a zh vocabulary, char-aligned."""
     jcfg = jw2v.Wav2Vec2Config.tiny_test()
-    tree = jax.tree.map(np.asarray,
-                        jw2v.init_wav2vec2_params(jax.random.PRNGKey(0),
-                                                  jcfg))
+    tree = tw2v.init_wav2vec2_params(torch.Generator().manual_seed(0),
+                                     _tcfg(jcfg))
     vocab = {"<pad>": 0, "|": 1, "你": 2, "好": 3, "世": 4, "界": 5,
              "h": 6, "i": 7}
     jm = jalign.AlignModel(params=tree, cfg=jcfg, vocab=vocab, blank_id=0,

@@ -8,7 +8,9 @@ Same trees (numpy leaves) and the same seeded numpy inputs through
   vectors), at ``tiny_test`` with non-trivial BatchNorm statistics and at
   the repository's ResNet34 on log-mel of short synthetic clips; the port
   also within 1e-5 of its own float64 evaluation;
-- the 40-mel statistics embeddings (batched and per clip) within 1e-5;
+- the 40-mel statistics embeddings (batched, and per clip as one row of
+  the batched function) within 1e-5;
+- a registry with the JAX tree but no torch export draws a warning;
 - the copied clustering and speaker assignment equal exactly on seeded
   embeddings and segments.
 
@@ -28,6 +30,7 @@ from manual_whisper_tpu.models import diarize as jd
 from manual_whisper_tpu.ops.mel import unnormalized_log_mel as j_mel
 from manual_whisper_tpu_torch.convert import from_jax_resnet
 from manual_whisper_tpu_torch.models import diarize as td
+from cpu_budget import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 EMBED_DIR = ROOT / ".weights" / "wespeaker-voxceleb-resnet34-LM"
@@ -69,6 +72,14 @@ def embedder():
     return jax.tree.map(np.asarray, tree)
 
 
+def _tiny_tree(seed):
+    """A seeded ``tiny_test`` ResNet tree from the port's init (numpy
+    leaves in the JAX layout): eager jax.random compiles every leaf's
+    draw, seconds of CPU a process."""
+    return td.init_embedding_params(torch.Generator().manual_seed(seed),
+                                    td.EmbeddingConfig.tiny_test())
+
+
 def _port_embed(tree, cfg, feats, dtype=torch.float32):
     model = from_jax_resnet(tree, cfg, CPU).to(dtype)
     with torch.inference_mode():
@@ -78,8 +89,7 @@ def _port_embed(tree, cfg, feats, dtype=torch.float32):
 @pytest.mark.parametrize("frames", [48, 63])
 def test_embed_forward_tiny_matches_jax(frames):
     jcfg = jd.EmbeddingConfig.tiny_test()
-    tree = _with_bn_stats(jax.tree.map(np.asarray, jd.init_embedding_params(
-        jax.random.PRNGKey(frames), jcfg)), frames)
+    tree = _with_bn_stats(_tiny_tree(frames), frames)
     feats = np.random.default_rng(frames).standard_normal(
         (3, frames, jcfg.n_mels)).astype(np.float32)
     ref = np.asarray(jd.embed_forward(tree, feats, jcfg))
@@ -129,8 +139,7 @@ def test_convert_wespeaker_resnet_matches_jax():
     prefix, embedding at ``bottleneck``) converts to equal trees."""
     from manual_whisper_tpu_torch.convert import wespeaker_state_dict
     jcfg = jd.EmbeddingConfig.tiny_test()
-    tree = _with_bn_stats(jax.tree.map(np.asarray, jd.init_embedding_params(
-        jax.random.PRNGKey(5), jcfg)), 5)
+    tree = _with_bn_stats(_tiny_tree(5), 5)
     sd = {f"resnet.{k.replace('seg_1', 'bottleneck')}": v
           for k, v in wespeaker_state_dict(tree).items()}
     ours = td.convert_wespeaker_resnet(sd, _tcfg(jcfg))
@@ -151,8 +160,7 @@ def test_load_embedding_params_reads_registry(tmp_path, monkeypatch):
     tconfig.clear_env_cache()
     assert td.load_embedding_params() is None
     jcfg = jd.EmbeddingConfig.tiny_test()
-    tree = jax.tree.map(np.asarray, jd.init_embedding_params(
-        jax.random.PRNGKey(1), jcfg))
+    tree = _tiny_tree(1)
     d = tmp_path / td.EMBEDDING_NAME
     d.mkdir()
     torch.save({"state_dict": wespeaker_state_dict(tree)},
@@ -163,6 +171,21 @@ def test_load_embedding_params_reads_registry(tmp_path, monkeypatch):
     for (_, x), (_, y) in zip(jax.tree_util.tree_leaves_with_path(loaded),
                               jax.tree_util.tree_leaves_with_path(tree)):
         np.testing.assert_array_equal(x, y)
+
+
+def test_jax_tree_without_export_warns(tmp_path, monkeypatch):
+    """A registry holding the JAX package's orbax tree but no torch export:
+    the JAX package would embed with the ResNet34, the port cannot read the
+    tree, and it says so instead of falling back quietly."""
+    from manual_whisper_tpu_torch import config as tconfig
+    monkeypatch.setenv("MWX_WEIGHTS_DIR", str(tmp_path))
+    tconfig.clear_env_cache()
+    (tmp_path / td.EMBEDDING_NAME / "jax").mkdir(parents=True)
+    with pytest.warns(RuntimeWarning, match="no pytorch_model.bin"):
+        assert td.load_embedding_params() is None
+    with pytest.warns(RuntimeWarning, match="40-mel statistics"):
+        pipe = td.DiarizationPipeline(device="cpu")
+    assert pipe.embedding is None
 
 
 # ---------------------------------------------------------------------------

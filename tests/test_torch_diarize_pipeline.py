@@ -24,6 +24,7 @@ from manual_whisper_tpu.eval.metrics import der
 from manual_whisper_tpu.eval.synth import render_conversation, turns_to_rttm
 from manual_whisper_tpu.models import diarize as jd
 from manual_whisper_tpu_torch.models import diarize as td
+from cpu_budget import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 WEIGHTS = ROOT / ".weights"
@@ -63,12 +64,14 @@ def _pipelines(seg, emb, tiny=False):
 
 
 def _tiny_resnet():
-    """A seeded ``tiny_test`` ResNet tree.  The flows embed 32-row forwards of clips up to 10 s and 256-row forwards of
-    3 s windows, which the full ResNet34 spends minutes of CPU on under the
-    suite's parallel workers; the full network (the repository's weights)
-    is held to JAX on short clips in test_torch_diarize.py."""
-    return jax.tree.map(np.asarray, jd.init_embedding_params(
-        jax.random.PRNGKey(7), jd.EmbeddingConfig.tiny_test()))
+    """A seeded ``tiny_test`` ResNet tree (the port's init: numpy leaves
+    in the JAX layout).  The flows embed 32-row forwards of clips up to
+    10 s and 256-row forwards of 3 s windows, which the full ResNet34
+    spends minutes of CPU on under the suite's parallel workers; the full
+    network (the repository's weights) is held to JAX on short clips in
+    test_torch_diarize.py."""
+    return td.init_embedding_params(torch.Generator().manual_seed(7),
+                                    td.EmbeddingConfig.tiny_test())
 
 
 @pytest.mark.parametrize("flow", ["segmentation", "windows"])
@@ -105,13 +108,27 @@ def test_pipeline_speaker_bounds_and_silence_equal(segmentation):
 
 
 def test_pipeline_defaults_match_jax():
+    """The port's settings are module constants at the JAX constructor's
+    defaults; the JAX options that select another path (a segmentation
+    stride, the marginal powerset decode) default to the one the port
+    runs."""
     import inspect
     ours = inspect.signature(td.DiarizationPipeline.__init__).parameters
     theirs = inspect.signature(jd.DiarizationPipeline.__init__).parameters
+    constants = {name: getattr(td, name.upper()) for name in (
+        "window_sec", "step_sec", "threshold", "cl_trust_floor",
+        "min_cluster_size", "activity_onset", "activity_offset")}
     for name, p in theirs.items():
-        if name in ("self", "device"):
+        if name == "self":
             continue
-        assert ours[name].default == p.default, name
+        if name in constants:
+            assert constants[name] == p.default, name
+        elif name == "seg_step_sec":
+            assert p.default is None
+        elif name == "powerset_decode":
+            assert p.default == "argmax"
+        elif name != "device":
+            assert ours[name].default == p.default, name
     assert td.DiarizationPipeline._EMBED_LEN_BUCKETS_SEC == \
         jd.DiarizationPipeline._EMBED_LEN_BUCKETS_SEC
     assert td.DiarizationPipeline._EMBED_ROW_CHUNK == \

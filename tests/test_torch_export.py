@@ -38,6 +38,7 @@ from manual_whisper_tpu_torch.convert import (convert_wav2vec2_state_dict,
                                               wespeaker_state_dict)
 from manual_whisper_tpu_torch.models import diarize as tdiarize
 from manual_whisper_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from cpu_budget import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 ALIGN_DIR = ROOT / ".weights" / "jonatasgrosman--wav2vec2-large-xlsr-53-english"

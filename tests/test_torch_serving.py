@@ -46,6 +46,7 @@ from manual_whisper_tpu_torch.serving import jobs as tjobs
 from manual_whisper_tpu_torch.serving import second_pass as tsecond
 from manual_whisper_tpu_torch.text import (format_to_markdown,
                                            post_process_segments)
+from cpu_budget import one_torch_thread  # noqa: F401
 
 PORT_LOAD_MODEL = tpipeline_pkg.load_model
 IMPLS = {"jax": (jserver, jjobs, jsecond, jnative),

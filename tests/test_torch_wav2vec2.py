@@ -23,6 +23,7 @@ from manual_whisper_tpu.models import wav2vec2 as jw2v
 from manual_whisper_tpu_torch.convert import (convert_wav2vec2_state_dict,
                                               from_jax_wav2vec2)
 from manual_whisper_tpu_torch.models import wav2vec2 as tw2v
+from cpu_budget import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 ALIGN_DIR = ROOT / ".weights" / "jonatasgrosman--wav2vec2-large-xlsr-53-english"
@@ -51,8 +52,10 @@ def _tcfg(jcfg):
 
 
 def _random_tree(jcfg, seed=0, conv_bias=False):
-    tree = jax.tree.map(np.asarray, jw2v.init_wav2vec2_params(
-        jax.random.PRNGKey(seed), jcfg))
+    # the port's seeded init (numpy leaves in the JAX layout): eager
+    # jax.random compiles every leaf's draw, seconds of CPU a process
+    tree = tw2v.init_wav2vec2_params(torch.Generator().manual_seed(seed),
+                                     _tcfg(jcfg))
     rng = np.random.default_rng(seed)
     # non-trivial norms and biases, so a swapped gain or bias shows
     for key in ("fp_ln", "final_ln"):
