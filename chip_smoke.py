@@ -151,6 +151,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -1732,6 +1733,67 @@ def phase_align(dev) -> None:
 CONVERSATION = dict(n_turns=48, seed=5, n_speakers=3, overlap_prob=0.1)
 
 
+def make_registry(path: str, resnet: bool) -> str:
+    """A checkpoint registry at ``path``: the repository's ``.weights/``
+    entries linked in but the speaker embedder's, whose directory holds
+    either (``resnet``) a full-size ResNet34 with seeded random weights
+    (``init_embedding_params``, seed 3) as ``pytorch_model.bin`` in
+    wespeaker keys, which the pipelines load as they would an export (the
+    repository commits none for its ResNet34), or only the repository's
+    orbax ``jax/`` tree, which the port cannot read."""
+    from manual_whisper_tpu_torch.convert import wespeaker_state_dict
+    from manual_whisper_tpu_torch.models import diarize as dmod
+    weights = os.path.join(ROOT, ".weights")
+    emb_dir = os.path.join(path, dmod.EMBEDDING_NAME)
+    os.makedirs(emb_dir)
+    for name in os.listdir(weights):
+        if name != dmod.EMBEDDING_NAME:
+            os.symlink(os.path.join(weights, name), os.path.join(path, name))
+    if resnet:
+        tree = dmod.init_embedding_params(torch.Generator().manual_seed(3),
+                                          dmod.EmbeddingConfig())
+        torch.save(wespeaker_state_dict(tree),
+                   os.path.join(emb_dir, "pytorch_model.bin"))
+    else:
+        os.symlink(os.path.join(weights, dmod.EMBEDDING_NAME, "jax"),
+                   os.path.join(emb_dir, "jax"))
+    return path
+
+
+@contextlib.contextmanager
+def _registry(path):
+    """``MWX_WEIGHTS_DIR`` set to ``path`` for the block."""
+    from manual_whisper_tpu_torch import config as port_config
+    saved = os.environ.pop("MWX_WEIGHTS_DIR", None)
+    os.environ["MWX_WEIGHTS_DIR"] = path
+    port_config.clear_env_cache()
+    try:
+        yield
+    finally:
+        os.environ.pop("MWX_WEIGHTS_DIR", None)
+        if saved is not None:
+            os.environ["MWX_WEIGHTS_DIR"] = saved
+        port_config.clear_env_cache()
+
+
+@contextlib.contextmanager
+def _embed_forwards():
+    """The list of every ``DiarizationPipeline.embed_rows`` call in the
+    block, each as (rows, samples, ResNet or not): one K1 launch each."""
+    from manual_whisper_tpu_torch.models import diarize as dmod
+    forwards = []
+    real = dmod.DiarizationPipeline.embed_rows
+
+    def counted(self, rows, frames):
+        forwards.append((*rows.shape, self.embedding is not None))
+        return real(self, rows, frames)
+    dmod.DiarizationPipeline.embed_rows = counted
+    try:
+        yield forwards
+    finally:
+        dmod.DiarizationPipeline.embed_rows = real
+
+
 def _swap_bn_stats(model):
     """A copy of the ResNet34 with one BatchNorm's running mean and
     running variance swapped."""
@@ -1750,66 +1812,55 @@ def _diarize_pair(dev, **kw):
             DiarizationPipeline(device="cpu", **kw))
 
 
-def _embed_calls(pipe):
-    """Count ``pipe``'s embedding forwards (rows, samples) while it runs."""
-    calls = []
-    real = pipe.embed_rows
-
-    def counted(rows, frames):
-        calls.append(rows.shape)
-        return real(rows, frames)
-    pipe.embed_rows = counted
-    return calls
-
-
 def _entry_embeddings(state):
     return torch.from_numpy(np.stack([e[2] for e in state["entries"]]))
 
 
-def phase_diarize(dev) -> None:
+def phase_diarize(dev, registry: str) -> None:
     """``DiarizationPipeline`` on the card and on the CPU over a seeded
-    ``render_conversation`` (3 speakers, about 2 minutes), the
-    segmentation PyanNet from the registry's ``pytorch_model.bin`` and a
-    full-size ResNet34 with seeded random weights (the repository commits
-    no torch export of its ResNet34): the entries' embeddings within
+    ``render_conversation`` (3 speakers, about 2 minutes), both loading
+    their weights from ``registry`` (``make_registry`` with the ResNet): the
+    segmentation PyanNet's ``pytorch_model.bin`` and a full-size ResNet34
+    with seeded random weights: the entries' embeddings within
     TOL["diarize_emb"], segments equal, DER against the reference turns
     printed for both and equal.  The ResNet path must have run: its
     weights loaded and K1 launched once a 32-row forward, at 80 mels.  A
     planted fault (one BatchNorm's running mean and variance swapped) must
     exceed the tolerance.  Then the two fallbacks, each card vs CPU with
-    K1 counted: no embedding weights (40-mel statistics of the 32-row clip
-    buckets), and no segmentation weights (the windows flow: 256-row
-    forwards of 3 s windows).  Times: ``diarize_s``, device ms of a
+    K1 counted: no embedding weights (the speaker embedder's orbax tree
+    only, which must draw the port's warning; 40-mel statistics of the
+    32-row clip buckets), and no segmentation
+    weights (an empty registry; the windows flow: 256-row forwards of 3 s
+    windows).  Times: ``diarize_s``, device ms of a
     16-window segmentation batch and of one 32-row ResNet forward (K1 and
     the network) per bucket, host ms of the clustering."""
     import tempfile
+    import warnings
     from manual_whisper_tpu_torch.eval.metrics import der
     from manual_whisper_tpu_torch.eval.synth import (render_conversation,
                                                      turns_to_rttm)
-    from manual_whisper_tpu_torch.models import diarize as dmod
     from manual_whisper_tpu_torch.models.vad import PYANNET_CHUNK
     os.environ["MWX_ALLOW_SYNTH_WEIGHTS"] = "1"
     audio, turns = render_conversation(**CONVERSATION)
     ref_turns = turns_to_rttm(turns)
-    emb_tree = dmod.init_embedding_params(torch.Generator().manual_seed(3),
-                                          dmod.EmbeddingConfig())
-    gpu, cpu = _diarize_pair(dev, embedding_params=emb_tree)
+    with _registry(registry):
+        gpu, cpu = _diarize_pair(dev)
     if gpu.vad.model is None or gpu.vad.model.sinc.device != gpu.device \
             or gpu.embedding is None or gpu.embedding_cfg.n_mels != 80 \
             or next(gpu.embedding.parameters()).device != gpu.device:
         raise AssertionError("diarize: PyanNet and the ResNet34 are not "
                              "both on the card")
     gpu(audio)                                   # cuDNN set-up
-    calls = _embed_calls(gpu)
     torch.cuda.synchronize()
     _build.launches.clear()
     t0 = time.perf_counter()
-    segs = gpu(audio)
-    torch.cuda.synchronize()
+    with _embed_forwards() as calls:
+        segs = gpu(audio)
+        torch.cuda.synchronize()
     diarize_s = time.perf_counter() - t0
     launches = dict(_build.launches)
     if not calls or launches != {"mel": len(calls)} \
-            or any(c[0] != 32 for c in calls):
+            or any(c[0] != 32 or not c[2] for c in calls):
         raise AssertionError(f"diarize: K1 launches {launches} for the "
                              f"ResNet's forwards {calls}")
     st_gpu = gpu._segment_and_embed(audio)
@@ -1844,35 +1895,38 @@ def phase_diarize(dev) -> None:
                 lambda: gpu.embedding(unnormalized_log_mel(x, 80)), 3)
     del cpu
 
-    # the fallbacks: no embedding weights (the registry has no ResNet
-    # export), then no segmentation weights either (an empty registry)
+    # the fallbacks: no embedding weights (the orbax tree only), then no
+    # segmentation weights either (an empty registry)
     fallbacks = {}
-    with tempfile.TemporaryDirectory() as empty:
+    with tempfile.TemporaryDirectory() as tmp:
+        orbax_only = make_registry(os.path.join(tmp, "orbax"), resnet=False)
+        empty = tmp + "/empty"
+        os.makedirs(empty)
         for flow in ("stats_embeddings", "windows"):
-            saved = os.environ.get("MWX_WEIGHTS_DIR")
-            if flow == "windows":
-                os.environ["MWX_WEIGHTS_DIR"] = empty
-            try:
+            with _registry(orbax_only if flow == "stats_embeddings"
+                           else empty), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
                 f_gpu, f_cpu = _diarize_pair(dev)
-            finally:
-                if saved is None:
-                    os.environ.pop("MWX_WEIGHTS_DIR", None)
-                else:
-                    os.environ["MWX_WEIGHTS_DIR"] = saved
+            warned = any("no pytorch_model.bin" in str(w.message)
+                         for w in caught)
             if f_gpu.embedding is not None or \
-                    (f_gpu.vad.model is None) != (flow == "windows"):
+                    (f_gpu.vad.model is None) != (flow == "windows") or \
+                    warned != (flow == "stats_embeddings"):
                 raise AssertionError(f"diarize {flow}: the pipeline loaded "
-                                     "other weights than expected")
-            f_calls = _embed_calls(f_gpu)
+                                     "other weights than expected, or the "
+                                     "missing ResNet export went unreported "
+                                     f"(warned: {warned})")
             _build.launches.clear()
             t0 = time.perf_counter()
-            f_segs = f_gpu(audio)
-            torch.cuda.synchronize()
+            with _embed_forwards() as f_calls:
+                f_segs = f_gpu(audio)
+                torch.cuda.synchronize()
             f_s = time.perf_counter() - t0
             f_launches = dict(_build.launches)
             rows = 256 if flow == "windows" else 32
             if not f_calls or f_launches != {"mel": len(f_calls)} \
-                    or any(c[0] != rows for c in f_calls):
+                    or any(c[0] != rows or c[2] for c in f_calls):
                 raise AssertionError(f"diarize {flow}: K1 launches "
                                      f"{f_launches} for {f_calls}")
             f_ref = f_cpu(audio)
@@ -1885,13 +1939,13 @@ def phase_diarize(dev) -> None:
                 "der_card": der(ref_turns, f_segs),
                 "der_cpu": der(ref_turns, f_ref), "diarize_s": f_s,
                 "k1_launches": f_launches.get("mel", 0),
-                "forward_shapes": sorted({tuple(c) for c in f_calls}),
+                "forward_shapes": sorted({tuple(c[:2]) for c in f_calls}),
                 "embedding_max_abs_err": f_err}
 
     line = {
         "phase": "diarize", "audio_s": len(audio) / 16000.0,
         "speakers_ref": len({t["speaker"] for t in ref_turns}),
-        "resnet34": "full size, seeded random weights",
+        "resnet34": "full size, seeded random weights, from the registry",
         "entries": len(st_gpu["entries"]), "segments": len(segs),
         "segments_equal": segs == cpu_segs,
         "speakers": len({s["speaker"] for s in segs}),
@@ -1899,7 +1953,7 @@ def phase_diarize(dev) -> None:
         "embedding_max_abs_err": emb_err, "tol": TOL["diarize_emb"],
         "fault_bn_stats_swapped_err": fault_err,
         "k1_launches": launches.get("mel", 0),
-        "forward_shapes": sorted({tuple(c) for c in calls}),
+        "forward_shapes": sorted({tuple(c[:2]) for c in calls}),
         "diarize_s": diarize_s,
         "segmentation_16_windows_device_ms": seg_ms,
         "resnet_32_rows_device_ms": resnet_ms,
@@ -1922,12 +1976,13 @@ def phase_diarize(dev) -> None:
                 raise AssertionError(f"diarize {flow}: embeddings {f}")
 
 
-def phase_cli(workdir: str) -> None:
+def phase_cli(workdir: str, registry: str) -> None:
     """``cli.main`` on a WAV of the diarize phase's conversation, on the
     card, with ``HF_TOKEN`` set and ``MWX_ALLOW_RANDOM_WEIGHTS=1`` (random
     large-v3 in bf16; the zh default aligner is not in the repository, so
-    the tiny random aligner; the registry's PyanNet and no ResNet export,
-    so the statistics embeddings): every stage must run (no "对齐失败" or
+    the tiny random aligner) and the diarize phase's ``registry`` (its
+    PyanNet and its ResNet34, which every embedding forward must run):
+    every stage must run (no "对齐失败" or
     "说话人分离失败" line), the Markdown must have ``### SPEAKER_``
     headings, and every segment of the JSON must carry ``speaker``
     (``words`` are counted: the random aligner's vocabulary may hold none of
@@ -1949,7 +2004,8 @@ def phase_cli(workdir: str) -> None:
     t0 = time.perf_counter()
     try:
         os.chdir(workdir)
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(printed), _registry(registry), \
+                _embed_forwards() as forwards:
             rc = cli.main([path])
     finally:
         os.chdir(cwd)
@@ -1969,11 +2025,16 @@ def phase_cli(workdir: str) -> None:
             "speakers": sorted({s.get("speaker") for s in segs
                                 if s.get("speaker")}),
             "words": sum(len(s.get("words", [])) for s in segs),
-            "speaker_headings": md.count("### SPEAKER_")}
+            "speaker_headings": md.count("### SPEAKER_"),
+            "embed_forwards": len(forwards),
+            "resnet_forwards": sum(f[2] for f in forwards)}
     log(json.dumps(line))
     if rc != 0 or "对齐失败" in out or "说话人分离失败" in out \
             or "👥 识别说话人..." not in out or "   对齐耗时" not in out:
         raise AssertionError("cli: a stage did not run")
+    if not forwards or not all(f[2] for f in forwards):
+        raise AssertionError(f"cli: the diarizer did not embed with the "
+                             f"registry's ResNet34: {forwards}")
     if not segs or not all("speaker" in s for s in segs) \
             or "### SPEAKER_" not in md:
         raise AssertionError("cli: segments without speakers, or no "
@@ -2280,7 +2341,7 @@ def _replay_ms_per_step(loop, reps: int = 4) -> float:
     return _event_ms(lambda: loop.graphs.replay(16), reps) / 16
 
 
-def phase_serve(workdir: str, native_line: dict) -> None:
+def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
     """The job server over the port's bf16 ``PipelineBackend`` at batch 16:
     ``warmup()`` called directly (buckets 2, 4, 8, 16 captured), then
     ``create_server`` on 127.0.0.1 at a free port and four requests through
@@ -2298,8 +2359,10 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     got equals ``load_audio`` of the upload; a loop of 16 rows replayed;
     the second pass ran inside the long job's decode; the launches equal
     those the calls' ``last_stats`` imply (plus the eager warm-up steps of
-    the second-pass decoder's new loop), and every decode step ran in a
-    replayed chunk."""
+    the second-pass decoder's new loop, and one K1 launch for each
+    embedding forward of the WAV job's diarizer, which loads the
+    ResNet34 from ``registry`` and must run it), and every decode step ran
+    in a replayed chunk."""
     import threading
     import urllib.error
     import urllib.request
@@ -2310,6 +2373,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     from manual_whisper_tpu_torch.serving import server as server_mod
     from manual_whisper_tpu_torch.serving.jobs import PipelineBackend
     os.environ.update({"MWX_ALLOW_RANDOM_WEIGHTS": "1",
+                       "MWX_WEIGHTS_DIR": registry,
                        "GET_RATE_LIMIT_PER_MIN": "1000000",
                        "POST_RATE_LIMIT_PER_MIN": "1000",
                        "MAX_ACTIVE_JOBS_PER_IP": "16",
@@ -2382,19 +2446,10 @@ def phase_serve(workdir: str, native_line: dict) -> None:
             return out
         return real_job(audio_path, language, progress, options)
     backend.transcribe = job_transcribe
-    # the diarizer's K1 launches, apart from the decodes' that the calls'
-    # stats imply
-    from manual_whisper_tpu_torch.models import diarize as diarize_mod
-    diarize_launches = collections.Counter()
-    real_diarize = diarize_mod.DiarizationPipeline.__call__
-
-    def counted_diarize(self, *a, **k):
-        with _build.recording() as record:
-            out = real_diarize(self, *a, **k)
-        _build.add(record)
-        diarize_launches.update(record)
-        return out
-    diarize_mod.DiarizationPipeline.__call__ = counted_diarize
+    # the diarizer's embedding forwards: one K1 launch each, beside the
+    # decodes' launches that the calls' stats imply
+    embed_count = contextlib.ExitStack()
+    embed_forwards = embed_count.enter_context(_embed_forwards())
     # the route of each decode the server makes, as load_audio took it
     routes = {}
     real_load = audio_pkg.load_audio
@@ -2505,12 +2560,12 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     model.transcribe = real_transcribe
     server_mod.post_process_segments = real_post
     audio_pkg.load_audio = real_load
-    diarize_mod.DiarizationPipeline.__call__ = real_diarize
+    embed_count.close()
     if len(diarized) != 1 or not diarized[0] \
             or not all("speaker" in g for g in diarized[0]) \
-            or not diarize_launches["mel"]:
+            or not embed_forwards or not all(f[2] for f in embed_forwards):
         raise AssertionError(f"serve: the WAV job's diarization: "
-                             f"{diarized!r:.300} {dict(diarize_launches)}")
+                             f"{diarized!r:.300} {embed_forwards}")
 
     clip_calls = [c for c in calls if c["kind"] == "clip"]
     job_calls = [c for c in calls if c["kind"] == "job"]
@@ -2545,7 +2600,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
     expected = collections.Counter()
     for c in calls:
         expected.update(expected_launches(model.cfg, c["stats"], False))
-    expected.update(diarize_launches)
+    expected["mel"] += len(embed_forwards)
     new_loops = [lp for dec in decoders for key, lp in dec._loops.items()
                  if key not in loops_before.get(id(dec), ())]
     warm_steps = sum(sum(lp.chunk_lengths()) for lp in new_loops)
@@ -2628,7 +2683,7 @@ def phase_serve(workdir: str, native_line: dict) -> None:
             "segments": len(diarized[0]),
             "speakers": sorted({g["speaker"] for g in diarized[0]}),
             "words": sum(len(g.get("words", [])) for g in diarized[0]),
-            "diarize_k1_launches": diarize_launches["mel"]},
+            "resnet_forwards": embed_forwards},
         "launches": launches, "new_loops_during_phase": [
             (lp.state.tokens.shape[0], sum(lp.chunk_lengths()))
             for lp in new_loops],
@@ -2730,20 +2785,21 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     stages = {"align": lambda: phase_align(dev),
-              "diarize": lambda: phase_diarize(dev),
-              "cli": lambda: phase_cli(work)}
+              "diarize": lambda: phase_diarize(dev, registry),
+              "cli": lambda: phase_cli(work, registry)}
     import tempfile
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
+        registry = make_registry(os.path.join(work, "registry"), resnet=True)
         if args.phases:
             for name in args.phases.split(","):
                 if name not in stages:
                     raise SystemExit(f"--phases: no phase {name!r}")
                 timed(name, stages[name])
             return 0
-        return run_all(args, dev, card, stages, work)
+        return run_all(args, dev, card, stages, work, registry)
 
 
-def run_all(args, dev, card, stages, work) -> int:
+def run_all(args, dev, card, stages, work, registry) -> int:
     model, load_s = load_main_model("bfloat16", False)
     main_shapes = main_path_shapes(model)
     log(json.dumps({"phase": "main_path_shapes", **main_shapes}))
@@ -2778,7 +2834,7 @@ def run_all(args, dev, card, stages, work) -> int:
         timed(name, run)
         torch.cuda.empty_cache()
     native_line = timed("serve native", phase_serve_native, work)
-    timed("serve", phase_serve, work, native_line)
+    timed("serve", phase_serve, work, native_line, registry)
 
     kernels = []
     for name, row in rows.items():
