@@ -18,6 +18,8 @@ the port's layout (``models/whisper.py``):
   integer view, so ``ml_dtypes`` is never imported.
 
 Every other leaf is cast to the config's dtype; all move to ``device``.
+``to_jax_tree`` is the inverse: the port's weights, or a tree shaped like
+them (gradients, AdamW moments), back in the JAX layout as numpy.
 
 PyanNet (``from_jax_pyannet``): the JAX ``models/vad.py`` tree (``[K, C_in,
 C_out]`` convs, ``x @ w`` linears, a list of per-layer LSTM dicts in
@@ -52,6 +54,7 @@ from .models.wav2vec2 import CONV_LAYERS as W2V_CONV_LAYERS
 from .models.wav2vec2 import Wav2Vec2, Wav2Vec2Config
 from .models.whisper import Params, WhisperConfig
 from .ops.quant import is_quantized
+from .parallel.mesh import MODEL_GROUP_KEY
 
 _CONV_KEYS = ("conv1_w", "conv2_w")
 
@@ -126,6 +129,48 @@ def from_jax_tree(tree: Dict[str, Any], cfg: WhisperConfig,
         blocks = section.pop("blocks")
         out[part] = _tree(section, part, cfg, device)
         out[part]["blocks"] = _unstack(blocks, n_layers, part, cfg, device)
+    return out
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """CPU copy of ``t`` as numpy in its own dtype; bf16 crosses through a
+    16-bit integer view as numpy's ``bfloat16``, the dtype ``ml_dtypes``
+    registers (JAX imports it; the port does not)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError as exc:
+        raise TypeError("a bf16 leaf needs numpy's bfloat16 dtype, which "
+                        "ml_dtypes registers on import") from exc
+    return t.view(torch.int16).numpy().copy().view(bf16)
+
+
+def to_jax_tree(params: Params) -> Dict[str, Any]:
+    """The port's weights, or any tree shaped like them (gradients, AdamW
+    moments) -> the JAX package's param tree of numpy arrays: per-layer
+    blocks stacked on a leading axis (int8 ``{q, s}`` too), conv weights
+    ``[K, C_in, C_out]``, every leaf in its tensor's dtype.  The inverse
+    of ``from_jax_tree``."""
+    def tree(node, name=""):
+        if isinstance(node, dict):
+            return {k: tree(v, k) for k, v in node.items()
+                    if k != MODEL_GROUP_KEY}
+        arr = numpy_from_tensor(node)
+        return arr.transpose(2, 1, 0).copy() if name in _CONV_KEYS else arr
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([layer[k] for layer in layers])
+                    for k in layers[0]}
+        return np.stack(layers)
+
+    out = {}
+    for part in ("encoder", "decoder"):
+        out[part] = tree({k: v for k, v in params[part].items()
+                          if k != "blocks"})
+        out[part]["blocks"] = stack([tree(b) for b in params[part]["blocks"]])
     return out
 
 

@@ -39,9 +39,11 @@ import torch
 from .decode import ChunkedLoop, DecodeOutput
 from .whisper import (Params, WhisperConfig, _layer_norm, _mlp,
                       alloc_cross_kv, decoder_forward, init_kv_cache,
-                      logits_f32, precompute_cross_kv)
+                      local_heads, logits_f32, model_group,
+                      precompute_cross_kv)
 from ..ops.decode_attention import attend_plain
 from ..ops.quant import mm
+from ..parallel.mesh import reduce_from_model
 
 NEG_INF = -1e30
 
@@ -83,18 +85,20 @@ def _beam_cross_attend(xq: torch.Tensor, xkv, dh: int) -> torch.Tensor:
     return (p.to(xq.dtype) @ v_q.to(xq.dtype)).transpose(1, 2)
 
 
-def _beam_block(h, blk, n_head: int, ck, cv, valid, xkv, slot, oh):
+def _beam_block(h, blk, ck, cv, valid, xkv, slot, oh, group=None):
     """One decoder block for beam-shaped activations h [B, K, d].
 
-    ck/cv: the layer's self cache [B, K, H, T, dh]; slot k at ``slot`` (a
+    ck/cv: the layer's self cache [B, K, H, T, dh] (H the rank's heads on
+    tensor-parallel shards, whose o and fc2 outputs are reduced over
+    ``group``); slot k at ``slot`` (a
     one-element int64 tensor) takes beam k's new K/V.  ``valid`` [T] bool
     marks the slots <= the step's position.  ``oh`` [B, K, J, T] f32:
     oh[b, k, j, t] = 1 iff beam k's token at time t lives in slot j (the
     lazy beam reorder).  Scores against every parent slot j, then the
     one-hot picks the ancestor's (JAX ``_beam_block``: ``bkhd,bjhdt->
     bkjht``, ``bkjht,bkjt->bkht``, ``bkjht,bjhdt->bkhd``)."""
-    b, k, d = h.shape
-    dh = d // n_head
+    b, k, _ = h.shape
+    n_head, dh = ck.shape[2], ck.shape[-1]
 
     def heads(y):                          # [B, K, d] -> [B, K, H, dh]
         return y.reshape(b, k, n_head, dh)
@@ -120,15 +124,15 @@ def _beam_block(h, blk, n_head: int, ck, cv, valid, xkv, slot, oh):
     probs_j = probs[:, :, :, None, :] * oh_h.to(q.dtype)   # [B, H, K, J, T]
     v_p = cv.transpose(1, 2).contiguous().reshape(b, n_head, k * t, dh)
     attn = (probs_j.reshape(b, n_head, k, k * t) @ v_p)    # [B, H, K, dh]
-    attn = attn.transpose(1, 2).reshape(b, k, d)
-    h = h + (mm(attn, att["o_w"]) + att["o_b"])
+    attn = attn.transpose(1, 2).reshape(b, k, n_head * dh)
+    h = h + (reduce_from_model(mm(attn, att["o_w"]), group) + att["o_b"])
 
     xat = blk["xattn"]
     x_in = _layer_norm(h, blk["lnx"])
     xq = heads(mm(x_in, xat["q_w"]) + xat["q_b"])
-    xattn = _beam_cross_attend(xq, xkv, dh).reshape(b, k, d)
-    h = h + (mm(xattn, xat["o_w"]) + xat["o_b"])
-    return h + _mlp(_layer_norm(h, blk["ln2"]), blk["mlp"])
+    xattn = _beam_cross_attend(xq, xkv, dh).reshape(b, k, n_head * dh)
+    h = h + (reduce_from_model(mm(xattn, xat["o_w"]), group) + xat["o_b"])
+    return h + _mlp(_layer_norm(h, blk["ln2"]), blk["mlp"], group)
 
 
 def beam_step(params: Params, cfg: WhisperConfig, token: torch.Tensor,
@@ -143,10 +147,10 @@ def beam_step(params: Params, cfg: WhisperConfig, token: torch.Tensor,
     x = dec["tok_emb"][token] + dec["pos_emb"].index_select(0, pos)
     h = x.to(cfg.dtype)                                # [B, K, d]
     slot = pos.long()
+    group = model_group(params)
     for blk, ck, cv, xkv in zip(dec["blocks"], cache[0], cache[1],
                                 cross_kv):
-        h = _beam_block(h, blk, cfg.n_text_head, ck, cv, valid, xkv, slot,
-                        oh)
+        h = _beam_block(h, blk, ck, cv, valid, xkv, slot, oh, group)
     return logits_f32(_layer_norm(h, dec["ln"]), tok_emb_f32)
 
 
@@ -207,12 +211,13 @@ class BeamLoop(ChunkedLoop):
         self.suppress, self.eot = suppress_mask, eot
         self.length_penalty = length_penalty
         t = p + max_new
-        self.cache = init_kv_cache(cfg, rows * beams, t, device)
+        heads = local_heads(params, "decoder", cfg)
+        self.cache = init_kv_cache(cfg, rows * beams, t, device, heads=heads)
         shape = (rows, beams) + self.cache[0][0].shape[1:]
         self.cache = tuple([c.view(shape) for c in layers]
                            for layers in self.cache)
         self.cross = alloc_cross_kv(cfg, rows, ta, device, quantize,
-                                    scale_dtype)
+                                    scale_dtype, heads=heads)
         self.state = BeamState.zeros(rows, beams, max_new, t, device)
         self.tok_emb_f32 = params["decoder"]["tok_emb"].float()
         self.k_ids = torch.arange(beams, device=device)
@@ -239,7 +244,8 @@ class BeamLoop(ChunkedLoop):
                             scale_dtype=self.scale_dtype, out=self.cross)
         prefix_b = torch.tensor(prefix, dtype=torch.long,
                                 device=xa.device).expand(b, p)
-        pre_cache = init_kv_cache(self.cfg, b, p, xa.device)
+        pre_cache = init_kv_cache(self.cfg, b, p, xa.device,
+                                  heads=self.cache[0][0].shape[2])
         prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
                                             self.cfg, pos_offset=0,
                                             kv_cache=pre_cache,

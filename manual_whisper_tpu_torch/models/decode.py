@@ -30,6 +30,14 @@ instead of K4.  There is no ``fused_attention`` option: on a CUDA device
 the greedy and timestamp steps always run the K3/K4/K5 kernels, on the
 CPU their plain versions; the beam step's attentions are plain products
 on both, as the JAX beam's einsums are.
+
+With a mesh (``parallel/mesh.py``) a ``BatchDecoder`` decodes the rank's
+rows of each batch (the data dim's contiguous block) on the rank's weight
+shards (the model dim), and gathers every loop's results over the data
+dim, so each rank holds the whole batch's results, as the JAX controller
+does.  Sampled noise is drawn for the whole batch and each rank takes its
+rows, so a sampled rung draws what one process would.  Retry buckets are
+multiples of the data-parallel size, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,11 +51,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import (DATA_AXIS, all_true, axis_group, axis_rank,
+                             axis_size, gather_rows, local_rows)
 from ..tokenizer import WhisperTokenizer
 from .graphs import ChunkGraphs
 from .whisper import (Params, StepLengths, WhisperConfig, alloc_cross_kv,
                       decode_step, decoder_forward, init_kv_cache,
-                      precompute_cross_kv)
+                      local_heads, model_group, precompute_cross_kv)
 
 # steps between checks that every row has finished: each check waits for
 # the device, and extra steps after the last EOT change no output
@@ -113,12 +123,18 @@ def build_blank_mask(tokenizer: WhisperTokenizer, cfg: WhisperConfig
 
 
 def _sample(logits: torch.Tensor, temperature: torch.Tensor,
-            gen: torch.Generator) -> torch.Tensor:
+            gen: torch.Generator,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Greedy where ``temperature`` (a device f32 scalar) is 0, else a
     Gumbel-max draw at that temperature; the noise is drawn either way
-    (JAX ``sample``), so one captured chunk serves every rung."""
+    (JAX ``sample``), so one captured chunk serves every rung.  ``rows``
+    (start, total): the logits are rows [start, start + B) of a batch of
+    ``total``, and the noise is drawn for all of them."""
     greedy = logits.argmax(dim=-1)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    shape = logits.shape if rows is None else (rows[1],) + logits.shape[1:]
+    u = torch.rand(shape, generator=gen, device=logits.device)
+    if rows is not None:
+        u = u[rows[0]:rows[0] + logits.shape[0]]
     u = u * (1.0 - 1e-9) + 1e-9                          # [1e-9, 1)
     gumbel = -torch.log(-torch.log(u))
     sampled = (logits / temperature.clamp_min(1e-6) + gumbel).argmax(dim=-1)
@@ -166,22 +182,25 @@ class LoopState:
 class GreedyPick:
     """Token choice of JAX ``greedy_decode_jit``: the suppress mask at every
     step (and the blank mask at the first), then ``_sample`` at the
-    loop's device temperature from ``gen``."""
+    loop's device temperature from ``gen`` (over ``rows`` of a larger
+    batch, as ``_sample`` takes them, on a data-parallel rank)."""
 
     def __init__(self, suppress_mask: torch.Tensor, blank_mask: torch.Tensor,
-                 gen: torch.Generator):
+                 gen: torch.Generator,
+                 rows: Optional[Tuple[int, int]] = None):
         self.suppress, self.blank, self.gen = suppress_mask, blank_mask, gen
+        self.rows = rows
 
     def first(self, logits: torch.Tensor, st: "LoopState"):
         """Prefill logits [B, V] -> (first token, its logprob)."""
         first = logits + self.suppress + self.blank
-        tok = _sample(first, st.temperature, self.gen)
+        tok = _sample(first, st.temperature, self.gen, self.rows)
         return tok, _logprob_of(first, tok)
 
     def step(self, logits: torch.Tensor, st: "LoopState"):
         """Step logits -> (the logits the logprob is read from, token)."""
         logits = logits + self.suppress
-        return logits, _sample(logits, st.temperature, self.gen)
+        return logits, _sample(logits, st.temperature, self.gen, self.rows)
 
     def advance(self, st: "LoopState", nxt: torch.Tensor) -> None:
         """State of the choice itself, before ``st.tok`` becomes ``nxt``."""
@@ -219,9 +238,10 @@ class ChunkedLoop:
     """What ``DecodeLoop`` and ``beam.BeamLoop`` share: steps in chunks of
     FINISH_CHECK_EVERY over static buffers, captured as CUDA graphs when a
     graph pool is given (else run eagerly), and the host's check between
-    chunks that every row has finished.  A subclass sets ``p``,
-    ``max_new`` and ``state`` (with device ``i`` and ``pos``) and defines
-    ``_chunk(n)``."""
+    chunks that every row has finished (on every rank of a model group,
+    whose chunks run collectives together).  A subclass sets ``params``,
+    ``p``, ``max_new`` and ``state`` (with device ``i`` and ``pos``) and
+    defines ``_chunk(n)``."""
 
     def _capture(self, device: torch.device, gen, graphs_pool) -> None:
         self.graphs = None
@@ -252,8 +272,9 @@ class ChunkedLoop:
         every row has ``finished`` (at steps 1, 17, 33, ...: the eager
         loop's checks).  Returns the positions run."""
         self._rewind()
+        group = model_group(self.params)
         i = 1
-        while i < self.max_new and not bool(finished.all()):
+        while i < self.max_new and not all_true(finished, group):
             n = min(FINISH_CHECK_EVERY, self.max_new - i)
             self.run_chunk(n)
             i += n
@@ -284,9 +305,10 @@ class DecodeLoop(ChunkedLoop):
         self.p, self.max_new = p, max_new
         self.quantize, self.scale_dtype = quantize, scale_dtype
         self.pick, self.eot = pick, eot
-        self.cache = init_kv_cache(cfg, rows, p + max_new, device)
+        heads = local_heads(params, "decoder", cfg)
+        self.cache = init_kv_cache(cfg, rows, p + max_new, device, heads=heads)
         self.cross = alloc_cross_kv(cfg, rows, ta, device, quantize,
-                                    scale_dtype)
+                                    scale_dtype, heads=heads)
         self.state = LoopState.zeros(rows, max_new, device)
         self.cross_len = torch.full((1,), ta, dtype=torch.int32,
                                     device=device)
@@ -361,6 +383,11 @@ class BatchDecoder:
     runs the chunks eagerly on CUDA too, for comparison only; on the CPU
     they always run eagerly.
 
+    With ``mesh`` every decode takes the rank's rows of a batch
+    (``parallel.shard_batch``'s block of the data dim) and returns the
+    whole batch's results, gathered over the data dim; the weights are
+    the rank's shards.  ``data_parallel`` is the data dim's size.
+
     ``stats`` accumulates, for run reports: ``token_rows`` (rows x decode
     positions run, padding rows included; a beam loop counts rows x beams),
     ``rung_rows`` (rows decoded at each rung of the temperature ladder),
@@ -369,12 +396,17 @@ class BatchDecoder:
     timestamp loops: K3 and K4 or K5 once a layer), ``beam_calls`` and
     ``beam_steps`` (beam loops and their steps: no K3/K4/K5, the block
     matmuls at M = rows x beams) and ``capture_s`` (host seconds spent
-    capturing chunks, warm-up runs included)."""
+    capturing chunks, warm-up runs included); rows are the rank's."""
 
     def __init__(self, params: Params, cfg: WhisperConfig,
                  tokenizer: WhisperTokenizer, opts: DecodingOptions,
-                 device: torch.device, eager: bool = False):
+                 device: torch.device, eager: bool = False, mesh=None):
         self.params = params
+        self.data_parallel = 1 if mesh is None else axis_size(mesh,
+                                                              DATA_AXIS)
+        self._data_rank = 0 if mesh is None else axis_rank(mesh, DATA_AXIS)
+        self._data_group = None if mesh is None else axis_group(mesh,
+                                                                DATA_AXIS)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.opts = opts
@@ -414,11 +446,22 @@ class BatchDecoder:
 
     def decode(self, xa: torch.Tensor, temperature: float = 0.0,
                rng_tag: int = 0) -> List[SegmentResult]:
-        """Decode a batch of encoded segments xa [B, Ta, d] at one
-        temperature; returns per-segment results with quality stats."""
+        """Decode a batch of encoded segments xa [B, Ta, d] (the rank's
+        rows with a mesh) at one temperature; returns per-segment results
+        of the whole batch with quality stats."""
         return self.decode_finalize(
             self.decode_submit(xa, temperature, rng_tag=rng_tag),
-            int(xa.shape[0]), temperature)
+            int(xa.shape[0]) * self.data_parallel, temperature)
+
+    def _gathered(self, out: DecodeOutput) -> DecodeOutput:
+        """A loop's results of the rank's rows -> the whole batch's."""
+        if self._data_group is None:
+            return out
+        g = self._data_group
+        return DecodeOutput(gather_rows(out.tokens, g),
+                            gather_rows(out.sum_logprob, g),
+                            gather_rows(out.lengths, g),
+                            gather_rows(out.no_speech, g), out.steps)
 
     def decode_submit(self, xa: torch.Tensor, temperature: float = 0.0,
                       rng_tag: int = 0) -> DecodeOutput:
@@ -448,7 +491,7 @@ class BatchDecoder:
                 self.stats["token_rows"] += rows * out.steps
                 self.stats["decode_steps"] += out.steps - 1
             self.stats["decode_calls"] += 1
-        return out
+        return self._gathered(out)
 
     def _get(self, loops: dict, key: tuple, make):
         """The loop of ``key`` in ``loops``, built by ``make(*key, pool)``
@@ -466,10 +509,12 @@ class BatchDecoder:
         return torch.bfloat16 if self.opts.ckv_scale_bf16 else torch.float32
 
     def _make_greedy(self, rows, ta, p, max_new, pool) -> DecodeLoop:
+        noise_rows = (None if self._data_group is None else
+                      (self._data_rank * rows, self.data_parallel * rows))
         return DecodeLoop(
             self.params, self.cfg, rows, ta, p, max_new,
             self.opts.int8_cross_kv, self._scale_dtype(),
-            GreedyPick(self._suppress, self._blank, self._gen),
+            GreedyPick(self._suppress, self._blank, self._gen, noise_rows),
             self.tokenizer.special.eot, self.device, graphs_pool=pool)
 
     def _make_beam(self, rows, ta, p, max_new, pool):
@@ -512,7 +557,7 @@ class BatchDecoder:
             self.stats["token_rows"] += rows * out.steps
             self.stats["decode_calls"] += 1
             self.stats["decode_steps"] += out.steps - 1
-        return out
+        return self._gathered(out)
 
     def timestamps_finalize(self, out: DecodeOutput,
                             chunk_starts: Sequence[float],
@@ -579,23 +624,33 @@ class BatchDecoder:
         ``first`` takes an already-run ``decode_submit`` result for the
         first rung.  ``n_valid`` limits the gates to the real rows (the
         zero-audio padding rows always fail).  Retry sub-batches are padded
-        up to the chunk batcher's power-of-two buckets."""
+        up to the chunk batcher's power-of-two buckets, multiples of the
+        data-parallel size.  With a mesh ``xa`` holds the rank's rows, and
+        ``n_valid``, the gates and the retries are over the whole batch:
+        a retry's rows are taken from the whole batch's xa (gathered once,
+        at the first retry), and the rank decodes its block of them."""
         from ..pipeline.chunking import _bucket_for
         temps = self.opts.temperatures or (0.0,)
+        dp = self.data_parallel
         if first is None:
             first = self.decode_submit(xa, temps[0], rng_tag=rng_tag * 16)
-        results = self.decode_finalize(first, int(xa.shape[0]), temps[0])
+        b = int(xa.shape[0]) * dp
+        results = self.decode_finalize(first, b, temps[0])
         self.stats["rung_rows"][0] += int(xa.shape[0])
-        n_valid = int(xa.shape[0]) if n_valid is None else n_valid
+        n_valid = b if n_valid is None else n_valid
         pending = [i for i, r in enumerate(results[:n_valid])
                    if self._needs_fallback(r)]
+        xa_all = None
         for rung, temp in enumerate(temps[1:], start=1):
             if not pending:
                 break
-            rows = _bucket_for(len(pending), int(xa.shape[0]))
+            if xa_all is None:
+                xa_all = gather_rows(xa, self._data_group)
+            rows = _bucket_for(len(pending), b, dp)
             idx = pending + [pending[0]] * (rows - len(pending))
-            sub = xa[torch.tensor(idx, device=xa.device)]
-            self.stats["rung_rows"][rung] += rows
+            sub = local_rows(xa_all[torch.tensor(idx, device=xa.device)],
+                             dp, self._data_rank)
+            self.stats["rung_rows"][rung] += rows // dp
             retried = self.decode(sub, temperature=temp,
                                   rng_tag=rng_tag * 16 + rung)[:len(pending)]
             still = []

@@ -16,7 +16,17 @@ Kernels: encoder self-attention goes through ``ops.attention``
 matmul through ``ops.quant.mm`` (K6 for int8 ``{q, s}`` weights); on a
 CUDA tensor those launch the hand-written kernels, on a CPU tensor they
 run the plain versions.  The prefill's attention (q_len = prefix) is plain
-PyTorch, as it is XLA einsum in JAX.
+PyTorch, as it is XLA einsum in JAX; so is the encoder's with
+``encode(..., use_flash=False)``, the differentiable path training takes
+(JAX trains through the same einsum branch; K2 has no backward).
+
+Tensor parallelism (``parallel/mesh.py``): on the rank's shards of the
+weights every function computes the rank's heads (shard width over
+head_dim) and MLP columns; the outputs of the row-parallel o and fc2
+products are all-reduced over the model group before their replicated
+biases are added, and the inputs of the column-parallel products pass
+``copy_to_model``, which all-reduces their gradient in training.  Without
+a model group in the weights both are the identity.
 
 KV cache layout: ``[B, H, T, dh]`` per layer (the JAX package's transposed
 ``[B, H, dh, T]`` exists only for TPU lane padding).
@@ -37,7 +47,8 @@ from ..ops.decode_attention import (attend_int8_plain, attend_plain,
                                     decode_cross_attention,
                                     decode_cross_attention_int8,
                                     decode_self_attention)
-from ..ops.quant import mm
+from ..ops.quant import is_quantized, mm
+from ..parallel.mesh import MODEL_GROUP_KEY, copy_to_model, reduce_from_model
 
 Params = Dict[str, Any]
 KVCache = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -177,6 +188,19 @@ def init_params(cfg: WhisperConfig, device: torch.device,
 # Forward pieces
 # ---------------------------------------------------------------------------
 
+def model_group(params: Params):
+    """The model group of tensor-parallel shards (``parallel.shard_params``),
+    or None."""
+    return params.get(MODEL_GROUP_KEY)
+
+
+def local_heads(params: Params, part: str, cfg: WhisperConfig) -> int:
+    """Heads this rank computes in ``part``: the width of the q projection
+    over head_dim (every head of ``cfg`` without tensor parallelism)."""
+    w = params[part]["blocks"][0]["attn"]["q_w"]
+    return (w["q"] if is_quantized(w) else w).shape[-1] // cfg.head_dim
+
+
 def _layer_norm(x: torch.Tensor, ln: Dict[str, torch.Tensor]) -> torch.Tensor:
     y = F.layer_norm(x.float(), (x.shape[-1],), ln["g"].float(),
                      ln["b"].float(), eps=1e-5)
@@ -193,9 +217,18 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-def _mlp(x: torch.Tensor, mlp: Dict[str, torch.Tensor]) -> torch.Tensor:
-    h = F.gelu(mm(x, mlp["fc1_w"]) + mlp["fc1_b"])
-    return mm(h, mlp["fc2_w"]) + mlp["fc2_b"]
+def _mlp(x: torch.Tensor, mlp: Dict[str, torch.Tensor],
+         group=None) -> torch.Tensor:
+    h = F.gelu(mm(copy_to_model(x, group), mlp["fc1_w"]) + mlp["fc1_b"])
+    return reduce_from_model(mm(h, mlp["fc2_w"]), group) + mlp["fc2_b"]
+
+
+def _attn_out(heads: torch.Tensor, att: Dict[str, Any],
+              group=None) -> torch.Tensor:
+    """The o projection of attention heads [B, H, T, dh] (row-parallel:
+    the partial sums reduced, then the bias once)."""
+    return (reduce_from_model(mm(_merge_heads(heads), att["o_w"]), group)
+            + att["o_b"])
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -207,24 +240,34 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.transpose(1, 2).to(x.dtype)
 
 
-def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig
-           ) -> torch.Tensor:
-    """mel [B, n_mels, T_frames] -> audio states [B, T_frames//2, d]."""
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+           use_flash: bool = True) -> torch.Tensor:
+    """mel [B, n_mels, T_frames] -> audio states [B, T_frames//2, d].
+
+    ``use_flash`` (the pipeline's path) runs the attention through K2;
+    without it the attention is JAX ``_sdpa``'s einsum branch
+    (``attend_plain``: f32 scores and softmax, the probabilities in the
+    activations' dtype times V), which autograd differentiates."""
     enc = params["encoder"]
+    group = model_group(params)
     x = mel.to(cfg.dtype).transpose(1, 2)                 # [B, T, n_mels]
     x = F.gelu(_conv1d(x, enc["conv1_w"], enc["conv1_b"], 1))
     x = F.gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], 2))
     x = x + enc["pos"][: x.shape[1]].to(cfg.dtype)
-    n_head = cfg.n_audio_head
+    n_head = local_heads(params, "encoder", cfg)
     for blk in enc["blocks"]:
-        a_in = _layer_norm(x, blk["ln1"])
+        a_in = copy_to_model(_layer_norm(x, blk["ln1"]), group)
         att = blk["attn"]
         q = _split_heads(mm(a_in, att["q_w"]) + att["q_b"], n_head)
         k = _split_heads(mm(a_in, att["k_w"]), n_head)
         v = _split_heads(mm(a_in, att["v_w"]) + att["v_b"], n_head)
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-        x = x + (mm(_merge_heads(out), att["o_w"]) + att["o_b"])
-        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
+        if use_flash:
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+        else:
+            out = attend_plain(q, k, v)
+        x = x + _attn_out(out, att, group)
+        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"], group)
     return _layer_norm(x, enc["ln_post"])
 
 
@@ -242,8 +285,9 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
     exists at once; each layer is then ``(k_q, k_s, v_q, v_s)``.  ``out``
     (a list of the same structure, e.g. ``alloc_cross_kv``) takes the
     results in place and is returned: the static buffers a captured decode
-    chunk reads."""
-    n_head = cfg.n_text_head
+    chunk reads.  On tensor-parallel shards H is the rank's heads."""
+    n_head = local_heads(params, "decoder", cfg)
+    xa = copy_to_model(xa, model_group(params))
     layers = []
     for i, blk in enumerate(params["decoder"]["blocks"]):
         xat = blk["xattn"]
@@ -260,12 +304,14 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
 
 def alloc_cross_kv(cfg: WhisperConfig, batch: int, ta: int,
                    device: torch.device, quantize: bool = False,
-                   scale_dtype: torch.dtype = torch.float32) -> list:
+                   scale_dtype: torch.dtype = torch.float32,
+                   heads: Optional[int] = None) -> list:
     """Zeroed buffers shaped as ``precompute_cross_kv``'s result, for its
     ``out``: per layer (k, v) [B, H, Ta, dh] in cfg.dtype, or with
-    ``quantize`` (k_q, k_s, v_q, v_s): int8 codes and [B, H, Ta] scales."""
-    h = cfg.n_text_head
-    shape = (batch, h, ta, cfg.n_text_state // h)
+    ``quantize`` (k_q, k_s, v_q, v_s): int8 codes and [B, H, Ta] scales.
+    H is ``heads`` (a tensor-parallel rank's; default every head)."""
+    h = heads or cfg.n_text_head
+    shape = (batch, h, ta, cfg.n_text_state // cfg.n_text_head)
     if not quantize:
         return [tuple(torch.zeros(shape, dtype=cfg.dtype, device=device)
                       for _ in range(2)) for _ in range(cfg.n_text_layer)]
@@ -294,9 +340,11 @@ def quantize_cross_kv(k: torch.Tensor, v: torch.Tensor,
 
 
 def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int,
-                  device: torch.device) -> KVCache:
-    """Self-attention cache: per-layer [B, H, max_len, dh] zeros."""
-    shape = (batch, cfg.n_text_head, max_len,
+                  device: torch.device, heads: Optional[int] = None
+                  ) -> KVCache:
+    """Self-attention cache: per-layer [B, H, max_len, dh] zeros; H is
+    ``heads`` (a tensor-parallel rank's; default every head)."""
+    shape = (batch, heads or cfg.n_text_head, max_len,
              cfg.n_text_state // cfg.n_text_head)
     k = [torch.zeros(shape, dtype=cfg.dtype, device=device)
          for _ in range(cfg.n_text_layer)]
@@ -315,20 +363,21 @@ class StepLengths:
 
 
 def _decoder_block(h, blk, n_head, self_k, self_v, self_mask, xkv,
-                   step: Optional[StepLengths] = None):
+                   step: Optional[StepLengths] = None, group=None):
     """One decoder block.  ``step`` set (q_len = 1) routes both attentions
     through the decode kernels; otherwise the plain einsum path runs.
-    ``xkv`` is the layer's cross (k, v) or its int8 4-tuple."""
-    a_in = _layer_norm(h, blk["ln1"])
+    ``xkv`` is the layer's cross (k, v) or its int8 4-tuple; ``group``
+    the model group of tensor-parallel shards."""
+    a_in = copy_to_model(_layer_norm(h, blk["ln1"]), group)
     att = blk["attn"]
     q = _split_heads(mm(a_in, att["q_w"]) + att["q_b"], n_head)
     if step is not None:
         attn_out = decode_self_attention(q, self_k, self_v, step.pos)
     else:
         attn_out = attend_plain(q, self_k, self_v, mask=self_mask)
-    h = h + (mm(_merge_heads(attn_out), att["o_w"]) + att["o_b"])
+    h = h + _attn_out(attn_out, att, group)
 
-    x_in = _layer_norm(h, blk["lnx"])
+    x_in = copy_to_model(_layer_norm(h, blk["lnx"]), group)
     xat = blk["xattn"]
     xq = _split_heads(mm(x_in, xat["q_w"]) + xat["q_b"], n_head)
     if len(xkv) == 2 and step is not None:
@@ -339,8 +388,8 @@ def _decoder_block(h, blk, n_head, self_k, self_v, self_mask, xkv,
         xout = decode_cross_attention_int8(xq, *xkv, step.cross_len)
     else:
         xout = attend_int8_plain(xq, *xkv)
-    h = h + (mm(_merge_heads(xout), xat["o_w"]) + xat["o_b"])
-    return h + _mlp(_layer_norm(h, blk["ln2"]), blk["mlp"])
+    h = h + _attn_out(xout, xat, group)
+    return h + _mlp(_layer_norm(h, blk["ln2"]), blk["mlp"], group)
 
 
 def logits_f32(x: torch.Tensor, tok_emb_f32: torch.Tensor) -> torch.Tensor:
@@ -362,13 +411,14 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
     cache; ``cross_kv`` takes the output of ``precompute_cross_kv`` (then
     ``xa`` may be None)."""
     dec = params["decoder"]
-    n_head = cfg.n_text_head
+    group = model_group(params)
+    n_head = local_heads(params, "decoder", cfg)
     b, t = tokens.shape
     if kv_cache is None and pos_offset:
         raise ValueError("decoder_forward with pos_offset > 0 requires a "
                          "kv_cache sized for pos_offset + T")
     if kv_cache is None:
-        kv_cache = init_kv_cache(cfg, b, t, tokens.device)
+        kv_cache = init_kv_cache(cfg, b, t, tokens.device, heads=n_head)
     if cross_kv is None:
         cross_kv = precompute_cross_kv(params, xa, cfg)
 
@@ -382,13 +432,13 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
 
     for blk, ck, cv, xkv in zip(dec["blocks"], kv_cache[0], kv_cache[1],
                                 cross_kv):
-        a_in = _layer_norm(x, blk["ln1"])
+        a_in = copy_to_model(_layer_norm(x, blk["ln1"]), group)
         att = blk["attn"]
         ck[:, :, pos_offset:end] = _split_heads(mm(a_in, att["k_w"]), n_head)
         cv[:, :, pos_offset:end] = _split_heads(mm(a_in, att["v_w"])
                                                 + att["v_b"], n_head)
         x = _decoder_block(x, blk, n_head, ck[:, :, :end], cv[:, :, :end],
-                           mask, xkv)
+                           mask, xkv, group=group)
     x = _layer_norm(x, dec["ln"])
     return logits_f32(x, dec["tok_emb"].float()), kv_cache
 
@@ -406,7 +456,8 @@ def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
     replays at every position.  ``tok_emb_f32`` is the float32 view of the
     embedding the caller keeps for the whole loop."""
     dec = params["decoder"]
-    n_head = cfg.n_text_head
+    group = model_group(params)
+    n_head = kv_cache[0][0].shape[1]
     slot = lengths.pos.long()
     x = dec["tok_emb"][token] + dec["pos_emb"].index_select(0, lengths.pos)
     h = x[:, None, :].to(cfg.dtype)                        # [B, 1, d]
@@ -419,6 +470,7 @@ def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
             b, n_head, 1, -1))
         cv.index_copy_(2, slot, (mm(a_in[:, 0], att["v_w"])
                                  + att["v_b"]).reshape(b, n_head, 1, -1))
-        h = _decoder_block(h, blk, n_head, ck, cv, None, xkv, step=lengths)
+        h = _decoder_block(h, blk, n_head, ck, cv, None, xkv, step=lengths,
+                           group=group)
     x = _layer_norm(h, dec["ln"])[:, 0, :]
     return logits_f32(x, tok_emb_f32)

@@ -33,6 +33,14 @@ Two threads may transcribe at once (the job server decodes a second pass
 while its worker runs the next job): decoders are made under a lock, one
 per (language, temperatures, prompt), and each ``BatchDecoder`` runs one
 loop at a time on its own static buffers.
+
+With a mesh (``parallel/mesh.py``; ``load_model(mesh="auto")`` builds one
+over an initialised world of more than one process) the program is SPMD:
+every rank runs the same VAD and chunking, every batch's rows are a
+multiple of the data-parallel size, each rank encodes and decodes its
+block of the rows on its weight shards, and the decoder gathers the
+results, so every rank returns the whole transcription.  The CLI and the
+job server stay single-process.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ from ..models.whisper import (MODEL_CONFIGS, WhisperConfig, decoder_forward,
                               encode, init_params)
 from ..ops.mel import log_mel_spectrogram
 from ..ops.quant import quantize_params
+from ..parallel.mesh import (DATA_AXIS, axis_rank, axis_size, local_rows,
+                             make_mesh, shard_params)
 from ..tokenizer import WhisperTokenizer, make_test_tokenizer
 from .chunking import SpeechChunk, batch_chunks, merge_chunks
 
@@ -76,7 +86,10 @@ class TranscribePipeline:
     """Loaded model + tokenizer + VAD on one device, ready to transcribe.
 
     ``params`` are the port's weights (``convert.from_jax_tree`` or
-    ``models.whisper.init_params``), already on ``device``."""
+    ``models.whisper.init_params``), already on ``device``.  ``mesh`` (a
+    ``parallel.make_mesh`` mesh) turns on data and tensor parallelism:
+    the params are replaced by the rank's shards (``shard_params``) and
+    every batch is split over the data dim (``data_parallel`` ranks)."""
 
     def __init__(self, params, cfg: WhisperConfig,
                  tokenizer: WhisperTokenizer,
@@ -84,8 +97,13 @@ class TranscribePipeline:
                  asr_options: Optional[dict] = None,
                  vad_options: Optional[VadOptions] = None,
                  language: Optional[str] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_parallel = 1
+        if mesh is not None:
+            params = shard_params(params, mesh)
+            self.data_parallel = axis_size(mesh, DATA_AXIS)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -134,12 +152,21 @@ class TranscribePipeline:
                                        initial_prompt=initial_prompt,
                                        **passthrough)
                 self._decoders[key] = BatchDecoder(
-                    self.params, self.cfg, self.tokenizer, opts, self.device)
+                    self.params, self.cfg, self.tokenizer, opts, self.device,
+                    mesh=self.mesh)
             return self._decoders[key]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _local(self, windows: np.ndarray) -> np.ndarray:
+        """The rank's block of a batch's rows (all of them without a
+        mesh)."""
+        if self.mesh is None:
+            return windows
+        return local_rows(windows, self.data_parallel,
+                          axis_rank(self.mesh, DATA_AXIS))
 
     def _encode_windows(self, windows: np.ndarray) -> torch.Tensor:
         """Host float windows -> encoder states.  Audio crosses to the
@@ -183,14 +210,15 @@ class TranscribePipeline:
         lang = language or self.language or "zh"
         decoder = self._decoder(lang, temperature)
         use_ts = not self.asr_options.get("without_timestamps", True)
-        buckets = sorted({_bucket_for(max(1, batch_size >> k), batch_size)
+        buckets = sorted({_bucket_for(max(1, batch_size >> k), batch_size,
+                                      self.data_parallel)
                           for k in range(4)})
         for i, rows in enumerate(buckets):
             if progress_callback:
                 progress_callback(100.0 * i / len(buckets),
                                   f"warmup: batch-{rows} decode loop")
             windows = np.zeros((rows, self.window_samples), np.float32)
-            xa = self._encode_windows(windows)
+            xa = self._encode_windows(self._local(windows))
             if use_ts:
                 decoder.decode_with_timestamps(xa, [0.0] * rows,
                                                [self.window_sec] * rows)
@@ -267,10 +295,11 @@ class TranscribePipeline:
                               if decoder.opts.temperatures else 0.0)
             for windows, grp in batch_chunks(
                     audio, group, batch_size,
-                    window_samples=self.window_samples):
+                    window_samples=self.window_samples,
+                    divisor=self.data_parallel):
                 batch_idx = stats["batches"]
                 t_enc = time.perf_counter()
-                xa = self._encode_windows(windows)
+                xa = self._encode_windows(self._local(windows))
                 self._sync()
                 t_dec = time.perf_counter()
                 stats["encode_s"] += t_dec - t_enc
@@ -372,6 +401,29 @@ def _find_weights_dir(name: str) -> Optional[Path]:
     return None
 
 
+def _auto_mesh():
+    """The default mesh (JAX ``_auto_mesh``): over an initialised world of
+    more than one process, a (data, model) mesh of every rank; else None.
+
+    Knobs: MWX_AUTO_MESH=false disables; MWX_MODEL_PARALLEL sets the TP
+    width (default 1, pure data parallel); MWX_DATA_PARALLEL caps the
+    device count (a cap below the world raises in ``make_mesh``: every
+    process of the world runs the program)."""
+    if not config.get_bool("MWX_AUTO_MESH", True):
+        return None
+    if not (torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        return None
+    n = torch.distributed.get_world_size()
+    mp = config.get_int("MWX_MODEL_PARALLEL", 1)
+    dp_cap = config.get_int("MWX_DATA_PARALLEL", 0)
+    if dp_cap:
+        n = min(n, dp_cap * mp)
+    if n <= 1 or n % mp != 0:
+        return None
+    return make_mesh(n, model_parallel=mp)
+
+
 def load_model(name: Union[str, dict] = "large-v3",
                device: DeviceLike = "cuda",
                compute_type: str = "bfloat16",
@@ -379,6 +431,7 @@ def load_model(name: Union[str, dict] = "large-v3",
                asr_options: Optional[dict] = None,
                vad_options: Optional[dict] = None,
                cfg: Optional[WhisperConfig] = None,
+               mesh="auto",
                ) -> TranscribePipeline:
     """whisperx.load_model-style entry (reference: transcribe.py:107-113).
 
@@ -393,7 +446,10 @@ def load_model(name: Union[str, dict] = "large-v3",
     ``compute_type``: bfloat16 (default; float16 maps here), float32, or
     int8: bf16 activations with every block matmul weight quantized to
     int8 (``ops.quant.quantize_params``; a tree already quantized passes
-    through), as the JAX ``load_model`` does."""
+    through), as the JAX ``load_model`` does.  ``mesh``: "auto" (default)
+    builds one over an initialised world of more than one process
+    (``_auto_mesh``); pass a ``parallel.make_mesh`` mesh or None to
+    override."""
     dev = resolve_device(device)
     dtype = compute_dtype(compute_type)
     tokenizer = None
@@ -427,10 +483,12 @@ def load_model(name: Union[str, dict] = "large-v3",
     if tokenizer is None:
         tokenizer = make_test_tokenizer(cfg.num_languages)
     vad_opts = VadOptions(**vad_options) if vad_options else VadOptions()
+    if isinstance(mesh, str) and mesh == "auto":
+        mesh = _auto_mesh()
     return TranscribePipeline(params, cfg, tokenizer, vad=_load_vad(dev),
                               asr_options=asr_options,
                               vad_options=vad_opts, language=language,
-                              device=dev)
+                              device=dev, mesh=mesh)
 
 
 def _load_vad(device: torch.device) -> VoiceActivityDetector:

@@ -52,7 +52,9 @@ def test_port_files_exist():
                      "serving/server.py", "eval/metrics.py",
                      "eval/synth.py", "eval/vad_eval.py",
                      "models/wav2vec2.py", "models/align.py",
-                     "models/diarize.py"):
+                     "models/diarize.py", "training/train.py",
+                     "training/optim.py", "parallel/mesh.py",
+                     "parallel/dryrun.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
@@ -85,7 +87,9 @@ def test_import_pulls_in_no_jax():
             "manual_whisper_tpu_torch.models.diarize, "
             "manual_whisper_tpu_torch.eval.metrics, "
             "manual_whisper_tpu_torch.eval.synth, "
-            "manual_whisper_tpu_torch.eval.vad_eval\n"
+            "manual_whisper_tpu_torch.eval.vad_eval, "
+            "manual_whisper_tpu_torch.training, "
+            "manual_whisper_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print('BAD', bad)\nsys.exit(1 if bad else 0)")
