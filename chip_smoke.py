@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --rows decode_self_attention,int8_matmul
     python3 chip_smoke.py --phases align,diarize,cli
+    python3 chip_smoke.py --phases train,mesh
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``mel``, ``flash_attention``,
@@ -119,6 +120,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    ``cli.main`` on a WAV of that conversation with ``HF_TOKEN`` set and
    random large-v3: every stage runs (no alignment or diarization failure
    line), the Markdown has speaker headings, every segment a speaker.
+   ``train``: the test config's AdamW steps at f32 card vs CPU (TRAIN_TOL;
+   the loss mask ignored must exceed it), then three bf16 steps of
+   large-v3 at full width and depth on a batch of two 30 s windows (K1
+   once a step, no K2; losses finite and falling; ms per step and peak
+   memory).  ``mesh``: a one-rank NCCL world: ``load_model(mesh=
+   make_mesh(1, 1))`` at large-v3 transcribes phase 4's audio to the
+   meshless pipeline's segments, launches exact, and a test-config train
+   step with the mesh equals the step without; K2-K6 held to their plain
+   versions at the local shapes of a tp=2 shard of large-v3; with two or
+   more GPUs a dp=2 ``parallel.dryrun`` under torchrun (else a
+   ``mesh_multi`` line with ``"ran": false``).
 7. The job server (``serve``): the port's
    native audio libraries are built (libmwx_audio must build, libmwx_ffdec
    must where g++ finds the FFmpeg headers) and each suffix's route
@@ -1138,9 +1150,10 @@ def synthetic_speech(seconds: float, seed: int) -> np.ndarray:
 BATCH = 4
 
 
-def load_main_model(compute_type: str, int8_cross_kv: bool):
+def load_main_model(compute_type: str, int8_cross_kv: bool, mesh=None):
     """large-v3 at full width and depth, seeded random weights, the CLI's
-    asr_options; returns (model, load seconds)."""
+    asr_options, on ``mesh`` (none by default); returns (model, load
+    seconds)."""
     from manual_whisper_tpu_torch.pipeline import load_model
     from manual_whisper_tpu_torch.text import INITIAL_PROMPT
     os.environ["MWX_ALLOW_RANDOM_WEIGHTS"] = "1"
@@ -1149,7 +1162,8 @@ def load_main_model(compute_type: str, int8_cross_kv: bool):
                        language="zh",
                        asr_options={"initial_prompt": INITIAL_PROMPT,
                                     "beam_size": 1,
-                                    "int8_cross_kv": int8_cross_kv})
+                                    "int8_cross_kv": int8_cross_kv},
+                       mesh=mesh)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
@@ -2041,6 +2055,256 @@ def phase_cli(workdir: str, registry: str) -> None:
                              "speaker headings")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the fine-tuning step (training/) and the mesh path (parallel/)
+# ---------------------------------------------------------------------------
+
+# the test config's train step, card vs CPU, both float32 with TF32 off:
+# the loss's relative error per step; the moments' largest error over their
+# leaf's largest magnitude; the params' largest abs error where the
+# gradient is at least 1e-6 (``parallel.dryrun.well_posed_param_err``:
+# Adam's update lr * g / (|g| + eps) turns the last bits of a gradient near
+# eps into a good part of lr).  The planted fault (the loss mask ignored)
+# must exceed the loss's limit.
+TRAIN_TOL = {"loss": 1e-5, "moments": 1e-5, "params": 1e-6}
+TRAIN_STEPS = 3
+
+
+def _train_steps(cfg, params, batch, steps: int, lr: float, mesh=None):
+    """``steps`` AdamW steps on one batch; returns (state, losses)."""
+    from manual_whisper_tpu_torch.training import (adamw, init_train_state,
+                                                   make_train_step)
+    optimizer = adamw(lr)
+    state = init_train_state(params, optimizer)
+    step = make_train_step(cfg, optimizer, mesh=mesh)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+    return state, losses
+
+
+def _train_errors(state, losses, ref_state, ref_losses) -> dict:
+    from manual_whisper_tpu_torch.parallel.dryrun import (
+        max_leaf_err, well_posed_param_err)
+    to_cpu = functools.partial(_to, d=torch.device("cpu"))
+    params_err, share = well_posed_param_err(
+        to_cpu(state.params), ref_state.params, ref_state.opt_state.mu)
+    return {"loss": max(abs(a - b) / abs(b)
+                        for a, b in zip(losses, ref_losses)),
+            "moments": max(
+                max_leaf_err(to_cpu(state.opt_state.mu),
+                             ref_state.opt_state.mu, relative=True),
+                max_leaf_err(to_cpu(state.opt_state.nu),
+                             ref_state.opt_state.nu, relative=True)),
+            "params": params_err, "params_compared": share}
+
+
+def phase_train(dev) -> None:
+    """The test config at f32, card vs CPU: TRAIN_STEPS AdamW steps (lr
+    1e-3) on one seeded batch whose rows carry different label counts,
+    held to TRAIN_TOL, and the loss mask ignored on the card must exceed
+    it.  Then large-v3 at full width and depth in bf16 (seeded random
+    weights): batch 2 of 30 s windows of seeded synthetic speech, each
+    step's log-mel through K1 (``training.features``), tokens at
+    n_text_ctx with the loss over the first 200, TRAIN_STEPS steps at lr
+    1e-5 on the same batch; the launch counters are zeroed before the
+    steps and read after (K1 once a step, K2 never: the encoder trains
+    through its einsum attention), the losses must be finite and the last
+    below the first; ms per step of steps 2 on, and peak memory."""
+    from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
+                                                         init_params)
+    from manual_whisper_tpu_torch.parallel.dryrun import train_batch
+    from manual_whisper_tpu_torch.training import features
+    cpu = torch.device("cpu")
+    cfg = MODEL_CONFIGS["test"]
+    batch = train_batch(4, cfg, seed=5)
+    ref_state, ref_losses = _train_steps(
+        cfg, init_params(cfg, cpu, seed=3), batch, TRAIN_STEPS, 1e-3)
+    state, losses = _train_steps(
+        cfg, _to(init_params(cfg, cpu, seed=3), dev),
+        tuple(x.to(dev) for x in batch), TRAIN_STEPS, 1e-3)
+    errs = _train_errors(state, losses, ref_state, ref_losses)
+    unmasked = (batch[0], batch[1], torch.ones_like(batch[2]))
+    _, fault_losses = _train_steps(
+        cfg, _to(init_params(cfg, cpu, seed=3), dev),
+        tuple(x.to(dev) for x in unmasked), TRAIN_STEPS, 1e-3)
+    fault = max(abs(a - b) / abs(b) for a, b in zip(fault_losses,
+                                                      ref_losses))
+    log(json.dumps({"phase": "train_test_config", "steps": TRAIN_STEPS,
+                    "losses": losses, "losses_cpu": ref_losses,
+                    "errors": errs, "tol": TRAIN_TOL,
+                    "fault_mask_ignored_loss_err": fault}))
+    for k, tol in TRAIN_TOL.items():
+        if not errs[k] <= tol:
+            raise AssertionError(f"train: {k} error {errs[k]} exceeds {tol}")
+    if not fault > TRAIN_TOL["loss"]:
+        raise AssertionError(f"train: the loss tolerance does not catch the "
+                             f"ignored loss mask ({fault})")
+
+    cfg = MODEL_CONFIGS["large-v3"]
+    torch.cuda.empty_cache()
+    params = init_params(cfg, dev, seed=0)
+    audio = torch.from_numpy(np.stack([synthetic_speech(30.0, seed=s)
+                                       for s in (11, 12)])).to(dev)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(
+        0, 50000, (2, cfg.n_text_ctx))).to(dev)
+    mask = torch.zeros((2, cfg.n_text_ctx), device=dev)
+    mask[:, :200] = 1.0
+    from manual_whisper_tpu_torch.training import (adamw, init_train_state,
+                                                   make_train_step)
+    optimizer = adamw(1e-5)
+    state = init_train_state(params, optimizer)
+    step = make_train_step(cfg, optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, features(audio, cfg), tokens, mask)
+        losses.append(float(loss))          # waits for the step
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(_build.launches)
+    line = {"phase": "train_large_v3", "batch": 2, "tokens": cfg.n_text_ctx,
+            "labels_per_row": 200, "dtype": "bfloat16",
+            "moments_dtype": str(state.opt_state.mu["decoder"]["tok_emb"]
+                                 .dtype), "losses": losses,
+            "ms_per_step": ms[1:], "ms_first_step": ms[0],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches, "card": card_line()}
+    log(json.dumps(line))
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train large-v3: losses {losses}")
+    if launches.get("mel") != TRAIN_STEPS or launches.get("flash_attention"):
+        raise AssertionError(f"train large-v3: launches {launches}, expected "
+                             f"mel {TRAIN_STEPS} and no flash_attention")
+    if line["moments_dtype"] != "torch.bfloat16":
+        raise AssertionError(f"train large-v3: moments in "
+                             f"{line['moments_dtype']}")
+
+
+def tp_kernel_checks(dev, main: dict) -> None:
+    """K2-K6 against their plain versions at the local shapes a tp=2 shard
+    of large-v3 gives them (``kernel_check`` lines): 10 heads for K2-K5,
+    K6 at the column shards (K, N) = (1280, 640) and (1280, 2560) and the
+    row shards (640, 1280) and (2560, 1280), at a decode step's M = 4 and
+    the encoder's M = 4 x 1500."""
+    from manual_whisper_tpu_torch.models.whisper import quantize_cross_kv
+    randn = seeded_randn(dev, 4321)
+    b, dh, ta, t_max = main["batch"], main["dh"], main["ta"], main["t_max"]
+    h = main["heads"] // 2
+    errs = {}
+    q, k, v = (randn((b, h, 1500, dh)) for _ in range(3))
+    errs["flash_attention"] = compare(
+        "flash_attention", flash_attention(q, k, v), attention_plain(q, k, v))
+    q1 = randn((b, h, 1, dh))
+    ks, vs = randn((b, h, t_max, dh), scale=3.0), randn((b, h, t_max, dh))
+    for pos in (0, t_max // 2, t_max - 1):
+        p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        errs[f"decode_self_attention pos={pos}"] = compare(
+            "decode_self_attention", decode_self_attention(q1, ks, vs, p),
+            attend_plain(q1, ks, vs, pos + 1))
+    kc, vc = randn((b, h, ta, dh)), randn((b, h, ta, dh))
+    n = torch.full((1,), ta, dtype=torch.int32, device=dev)
+    errs["decode_cross_attention"] = compare(
+        "decode_cross_attention", decode_cross_attention(q1, kc, vc, n),
+        attend_plain(q1, kc, vc, ta))
+    k_q, k_s, v_q, v_s = quantize_cross_kv(kc, vc)
+    errs["decode_cross_attention_int8"] = compare(
+        "decode_cross_attention_int8",
+        decode_cross_attention_int8(q1, k_q, k_s, v_q, v_s, n),
+        attend_int8_plain(q1, k_q, k_s, v_q, v_s, ta))
+    for kk, nn in ((1280, 640), (1280, 2560), (640, 1280), (2560, 1280)):
+        w = quantize_weight(randn((kk, nn), torch.float32,
+                                  scale=kk ** -0.5))
+        for m in (b, b * 1500):
+            x = randn((m, kk))
+            errs[f"int8_matmul M={m} K={kk} N={nn}"] = compare(
+                "int8_matmul", int8_matmul(x, w["q"], w["s"]),
+                int8_matmul_plain(x, w["q"], w["s"]))
+    log(json.dumps({"phase": "kernel_check", "what": "tp=2 local shapes",
+                    "heads": h, "max_abs_err": errs,
+                    "tol": {name: TOL[name] for name in SOURCES
+                            if name != "mel"}}))
+
+
+def phase_mesh(dev, workdir: str) -> None:
+    """A one-rank NCCL world (a file store in ``workdir``): large-v3 from
+    ``load_model(mesh=make_mesh(1, 1))`` transcribes phase 4's audio to the
+    segments of the meshless pipeline on the same weights (both warmed up,
+    launches exact, every step replayed), and a test-config train step
+    with the mesh equals the step without; then K2-K6 at the tp=2 local
+    shapes (``tp_kernel_checks``).  Where the machine has two or more
+    GPUs, ``parallel.dryrun`` under torchrun on two of them (dp=2) must
+    match one process; else a ``mesh_multi`` line says it did not run."""
+    import torch.distributed as dist
+    from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
+                                                         init_params)
+    from manual_whisper_tpu_torch.parallel import make_mesh
+    from manual_whisper_tpu_torch.parallel.dryrun import train_batch
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(workdir, 'nccl_store')}",
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, model_parallel=1)
+        model, _ = load_main_model("bfloat16", False)
+        main = main_path_shapes(model)
+        expected, _, _, ref_line = _mode_transcribe(
+            model, "bfloat16", ("_loops",), "mesh_reference")
+        del model
+        torch.cuda.empty_cache()
+        sharded, load_s = load_main_model("bfloat16", False, mesh=mesh)
+        got, _, launches, line = _mode_transcribe(
+            sharded, "bfloat16", ("_loops",), "mesh_one_rank")
+        del sharded
+        torch.cuda.empty_cache()
+        same = _segment_keys(got) == _segment_keys(expected)
+        cfg = MODEL_CONFIGS["test"]
+        batch = tuple(x.to(dev) for x in train_batch(2, cfg, seed=6))
+        plain, plain_losses = _train_steps(
+            cfg, init_params(cfg, dev, seed=4), batch, 1, 1e-3)
+        meshed, mesh_losses = _train_steps(
+            cfg, init_params(cfg, dev, seed=4), batch, 1, 1e-3, mesh=mesh)
+        from manual_whisper_tpu_torch.parallel.dryrun import max_leaf_err
+        train_err = max_leaf_err(meshed.params, plain.params)
+        log(json.dumps({**line, "load_s": load_s, "world": 1,
+                        "backend": dist.get_backend(),
+                        "mesh": {"data": 1, "model": 1},
+                        "segments_equal_meshless": same,
+                        "meshless_wall_s": ref_line["wall_s"],
+                        "train_loss": mesh_losses[0],
+                        "train_loss_meshless": plain_losses[0],
+                        "train_params_max_abs_err": train_err}))
+        if not same:
+            raise AssertionError("mesh: a one-rank mesh's segments differ "
+                                 "from the meshless pipeline's")
+        if mesh_losses != plain_losses or train_err != 0.0:
+            raise AssertionError("mesh: the one-rank mesh's train step "
+                                 "differs from the step without a mesh")
+    finally:
+        dist.destroy_process_group()
+    tp_kernel_checks(dev, main)
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(json.dumps({"phase": "mesh_multi", "ran": False, "devices": n}))
+        return
+    report = os.path.join(workdir, "mesh_multi.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "-m", "manual_whisper_tpu_torch.parallel.dryrun", "--meshes",
+         "2x1", "--modes", "greedy,timestamps", "--report", report],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(json.dumps({"phase": "mesh_multi", "ran": True, "devices": n,
+                    "returncode": proc.returncode,
+                    "lines": (json.load(open(report)) if proc.returncode == 0
+                              else proc.stderr[-2000:])}))
+    if proc.returncode != 0:
+        raise AssertionError("mesh_multi: the dp=2 world failed")
+
+
 def _profiled(fn, reps: int) -> dict:
     """Time ``reps`` calls of fn() on the host clock (ending in a
     synchronise), then run them again under torch.profiler and sum the
@@ -2761,7 +3025,7 @@ def main() -> int:
                          "stop without a result line")
     ap.add_argument("--phases", default="", metavar="PHASE[,PHASE]",
                     help="only build the kernels and run these phases of "
-                         "the speech stages (align, diarize, cli), then "
+                         "stage 6 (align, diarize, cli, train, mesh), then "
                          "stop without a result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2786,7 +3050,9 @@ def main() -> int:
 
     stages = {"align": lambda: phase_align(dev),
               "diarize": lambda: phase_diarize(dev, registry),
-              "cli": lambda: phase_cli(work, registry)}
+              "cli": lambda: phase_cli(work, registry),
+              "train": lambda: phase_train(dev),
+              "mesh": lambda: phase_mesh(dev, work)}
     import tempfile
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
         registry = make_registry(os.path.join(work, "registry"), resnet=True)

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import (DATA_AXIS, MODEL_AXIS, axis_rank, axis_size, make_mesh,
+from .mesh import (DATA_AXIS, MODEL_AXIS, axis_size, make_mesh,
                    shard_batch, shard_params)
 
 # the sharded train step against one process's, f32: the loss's relative
