@@ -132,7 +132,7 @@ def from_jax_tree(tree: Dict[str, Any], cfg: WhisperConfig,
     return out
 
 
-def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+def _numpy_leaf(t: torch.Tensor) -> np.ndarray:
     """CPU copy of ``t`` as numpy in its own dtype; bf16 crosses through a
     16-bit integer view as numpy's ``bfloat16``, the dtype ``ml_dtypes``
     registers (JAX imports it; the port does not)."""
@@ -157,7 +157,7 @@ def to_jax_tree(params: Params) -> Dict[str, Any]:
         if isinstance(node, dict):
             return {k: tree(v, k) for k, v in node.items()
                     if k != MODEL_GROUP_KEY}
-        arr = numpy_from_tensor(node)
+        arr = _numpy_leaf(node)
         return arr.transpose(2, 1, 0).copy() if name in _CONV_KEYS else arr
 
     def stack(layers):
