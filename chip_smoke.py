@@ -2258,8 +2258,11 @@ def phase_mesh(dev, workdir: str) -> None:
     """A one-rank NCCL world (a file store in ``workdir``): large-v3 from
     ``load_model(mesh=make_mesh(1, 1))`` transcribes phase 4's audio to the
     segments of the meshless pipeline on the same weights (both warmed up,
-    launches exact, every step replayed), and a test-config train step
-    with the mesh equals the step without; then K2-K6 at the tp=2 local
+    launches exact, every step replayed), and so do those weights with the
+    one-rank model group forced on them (each row-parallel output then
+    runs an NCCL all-reduce, captured inside the decode chunks and
+    replayed); a test-config train step with the mesh equals the step
+    without; then K2-K6 at the tp=2 local
     shapes (``tp_kernel_checks``).  Where the machine has two or more
     GPUs, ``parallel.dryrun`` under torchrun on two of them (dp=2) must
     match one process; else a ``mesh_multi`` line says it did not run."""
@@ -2268,6 +2271,7 @@ def phase_mesh(dev, workdir: str) -> None:
                                                          init_params)
     from manual_whisper_tpu_torch.parallel import make_mesh
     from manual_whisper_tpu_torch.parallel.dryrun import train_batch
+    from manual_whisper_tpu_torch.parallel.mesh import MODEL_GROUP_KEY
     dist.init_process_group(
         "nccl", init_method=f"file://{os.path.join(workdir, 'nccl_store')}",
         rank=0, world_size=1)
@@ -2282,9 +2286,19 @@ def phase_mesh(dev, workdir: str) -> None:
         sharded, load_s = load_main_model("bfloat16", False, mesh=mesh)
         got, _, launches, line = _mode_transcribe(
             sharded, "bfloat16", ("_loops",), "mesh_one_rank")
-        del sharded
-        torch.cuda.empty_cache()
         same = _segment_keys(got) == _segment_keys(expected)
+        # the same weights with the one-rank model group forced on them:
+        # every row-parallel output then runs an NCCL all-reduce, inside
+        # the captured decode chunks too (one rank: the identity)
+        forced = _mode_pipeline(sharded)
+        forced.params = {**sharded.params,
+                         MODEL_GROUP_KEY: mesh.get_group("model")}
+        collective, _, _, collective_line = _mode_transcribe(
+            forced, "bfloat16", ("_loops",), "mesh_collectives_captured")
+        same_collective = (_segment_keys(collective)
+                           == _segment_keys(expected))
+        del sharded, forced
+        torch.cuda.empty_cache()
         cfg = MODEL_CONFIGS["test"]
         batch = tuple(x.to(dev) for x in train_batch(2, cfg, seed=6))
         plain, plain_losses = _train_steps(
@@ -2298,12 +2312,20 @@ def phase_mesh(dev, workdir: str) -> None:
                         "mesh": {"data": 1, "model": 1},
                         "segments_equal_meshless": same,
                         "meshless_wall_s": ref_line["wall_s"],
+                        "collectives_captured_wall_s":
+                        collective_line["wall_s"],
+                        "collectives_captured_replays":
+                        collective_line["replays"],
+                        "collectives_captured_segments_equal":
+                        same_collective,
                         "train_loss": mesh_losses[0],
                         "train_loss_meshless": plain_losses[0],
                         "train_params_max_abs_err": train_err}))
-        if not same:
+        if not same or not same_collective:
             raise AssertionError("mesh: a one-rank mesh's segments differ "
-                                 "from the meshless pipeline's")
+                                 "from the meshless pipeline's (plain "
+                                 f"{same}, collectives captured "
+                                 f"{same_collective})")
         if mesh_losses != plain_losses or train_err != 0.0:
             raise AssertionError("mesh: the one-rank mesh's train step "
                                  "differs from the step without a mesh")

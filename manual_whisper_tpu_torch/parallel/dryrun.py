@@ -291,8 +291,11 @@ def spawn(n: int, meshes: Optional[str] = None, modes: str = "greedy",
         if report:
             cmd += ["--report", report]
         env = {**os.environ, **(env or {}), "OMP_NUM_THREADS": "1"}
-        procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
-                 for r in range(n)]
+        # the package's parent directory, so ``-m`` finds the package
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env,
+                                  cwd=root) for r in range(n)]
         deadline = time.monotonic() + timeout
         try:
             for p in procs:
