@@ -2272,6 +2272,7 @@ def phase_mesh(dev, workdir: str) -> None:
     from manual_whisper_tpu_torch.parallel import make_mesh
     from manual_whisper_tpu_torch.parallel.dryrun import train_batch
     from manual_whisper_tpu_torch.parallel.mesh import MODEL_GROUP_KEY
+    torch.cuda.set_device(dev)          # the device the NCCL ranks use
     dist.init_process_group(
         "nccl", init_method=f"file://{os.path.join(workdir, 'nccl_store')}",
         rank=0, world_size=1)
