@@ -1,16 +1,16 @@
 """AdamW with ``optax.adamw``'s semantics and defaults, and optax's
-learning-rate schedules, over the port's weight trees.
+warmup-cosine learning-rate schedule, over the port's weight trees.
 
 ``adamw(learning_rate)`` is ``optax.adamw``: ``scale_by_adam`` (b1 0.9,
-b2 0.999, eps 1e-8 outside the root, eps_root 0; bias correction at
-count + 1), then ``add_decayed_weights`` (weight decay 1e-4 on every
-leaf: optax applies no mask), then ``scale_by_learning_rate`` (a float,
-or a schedule read at the count before the increment).  Moments keep the
-params' dtype (bf16 params give bf16 moments) and every constant is
-rounded to that dtype before it is used, as JAX's weakly typed Python
-scalars are.  ``update`` writes moments and params in place: one copy of
-the model and the optimizer state at peak, the counterpart of the JAX
-step's ``donate_argnums``.
+b2 0.999, eps 1e-8 outside the root; bias correction at count + 1), then
+``add_decayed_weights`` (weight decay 1e-4 on every leaf: optax applies
+no mask), then ``scale_by_learning_rate`` (a float, or a schedule read at
+the count before the increment).  Moments keep the params' dtype (bf16
+params give bf16 moments) and every constant is rounded to that dtype
+before it is used, as JAX's weakly typed Python scalars are.  ``update``
+writes moments and params in place: one copy of the model and the
+optimizer state at peak, the counterpart of the JAX step's
+``donate_argnums``.
 
 Schedules compute in float32, as the JAX ones do on int32 counts.
 """
@@ -24,18 +24,18 @@ from typing import Any, Callable, Dict, List, Sequence, Union
 import numpy as np
 import torch
 
-from ..parallel.mesh import MODEL_GROUP_KEY
-
 Schedule = Callable[[int], float]
+
+# optax.adamw's moment decays and its eps (added outside the square root)
+B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a weight tree (dicts and lists; a sharded tree's
-    model group skipped), dict keys in sorted order, so that trees of one
-    structure built in any key order list their leaves alike."""
+    """The tensors of a weight tree (dicts and lists), dict keys in sorted
+    order, so that trees of one structure built in any key order list
+    their leaves alike."""
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) if k != MODEL_GROUP_KEY
-                for t in tree_leaves(tree[k])]
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tree_leaves(v)]
     return [tree]
@@ -45,81 +45,37 @@ def tree_map(fn, tree):
     """``fn`` on every tensor of a weight tree, in its structure, called in
     ``tree_leaves``' order."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)
-                if k != MODEL_GROUP_KEY}
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
-# ---------------------------------------------------------------------------
-# Schedules (optax.schedules)
-# ---------------------------------------------------------------------------
-
-def linear_schedule(init_value: float, end_value: float,
-                    transition_steps: int,
-                    transition_begin: int = 0) -> Schedule:
-    """optax ``linear_schedule``: init -> end over ``transition_steps``."""
-    if transition_steps <= 0:
-        return lambda count: float(np.float32(init_value))
-
-    def schedule(count: int) -> float:
-        c = min(max(count - transition_begin, 0), transition_steps)
-        frac = np.float32(1) - np.float32(c) / np.float32(transition_steps)
-        return float(np.float32(init_value - end_value) * frac
-                     + np.float32(end_value))
-    return schedule
-
-
-def cosine_decay_schedule(init_value: float, decay_steps: int,
-                          alpha: float = 0.0,
-                          exponent: float = 1.0) -> Schedule:
-    """optax ``cosine_decay_schedule``: init * ((1 - alpha) * (0.5 (1 +
-    cos(pi t / T))) ** exponent + alpha), t capped at T."""
-    if not decay_steps > 0:
-        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, "
-                         f"got {decay_steps}")
-
-    def schedule(count: int) -> float:
-        c = np.float32(min(count, decay_steps))
-        cosine = np.float32(0.5) * (np.float32(1) + np.cos(
-            np.float32(math.pi) * c / np.float32(decay_steps)))
-        decayed = (np.float32(1 - alpha) * cosine ** np.float32(exponent)
-                   + np.float32(alpha))
-        return float(np.float32(init_value) * decayed)
-    return schedule
-
-
-def join_schedules(schedules: Sequence[Schedule],
-                   boundaries: Sequence[int]) -> Schedule:
-    """optax ``join_schedules``: past each boundary the next schedule, at
-    the steps since that boundary."""
-    def schedule(count: int) -> float:
-        out = schedules[0](count)
-        for boundary, nxt in zip(boundaries, schedules[1:]):
-            if count >= boundary:
-                out = nxt(count - boundary)
-        return out
-    return schedule
-
-
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
                                  warmup_steps: int, decay_steps: int,
-                                 end_value: float = 0.0,
-                                 exponent: float = 1.0) -> Schedule:
+                                 end_value: float = 0.0) -> Schedule:
     """optax ``warmup_cosine_decay_schedule``: linear warmup from
     ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine
-    decay to ``end_value`` at ``decay_steps`` (warmup included)."""
+    decay to ``end_value`` at ``decay_steps`` (warmup included), in
+    optax's float32 arithmetic."""
+    f32 = np.float32
+    cosine_steps = decay_steps - warmup_steps
+    if not cosine_steps > 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed "
+                         f"warmup_steps ({warmup_steps})")
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    return join_schedules(
-        [linear_schedule(init_value, peak_value, warmup_steps),
-         cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
-                               alpha, exponent)], [warmup_steps])
 
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = f32(1) - f32(count) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac
+                         + f32(peak_value))
+        c = f32(min(count - warmup_steps, cosine_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c
+                                             / f32(cosine_steps)))
+        return float(f32(peak_value) * (f32(1 - alpha) * cosine + f32(alpha)))
+    return schedule
 
-# ---------------------------------------------------------------------------
-# AdamW (optax.adamw)
-# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class AdamWState:
@@ -131,16 +87,12 @@ class AdamWState:
     nu: Any
 
 
+@dataclasses.dataclass
 class AdamW:
-    """``optax.adamw`` over a weight tree, updated in place."""
-
-    def __init__(self, learning_rate: Union[float, Schedule],
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 eps_root: float = 0.0, weight_decay: float = 1e-4):
-        self.learning_rate = learning_rate
-        self.b1, self.b2 = b1, b2
-        self.eps, self.eps_root = eps, eps_root
-        self.weight_decay = weight_decay
+    """``optax.adamw`` over a weight tree, updated in place (made by
+    ``adamw``)."""
+    learning_rate: Union[float, Schedule]
+    weight_decay: float
 
     def init(self, params) -> AdamWState:
         return AdamWState(0, tree_map(torch.zeros_like, params),
@@ -155,13 +107,12 @@ class AdamW:
         """Every scalar of one update, rounded to ``dtype`` (0-dim CPU
         tensors, which combine with tensors on any device)."""
         n = np.float32(count + 1)
-        values = {"b1": self.b1, "1-b1": 1 - self.b1, "b2": self.b2,
-                  "1-b2": 1 - self.b2, "eps": self.eps,
-                  "eps_root": self.eps_root, "wd": self.weight_decay,
+        values = {"b1": B1, "1-b1": 1 - B1, "b2": B2, "1-b2": 1 - B2,
+                  "eps": EPS, "wd": self.weight_decay,
                   "-lr": -self.lr_at(count),
                   # 1 - decay ** count in float32, then the moment's dtype
-                  "bc1": np.float32(1) - np.float32(self.b1) ** n,
-                  "bc2": np.float32(1) - np.float32(self.b2) ** n}
+                  "bc1": np.float32(1) - np.float32(B1) ** n,
+                  "bc2": np.float32(1) - np.float32(B2) ** n}
         return {k: torch.tensor(float(v), dtype=dtype)
                 for k, v in values.items()}
 
@@ -181,15 +132,14 @@ class AdamW:
             g = g.to(p.dtype)
             m.mul_(c["b1"]).add_(g * c["1-b1"])
             v.mul_(c["b2"]).add_(g * g * c["1-b2"])
-            u = (m / c["bc1"]) / (torch.sqrt(v / c["bc2"] + c["eps_root"])
-                                  + c["eps"])
+            u = (m / c["bc1"]) / (torch.sqrt(v / c["bc2"]) + c["eps"])
             u.add_(p * c["wd"])
             p.add_(u * c["-lr"])
         state.count += 1
 
 
-def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
-          b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
+def adamw(learning_rate: Union[float, Schedule],
           weight_decay: float = 1e-4) -> AdamW:
-    """``optax.adamw`` with its defaults (weight decay 1e-4)."""
-    return AdamW(learning_rate, b1, b2, eps, eps_root, weight_decay)
+    """``optax.adamw`` with its defaults (weight decay 1e-4, where torch's
+    AdamW takes 1e-2)."""
+    return AdamW(learning_rate, weight_decay)
