@@ -124,10 +124,12 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    the loss mask ignored must exceed it), then three bf16 steps of
    large-v3 at full width and depth on a batch of two 30 s windows (K1
    once a step, no K2; losses finite and falling; ms per step and peak
-   memory).  ``mesh``: a one-rank NCCL world: ``load_model(mesh=
-   make_mesh(1, 1))`` at large-v3 transcribes phase 4's audio to the
-   meshless pipeline's segments, launches exact, and a test-config train
-   step with the mesh equals the step without; K2-K6 held to their plain
+   memory).  ``mesh``: a one-rank NCCL world, whose mesh runs every
+   collective of the mesh path: ``load_model(mesh=make_mesh(1, 1))`` at
+   large-v3 transcribes phase 4's audio to the meshless pipeline's
+   segments, launches exact, the all-reduces captured in the decode
+   chunks, and a test-config train step with the mesh equals the step
+   without, with every all-reduce of the sharded step made; K2-K6 held to their plain
    versions at the local shapes of a tp=2 shard of large-v3; with two or
    more GPUs a dp=2 ``parallel.dryrun`` under torchrun (else a
    ``mesh_multi`` line with ``"ran": false``).
@@ -2254,24 +2256,65 @@ def tp_kernel_checks(dev, main: dict) -> None:
                             if name != "mel"}}))
 
 
+@contextlib.contextmanager
+def _counted_collectives():
+    """Counts of the ``torch.distributed`` all-reduce and all-gather calls
+    made inside the block (the mesh code calls them through the module;
+    a replayed capture makes none)."""
+    import torch.distributed as dist
+    calls = collections.Counter()
+    saved = {name: getattr(dist, name) for name in ("all_reduce",
+                                                     "all_gather")}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def _train_all_reduces(cfg, n_leaves: int) -> int:
+    """All-reduces of one train step on a mesh whose groups both exist:
+    forward, the row-parallel outputs (o and fc2 of an encoder block; o,
+    cross o and fc2 of a decoder block); backward, the column-parallel
+    inputs (ln1 and ln2 of an encoder block; a decoder block's ln1 twice,
+    once for its K/V and once for its q, lnx and ln2; the encoder output
+    once for every cross K/V); then the label count, every gradient leaf
+    and the loss over the data group."""
+    return (4 * cfg.n_audio_layer + 7 * cfg.n_text_layer + 1
+            + 2 + n_leaves)
+
+
 def phase_mesh(dev, workdir: str) -> None:
-    """A one-rank NCCL world (a file store in ``workdir``): large-v3 from
-    ``load_model(mesh=make_mesh(1, 1))`` transcribes phase 4's audio to the
-    segments of the meshless pipeline on the same weights (both warmed up,
-    launches exact, every step replayed), and so do those weights with the
-    one-rank model group forced on them (each row-parallel output then
-    runs an NCCL all-reduce, captured inside the decode chunks and
-    replayed); a test-config train step with the mesh equals the step
-    without; then K2-K6 at the tp=2 local
-    shapes (``tp_kernel_checks``).  Where the machine has two or more
-    GPUs, ``parallel.dryrun`` under torchrun on two of them (dp=2) must
-    match one process; else a ``mesh_multi`` line says it did not run."""
+    """A one-rank NCCL world (a file store in ``workdir``), whose mesh
+    keeps its data and model groups (``parallel.axis_group``), so every
+    collective of the mesh path runs: large-v3 from
+    ``load_model(mesh=make_mesh(1, 1))`` transcribes phase 4's audio to
+    the segments of the meshless pipeline on the same weights (both
+    warmed up, launches exact, every step replayed; each row-parallel
+    output's NCCL all-reduce is captured inside the decode chunks, the
+    results are gathered over the data group); a test-config train step
+    with the mesh equals the step without and makes every all-reduce of
+    the sharded step (``_train_all_reduces``: the Megatron operators
+    forward and backward, the label count, the gradients); then K2-K6 at
+    the tp=2 local shapes (``tp_kernel_checks``).  Where the machine has
+    two or more GPUs, ``parallel.dryrun`` under torchrun on two of them
+    (dp=2) must match one process; else a ``mesh_multi`` line says it did
+    not run."""
     import torch.distributed as dist
     from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
                                                          init_params)
     from manual_whisper_tpu_torch.parallel import make_mesh
-    from manual_whisper_tpu_torch.parallel.dryrun import train_batch
-    from manual_whisper_tpu_torch.parallel.mesh import MODEL_GROUP_KEY
+    from manual_whisper_tpu_torch.parallel.dryrun import (max_leaf_err,
+                                                          train_batch)
+    from manual_whisper_tpu_torch.training.optim import tree_leaves
     torch.cuda.set_device(dev)          # the device the NCCL ranks use
     dist.init_process_group(
         "nccl", init_method=f"file://{os.path.join(workdir, 'nccl_store')}",
@@ -2285,51 +2328,47 @@ def phase_mesh(dev, workdir: str) -> None:
         del model
         torch.cuda.empty_cache()
         sharded, load_s = load_main_model("bfloat16", False, mesh=mesh)
-        got, _, launches, line = _mode_transcribe(
-            sharded, "bfloat16", ("_loops",), "mesh_one_rank")
+        with _counted_collectives() as infer_calls:
+            got, _, launches, line = _mode_transcribe(
+                sharded, "bfloat16", ("_loops",), "mesh_one_rank")
         same = _segment_keys(got) == _segment_keys(expected)
-        # the same weights with the one-rank model group forced on them:
-        # every row-parallel output then runs an NCCL all-reduce, inside
-        # the captured decode chunks too (one rank: the identity)
-        forced = _mode_pipeline(sharded)
-        forced.params = {**sharded.params,
-                         MODEL_GROUP_KEY: mesh.get_group("model")}
-        collective, _, _, collective_line = _mode_transcribe(
-            forced, "bfloat16", ("_loops",), "mesh_collectives_captured")
-        same_collective = (_segment_keys(collective)
-                           == _segment_keys(expected))
-        del sharded, forced
+        del sharded
         torch.cuda.empty_cache()
         cfg = MODEL_CONFIGS["test"]
         batch = tuple(x.to(dev) for x in train_batch(2, cfg, seed=6))
         plain, plain_losses = _train_steps(
             cfg, init_params(cfg, dev, seed=4), batch, 1, 1e-3)
-        meshed, mesh_losses = _train_steps(
-            cfg, init_params(cfg, dev, seed=4), batch, 1, 1e-3, mesh=mesh)
-        from manual_whisper_tpu_torch.parallel.dryrun import max_leaf_err
+        with _counted_collectives() as train_calls:
+            meshed, mesh_losses = _train_steps(
+                cfg, init_params(cfg, dev, seed=4), batch, 1, 1e-3,
+                mesh=mesh)
         train_err = max_leaf_err(meshed.params, plain.params)
+        want_reduces = _train_all_reduces(cfg,
+                                          len(tree_leaves(meshed.params)))
         log(json.dumps({**line, "load_s": load_s, "world": 1,
                         "backend": dist.get_backend(),
                         "mesh": {"data": 1, "model": 1},
                         "segments_equal_meshless": same,
                         "meshless_wall_s": ref_line["wall_s"],
-                        "collectives_captured_wall_s":
-                        collective_line["wall_s"],
-                        "collectives_captured_replays":
-                        collective_line["replays"],
-                        "collectives_captured_segments_equal":
-                        same_collective,
+                        "collective_calls": dict(infer_calls),
                         "train_loss": mesh_losses[0],
                         "train_loss_meshless": plain_losses[0],
-                        "train_params_max_abs_err": train_err}))
-        if not same or not same_collective:
+                        "train_params_max_abs_err": train_err,
+                        "train_collective_calls": dict(train_calls),
+                        "train_all_reduces_expected": want_reduces}))
+        if not same:
             raise AssertionError("mesh: a one-rank mesh's segments differ "
-                                 "from the meshless pipeline's (plain "
-                                 f"{same}, collectives captured "
-                                 f"{same_collective})")
+                                 "from the meshless pipeline's")
+        if not (infer_calls["all_reduce"] and infer_calls["all_gather"]):
+            raise AssertionError("mesh: the one-rank mesh's transcription "
+                                 f"ran no collective ({dict(infer_calls)})")
         if mesh_losses != plain_losses or train_err != 0.0:
             raise AssertionError("mesh: the one-rank mesh's train step "
                                  "differs from the step without a mesh")
+        if train_calls["all_reduce"] != want_reduces:
+            raise AssertionError(
+                f"mesh: the train step made {train_calls['all_reduce']} "
+                f"all-reduces, not {want_reduces}")
     finally:
         dist.destroy_process_group()
     tp_kernel_checks(dev, main)

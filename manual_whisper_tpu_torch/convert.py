@@ -54,7 +54,6 @@ from .models.wav2vec2 import CONV_LAYERS as W2V_CONV_LAYERS
 from .models.wav2vec2 import Wav2Vec2, Wav2Vec2Config
 from .models.whisper import Params, WhisperConfig
 from .ops.quant import is_quantized
-from .parallel.mesh import MODEL_GROUP_KEY
 
 _CONV_KEYS = ("conv1_w", "conv2_w")
 
@@ -155,8 +154,7 @@ def to_jax_tree(params: Params) -> Dict[str, Any]:
     of ``from_jax_tree``."""
     def tree(node, name=""):
         if isinstance(node, dict):
-            return {k: tree(v, k) for k, v in node.items()
-                    if k != MODEL_GROUP_KEY}
+            return {k: tree(v, k) for k, v in node.items()}
         arr = _numpy_leaf(node)
         return arr.transpose(2, 1, 0).copy() if name in _CONV_KEYS else arr
 

@@ -39,8 +39,7 @@ import torch
 from .decode import ChunkedLoop, DecodeOutput
 from .whisper import (Params, WhisperConfig, _layer_norm, _mlp,
                       alloc_cross_kv, decoder_forward, init_kv_cache,
-                      local_heads, logits_f32, model_group,
-                      precompute_cross_kv)
+                      local_heads, logits_f32, precompute_cross_kv)
 from ..ops.decode_attention import attend_plain
 from ..ops.quant import mm
 from ..parallel.mesh import reduce_from_model
@@ -137,17 +136,18 @@ def _beam_block(h, blk, ck, cv, valid, xkv, slot, oh, group=None):
 
 def beam_step(params: Params, cfg: WhisperConfig, token: torch.Tensor,
               pos: torch.Tensor, cache, cross_kv, oh: torch.Tensor,
-              valid: torch.Tensor, tok_emb_f32: torch.Tensor) -> torch.Tensor:
+              valid: torch.Tensor, tok_emb_f32: torch.Tensor,
+              group=None) -> torch.Tensor:
     """token [B, K] at position ``pos`` (one int32 on the device) ->
     logits [B, K, V] f32, every layer's self cache written at ``pos`` in
     place (JAX ``_beam_step``).  ``cache``: per-layer (k, v) lists of
     [B, K, H, T, dh]; ``cross_kv``: per-layer cross K/V of the B rows;
-    ``oh`` [B, K, J, T] and ``valid`` [T] as ``_beam_block`` takes them."""
+    ``oh`` [B, K, J, T], ``valid`` [T] and ``group`` as ``_beam_block``
+    takes them."""
     dec = params["decoder"]
     x = dec["tok_emb"][token] + dec["pos_emb"].index_select(0, pos)
     h = x.to(cfg.dtype)                                # [B, K, d]
     slot = pos.long()
-    group = model_group(params)
     for blk, ck, cv, xkv in zip(dec["blocks"], cache[0], cache[1],
                                 cross_kv):
         h = _beam_block(h, blk, ck, cv, valid, xkv, slot, oh, group)
@@ -198,14 +198,15 @@ class BeamLoop(ChunkedLoop):
     position are masked).  With ``graphs_pool`` the chunks of beam steps
     are captured when the loop is built and replayed after; without it
     ``beam_chunk`` runs eagerly.  Cross K/V and the B-row prefill run
-    eagerly, once a loop; the prefill's cache is tiled to the K beams."""
+    eagerly, once a loop; the prefill's cache is tiled to the K beams.
+    ``group``: the model group of tensor-parallel shards."""
 
     def __init__(self, params: Params, cfg: WhisperConfig, rows: int,
                  beams: int, ta: int, p: int, max_new: int, quantize: bool,
                  scale_dtype: torch.dtype, suppress_mask: torch.Tensor,
                  eot: int, length_penalty: float, device: torch.device,
-                 graphs_pool=None):
-        self.params, self.cfg = params, cfg
+                 graphs_pool=None, group=None):
+        self.params, self.cfg, self.group = params, cfg, group
         self.beams, self.p, self.max_new = beams, p, max_new
         self.quantize, self.scale_dtype = quantize, scale_dtype
         self.suppress, self.eot = suppress_mask, eot
@@ -241,7 +242,8 @@ class BeamLoop(ChunkedLoop):
         b, p, st, k = xa.shape[0], len(prefix), self.state, self.beams
         eot, lp_pow = self.eot, self.length_penalty
         precompute_cross_kv(self.params, xa, self.cfg, quantize=self.quantize,
-                            scale_dtype=self.scale_dtype, out=self.cross)
+                            scale_dtype=self.scale_dtype, out=self.cross,
+                            group=self.group)
         prefix_b = torch.tensor(prefix, dtype=torch.long,
                                 device=xa.device).expand(b, p)
         pre_cache = init_kv_cache(self.cfg, b, p, xa.device,
@@ -249,7 +251,8 @@ class BeamLoop(ChunkedLoop):
         prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
                                             self.cfg, pos_offset=0,
                                             kv_cache=pre_cache,
-                                            cross_kv=self.cross)
+                                            cross_kv=self.cross,
+                                            group=self.group)
         for layers, pre in zip(self.cache, pre_cache):
             for c, c0 in zip(layers, pre):
                 c[:, :, :, :p].copy_(c0[:, None])
@@ -310,7 +313,8 @@ def beam_chunk(loop: BeamLoop, n_steps: int) -> None:
               ).float()                                  # [B, K, J, T]
         logits = beam_step(loop.params, loop.cfg, st.last, st.pos,
                            loop.cache, loop.cross, oh,
-                           loop.t_ids <= st.pos, loop.tok_emb_f32)
+                           loop.t_ids <= st.pos, loop.tok_emb_f32,
+                           loop.group)
         logp = torch.log_softmax(logits + loop.suppress, dim=-1)
         # finished beams: only the EOT continuation, at zero cost
         logp = torch.where(st.finished[:, :, None], loop.frozen, logp)

@@ -51,13 +51,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import (DATA_AXIS, all_true, axis_group, axis_rank,
-                             axis_size, gather_rows, local_rows)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_true, axis_group,
+                             axis_rank, axis_size, gather_rows, local_rows)
 from ..tokenizer import WhisperTokenizer
 from .graphs import ChunkGraphs
 from .whisper import (Params, StepLengths, WhisperConfig, alloc_cross_kv,
                       decode_step, decoder_forward, init_kv_cache,
-                      local_heads, model_group, precompute_cross_kv)
+                      local_heads, precompute_cross_kv)
 
 # steps between checks that every row has finished: each check waits for
 # the device, and extra steps after the last EOT change no output
@@ -208,11 +208,13 @@ class GreedyPick:
 
 def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
                  cross_len: torch.Tensor, pick, tok_emb_f32: torch.Tensor,
-                 eot: int, cfg: WhisperConfig, n_steps: int) -> None:
+                 eot: int, cfg: WhisperConfig, n_steps: int,
+                 group=None) -> None:
     """``n_steps`` decode steps over ``st`` in place (the body of JAX
     ``greedy_decode_jit``'s while loop, unrolled n times; with a
     ``timestamps.TimestampRules`` pick, ``greedy_timestamps_jit``'s).
-    ``pick`` chooses each token.  Reads and writes only the
+    ``pick`` chooses each token; ``group`` is the model group of
+    tensor-parallel shards.  Reads and writes only the
     tensors it is given, with no host value per step, so on CUDA its
     capture replays at any position; on the CPU it runs as it stands.
     Finished rows emit EOT with logprob 0 and no length."""
@@ -220,7 +222,7 @@ def decode_chunk(params: Params, st: LoopState, cache, cross_kv,
     for _ in range(n_steps):
         logits, nxt = pick.step(
             decode_step(params, st.tok, lengths, cache, cross_kv, cfg,
-                        tok_emb_f32), st)
+                        tok_emb_f32, group), st)
         nxt = torch.where(st.finished, torch.full_like(nxt, eot), nxt)
         lp = torch.where(st.finished, torch.zeros_like(st.sum_lp),
                          _logprob_of(logits, nxt))
@@ -240,8 +242,9 @@ class ChunkedLoop:
     graph pool is given (else run eagerly), and the host's check between
     chunks that every row has finished (on every rank of a model group,
     whose chunks run collectives together).  A subclass sets ``params``,
-    ``p``, ``max_new`` and ``state`` (with device ``i`` and ``pos``) and
-    defines ``_chunk(n)``."""
+    ``group`` (the model group of tensor-parallel shards, or None), ``p``,
+    ``max_new`` and ``state`` (with device ``i`` and ``pos``) and defines
+    ``_chunk(n)``."""
 
     def _capture(self, device: torch.device, gen, graphs_pool) -> None:
         self.graphs = None
@@ -272,9 +275,8 @@ class ChunkedLoop:
         every row has ``finished`` (at steps 1, 17, 33, ...: the eager
         loop's checks).  Returns the positions run."""
         self._rewind()
-        group = model_group(self.params)
         i = 1
-        while i < self.max_new and not all_true(finished, group):
+        while i < self.max_new and not all_true(finished, self.group):
             n = min(FINISH_CHECK_EVERY, self.max_new - i)
             self.run_chunk(n)
             i += n
@@ -295,13 +297,13 @@ class DecodeLoop(ChunkedLoop):
     last chunk, (max_new - 1) % FINISH_CHECK_EVERY steps, are captured
     when the loop is built and replayed after; without it
     ``decode_chunk`` runs eagerly.  Cross K/V and prefill run eagerly,
-    once a loop."""
+    once a loop.  ``group``: the model group of tensor-parallel shards."""
 
     def __init__(self, params: Params, cfg: WhisperConfig, rows: int,
                  ta: int, p: int, max_new: int, quantize: bool,
                  scale_dtype: torch.dtype, pick, eot: int,
-                 device: torch.device, graphs_pool=None):
-        self.params, self.cfg = params, cfg
+                 device: torch.device, graphs_pool=None, group=None):
+        self.params, self.cfg, self.group = params, cfg, group
         self.p, self.max_new = p, max_new
         self.quantize, self.scale_dtype = quantize, scale_dtype
         self.pick, self.eot = pick, eot
@@ -318,7 +320,7 @@ class DecodeLoop(ChunkedLoop):
     def _chunk(self, n: int) -> None:
         decode_chunk(self.params, self.state, self.cache, self.cross,
                      self.cross_len, self.pick, self.tok_emb_f32, self.eot,
-                     self.cfg, n)
+                     self.cfg, n, self.group)
 
     def run(self, xa: torch.Tensor, prefix: List[int], temperature: float,
             sot_index: int = 0, no_speech_token: int = 0) -> DecodeOutput:
@@ -327,13 +329,15 @@ class DecodeLoop(ChunkedLoop):
         the eager loop's checks).  Returns copies of the results."""
         b, p, st = xa.shape[0], len(prefix), self.state
         precompute_cross_kv(self.params, xa, self.cfg, quantize=self.quantize,
-                            scale_dtype=self.scale_dtype, out=self.cross)
+                            scale_dtype=self.scale_dtype, out=self.cross,
+                            group=self.group)
         prefix_b = torch.tensor(prefix, dtype=torch.long,
                                 device=xa.device).expand(b, p)
         prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
                                             self.cfg, pos_offset=0,
                                             kv_cache=self.cache,
-                                            cross_kv=self.cross)
+                                            cross_kv=self.cross,
+                                            group=self.group)
         st.temperature.fill_(temperature)
         tok, lp = self.pick.first(prefill_logits[:, -1, :], st)
         st.tok.copy_(tok)
@@ -407,6 +411,8 @@ class BatchDecoder:
         self._data_rank = 0 if mesh is None else axis_rank(mesh, DATA_AXIS)
         self._data_group = None if mesh is None else axis_group(mesh,
                                                                 DATA_AXIS)
+        self.model_group = None if mesh is None else axis_group(mesh,
+                                                                MODEL_AXIS)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.opts = opts
@@ -515,7 +521,8 @@ class BatchDecoder:
             self.params, self.cfg, rows, ta, p, max_new,
             self.opts.int8_cross_kv, self._scale_dtype(),
             GreedyPick(self._suppress, self._blank, self._gen, noise_rows),
-            self.tokenizer.special.eot, self.device, graphs_pool=pool)
+            self.tokenizer.special.eot, self.device, graphs_pool=pool,
+            group=self.model_group)
 
     def _make_beam(self, rows, ta, p, max_new, pool):
         from .beam import BeamLoop
@@ -523,7 +530,7 @@ class BatchDecoder:
             self.params, self.cfg, rows, self.opts.beam_size, ta, p, max_new,
             self.opts.int8_cross_kv, self._scale_dtype(), self._suppress,
             self.tokenizer.special.eot, self.opts.length_penalty,
-            self.device, graphs_pool=pool)
+            self.device, graphs_pool=pool, group=self.model_group)
 
     def _make_ts(self, rows, ta, p, max_new, pool) -> DecodeLoop:
         from .timestamps import TimestampRules
@@ -533,7 +540,7 @@ class BatchDecoder:
         return DecodeLoop(
             self.params, self.cfg, rows, ta, p, max_new,
             self.opts.int8_cross_kv, self._scale_dtype(), rules, sp.eot,
-            self.device, graphs_pool=pool)
+            self.device, graphs_pool=pool, group=self.model_group)
 
     def timestamps_submit(self, xa: torch.Tensor) -> DecodeOutput:
         """The timestamp-rule greedy loop (JAX ``timestamps_submit``): the

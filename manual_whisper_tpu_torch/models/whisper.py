@@ -25,8 +25,9 @@ weights every function computes the rank's heads (shard width over
 head_dim) and MLP columns; the outputs of the row-parallel o and fc2
 products are all-reduced over the model group before their replicated
 biases are added, and the inputs of the column-parallel products pass
-``copy_to_model``, which all-reduces their gradient in training.  Without
-a model group in the weights both are the identity.
+``copy_to_model``, which all-reduces their gradient in training.  The
+model group is the caller's ``group`` argument (``parallel.axis_group``
+of the mesh's model dim); without one both are the identity.
 
 KV cache layout: ``[B, H, T, dh]`` per layer (the JAX package's transposed
 ``[B, H, dh, T]`` exists only for TPU lane padding).
@@ -48,7 +49,7 @@ from ..ops.decode_attention import (attend_int8_plain, attend_plain,
                                     decode_cross_attention_int8,
                                     decode_self_attention)
 from ..ops.quant import is_quantized, mm
-from ..parallel.mesh import MODEL_GROUP_KEY, copy_to_model, reduce_from_model
+from ..parallel.mesh import copy_to_model, reduce_from_model
 
 Params = Dict[str, Any]
 KVCache = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -188,12 +189,6 @@ def init_params(cfg: WhisperConfig, device: torch.device,
 # Forward pieces
 # ---------------------------------------------------------------------------
 
-def model_group(params: Params):
-    """The model group of tensor-parallel shards (``parallel.shard_params``),
-    or None."""
-    return params.get(MODEL_GROUP_KEY)
-
-
 def local_heads(params: Params, part: str, cfg: WhisperConfig) -> int:
     """Heads this rank computes in ``part``: the width of the q projection
     over head_dim (every head of ``cfg`` without tensor parallelism)."""
@@ -241,15 +236,15 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
-           use_flash: bool = True) -> torch.Tensor:
+           use_flash: bool = True, group=None) -> torch.Tensor:
     """mel [B, n_mels, T_frames] -> audio states [B, T_frames//2, d].
 
     ``use_flash`` (the pipeline's path) runs the attention through K2;
     without it the attention is JAX ``_sdpa``'s einsum branch
     (``attend_plain``: f32 scores and softmax, the probabilities in the
-    activations' dtype times V), which autograd differentiates."""
+    activations' dtype times V), which autograd differentiates.  ``group``:
+    the model group of tensor-parallel shards (None without)."""
     enc = params["encoder"]
-    group = model_group(params)
     x = mel.to(cfg.dtype).transpose(1, 2)                 # [B, T, n_mels]
     x = F.gelu(_conv1d(x, enc["conv1_w"], enc["conv1_b"], 1))
     x = F.gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], 2))
@@ -276,7 +271,7 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
                         quantize: bool = False,
                         scale_dtype: torch.dtype = torch.float32,
-                        out: Optional[list] = None) -> list:
+                        out: Optional[list] = None, group=None) -> list:
     """Per-layer cross-attention (k, v), each [B, H, Ta, dh], from encoder
     output xa [B, Ta, d]; computed once per batch, read by every step.
 
@@ -285,9 +280,10 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
     exists at once; each layer is then ``(k_q, k_s, v_q, v_s)``.  ``out``
     (a list of the same structure, e.g. ``alloc_cross_kv``) takes the
     results in place and is returned: the static buffers a captured decode
-    chunk reads.  On tensor-parallel shards H is the rank's heads."""
+    chunk reads.  On tensor-parallel shards H is the rank's heads, and
+    ``group`` their model group."""
     n_head = local_heads(params, "decoder", cfg)
-    xa = copy_to_model(xa, model_group(params))
+    xa = copy_to_model(xa, group)
     layers = []
     for i, blk in enumerate(params["decoder"]["blocks"]):
         xat = blk["xattn"]
@@ -402,16 +398,17 @@ def logits_f32(x: torch.Tensor, tok_emb_f32: torch.Tensor) -> torch.Tensor:
 def decoder_forward(params: Params, tokens: torch.Tensor,
                     xa: Optional[torch.Tensor], cfg: WhisperConfig,
                     pos_offset: int = 0, kv_cache: Optional[KVCache] = None,
-                    cross_kv=None) -> Tuple[torch.Tensor, KVCache]:
+                    cross_kv=None, group=None
+                    ) -> Tuple[torch.Tensor, KVCache]:
     """Teacher-forced / prefill decoder pass (plain PyTorch).
 
     tokens [B, T] -> (logits [B, T, n_vocab] f32, cache).  With
     ``kv_cache`` (per-layer [B, H, max_len, dh]) K/V are written at
     [pos_offset, pos_offset + T) and the queries attend causally over the
     cache; ``cross_kv`` takes the output of ``precompute_cross_kv`` (then
-    ``xa`` may be None)."""
+    ``xa`` may be None); ``group`` is the model group of tensor-parallel
+    shards."""
     dec = params["decoder"]
-    group = model_group(params)
     n_head = local_heads(params, "decoder", cfg)
     b, t = tokens.shape
     if kv_cache is None and pos_offset:
@@ -420,7 +417,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
     if kv_cache is None:
         kv_cache = init_kv_cache(cfg, b, t, tokens.device, heads=n_head)
     if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, xa, cfg)
+        cross_kv = precompute_cross_kv(params, xa, cfg, group=group)
 
     x = (dec["tok_emb"][tokens]
          + dec["pos_emb"][pos_offset:pos_offset + t]).to(cfg.dtype)
@@ -445,7 +442,7 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
 
 def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
                 kv_cache: KVCache, cross_kv, cfg: WhisperConfig,
-                tok_emb_f32: torch.Tensor) -> torch.Tensor:
+                tok_emb_f32: torch.Tensor, group=None) -> torch.Tensor:
     """One decode step: token [B] at position ``lengths.pos`` -> logits
     [B, V] f32.
 
@@ -454,9 +451,9 @@ def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
     ``pos`` of every layer's cache written in place with ``index_copy_``
     (the JAX version returns a new cache), so a CUDA graph of the step
     replays at every position.  ``tok_emb_f32`` is the float32 view of the
-    embedding the caller keeps for the whole loop."""
+    embedding the caller keeps for the whole loop; ``group`` the model
+    group of tensor-parallel shards."""
     dec = params["decoder"]
-    group = model_group(params)
     n_head = kv_cache[0][0].shape[1]
     slot = lengths.pos.long()
     x = dec["tok_emb"][token] + dec["pos_emb"].index_select(0, lengths.pos)

@@ -17,8 +17,8 @@ even) runs, on the ``test`` config:
   the segments must equal one process's (``mesh=None``) by the JAX dry
   run's rule: times exact, text within 1 % of characters (and every rank
   returns the same result).  ``--modes`` adds int8 weights, the
-  timestamp-token mode and a sampled ladder (the quality gate set so
-  that every row climbs every rung).
+  timestamp-token mode, beam search (5 beams) and a sampled ladder (the
+  quality gate set so that every row climbs every rung).
 - **training**: one AdamW step (lr 1e-3) on a batch of 2 x D rows whose
   label counts differ, with params and moments sharded as the rules say,
   against one process's step on the same global batch.
@@ -68,6 +68,7 @@ NO_GATES = {"log_prob_threshold": None, "compression_ratio_threshold": None}
 MODES = {"greedy": (NO_GATES, "float32", 0.0),
          "int8": (NO_GATES, "int8", 0.0),
          "timestamps": ({"without_timestamps": False}, "float32", 0.0),
+         "beam": ({**NO_GATES, "beam_size": 5}, "float32", 0.0),
          "sampled": ({"log_prob_threshold": 0.0}, "float32", (0.0, 0.2))}
 
 
@@ -117,6 +118,7 @@ def check_inference(mesh, device: torch.device, mode: str) -> dict:
             "data_parallel": sharded.data_parallel,
             "q_w_local_width": width,
             "rows": sharded.last_stats["rows"],
+            "beam_calls": sharded.last_stats["beam_calls"],
             "rung_rows": sharded.last_stats["rung_rows"]}
     results = [None] * dist.get_world_size()
     dist.all_gather_object(results, got["segments"])
@@ -126,7 +128,8 @@ def check_inference(mesh, device: torch.device, mode: str) -> dict:
         line["segments"] and line["times_equal"] and line["ranks_agree"]
         and line["text_equal" if temperature == 0.0
                  else "text_equal_outside_tail"]
-        and width == d // axis_size(mesh, MODEL_AXIS))
+        and width == d // axis_size(mesh, MODEL_AXIS)
+        and (line["beam_calls"] > 0) == (asr.get("beam_size", 1) > 1))
     return line
 
 

@@ -17,8 +17,9 @@ as a ``DeviceMesh`` with dims ``("data", "model")``:
   the model group (``reduce_from_model``) before its replicated bias is
   added, and in training a column-parallel product's input gradient is
   all-reduced (``copy_to_model``).  ``shard_params`` returns the rank's
-  shards with the model group under ``MODEL_GROUP_KEY`` (only when the
-  model dim is wider than one), which is how the model functions find it.
+  shards; the model functions take the model group as an argument, which
+  their callers (the pipeline, the decoder, the train step) read from the
+  mesh with ``axis_group``.
 
 The process group is the caller's: ``torchrun`` (NCCL on GPUs) or
 ``init_process_group`` with the gloo backend on the CPU (see
@@ -36,8 +37,6 @@ from ..ops.quant import is_quantized
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-# key of a sharded param tree that holds its model group
-MODEL_GROUP_KEY = "model_group"
 
 
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1):
@@ -78,9 +77,14 @@ def axis_rank(mesh, axis: str) -> int:
 
 
 def axis_group(mesh, axis: str):
-    """The process group of ``axis``, or None when it holds one rank (no
-    collective to run)."""
-    return mesh.get_group(axis) if axis_size(mesh, axis) > 1 else None
+    """The process group of ``axis``, or None where the axis holds one rank
+    of a wider world (a data-parallel world's model dim: no collective to
+    run).  A one-rank world's mesh keeps both groups, so that its
+    collectives run as they would at scale (the one-device check of the
+    mesh path)."""
+    if axis_size(mesh, axis) == 1 and mesh.size() > 1:
+        return None
+    return mesh.get_group(axis)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +151,7 @@ def resolve_specs(params: Dict[str, Any]) -> Dict[str, Any]:
         if isinstance(p, dict):
             return {k: resolve(v, rule.get(k, _REP)
                                if isinstance(rule, dict) else _REP)
-                    for k, v in p.items() if k != MODEL_GROUP_KEY}
+                    for k, v in p.items()}
         if isinstance(p, list):
             return [resolve(v, r) for v, r in zip(p, rule)]
         return _REP if isinstance(rule, dict) else rule
@@ -170,8 +174,7 @@ def _split(t: torch.Tensor, spec: Spec, parts: int, index: int
 
 def shard_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
     """The rank's shards of ``params`` per ``param_sharding_rules`` (new
-    tensors; replicated leaves are shared), with the model group under
-    ``MODEL_GROUP_KEY`` when the model dim is wider than one."""
+    tensors; replicated leaves are shared)."""
     parts, index = axis_size(mesh, MODEL_AXIS), axis_rank(mesh, MODEL_AXIS)
 
     def shard(p, spec):
@@ -181,11 +184,7 @@ def shard_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
             return [shard(v, s) for v, s in zip(p, spec)]
         return _split(p, spec, parts, index)
 
-    out = shard({k: v for k, v in params.items() if k != MODEL_GROUP_KEY},
-                resolve_specs(params))
-    if parts > 1:
-        out[MODEL_GROUP_KEY] = mesh.get_group(MODEL_AXIS)
-    return out
+    return shard(params, resolve_specs(params))
 
 
 def shard_batch(batch, mesh):

@@ -68,8 +68,8 @@ from ..models.whisper import (MODEL_CONFIGS, WhisperConfig, decoder_forward,
                               encode, init_params)
 from ..ops.mel import log_mel_spectrogram
 from ..ops.quant import quantize_params
-from ..parallel.mesh import (DATA_AXIS, axis_rank, axis_size, local_rows,
-                             make_mesh, shard_params)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
+                             axis_size, local_rows, make_mesh, shard_params)
 from ..tokenizer import WhisperTokenizer, make_test_tokenizer
 from .chunking import SpeechChunk, batch_chunks, merge_chunks
 
@@ -101,9 +101,11 @@ class TranscribePipeline:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.data_parallel = 1
+        self.model_group = None
         if mesh is not None:
             params = shard_params(params, mesh)
             self.data_parallel = axis_size(mesh, DATA_AXIS)
+            self.model_group = axis_group(mesh, MODEL_AXIS)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -175,7 +177,7 @@ class TranscribePipeline:
         audio = torch.from_numpy(audio_i16).to(self.device)
         audio = audio.to(torch.float32) * (1.0 / 32768.0)
         mel = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
-        return encode(self.params, mel, self.cfg)
+        return encode(self.params, mel, self.cfg, group=self.model_group)
 
     # -- public API ----------------------------------------------------------
     def detect_language(self, audio: np.ndarray) -> str:
@@ -186,7 +188,8 @@ class TranscribePipeline:
         window[: len(clip)] = clip
         xa = self._encode_windows(window[None])
         sot = torch.tensor([[self.tokenizer.special.sot]], device=self.device)
-        logits, _ = decoder_forward(self.params, sot, xa, self.cfg)
+        logits, _ = decoder_forward(self.params, sot, xa, self.cfg,
+                                    group=self.model_group)
         base = self.tokenizer.special.lang_base
         lang_logits = logits[0, 0, base:base + self.tokenizer.num_languages]
         return self.tokenizer.language_from_token(

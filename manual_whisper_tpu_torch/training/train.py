@@ -20,8 +20,8 @@ global batch, so the label count is all-reduced over the data dim first,
 each rank's masked sum is divided by the global count, and the gradients
 are summed over the data dim (a mean over ranks, as DDP takes, differs
 whenever rows carry different label counts).  Tensor parallelism runs
-inside the model functions (``models/whisper.py``).  Ranks must start
-from identical params.
+inside the model functions (``models/whisper.py``), over the mesh's model
+group.  Ranks must start from identical params.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch.distributed as dist
 
 from ..models.whisper import WhisperConfig, decoder_forward, encode
 from ..ops.mel import log_mel_spectrogram
-from ..parallel.mesh import DATA_AXIS, axis_group
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group
 from .optim import AdamW, AdamWState, tree_leaves
 
 
@@ -53,12 +53,13 @@ def features(audio: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
 
 
 def masked_nll(params, mel: torch.Tensor, tokens: torch.Tensor,
-               loss_mask: torch.Tensor, cfg: WhisperConfig
+               loss_mask: torch.Tensor, cfg: WhisperConfig, group=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the masked next-token NLL, the mask's sum) of a batch."""
+    """(sum of the masked next-token NLL, the mask's sum) of a batch;
+    ``group`` is the model group of tensor-parallel shards."""
     tokens = tokens.long()
-    xa = encode(params, mel, cfg, use_flash=False)
-    logits, _ = decoder_forward(params, tokens[:, :-1], xa, cfg)
+    xa = encode(params, mel, cfg, use_flash=False, group=group)
+    logits, _ = decoder_forward(params, tokens[:, :-1], xa, cfg, group=group)
     mask = loss_mask[:, 1:].float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
@@ -83,6 +84,7 @@ def make_train_step(cfg: WhisperConfig, optimizer: AdamW, mesh=None):
     and ``state`` updated in place.  With ``mesh``, ``state.params`` are
     the rank's shards and the batch the rank's rows."""
     data_group = None if mesh is None else axis_group(mesh, DATA_AXIS)
+    model_group = None if mesh is None else axis_group(mesh, MODEL_AXIS)
 
     def train_step(state: TrainState, mel: torch.Tensor,
                    tokens: torch.Tensor, loss_mask: torch.Tensor
@@ -96,7 +98,7 @@ def make_train_step(cfg: WhisperConfig, optimizer: AdamW, mesh=None):
         try:
             with torch.enable_grad():
                 nll, count = masked_nll(state.params, mel, tokens,
-                                        loss_mask, cfg)
+                                        loss_mask, cfg, model_group)
                 count = _all_sum(count.detach(), data_group)
                 loss = nll / count.clamp_min(1.0)
                 grads = torch.autograd.grad(loss, leaves)

@@ -128,13 +128,13 @@ def _scripted(monkeypatch, first_row, step_rows):
         return step_rows(token, pos, jnp), cache
 
     def t_forward(params_, tokens, xa_, cfg_, pos_offset=0, kv_cache=None,
-                  cross_kv=None):
+                  cross_kv=None, group=None):
         logits = torch.full((tokens.shape[0], tokens.shape[1], V), -20.0)
         logits[:, -1, :] = torch.from_numpy(first_row)
         return logits, kv_cache
 
     def t_step(params_, cfg_, token, pos, cache, cross_kv, oh, valid,
-               tok_emb_f32):
+               tok_emb_f32, group=None):
         return step_rows(token, pos, torch)
 
     monkeypatch.setattr(jbeam, "decoder_forward", j_forward)

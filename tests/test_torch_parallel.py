@@ -7,8 +7,9 @@
 - one spawned 2-process gloo world (``parallel.dryrun.spawn``: a file
   store under the test's directory, one torch thread a process, a timeout
   of its own) that reshapes its mesh once: dp=2 (greedy, int8,
-  timestamps, and a forced sampled fallback rung) and tp=2 (greedy,
-  timestamps, the sampled rung), each transcription against one process
+  timestamps, beam search, and a forced sampled fallback rung) and tp=2
+  (greedy, timestamps, beam search, the sampled rung), each transcription
+  against one process
   (times exact; greedy-decided text exact at f32, and the sampled rung's
   outside a tail batch the mesh pads to more rows), and a train step on
   each mesh against one process's (the loss within 1e-5 relative, the
@@ -109,8 +110,23 @@ class _StandInMesh:
     def get_local_rank(self, axis):
         return self.ranks[axis]
 
+    def size(self):
+        return self.dims["data"] * self.dims["model"]
+
     def get_group(self, axis):
         return f"group:{axis}"
+
+
+@pytest.mark.parametrize("layout, want", [
+    ((2, 2), {"data": "group:data", "model": "group:model"}),
+    ((2, 1), {"data": "group:data", "model": None}),
+    ((1, 2), {"data": None, "model": "group:model"}),
+    ((1, 1), {"data": "group:data", "model": "group:model"})])
+def test_axis_group_of_each_layout(layout, want):
+    """A one-rank axis of a wider world has no group; a one-rank world's
+    mesh keeps both, so its collectives run."""
+    mesh = _StandInMesh(*layout, data_rank=0, model_rank=0)
+    assert {axis: tm.axis_group(mesh, axis) for axis in want} == want
 
 
 def test_shard_batch_takes_the_ranks_rows():
@@ -131,7 +147,7 @@ def test_shard_params_takes_the_ranks_shards(int8):
     if int8:
         full = quantize_params(full)
     local = tm.shard_params(full, _StandInMesh(1, 2, 0, 1))
-    assert local[tm.MODEL_GROUP_KEY] == "group:model"
+    assert set(local) == {"encoder", "decoder"}
     blk, fblk = local["decoder"]["blocks"][1], full["decoder"]["blocks"][1]
     if int8:
         assert torch.equal(blk["attn"]["q_w"]["q"],
@@ -148,7 +164,6 @@ def test_shard_params_takes_the_ranks_shards(int8):
     assert blk["attn"]["o_b"] is fblk["attn"]["o_b"]
     assert tw.local_heads(local, "encoder", TCFG) == TCFG.n_audio_head // 2
     one = tm.shard_params(full, _StandInMesh(2, 1, 1, 0))
-    assert tm.MODEL_GROUP_KEY not in one
     assert all(a is b for a, b in zip(tree_leaves(one), tree_leaves(full)))
 
 
@@ -165,7 +180,7 @@ def test_load_model_without_mesh():
     for mesh in ("auto", None):
         pipe = load_model("test", device="cpu", language="zh", mesh=mesh)
         assert pipe.mesh is None and pipe.data_parallel == 1
-        assert tm.MODEL_GROUP_KEY not in pipe.params
+        assert pipe.model_group is None
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +189,11 @@ def test_load_model_without_mesh():
 
 WORLD_LINES = [("2x1", "inference", "greedy"), ("2x1", "inference", "int8"),
                ("2x1", "inference", "timestamps"),
+               ("2x1", "inference", "beam"),
                ("2x1", "inference", "sampled"), ("2x1", "train", None),
                ("1x2", "inference", "greedy"),
                ("1x2", "inference", "timestamps"),
+               ("1x2", "inference", "beam"),
                ("1x2", "inference", "sampled"), ("1x2", "train", None)]
 
 
@@ -185,7 +202,7 @@ def world_report(tmp_path_factory):
     work = tmp_path_factory.mktemp("gloo_world")
     weights = tmp_path_factory.mktemp("no_weights")
     report = work / "report.json"
-    dryrun.spawn(2, meshes="2x1,1x2", modes="greedy,int8,timestamps,sampled",
+    dryrun.spawn(2, meshes="2x1,1x2", modes="greedy,int8,timestamps,beam,sampled",
                  report=str(report), timeout=WORLD_TIMEOUT, workdir=str(work),
                  env={"MWX_WEIGHTS_DIR": str(weights)})
     lines = json.loads(report.read_text())
@@ -213,6 +230,7 @@ def test_gloo_world_matches_one_process(world_report, key):
         assert set(line["rung_rows"]) == {"0", "1"}
     else:
         assert line["text_equal"]
+    assert (line["beam_calls"] > 0) == (key[2] == "beam")
 
 
 @pytest.mark.slow

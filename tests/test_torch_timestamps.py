@@ -120,10 +120,11 @@ def test_closing_timestamp_strictly_increases(synth, monkeypatch):
         return jnp.broadcast_to(jnp.asarray(row), (last.shape[0], V)), cache
 
     def t_forward(params_, tokens, xa_, cfg_, pos_offset=0, kv_cache=None,
-                  cross_kv=None):
+                  cross_kv=None, group=None):
         return torch.from_numpy(row).expand(*tokens.shape, V), kv_cache
 
-    def t_step(params_, token, lengths, cache, cross_kv, cfg_, tok_emb_f32):
+    def t_step(params_, token, lengths, cache, cross_kv, cfg_, tok_emb_f32,
+               group=None):
         return torch.from_numpy(row).expand(token.shape[0], V)
 
     monkeypatch.setattr(jts, "decoder_forward", j_forward)
