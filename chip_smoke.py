@@ -5,6 +5,7 @@
     python3 chip_smoke.py --rows decode_self_attention,int8_matmul
     python3 chip_smoke.py --phases align,diarize,cli
     python3 chip_smoke.py --phases train,mesh
+    python3 chip_smoke.py --phases fetch,launch
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``mel``, ``flash_attention``,
@@ -132,7 +133,18 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    without, with every all-reduce of the sharded step made; K2-K6 held to their plain
    versions at the local shapes of a tp=2 shard of large-v3; with two or
    more GPUs a dp=2 ``parallel.dryrun`` under torchrun (else a
-   ``mesh_multi`` line with ``"ran": false``).
+   ``mesh_multi`` line with ``"ran": false``).  ``fetch``: the
+   pipeline's fetch worker at large-v3 (bf16, batch 4) on about 400 s of
+   seeded speech (at least four batches), with the log-prob gate set so
+   that one or two rows of the first batch climb the ladder in a bucket
+   that ``warmup`` captured but the phase dropped, so the worker thread
+   captures it: worker and ``MWX_FETCH_WORKER=0`` give equal segments and
+   counts, launches exact, every step replayed; both walls printed.
+   ``launch``: the CLI alone and under ``torchrun --nproc-per-node 1``
+   (a one-rank NCCL world through ``parallel/launch.py``'s leader path),
+   Markdown equal; one server job through ``launch.Leader`` in a one-rank
+   world; with two or more GPUs the CLI on every GPU (else a
+   ``launch_multi`` line with ``"ran": false``).
 7. The job server (``serve``): the port's
    native audio libraries are built (libmwx_audio must build, libmwx_ffdec
    must where g++ finds the FFmpeg headers) and each suffix's route
@@ -2390,6 +2402,312 @@ def phase_mesh(dev, workdir: str) -> None:
         raise AssertionError("mesh_multi: the dp=2 world failed")
 
 
+# ---------------------------------------------------------------------------
+# The fetch worker (pipeline/transcribe.py) and the launcher
+# (parallel/launch.py)
+# ---------------------------------------------------------------------------
+
+FETCH_SECONDS = 400.0
+
+
+def _first_batch_logprobs(model, audio) -> tuple:
+    """(avg logprobs of the first batch's real rows, windows) of a
+    transcription at batch 4 with the gates off (one loop a batch)."""
+    from manual_whisper_tpu_torch.models import decode as dec_mod
+    probe = _mode_pipeline(model, log_prob_threshold=None,
+                           compression_ratio_threshold=None)
+    found = []
+    real = dec_mod.BatchDecoder.decode_with_fallback
+
+    def spy(dec, xa, first=None, n_valid=None, rng_tag=0):
+        out = real(dec, xa, first=first, n_valid=n_valid, rng_tag=rng_tag)
+        if rng_tag == 0:
+            found.extend(r.avg_logprob for r in out[:n_valid])
+        return out
+    dec_mod.BatchDecoder.decode_with_fallback = spy
+    try:
+        probe.transcribe(audio, batch_size=BATCH, language="zh")
+    finally:
+        dec_mod.BatchDecoder.decode_with_fallback = real
+    return found, probe.last_stats["windows"]
+
+
+def phase_fetch(dev) -> None:
+    """The fetch worker at large-v3 (bf16, batch 4, seeded random weights,
+    the CLI's options) on about 400 s of seeded speech (at least four
+    batches).  A first transcription with the gates off reads the first
+    batch's rows' average logprobs; the log-prob gate is then set between
+    two of them, so that one or two of its rows fail (random weights then
+    fail every sampled rung: those rows climb the whole ladder) and its
+    retries take a smaller bucket than the dispatch thread ever uses.
+    After ``warmup`` that bucket's loop is dropped, so the worker thread
+    captures it while the dispatch thread encodes and decodes the next
+    batches.  ``transcribe`` runs with the worker and then with
+    ``MWX_FETCH_WORKER=0``, then with the worker again (every bucket
+    captured, so its wall is the one to set beside the serial path's):
+    segments and ``last_stats`` counts equal, launches exact (the
+    capture's eager warm-up steps added), every decode step replayed, the
+    capture made on the worker in the first run; each run's wall,
+    capture, ``decode_s`` and ``encode_s``, beside the card."""
+    import threading
+    from manual_whisper_tpu_torch import config as port_config
+    from manual_whisper_tpu_torch.models import graphs as graphs_mod
+    from manual_whisper_tpu_torch.pipeline.chunking import _bucket_for
+    model, load_s = load_main_model("bfloat16", False)
+    audio = synthetic_speech(FETCH_SECONDS, seed=3)
+    lps, windows = _first_batch_logprobs(model, audio)
+    tail = windows % BATCH
+    dispatch_buckets = {BATCH} | ({_bucket_for(tail, BATCH)} if tail else set())
+    order = sorted(lps)
+    choice = [(order[k] - order[k - 1], k) for k in (1, 2)
+              if k < len(order) and _bucket_for(k, BATCH)
+              not in dispatch_buckets]
+    if windows < 4 * BATCH - 3 or not choice or max(choice)[0] < 1e-3:
+        raise AssertionError(f"fetch: no gate fits: {windows} windows, first "
+                             f"batch logprobs {lps}")
+    failing = max(choice)[1]
+    threshold = 0.5 * (order[failing - 1] + order[failing])
+    retry_rows = _bucket_for(failing, BATCH)
+    pipe = _mode_pipeline(model, log_prob_threshold=threshold,
+                          compression_ratio_threshold=None)
+    decoder = pipe._decoder("zh", 0.0)
+    pipe.warmup(batch_size=BATCH, language="zh")
+    torch.cuda.synchronize()
+    dropped = [k for k in decoder._loops if k[0] == retry_rows]
+    for key in dropped:
+        del decoder._loops[key]
+    captures = []
+    real_capture = graphs_mod.ChunkGraphs.capture
+
+    def capture(graphs, n, fn, reset):
+        captures.append(threading.current_thread().name)
+        return real_capture(graphs, n, fn, reset)
+    graphs_mod.ChunkGraphs.capture = capture
+    runs = {}
+    try:
+        for name, worker in (("worker", "1"), ("serial", "0"),
+                             ("worker_again", "1")):
+            os.environ["MWX_FETCH_WORKER"] = worker
+            port_config.clear_env_cache()
+            replays_before = graph_replays(decoder)
+            _build.launches.clear()
+            n_captures = len(captures)
+            capture_s = decoder.stats["capture_s"]
+            t0 = time.perf_counter()
+            result = pipe.transcribe(audio, batch_size=BATCH, language="zh")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launches)
+            stats = dict(pipe.last_stats)
+            replayed = sum(n * (c - replays_before.get((rows, n), 0))
+                           for (rows, n), c in graph_replays(decoder).items())
+            new = captures[n_captures:]
+            expected = expected_launches(pipe.cfg, stats, False)
+            if new:
+                # each captured chunk first runs its steps eagerly
+                extra = pipe.cfg.n_text_layer * sum(
+                    decoder._loops[dropped[0]].chunk_lengths())
+                for k in ("decode_self_attention", "decode_cross_attention"):
+                    expected[k] += extra
+            runs[name] = {"result": result, "stats": stats, "wall": wall,
+                          "launches": launches, "expected": expected,
+                          "replayed_steps": replayed, "captures": new,
+                          "capture_s": decoder.stats["capture_s"] - capture_s}
+    finally:
+        graphs_mod.ChunkGraphs.capture = real_capture
+        os.environ.pop("MWX_FETCH_WORKER", None)
+        port_config.clear_env_cache()
+    counts = ("batches", "windows", "rows", "token_rows", "decode_calls",
+              "decode_steps", "beam_calls", "beam_steps", "rung_rows")
+    w, s, w2 = runs["worker"], runs["serial"], runs["worker_again"]
+    line = {"phase": "fetch", "model": "large-v3", "compute_type": "bfloat16",
+            "audio_s": FETCH_SECONDS, "load_s": load_s,
+            "log_prob_threshold": threshold, "first_batch_logprobs": lps,
+            "uncaptured_rows": retry_rows,
+            "counts": {k: w["stats"][k] for k in counts},
+            "counts_equal": all(w["stats"][k] == s["stats"][k]
+                                == w2["stats"][k] for k in counts),
+            "segments": len(w["result"]["segments"]),
+            "segments_equal": w["result"] == s["result"] == w2["result"],
+            "captures": {k: r["captures"] for k, r in runs.items()},
+            "card": card_line()}
+    for name, run in runs.items():
+        line[name] = {"wall_s": run["wall"], "capture_s": run["capture_s"],
+                      "decode_s": run["stats"]["decode_s"],
+                      "encode_s": run["stats"]["encode_s"],
+                      "vad_s": run["stats"]["vad_s"],
+                      "replayed_steps": run["replayed_steps"],
+                      "launches_exact": run["launches"] == run["expected"],
+                      "launches": run["launches"]}
+    log(json.dumps(line))
+    if w["stats"]["batches"] < 4:
+        raise AssertionError(f"fetch: {w['stats']['batches']} batches")
+    if not line["segments_equal"] or not line["counts_equal"]:
+        raise AssertionError("fetch: the worker and the serial path differ")
+    rungs = w["stats"]["rung_rows"]
+    if sorted(rungs) != list(range(6)):
+        raise AssertionError(f"fetch: retries did not climb the ladder: "
+                             f"{rungs}")
+    for name, run in runs.items():
+        if run["launches"] != run["expected"]:
+            raise AssertionError(f"fetch {name}: launches {run['launches']}, "
+                                 f"expected {run['expected']}")
+        if run["replayed_steps"] != run["stats"]["decode_steps"]:
+            raise AssertionError(f"fetch {name}: {run['replayed_steps']} "
+                                 "steps replayed, "
+                                 f"{run['stats']['decode_steps']} run")
+    if not w["captures"] or set(w["captures"]) != {"mwx-fetch"} \
+            or s["captures"] or w2["captures"]:
+        raise AssertionError(f"fetch: captures {line['captures']}: the "
+                             "dropped bucket was not captured on the worker")
+    del pipe, decoder, model
+    torch.cuda.empty_cache()
+
+
+def _markdown_body(path: str) -> list:
+    """The Markdown's lines without the model and timing lines."""
+    with open(path, encoding="utf-8") as f:
+        return [ln for ln in f.read().splitlines()
+                if not ln.startswith(("**模型**", "**转写总耗时**"))]
+
+
+def _cli_run(workdir: str, name: str, wav: str, prefix: list,
+             env: dict) -> dict:
+    """``prefix + [wav]`` in a directory of its own; its lines, code,
+    seconds and Markdown."""
+    d = os.path.join(workdir, name)
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(prefix + [wav], cwd=d, env=env, capture_output=True,
+                          text=True, timeout=600)
+    out = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+           "stdout": proc.stdout, "stderr": proc.stderr[-3000:]}
+    md = os.path.join(d, "launch_transcript.md")
+    out["markdown"] = _markdown_body(md) if os.path.exists(md) else None
+    return out
+
+
+def phase_launch(dev, workdir: str) -> None:
+    """The CLI and the job server through ``parallel/launch.py`` on the
+    card's one GPU.  ``python -m manual_whisper_tpu_torch.cli`` (no world:
+    one GPU) and the same CLI under ``torchrun --standalone
+    --nproc-per-node 1`` (a one-rank NCCL world; rank 0 leads) on a WAV of
+    40 s of seeded speech with random large-v3: both succeed, the torchrun
+    run reports its world, and its Markdown equals the plain run's apart
+    from the model and timing lines.  Then, in this process, a one-rank
+    world joined as under torchrun: ``PipelineBackend`` wrapped in
+    ``Leader`` serves one job through ``create_server`` (upload, create,
+    polls); the job must succeed with the pipeline call sent through the
+    leader.  With two or more GPUs the CLI also runs on every GPU (rank 0
+    starts the others) at batch 16 and must give the plain run's Markdown
+    at batch 16; else a ``launch_multi`` line says it did not run."""
+    import threading
+    import urllib.request
+    from manual_whisper_tpu_torch import config as port_config
+    from manual_whisper_tpu_torch.parallel import launch
+    from manual_whisper_tpu_torch.serving import server as server_mod
+    from manual_whisper_tpu_torch.serving.jobs import PipelineBackend
+    wav = os.path.join(workdir, "launch.wav")
+    with open(wav, "wb") as f:
+        f.write(_wav_bytes(synthetic_speech(40.0, seed=11), 16000))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HF_TOKEN", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env.update({"WHISPER_MODEL": "large-v3", "MWX_ALLOW_RANDOM_WEIGHTS": "1",
+                "PYTHONPATH": ROOT})
+    cli = [sys.executable, "-m", "manual_whisper_tpu_torch.cli"]
+    runs = {"plain": _cli_run(workdir, "plain", wav, cli,
+                              {**env, "MWX_AUTO_MESH": "false"}),
+            "torchrun": _cli_run(
+                workdir, "torchrun", wav,
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "1", "-m",
+                 "manual_whisper_tpu_torch.cli"], env)}
+    line = {"phase": "launch", "card": card_line()}
+    for name, run in runs.items():
+        line[name] = {"rc": run["rc"], "s": run["s"],
+                      "lines": len(run["markdown"] or [])}
+        for ln in run["stdout"].splitlines():
+            log(f"  launch {name}: {ln}")
+        if run["rc"] != 0:
+            log(run["stderr"])
+            raise AssertionError(f"launch: the {name} CLI failed")
+    line["torchrun_world"] = "进程组: 1 个进程" in runs["torchrun"]["stdout"]
+    line["markdown_equal"] = (runs["plain"]["markdown"]
+                              == runs["torchrun"]["markdown"])
+
+    # one server job through the leader, in a one-rank world of this process
+    world_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 launch.STORE_ENV: os.path.join(workdir, "launch_store")}
+    os.environ.update(world_env)
+    os.environ.update({"MWX_ALLOW_RANDOM_WEIGHTS": "1",
+                       "GET_RATE_LIMIT_PER_MIN": "1000000"})
+    port_config.clear_env_cache()
+    try:
+        world = launch.start_world(["-c", "pass"], device="cuda")
+    finally:
+        for k in world_env:
+            os.environ.pop(k)
+    with world:
+        backend = PipelineBackend(model_name="large-v3", device=world.device)
+        backend.model = launch.Leader(backend.model, world)
+        srv = server_mod.create_server(backend, host="127.0.0.1", port=0,
+                                       upload_dir=os.path.join(workdir,
+                                                               "launch_up"))
+        threading.Thread(target=srv.serve_forever, args=(0.05,),
+                         daemon=True, name="http").start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def req(method, path, body=None, headers=None):
+            r = urllib.request.Request(base + path, data=body, method=method,
+                                       headers=headers or {})
+            with urllib.request.urlopen(r, timeout=120) as resp:
+                return json.loads(resp.read().decode())
+        t0 = time.perf_counter()
+        with open(wav, "rb") as f:
+            up = req("POST", "/api/upload", f.read(),
+                     {"x-file-name": "launch.wav"})
+        job = req("POST", "/api/transcribe", json.dumps(
+            {"fileUrl": up["fileUrl"], "language": "zh"}).encode())
+        deadline = time.time() + 300
+        while True:
+            out = req("GET", f"/api/transcribe?id={job['id']}")
+            if out["status"] in ("succeeded", "failed") \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.25)
+        srv.shutdown()
+        srv.server_close()
+        line["server_job"] = {"status": out["status"],
+                              "s": time.perf_counter() - t0,
+                              "leader_calls": backend.model.calls,
+                              "world": world.size,
+                              "backend": torch.distributed.get_backend()}
+    del backend
+    torch.cuda.empty_cache()
+    log(json.dumps(line))
+    if not (line["torchrun_world"] and line["markdown_equal"]):
+        raise AssertionError("launch: the torchrun CLI ran no world, or its "
+                             "Markdown differs from the plain CLI's")
+    if out["status"] != "succeeded" or line["server_job"]["leader_calls"] < 1:
+        raise AssertionError(f"launch: the server job through the leader: "
+                             f"{line['server_job']}")
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(json.dumps({"phase": "launch_multi", "ran": False, "devices": n}))
+        return
+    multi = {**env, "BATCH_SIZE": "16"}
+    runs = {"plain16": _cli_run(workdir, "plain16", wav, cli,
+                                {**multi, "MWX_AUTO_MESH": "false"}),
+            "every_gpu": _cli_run(workdir, "every_gpu", wav, cli, multi)}
+    multi_line = {"phase": "launch_multi", "ran": True, "devices": n,
+                  **{k: {"rc": r["rc"], "s": r["s"]} for k, r in runs.items()},
+                  "markdown_equal": runs["plain16"]["markdown"]
+                  == runs["every_gpu"]["markdown"]}
+    log(json.dumps(multi_line))
+    if any(r["rc"] for r in runs.values()) or not multi_line["markdown_equal"]:
+        raise AssertionError(f"launch_multi: {multi_line}")
+
+
 def _profiled(fn, reps: int) -> dict:
     """Time ``reps`` calls of fn() on the host clock (ending in a
     synchronise), then run them again under torch.profiler and sum the
@@ -3110,8 +3428,8 @@ def main() -> int:
                          "stop without a result line")
     ap.add_argument("--phases", default="", metavar="PHASE[,PHASE]",
                     help="only build the kernels and run these phases of "
-                         "stage 6 (align, diarize, cli, train, mesh), then "
-                         "stop without a result line")
+                         "stage 6 (align, diarize, cli, train, mesh, fetch, "
+                         "launch), then stop without a result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3137,7 +3455,9 @@ def main() -> int:
               "diarize": lambda: phase_diarize(dev, registry),
               "cli": lambda: phase_cli(work, registry),
               "train": lambda: phase_train(dev),
-              "mesh": lambda: phase_mesh(dev, work)}
+              "mesh": lambda: phase_mesh(dev, work),
+              "fetch": lambda: phase_fetch(dev),
+              "launch": lambda: phase_launch(dev, work)}
     import tempfile
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
         registry = make_registry(os.path.join(work, "registry"), resnet=True)

@@ -8,6 +8,14 @@ speaker diarization run on the same device after the transcription; when
 either fails the CLI goes on without it, with the JAX CLI's lines.
 
     python -m manual_whisper_tpu_torch.cli recording.m4a
+
+On a host with several GPUs it runs on every one of them, as the JAX CLI
+meshes every chip (``parallel/launch.py``): one process a GPU, started by
+this one (or by ``torchrun``), each loading the model with the same
+``load_model(..., mesh="auto")`` call.  Rank 0 prints, transcribes
+through ``launch.Leader`` (every rank runs the transcription's share of
+its mesh), aligns, diarizes and writes the files; the other ranks follow.
+``MWX_AUTO_MESH=false`` keeps to one GPU.
 """
 
 from __future__ import annotations
@@ -22,18 +30,36 @@ from . import config
 from .audio import (UnsupportedFormatError, decodable_suffixes,
                     load_audio)
 from .device import device_label, resolve_device
+from .parallel.launch import Leader, follow, start_world
 from .pipeline import load_model
 from .text import INITIAL_PROMPT, clean_result_segments, format_transcript
 
 SAMPLE_RATE = 16000
+MODULE = "manual_whisper_tpu_torch.cli"
+
+
+def _load(model_size: str, dev, compute_type: str):
+    """The pipeline every rank loads, with the same call."""
+    return load_model(
+        model_size, dev, compute_type=compute_type, language="zh",
+        asr_options={"initial_prompt": INITIAL_PROMPT,
+                     "beam_size": config.get_int("BEAM_SIZE", 1),
+                     # bf16 per-position scales of the int8 cross K/V
+                     "ckv_scale_bf16":
+                         config.get_env("MWX_CKV_SCALE", "f32") == "bf16"},
+        vad_options={
+            "vad_onset": config.get_float("VAD_ONSET", 0.5),
+            "vad_offset": config.get_float("VAD_OFFSET", 0.363),
+        })
 
 
 def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
                      batch_size=None, device=None,
-                     compute_type="bfloat16"):
+                     compute_type="bfloat16", world=None):
     """Pipeline orchestration (reference: transcribe_audio,
     transcribe.py:98-183): returns (result_dict, audio_duration_sec,
-    device_label)."""
+    device_label).  ``world``: rank 0's ``launch.World``, whose other
+    ranks follow the transcription (None: this process alone)."""
     model_size = model_size or config.get_env("WHISPER_MODEL", "large-v3")
     batch_size = batch_size or config.get_int("BATCH_SIZE", 4)
     dev = resolve_device(device or "cuda")
@@ -45,17 +71,10 @@ def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
 
     step_start = time.time()
     print(f"📝 加载 Whisper {model_size} 模型...")
-    model = load_model(
-        model_size, dev, compute_type=compute_type, language="zh",
-        asr_options={"initial_prompt": INITIAL_PROMPT,
-                     "beam_size": config.get_int("BEAM_SIZE", 1),
-                     # bf16 per-position scales of the int8 cross K/V
-                     "ckv_scale_bf16":
-                         config.get_env("MWX_CKV_SCALE", "f32") == "bf16"},
-        vad_options={
-            "vad_onset": config.get_float("VAD_ONSET", 0.5),
-            "vad_offset": config.get_float("VAD_OFFSET", 0.363),
-        })
+    model = _load(model_size, dev, compute_type)
+    if world is not None:
+        model = Leader(model, world)
+        print(f"   进程组: {world.size} 个进程, rank 0 主导")
     print(f"   模型加载耗时: {time.time() - step_start:.1f}s")
 
     print("🔊 加载音频...")
@@ -111,7 +130,10 @@ def transcribe_audio(audio_file: str, hf_token=None, model_size=None,
     return result, audio_duration, label
 
 
-def main(argv=None) -> int:
+def main(argv=None, device="cuda") -> int:
+    """The CLI on ``argv`` (default ``sys.argv[1:]``): every GPU of the
+    host (``launch.start_world``), or ``device``'s world under
+    ``torchrun``."""
     argv = argv if argv is not None else sys.argv[1:]
     total_start = time.time()
 
@@ -130,8 +152,19 @@ def main(argv=None) -> int:
 
     model_size = config.get_env("WHISPER_MODEL", "large-v3")
     output_file = Path(audio_file).stem + "_transcript.md"
-    result, audio_duration, label = transcribe_audio(
-        audio_file, config.get_env("HF_TOKEN"), model_size=model_size)
+    world = start_world(["-m", MODULE, *argv], device=device)
+    if world is None:
+        result, audio_duration, label = transcribe_audio(
+            audio_file, config.get_env("HF_TOKEN"), model_size=model_size,
+            device=device)
+    else:
+        with world:
+            if world.rank != 0:
+                follow(_load(model_size, world.device, "bfloat16"), world)
+                return 0
+            result, audio_duration, label = transcribe_audio(
+                audio_file, config.get_env("HF_TOKEN"),
+                model_size=model_size, device=world.device, world=world)
 
     total_time = time.time() - total_start
     format_transcript(result, audio_file, output_file, audio_duration,

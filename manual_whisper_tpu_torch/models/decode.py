@@ -146,14 +146,47 @@ def _logprob_of(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return logp.gather(1, tok[:, None])[:, 0]
 
 
-@dataclasses.dataclass
 class DecodeOutput:
-    """Device results of one decode loop (``DecodeLoop.run``)."""
-    tokens: torch.Tensor          # [B, max_new] int64, EOT-filled
-    sum_logprob: torch.Tensor     # [B] f32
-    lengths: torch.Tensor         # [B] int32 (counts the EOT step)
-    no_speech: torch.Tensor       # [B] f32
-    steps: int                    # decode positions run (prefill token + steps)
+    """Results of one decode loop: ``tokens`` [B, max_new] int64
+    (EOT-filled), ``sum_logprob`` [B] f32, ``lengths`` [B] int32 (counts
+    the EOT step), ``no_speech`` [B] f32, and ``steps``, the decode
+    positions run (prefill token + steps).  A loop's ``run`` returns them
+    on the device; ``to_host`` copies them to the host.  On CUDA those are
+    pinned buffers filled by copies enqueued on the current stream, with
+    an event recorded after them: reading a result waits for that event
+    and nothing else (not for work enqueued after it)."""
+
+    def __init__(self, tokens: torch.Tensor, sum_logprob: torch.Tensor,
+                 lengths: torch.Tensor, no_speech: torch.Tensor, steps: int,
+                 ready: Optional["torch.cuda.Event"] = None):
+        self._tensors = (tokens, sum_logprob, lengths, no_speech)
+        self.steps = steps
+        self._ready = ready
+
+    def _get(self, i: int) -> torch.Tensor:
+        ready = self._ready
+        if ready is not None:
+            ready.synchronize()
+            self._ready = None
+        return self._tensors[i]
+
+    tokens = property(lambda self: self._get(0))
+    sum_logprob = property(lambda self: self._get(1))
+    lengths = property(lambda self: self._get(2))
+    no_speech = property(lambda self: self._get(3))
+
+    def to_host(self) -> "DecodeOutput":
+        """Host copies of the results.  On the CPU the loop's results are
+        copies already and are returned as they are."""
+        if self._tensors[0].device.type != "cuda":
+            return self
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in self._tensors)
+        for dst, src in zip(host, self._tensors):
+            dst.copy_(src, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return DecodeOutput(*host, self.steps, ready=ready)
 
 
 @dataclasses.dataclass
@@ -380,10 +413,13 @@ class BatchDecoder:
     timestamp-rule ``DecodeLoop`` (``_ts_loops``).  Each is built on first
     use as ``jax.jit`` compiles on first call: on CUDA that captures its
     chunks, all in one graph memory pool, freed with the decoder.  A
-    lock keeps one decode at a time on the static buffers; a decode's
-    results leave it as copies enqueued before the lock is released, on
-    the default stream every decoding thread uses, so the next decode
-    cannot overwrite the buffers before the copies have run.  ``eager=True``
+    lock keeps one decode at a time on the static buffers, so a ladder
+    retry on the pipeline's fetch worker and the next batch's first rung
+    on the dispatch thread take turns; a decode's results leave it as
+    host copies enqueued before the lock is released, on the default
+    stream every decoding thread uses, so the next decode cannot overwrite
+    the buffers before the copies have run, and reading them waits only
+    for the copies (``DecodeOutput``).  ``eager=True``
     runs the chunks eagerly on CUDA too, for comparison only; on the CPU
     they always run eagerly.
 
@@ -459,23 +495,26 @@ class BatchDecoder:
             self.decode_submit(xa, temperature, rng_tag=rng_tag),
             int(xa.shape[0]) * self.data_parallel, temperature)
 
-    def _gathered(self, out: DecodeOutput) -> DecodeOutput:
-        """A loop's results of the rank's rows -> the whole batch's."""
-        if self._data_group is None:
-            return out
+    def _fetched(self, out: DecodeOutput) -> DecodeOutput:
+        """A loop's device results of the rank's rows -> the whole batch's
+        (gathered over the data dim with a mesh), copied to the host
+        (``DecodeOutput.to_host``).  Called under the lock, so the copies
+        are enqueued before the next loop may overwrite the buffers."""
         g = self._data_group
-        return DecodeOutput(gather_rows(out.tokens, g),
-                            gather_rows(out.sum_logprob, g),
-                            gather_rows(out.lengths, g),
-                            gather_rows(out.no_speech, g), out.steps)
+        if g is not None:
+            out = DecodeOutput(gather_rows(out.tokens, g),
+                               gather_rows(out.sum_logprob, g),
+                               gather_rows(out.lengths, g),
+                               gather_rows(out.no_speech, g), out.steps)
+        return out.to_host()
 
     def decode_submit(self, xa: torch.Tensor, temperature: float = 0.0,
                       rng_tag: int = 0) -> DecodeOutput:
-        """Run the decode loop; results stay on the device until
-        ``decode_finalize``.  With ``beam_size > 1`` at T = 0 that is the
-        beam search (JAX ``decode_submit``), else the greedy or sampled
-        loop, its generator seeded with ``opts.seed + 1000003 * rng_tag``
-        before the loop."""
+        """Run the decode loop; its results leave as host copies
+        (``_fetched``) that ``decode_finalize`` reads.  With ``beam_size >
+        1`` at T = 0 that is the beam search (JAX ``decode_submit``), else
+        the greedy or sampled loop, its generator seeded with ``opts.seed +
+        1000003 * rng_tag`` before the loop."""
         prefix, sot_index = self._prefix()
         max_new = self._max_new(len(prefix))
         rows, ta = int(xa.shape[0]), int(xa.shape[1])
@@ -497,7 +536,7 @@ class BatchDecoder:
                 self.stats["token_rows"] += rows * out.steps
                 self.stats["decode_steps"] += out.steps - 1
             self.stats["decode_calls"] += 1
-        return self._gathered(out)
+            return self._fetched(out)
 
     def _get(self, loops: dict, key: tuple, make):
         """The loop of ``key`` in ``loops``, built by ``make(*key, pool)``
@@ -545,8 +584,8 @@ class BatchDecoder:
     def timestamps_submit(self, xa: torch.Tensor) -> DecodeOutput:
         """The timestamp-rule greedy loop (JAX ``timestamps_submit``): the
         SOT sequence with timestamps and no initial prompt, timestamps not
-        suppressed, argmax, no fallback ladder.  Results stay on the
-        device until ``timestamps_finalize``."""
+        suppressed, argmax, no fallback ladder.  Results leave as host
+        copies (``_fetched``) that ``timestamps_finalize`` reads."""
         tk = self.tokenizer
         if self._ts is None:
             ts_opts = dataclasses.replace(self.opts, without_timestamps=False)
@@ -564,7 +603,7 @@ class BatchDecoder:
             self.stats["token_rows"] += rows * out.steps
             self.stats["decode_calls"] += 1
             self.stats["decode_steps"] += out.steps - 1
-        return self._gathered(out)
+            return self._fetched(out)
 
     def timestamps_finalize(self, out: DecodeOutput,
                             chunk_starts: Sequence[float],
@@ -643,7 +682,8 @@ class BatchDecoder:
             first = self.decode_submit(xa, temps[0], rng_tag=rng_tag * 16)
         b = int(xa.shape[0]) * dp
         results = self.decode_finalize(first, b, temps[0])
-        self.stats["rung_rows"][0] += int(xa.shape[0])
+        with self._lock:
+            self.stats["rung_rows"][0] += int(xa.shape[0])
         n_valid = b if n_valid is None else n_valid
         pending = [i for i, r in enumerate(results[:n_valid])
                    if self._needs_fallback(r)]
@@ -657,7 +697,8 @@ class BatchDecoder:
             idx = pending + [pending[0]] * (rows - len(pending))
             sub = local_rows(xa_all[torch.tensor(idx, device=xa.device)],
                              dp, self._data_rank)
-            self.stats["rung_rows"][rung] += rows // dp
+            with self._lock:
+                self.stats["rung_rows"][rung] += rows // dp
             retried = self.decode(sub, temperature=temp,
                                   rng_tag=rng_tag * 16 + rung)[:len(pending)]
             still = []

@@ -14,20 +14,34 @@ device); model.transcribe(audio, batch_size, language)``.
 
 As in the JAX pipeline, dispatch is streamed: the VAD yields speech
 probabilities block by block, each block's final chunks join the queue,
-and every full batch is encoded and decoded before the next block is
-scored.
+and every full batch is encoded and its first rung decoded before the
+next block is scored.  Each batch is then finalized (its first rung's
+results read, the ladder's retries decoded, its segments assembled) on a
+fetch worker thread, a FIFO consumer of a bounded queue of in-flight
+batches (``MWX_MAX_INFLIGHT_BATCHES``, default 8), so the host work of one
+batch overlaps the device work of the next; ``MWX_FETCH_WORKER=0`` (and
+any mesh, see below) finalizes on the calling thread instead, over a
+window of the same size.  Both paths give the same segments and counts:
+each ``BatchDecoder`` runs one loop at a time on its static buffers, and
+reseeds its sampling generator before each loop from the batch's dispatch
+index, so sampled rungs do not depend on how the threads interleave.  A
+failed finalize stops dispatch and re-raises on the calling thread after
+the worker is joined; a failed dispatch joins the worker too.
 
 ``warmup`` runs one decode per batch bucket ahead of the first request:
 on CUDA that captures each bucket's decode chunks as CUDA graphs, which
-every later loop replays; on the CPU the chunks run eagerly.  Each batch
-is finalized as soon as it is decoded (the JAX package's fetch worker
-overlaps device and host work; that is not ported: its second thread
-would replay the same static buffers).  ``last_stats``
+every later loop replays; on the CPU the chunks run eagerly.  A bucket
+first used by a retry is captured on the fetch worker.  ``last_stats``
 holds the phase times and counts of the calling thread's most recent
-``transcribe`` call (``vad_s``: the VAD's blocks, binarization and merging
-only; ``windows``: real audio windows; ``rows``: batch rows, padding
-included; ``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``);
-on CUDA each phase ends in a synchronisation so its time is the device's.
+``transcribe`` call (``vad_s``: the VAD's blocks, binarization and
+merging, on the calling thread; ``encode_s``: the encodes, on the calling
+thread's clock up to an event recorded after each (on CUDA waited for,
+so it is the encode's device time and that of work enqueued before it);
+``decode_s``: the first rungs on the calling thread plus the
+finalizations on whichever thread ran them, summed, so with the worker it
+can exceed the wall time; ``windows``: real audio windows; ``rows``:
+batch rows, padding included; ``decode_calls`` and ``decode_steps`` as
+``BatchDecoder.stats``).
 
 Two threads may transcribe at once (the job server decodes a second pass
 while its worker runs the next job): decoders are made under a lock, one
@@ -39,8 +53,13 @@ over an initialised world of more than one process) the program is SPMD:
 every rank runs the same VAD and chunking, every batch's rows are a
 multiple of the data-parallel size, each rank encodes and decodes its
 block of the rows on its weight shards, and the decoder gathers the
-results, so every rank returns the whole transcription.  The CLI and the
-job server stay single-process.
+results, so every rank returns the whole transcription.  A mesh
+finalizes on the calling thread: the retries' collectives from a second
+thread would interleave with the dispatch thread's in an order that may
+differ from rank to rank, and the ranks would wait on each other.  The
+CLI and the job server start one process a GPU (``parallel/launch.py``):
+rank 0 leads, and every call it makes reaches the other ranks in one
+order.
 """
 
 from __future__ import annotations
@@ -162,6 +181,15 @@ class TranscribePipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _wait_for_stream(self) -> None:
+        """Wait for the work this thread has enqueued so far, and not for
+        what other threads enqueue after it (``torch.cuda.synchronize``
+        would also wait for the fetch worker's queued retries)."""
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+
     def _local(self, windows: np.ndarray) -> np.ndarray:
         """The rank's block of a batch's rows (all of them without a
         mesh)."""
@@ -259,12 +287,16 @@ class TranscribePipeline:
     def _transcribe_impl(self, audio, batch_size, language, chunk_size,
                          temperature, progress_callback, verbose,
                          vad_options=None, initial_prompt=_UNSET) -> dict:
+        report_lock = threading.Lock()
 
         def report(pct, msg):
-            if progress_callback:
-                progress_callback(pct, msg)
-            if verbose:
-                print(f"[{pct:3.0f}%] {msg}")
+            # the fetch worker and the dispatch thread both report; the
+            # lock keeps callbacks serialised, as a single thread made them
+            with report_lock:
+                if progress_callback:
+                    progress_callback(pct, msg)
+                if verbose:
+                    print(f"[{pct:3.0f}%] {msg}")
 
         chunk_size = min(chunk_size or self.window_sec, self.window_sec)
         lang = language or self.language
@@ -274,6 +306,7 @@ class TranscribePipeline:
                  "decode_calls": 0, "decode_steps": 0, "beam_calls": 0,
                  "beam_steps": 0, "rung_rows": {}}
         self._thread_stats.stats = stats
+        stats_lock = threading.Lock()
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
         use_ts = not self.asr_options.get("without_timestamps", True)
@@ -281,12 +314,72 @@ class TranscribePipeline:
                   "beam_steps")
         before: tuple = ()
         first_temp = 0.0
+        # In-flight batches are bounded: each pins its encoder output on
+        # the device and its windows on the host.  Finalization (the
+        # first rung's results, the ladder's retries, segment assembly)
+        # runs on a fetch worker, a FIFO consumer of ``inflight`` (the
+        # producer blocks at MAX_INFLIGHT), or inline with
+        # MWX_FETCH_WORKER=0 over the ``pending`` window.  A mesh takes
+        # the serial path: the retries' collectives (the gathers of every
+        # loop and of the encoder states, the row-parallel all-reduces)
+        # issued from a second thread would interleave with the dispatch
+        # thread's in an order that differs from rank to rank.
+        max_inflight = config.get_int("MWX_MAX_INFLIGHT_BATCHES", 8)
+        use_worker = (config.get_bool("MWX_FETCH_WORKER", True)
+                      and self.mesh is None)
+        pending: List[tuple] = []
+        n_done = 0
+        n_dispatched = 0
         t0 = time.time()
+
+        def finalize_one(item) -> None:
+            nonlocal n_done
+            group, xa, handle, batch_idx, rows = item
+            t_fin = time.perf_counter()
+            if use_ts:
+                # sub-chunk segments from the decoded timestamp pairs;
+                # padding rows get start and duration 0
+                pad = [0.0] * (rows - len(group))
+                found = decoder.timestamps_finalize(
+                    handle, [ch.start for ch in group] + pad,
+                    [ch.duration for ch in group] + pad)
+                new = [seg for row in found[:len(group)] for seg in row]
+            else:
+                results = decoder.decode_with_fallback(
+                    xa, first=handle, n_valid=len(group), rng_tag=batch_idx)
+                new = [_segment(ch, res) for ch, res in zip(group, results)
+                       if res.text and not decoder.is_no_speech(res)]
+            segments.extend(new)
+            n_done += 1
+            with stats_lock:
+                stats["decode_s"] += time.perf_counter() - t_fin
+            pct = 5.0 + 90.0 * min(group[-1].end / max(duration, 1e-9), 1.0)
+            report(pct, f"transcribed batch {n_done} "
+                        f"({time.time() - t0:.1f}s)")
+
+        import queue as queue_mod
+        inflight: queue_mod.Queue = queue_mod.Queue(maxsize=max_inflight)
+        worker_err: List[BaseException] = []
+        worker: Optional[threading.Thread] = None
+
+        def drain():
+            # on an error keep taking items without finalizing them, so
+            # the producer never blocks on a full queue; the first error
+            # re-raises on the calling thread after the join
+            while True:
+                item = inflight.get()
+                if item is None:
+                    return
+                if not worker_err:
+                    try:
+                        finalize_one(item)
+                    except BaseException as exc:  # noqa: BLE001 — re-raised
+                        worker_err.append(exc)
 
         def dispatch(group: List[SpeechChunk]) -> None:
             # the decoder (and language detection) waits for the first
             # batch, so audio without speech never reaches the device
-            nonlocal lang, decoder, before, first_temp
+            nonlocal lang, decoder, before, first_temp, n_dispatched, worker
             if decoder is None:
                 if not lang:
                     lang = self.detect_language(audio)
@@ -300,83 +393,98 @@ class TranscribePipeline:
                     audio, group, batch_size,
                     window_samples=self.window_samples,
                     divisor=self.data_parallel):
-                batch_idx = stats["batches"]
+                if worker_err:      # the worker failed: dispatch no more
+                    return
                 t_enc = time.perf_counter()
                 xa = self._encode_windows(self._local(windows))
-                self._sync()
+                self._wait_for_stream()
                 t_dec = time.perf_counter()
-                stats["encode_s"] += t_dec - t_enc
-                if use_ts:
-                    # sub-chunk segments from the decoded timestamp pairs;
-                    # padding rows get start and duration 0
-                    pad = [0.0] * (len(windows) - len(grp))
-                    rows = decoder.decode_with_timestamps(
-                        xa, [ch.start for ch in grp] + pad,
-                        [ch.duration for ch in grp] + pad)
-                    new = [seg for row in rows[:len(grp)] for seg in row]
+                # rng_tag: the batch's dispatch index, so sampled rungs
+                # draw the same noise however the worker's retries
+                # interleave with later dispatches
+                handle = (decoder.timestamps_submit(xa) if use_ts else
+                          decoder.decode_submit(xa, first_temp,
+                                                rng_tag=n_dispatched * 16))
+                item = (grp, xa, handle, n_dispatched, len(windows))
+                n_dispatched += 1
+                with stats_lock:
+                    stats["encode_s"] += t_dec - t_enc
+                    stats["decode_s"] += time.perf_counter() - t_dec
+                    stats["batches"] += 1
+                    stats["windows"] += len(grp)
+                    stats["rows"] += len(windows)
+                if use_worker:
+                    if worker is None:
+                        worker = threading.Thread(target=drain, daemon=True,
+                                                  name="mwx-fetch")
+                        worker.start()
+                    inflight.put(item)   # blocks at max_inflight
                 else:
-                    first = decoder.decode_submit(xa, first_temp,
-                                                  rng_tag=batch_idx * 16)
-                    results = decoder.decode_with_fallback(
-                        xa, first=first, n_valid=len(grp), rng_tag=batch_idx)
-                    new = [_segment(ch, res) for ch, res in zip(grp, results)
-                           if res.text and not decoder.is_no_speech(res)]
-                stats["decode_s"] += time.perf_counter() - t_dec
-                stats["batches"] += 1
-                stats["windows"] += len(grp)
-                stats["rows"] += len(windows)
-                segments.extend(new)
-                pct = 5.0 + 90.0 * min(grp[-1].end / max(duration, 1e-9),
-                                       1.0)
-                report(pct, f"transcribed batch {stats['batches']} "
-                            f"({time.time() - t0:.1f}s)")
+                    pending.append(item)
+                    while len(pending) > max_inflight:
+                        finalize_one(pending.pop(0))
 
         report(0.0, "voice activity detection")
         # Streamed dispatch, as the JAX pipeline: chunks are final block by
-        # block of the VAD, and each full batch is encoded and decoded as
-        # soon as it exists, before the VAD scores the next block.
+        # block of the VAD, and each full batch is encoded and its first
+        # rung decoded as soon as it exists, before the VAD scores the next
+        # block; the worker finalizes batches meanwhile.
         opts = vad_options or self.vad_options
         blocks = self.vad.iter_speech_probs(audio)
         queue: List[SpeechChunk] = []
         emitted = 0
-        while True:
-            t_vad = time.perf_counter()
-            block = next(blocks, None)
-            if block is not None:
-                probs, frame_dur, is_last = block
-                regions = [(max(0.0, s), min(duration, e))
-                           for s, e in binarize(probs, frame_dur, opts)]
-                if not is_last and regions:
-                    # the last region may still extend or merge with
-                    # speech in the next block; chunks touching it aren't
-                    # final yet
-                    regions = regions[:-1]
-                chunks_all = merge_chunks(regions, chunk_size)
-                # greedy merging is prefix-stable over the (append-only)
-                # finalized regions, except its last chunk, which may
-                # absorb the next region
-                final = chunks_all if is_last else chunks_all[:-1]
-                queue.extend(final[emitted:])
-                emitted = len(final)
-            stats["vad_s"] += time.perf_counter() - t_vad
-            if block is None:
-                break
-            while len(queue) >= batch_size:
-                dispatch(queue[:batch_size])
-                queue = queue[batch_size:]
-        if queue:
-            dispatch(queue)
+        try:
+            while not worker_err:
+                t_vad = time.perf_counter()
+                block = next(blocks, None)
+                if block is not None:
+                    probs, frame_dur, is_last = block
+                    regions = [(max(0.0, s), min(duration, e))
+                               for s, e in binarize(probs, frame_dur, opts)]
+                    if not is_last and regions:
+                        # the last region may still extend or merge with
+                        # speech in the next block; chunks touching it
+                        # aren't final yet
+                        regions = regions[:-1]
+                    chunks_all = merge_chunks(regions, chunk_size)
+                    # greedy merging is prefix-stable over the (append-
+                    # only) finalized regions, except its last chunk, which
+                    # may absorb the next region
+                    final = chunks_all if is_last else chunks_all[:-1]
+                    queue.extend(final[emitted:])
+                    emitted = len(final)
+                stats["vad_s"] += time.perf_counter() - t_vad
+                if block is None:
+                    if queue:
+                        dispatch(queue)
+                    break
+                while len(queue) >= batch_size:
+                    dispatch(queue[:batch_size])
+                    queue = queue[batch_size:]
+        finally:
+            # sentinel and join whatever happened: a dispatch that raises
+            # after the worker started must not leave it parked on
+            # inflight.get(), holding its batches' encoder outputs; the
+            # worker drains without finalizing once it has failed, so the
+            # put cannot block for long
+            if worker is not None:
+                inflight.put(None)
+                worker.join()
 
-        if decoder is None:
+        if worker_err:
+            raise worker_err[0]
+        if n_dispatched == 0:
             report(100.0, "no speech detected")
             return {"segments": [], "language": lang or "zh"}
+        while pending:
+            finalize_one(pending.pop(0))
         for k in counts:
             stats[k] = decoder.stats[k] - before[0][k]
         stats["rung_rows"] = {
             rung: n - before[1].get(rung, 0)
             for rung, n in sorted(decoder.stats["rung_rows"].items())
             if n - before[1].get(rung, 0)}
-        report(100.0, f"transcribed {stats['batches']} batches "
+        report(100.0, f"transcribed {n_done} batches "
                       f"({time.time() - t0:.1f}s)")
         return {"segments": segments, "language": lang}
 

@@ -20,6 +20,15 @@ against this server with only a base-URL change (SURVEY.md §7 step 9):
 stdlib ``ThreadingHTTPServer``: requests are I/O-bound; inference runs on
 the JobStore's single worker (one card = one lane, queued jobs poll as
 "starting"); a second pass runs on a thread of its own.
+
+On a host with several GPUs ``serve`` runs on every one of them, as the
+JAX server meshes every chip (``parallel/launch.py``): one process a GPU,
+each loading the model with the same call; rank 0 serves HTTP and sends
+every pipeline call to the other ranks through ``launch.Leader``, and they
+follow.  The leader's lock takes one call at a time to the mesh, so there
+a second pass waits for the job beside it (and a job for the second
+pass), where one GPU decodes both at once.  Alignment and diarization run
+on rank 0 only.  ``MWX_AUTO_MESH=false`` keeps to one GPU.
 """
 
 from __future__ import annotations
@@ -540,11 +549,34 @@ def create_server(backend: InferenceBackend, host: str = "127.0.0.1",
     return server
 
 
+MODULE = "manual_whisper_tpu_torch.serving.server"
+
+
 def serve(model_name: Optional[str] = None, host: str = "0.0.0.0",
           port: int = 8000, web_dir: Optional[str] = None) -> None:
-    """CLI entry: run the job server on the port's pipeline on the card."""
+    """CLI entry: run the job server on the port's pipeline on the card,
+    on every GPU of the host (``launch.start_world``; its other ranks
+    follow rank 0's calls)."""
+    from ..parallel.launch import start_world
+    world = start_world(["-m", MODULE]
+                        + (["--model", model_name] if model_name else []))
+    if world is None:
+        return _serve(model_name, host, port, web_dir)
+    with world:
+        _serve(model_name, host, port, web_dir, world)
+
+
+def _serve(model_name, host, port, web_dir, world=None) -> None:
+    from ..parallel.launch import Leader, follow
     from .jobs import PipelineBackend
-    backend = PipelineBackend(model_name=model_name)
+    backend = PipelineBackend(model_name=model_name,
+                              device="cuda" if world is None
+                              else world.device)
+    if world is not None:
+        if world.rank != 0:
+            follow(backend.model, world)
+            return
+        backend.model = Leader(backend.model, world)
     default_web = Path(__file__).resolve().parent.parent.parent / "web"
     server = create_server(
         backend, host=host, port=port,

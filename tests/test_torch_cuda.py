@@ -331,6 +331,31 @@ def test_captured_loop_equals_eager(dev, rows, int8, temperature):
     assert out["graph_launches"] == out["eager_launches"]
 
 
+@pytest.mark.parametrize("kind", ["greedy", "beam", "timestamps"])
+def test_results_leave_as_pinned_copies(dev, kind):
+    """A decode's results are pinned host copies filled by copies enqueued
+    on the stream before the decoder's lock is released: reading one waits
+    for their event, and the next decode on the same buffers leaves them
+    as they were."""
+    kw = {"beam": {"beam_size": 3},
+          "timestamps": {"without_timestamps": False}}.get(kind, {})
+    cfg, graph, _ = _mode_decoders(dev, False, **kw)
+    submit = (graph.timestamps_submit if kind == "timestamps"
+              else lambda xa: graph.decode_submit(xa, 0.0))
+    xa, other = _tiny_xa(cfg, dev, 2, 60), _tiny_xa(cfg, dev, 2, 61)
+    first = submit(xa)
+    second = submit(other)
+    assert first._ready is not None
+    for name in ("tokens", "sum_logprob", "lengths", "no_speech"):
+        t = getattr(first, name)
+        assert t.device.type == "cpu" and t.is_pinned(), name
+    assert first._ready is None
+    again = submit(xa)
+    assert torch.equal(first.tokens, again.tokens)
+    assert torch.equal(first.lengths, again.lengths)
+    assert second.tokens.shape == first.tokens.shape
+
+
 def _step_launches(cfg, int8):
     layers = cfg.n_text_layer
     if int8:
