@@ -2662,6 +2662,7 @@ def phase_launch(dev, workdir: str) -> None:
                                        headers=headers or {})
             with urllib.request.urlopen(r, timeout=120) as resp:
                 return json.loads(resp.read().decode())
+        _build.launches.clear()
         t0 = time.perf_counter()
         with open(wav, "rb") as f:
             up = req("POST", "/api/upload", f.read(),
@@ -2680,6 +2681,7 @@ def phase_launch(dev, workdir: str) -> None:
         line["server_job"] = {"status": out["status"],
                               "s": time.perf_counter() - t0,
                               "leader_calls": backend.model.calls,
+                              "launches": dict(_build.launches),
                               "world": world.size,
                               "backend": torch.distributed.get_backend()}
     del backend

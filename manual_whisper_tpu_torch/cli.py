@@ -20,6 +20,7 @@ its mesh), aligns, diarizes and writes the files; the other ranks follow.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import sys
@@ -153,18 +154,13 @@ def main(argv=None, device="cuda") -> int:
     model_size = config.get_env("WHISPER_MODEL", "large-v3")
     output_file = Path(audio_file).stem + "_transcript.md"
     world = start_world(["-m", MODULE, *argv], device=device)
-    if world is None:
+    with world or contextlib.nullcontext():
+        if world is not None and world.rank != 0:
+            follow(_load(model_size, world.device, "bfloat16"), world)
+            return 0
         result, audio_duration, label = transcribe_audio(
             audio_file, config.get_env("HF_TOKEN"), model_size=model_size,
-            device=device)
-    else:
-        with world:
-            if world.rank != 0:
-                follow(_load(model_size, world.device, "bfloat16"), world)
-                return 0
-            result, audio_duration, label = transcribe_audio(
-                audio_file, config.get_env("HF_TOKEN"),
-                model_size=model_size, device=world.device, world=world)
+            device=device if world is None else world.device, world=world)
 
     total_time = time.time() - total_start
     format_transcript(result, audio_file, output_file, audio_duration,

@@ -314,16 +314,8 @@ class TranscribePipeline:
                   "beam_steps")
         before: tuple = ()
         first_temp = 0.0
-        # In-flight batches are bounded: each pins its encoder output on
-        # the device and its windows on the host.  Finalization (the
-        # first rung's results, the ladder's retries, segment assembly)
-        # runs on a fetch worker, a FIFO consumer of ``inflight`` (the
-        # producer blocks at MAX_INFLIGHT), or inline with
-        # MWX_FETCH_WORKER=0 over the ``pending`` window.  A mesh takes
-        # the serial path: the retries' collectives (the gathers of every
-        # loop and of the encoder states, the row-parallel all-reduces)
-        # issued from a second thread would interleave with the dispatch
-        # thread's in an order that differs from rank to rank.
+        # in-flight batches are bounded: each pins its encoder output on
+        # the device; a mesh finalizes inline (see the module docstring)
         max_inflight = config.get_int("MWX_MAX_INFLIGHT_BATCHES", 8)
         use_worker = (config.get_bool("MWX_FETCH_WORKER", True)
                       and self.mesh is None)

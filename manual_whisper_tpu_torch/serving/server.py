@@ -557,26 +557,24 @@ def serve(model_name: Optional[str] = None, host: str = "0.0.0.0",
     """CLI entry: run the job server on the port's pipeline on the card,
     on every GPU of the host (``launch.start_world``; its other ranks
     follow rank 0's calls)."""
-    from ..parallel.launch import start_world
+    import contextlib
+    from ..parallel.launch import Leader, follow, start_world
+    from .jobs import PipelineBackend
     world = start_world(["-m", MODULE]
                         + (["--model", model_name] if model_name else []))
-    if world is None:
-        return _serve(model_name, host, port, web_dir)
-    with world:
-        _serve(model_name, host, port, web_dir, world)
+    with world or contextlib.nullcontext():
+        backend = PipelineBackend(model_name=model_name,
+                                  device="cuda" if world is None
+                                  else world.device)
+        if world is not None:
+            if world.rank != 0:
+                follow(backend.model, world)
+                return
+            backend.model = Leader(backend.model, world)
+        _serve(backend, host, port, web_dir)
 
 
-def _serve(model_name, host, port, web_dir, world=None) -> None:
-    from ..parallel.launch import Leader, follow
-    from .jobs import PipelineBackend
-    backend = PipelineBackend(model_name=model_name,
-                              device="cuda" if world is None
-                              else world.device)
-    if world is not None:
-        if world.rank != 0:
-            follow(backend.model, world)
-            return
-        backend.model = Leader(backend.model, world)
+def _serve(backend, host: str, port: int, web_dir: Optional[str]) -> None:
     default_web = Path(__file__).resolve().parent.parent.parent / "web"
     server = create_server(
         backend, host=host, port=port,
