@@ -145,7 +145,7 @@ def test_cli_world_writes_one_processs_markdown(tmp_path, monkeypatch,
 # The job backend in a world that rank 0 starts
 # ---------------------------------------------------------------------------
 
-DRIVER = textwrap.dedent('''
+WORLD_SCRIPT = textwrap.dedent('''
     """Rank 0 leads PipelineBackend; rank 1 follows (``fail``: it raises)."""
     import json
     import sys
@@ -213,20 +213,20 @@ def _keys(result):
     return [(s["text"], s["start"], s["end"]) for s in result["segments"]]
 
 
-def _run_driver(tmp_path, mode):
+def _run_world(tmp_path, mode):
     from manual_whisper_tpu_torch.audio import write_wav
     from test_torch_pipeline import _synth_file
     wav, clip = tmp_path / "job.wav", tmp_path / "clip.wav"
     write_wav(wav, _synth_file(7, n_utts=4)[0], 16000)
     write_wav(clip, _synth_file(5, n_utts=1)[0], 16000)
-    driver = tmp_path / "driver.py"
-    driver.write_text(DRIVER.format(root=str(ROOT)))
+    script = tmp_path / "world.py"
+    script.write_text(WORLD_SCRIPT.format(root=str(ROOT)))
     out = tmp_path / f"{mode}.json"
     env = dict(os.environ, OMP_NUM_THREADS="1", WHISPER_MODEL="test")
     env.pop("HF_TOKEN", None)
     t0 = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, str(driver), str(out), mode, str(wav), str(clip)],
+        [sys.executable, str(script), str(out), mode, str(wav), str(clip)],
         cwd=ROOT, env=env, capture_output=True, text=True,
         timeout=WORLD_TIMEOUT)
     return proc, out, time.monotonic() - t0, wav, clip
@@ -235,7 +235,7 @@ def _run_driver(tmp_path, mode):
 def test_backend_world_matches_one_process(tmp_path, monkeypatch):
     from manual_whisper_tpu_torch.audio import load_audio
     from manual_whisper_tpu_torch.serving.jobs import PipelineBackend
-    proc, out, seconds, wav, clip = _run_driver(tmp_path, "ok")
+    proc, out, seconds, wav, clip = _run_world(tmp_path, "ok")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert seconds < WORLD_TIMEOUT
     got = json.loads(out.read_text())
@@ -253,7 +253,7 @@ def test_backend_world_matches_one_process(tmp_path, monkeypatch):
 
 
 def test_failing_follower_fails_rank0(tmp_path):
-    proc, out, seconds, _, _ = _run_driver(tmp_path, "fail")
+    proc, out, seconds, _, _ = _run_world(tmp_path, "fail")
     assert proc.returncode != 0
     assert seconds < WORLD_TIMEOUT
     assert "planted follower failure" in proc.stderr
