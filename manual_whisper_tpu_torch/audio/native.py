@@ -1,7 +1,7 @@
 """ctypes bindings of the native audio frontend (port of the JAX
 ``audio/native.py``).
 
-Two shared libraries, built with g++ from the port's own copies of the
+Shared libraries, built with g++ from the port's own copies of the
 C++ sources in ``manual_whisper_tpu_torch/native/`` (the JAX package's
 Makefile flags, ``-O3 -fPIC -std=c++17 -shared``):
 
@@ -10,7 +10,9 @@ Makefile flags, ``-O3 -fPIC -std=c++17 -shared``):
 - ``libmwx_ffdec``: compressed containers (m4a/mp3/ogg/...) through the
   system FFmpeg libraries (``mwx_ffdec.cpp``), built best-effort: where
   the libav* headers or libraries are missing it does not build and the
-  feature is unavailable (``get_ffdec()`` returns None).
+  feature is unavailable (``get_ffdec()`` returns None);
+- ``libmwx_zstd``: the zstd decoder and CRC-32C that ``ocdbt.py`` reads the
+  JAX package's orbax checkpoints with (``mwx_zstd.cpp``), no dependency.
 
 Each library is built on first use into ``_kernels/`` (git-ignored) under
 a name carrying a hash of its sources and flags, so an edited source is
@@ -44,6 +46,7 @@ LIBRARIES = {
     "mwx_audio": (("mwx_audio.cpp", "mwx_flac.cpp"), ()),
     "mwx_ffdec": (("mwx_ffdec.cpp",),
                   ("-lavformat", "-lavcodec", "-lavutil", "-lswresample")),
+    "mwx_zstd": (("mwx_zstd.cpp",), ()),
 }
 # compiler output of the last failed build, by library (for start-up logs)
 build_errors: Dict[str, str] = {}

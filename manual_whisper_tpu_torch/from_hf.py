@@ -12,6 +12,9 @@ Safetensors files are read here, without the ``safetensors`` package: an
 8-byte little-endian header length, a JSON header naming each tensor's
 dtype, shape and byte range, then the raw buffers.  F32, F16 and BF16 are
 read; bf16 goes through ``torch.frombuffer`` (no ``ml_dtypes``).
+
+``load_params`` reads the param trees the JAX package saves with orbax
+(``ocdbt.py``), the counterpart of the JAX ``load_params``.
 """
 
 from __future__ import annotations
@@ -20,13 +23,14 @@ import json
 import math
 import struct
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .convert import from_jax_tree
 from .models.whisper import Params, WhisperConfig
+from .ocdbt import read_checkpoint
 
 _SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
                        "BF16": torch.bfloat16}
@@ -212,3 +216,15 @@ def load_whisper_checkpoint(path, device: torch.device,
         .with_dtype(dtype)
     tree = convert_whisper_state_dict(read_state_dict(path), cfg)
     return from_jax_tree(tree, cfg, device), cfg
+
+
+def load_params(path) -> Optional[Dict[str, Any]]:
+    """A param tree the JAX package saved with orbax (``save_params``: the
+    registry's ``jax/`` trees, ``.synth_ckpt``), as orbax's ``restore``
+    gives it: nested dicts and lists of numpy arrays; None when ``path``
+    does not exist, as in the JAX ``load_params``.  Read by ``ocdbt.py``,
+    without orbax; an unreadable tree raises."""
+    path = Path(path).resolve()
+    if not path.exists():
+        return None
+    return read_checkpoint(path)
