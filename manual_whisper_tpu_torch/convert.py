@@ -25,7 +25,8 @@ PyanNet (``from_jax_pyannet``): the JAX ``models/vad.py`` tree (``[K, C_in,
 C_out]`` convs, ``x @ w`` linears, a list of per-layer LSTM dicts in
 torch's gate layout) becomes a ``models.vad.PyanNet`` on ``device``, in
 float32.  ``convert_pyannote_segmentation`` maps a pyannote state dict to
-that tree, and ``load_segmentation_params`` reads one from the registry.
+that tree, and ``load_segmentation_params`` reads one from the registry
+(its orbax ``jax/`` tree, else ``pytorch_model.bin``).
 
 wav2vec2 (``from_jax_wav2vec2``): the JAX ``models/wav2vec2.py`` tree
 becomes a ``models.wav2vec2.Wav2Vec2`` on ``device``, in float32;
@@ -59,7 +60,11 @@ _CONV_KEYS = ("conv1_w", "conv2_w")
 
 
 def tensor_from_numpy(arr: Any) -> torch.Tensor:
-    """numpy array (f32/f16/bf16/int...) -> CPU tensor of the same dtype."""
+    """numpy array (f32/f16/bf16/int...) -> CPU tensor of the same dtype.
+    A tensor is copied as it is: ``ocdbt`` gives a bf16 leaf as one where
+    numpy has no ``bfloat16``."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().clone()
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(arr).view(np.int16)
@@ -101,7 +106,8 @@ def _tree(node: Dict[str, Any], prefix: str, cfg, device) -> Dict[str, Any]:
 def _unstack(blocks: Dict[str, Any], n_layers: int, prefix: str, cfg,
              device) -> list:
     def layer_of(arr, layer, name):
-        arr = np.asarray(arr)
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
         if arr.shape[0] != n_layers:
             raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
                              f"{n_layers} layers")
@@ -258,14 +264,20 @@ def convert_pyannote_segmentation(state_dict: Mapping[str, Any]) -> Dict:
 
 def load_segmentation_params(name: str = SEGMENTATION_NAME
                              ) -> Optional[Dict]:
-    """Segmentation weights from ``$MWX_WEIGHTS_DIR/<name>/pytorch_model.bin``
-    (a pyannote state dict) as the JAX package's tree, or None when the
-    registry has no such file.  The JAX package prefers an orbax ``jax/``
-    tree there; the port cannot read orbax, so that form is not looked at.
-    """
+    """Segmentation weights from the registry as the JAX package's tree, or
+    None when it has neither form.  The two forms under
+    ``$MWX_WEIGHTS_DIR/<name>/``, in the JAX package's order: ``jax/``, an
+    orbax tree in this layout (``from_hf.load_params``; an unreadable one
+    raises, as in JAX), then ``pytorch_model.bin``, a pyannote state dict,
+    converted."""
+    from .from_hf import load_params
     root = config.weights_dir()
     if not root:
         return None
+    params = load_params(Path(root) / name / "jax")
+    if params is not None:
+        config.warn_if_synth_checkpoint(Path(root) / name, "segmentation VAD")
+        return params
     path = Path(root) / name / "pytorch_model.bin"
     if not path.exists():
         return None

@@ -419,33 +419,40 @@ def load_align_model(language_code: str, device: DeviceLike = "cuda",
                      model_name: Optional[str] = None) -> AlignModel:
     """whisperx.load_align_model surface (transcribe.py:130), on ``device``.
 
-    Looks under $MWX_WEIGHTS_DIR/<model_name with '/' -> '--'> for the
-    port's export (``pytorch_model.bin`` in HF ``Wav2Vec2ForCTC`` keys plus
-    ``align_meta.json``: config fields, char vocab, blank id), then for an
-    HF checkpoint directory (``config.json``, ``model.safetensors`` or
+    Looks under $MWX_WEIGHTS_DIR/<model_name with '/' -> '--'>, in the JAX
+    package's order, for its orbax ``jax/`` tree plus ``align_meta.json``
+    (config fields, char vocab, blank id; ``from_hf.load_params``), then
+    for the port's export of that tree (``pytorch_model.bin`` in HF
+    ``Wav2Vec2ForCTC`` keys plus ``align_meta.json``), then for an HF
+    checkpoint directory (``config.json``, ``model.safetensors`` or
     ``pytorch_model.bin``, ``vocab.json``); raises (caught by the CLI's
-    degradation ladder) when neither is there, unless
+    degradation ladder) when none is there, unless
     MWX_ALLOW_RANDOM_WEIGHTS selects a tiny random aligner."""
     from ..convert import convert_wav2vec2_state_dict
-    from ..from_hf import read_state_dict
+    from ..from_hf import load_params, read_state_dict
     name = model_name or DEFAULT_ALIGN_MODELS.get(language_code)
     if name is None:
         raise KeyError(f"no default alignment model for {language_code!r}")
     root = config.weights_dir()
     path = Path(root) / name.replace("/", "--") if root else None
-    if path is not None and (path / "pytorch_model.bin").exists() \
-            and (path / "align_meta.json").exists():
+    if path is not None and (path / "align_meta.json").exists():
         meta = json.loads((path / "align_meta.json").read_text(
             encoding="utf-8"))
         cfg = Wav2Vec2Config(**meta["config"])
-        sd = torch.load(str(path / "pytorch_model.bin"), map_location="cpu",
-                        weights_only=True)
-        config.warn_if_synth_checkpoint(path, "alignment wav2vec2")
-        return AlignModel(convert_wav2vec2_state_dict(sd, cfg), cfg=cfg,
-                          vocab={k: int(v) for k, v
-                                 in meta["vocab"].items()},
-                          blank_id=int(meta["blank_id"]),
-                          language=language_code, device=device)
+        tree = None
+        if (path / "jax").exists():
+            tree = load_params(path / "jax")
+        elif (path / "pytorch_model.bin").exists():
+            tree = convert_wav2vec2_state_dict(
+                torch.load(str(path / "pytorch_model.bin"),
+                           map_location="cpu", weights_only=True), cfg)
+        if tree is not None:
+            config.warn_if_synth_checkpoint(path, "alignment wav2vec2")
+            return AlignModel(tree, cfg=cfg,
+                              vocab={k: int(v) for k, v
+                                     in meta["vocab"].items()},
+                              blank_id=int(meta["blank_id"]),
+                              language=language_code, device=device)
     if path is None or not (path / "config.json").exists():
         if config.get_bool("MWX_ALLOW_RANDOM_WEIGHTS", False):
             # benchmarks/tests: exercise the wav2vec2 + CTC-trellis compute

@@ -36,7 +36,6 @@ copies of the JAX package's (numpy and scipy).
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -259,28 +258,26 @@ def convert_wespeaker_resnet(state_dict, cfg: EmbeddingConfig
 def load_embedding_params(name: str = EMBEDDING_NAME,
                           cfg: Optional[EmbeddingConfig] = None
                           ) -> Optional[Dict[str, Any]]:
-    """Speaker-embedding weights from
-    ``$MWX_WEIGHTS_DIR/<name>/pytorch_model.bin`` (a wespeaker state dict)
-    as the JAX package's tree, or None when the registry has no such file.
-    The JAX package prefers an orbax ``jax/`` tree there; the port cannot
-    read orbax, so a ``jax/`` tree without the torch file draws a
-    RuntimeWarning: the JAX package would embed with the ResNet34 where the
-    port falls back to the statistics embedding."""
+    """Speaker-embedding weights from the registry as the JAX package's
+    tree, or None when it has neither form.  The two forms under
+    ``$MWX_WEIGHTS_DIR/<name>/``, in the JAX package's order: ``jax/``, an
+    orbax tree in this layout (``from_hf.load_params``; an unreadable one
+    raises, as in JAX), then ``pytorch_model.bin``, a wespeaker state dict
+    (the checkpoint pyannote 3.1 downloads), converted."""
     from pathlib import Path
 
     from .. import config
+    from ..from_hf import load_params
     root = config.weights_dir()
     if not root:
         return None
+    params = load_params(Path(root) / name / "jax")
+    if params is not None:
+        config.warn_if_synth_checkpoint(Path(root) / name,
+                                        "speaker embedding")
+        return params
     path = Path(root) / name / "pytorch_model.bin"
     if not path.exists():
-        if (path.parent / "jax").is_dir():
-            warnings.warn(
-                f"{path.parent} holds an orbax jax/ tree but no "
-                "pytorch_model.bin, the only form this package reads: "
-                "diarization embeds 40-mel statistics where the JAX package "
-                "runs the ResNet34; `python tests/test_torch_export.py "
-                "--export` writes the file", RuntimeWarning, stacklevel=2)
         return None
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
@@ -569,8 +566,9 @@ class DiarizationPipeline:
 
     ``use_auth_token`` is accepted for compatibility; weights come from the
     registry instead of the HF hub: the segmentation network from
-    ``pyannote-segmentation-3.0/pytorch_model.bin`` and the ResNet34 from
-    ``wespeaker-voxceleb-resnet34-LM/pytorch_model.bin``.
+    ``pyannote-segmentation-3.0`` and the ResNet34 from
+    ``wespeaker-voxceleb-resnet34-LM`` (each its orbax ``jax/`` tree, else
+    its ``pytorch_model.bin``).
     ``segmentation_params`` and ``embedding_params`` take the JAX
     package's trees (numpy leaves) instead.  A weight that fails to load
     leaves its part on the weightless flow, as in the JAX package: no

@@ -77,7 +77,7 @@ import torch
 
 from .. import config
 from ..audio import load_audio
-from ..convert import (SEGMENTATION_NAME, from_jax_pyannet, from_jax_tree,
+from ..convert import (from_jax_pyannet, from_jax_tree,
                        load_segmentation_params)
 from ..device import DeviceLike, compute_dtype, resolve_device
 from ..from_hf import load_whisper_checkpoint
@@ -599,22 +599,14 @@ def _load_vad(device: torch.device) -> VoiceActivityDetector:
     as the JAX ``load_model`` does; else the energy VAD, with the JAX
     package's warning, since speech boundaries (and every window, segment
     and timestamp after them) differ between the two."""
-    reason = None
     try:
         tree = load_segmentation_params()
         if tree is not None:
             return VoiceActivityDetector(from_jax_pyannet(tree, device))
+        reason = "no pyannote segmentation checkpoint in MWX_WEIGHTS_DIR"
     except (OSError, RuntimeError, KeyError, ValueError,
             pickle.UnpicklingError) as exc:
         reason = f"segmentation weights failed to load: {exc}"
-    if reason is None:
-        root = config.weights_dir()
-        if root and (Path(root) / SEGMENTATION_NAME / "jax").exists():
-            reason = (f"the registry holds only the orbax jax/ tree of "
-                      f"{SEGMENTATION_NAME}, which the PyTorch port cannot "
-                      "read; it reads pytorch_model.bin")
-        else:
-            reason = "no pyannote segmentation checkpoint in MWX_WEIGHTS_DIR"
     warnings.warn(
         f"VAD falling back to energy heuristics ({reason}); speech "
         "boundaries and downstream timestamps will differ from pyannote "

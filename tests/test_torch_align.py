@@ -9,8 +9,8 @@ exactly, including a trellis of more than 63 labels); ``align`` and
 ``align_result`` word for word (text, start, end and score, which both
 round to 3 decimals) on seeded synthetic files, on a segment over 30 s that
 is split into pieces, and on an infeasible trellis; the span and grouping
-helpers; ``load_align_model`` from the committed export and from an HF
-directory; the zh fallback's error.
+helpers; ``load_align_model`` from the orbax tree, from the committed
+export and from an HF directory; the zh fallback's error.
 """
 
 import json
@@ -213,16 +213,49 @@ def _registry(monkeypatch, root):
     tconfig.clear_env_cache()
 
 
-def test_load_align_model_reads_the_export(aligner_tree, monkeypatch):
+def _registry_with(tmp_path, *names):
+    """A registry whose aligner directory links only ``names`` of the
+    repository's."""
+    d = tmp_path / ALIGN_DIR.name
+    d.mkdir()
+    for name in names:
+        (d / name).symlink_to(ALIGN_DIR / name)
+    return tmp_path
+
+
+def test_load_align_model_reads_the_export(aligner_tree, tmp_path,
+                                           monkeypatch):
     tree, meta = aligner_tree
-    _registry(monkeypatch, WEIGHTS)
+    _registry(monkeypatch, _registry_with(
+        tmp_path, "pytorch_model.bin", "align_meta.json", "SYNTH_TRAINED"))
     monkeypatch.delenv("MWX_ALLOW_SYNTH_WEIGHTS", raising=False)
     with pytest.warns(RuntimeWarning, match="synthetic"):
         tm = talign.load_align_model("en", device="cpu")
     assert tm.device == torch.device("cpu")
     assert tm.vocab == meta["vocab"] and tm.blank_id == meta["blank_id"]
     monkeypatch.setenv("MWX_ALLOW_SYNTH_WEIGHTS", "1")
+    _registry(monkeypatch, WEIGHTS)       # the JAX package reads jax/
     jm = jalign.load_align_model("en")
+    audio, segments, _ = _synth_segments(4)
+    assert talign.align(segments, tm, audio) == \
+        jalign.align(segments, jm, audio)
+
+
+def test_load_align_model_reads_the_jax_tree(aligner_tree, tmp_path,
+                                             monkeypatch):
+    """A registry whose aligner is only the orbax ``jax/`` tree and
+    ``align_meta.json`` (no torch export): the port reads it as the JAX
+    package does, warns about the synthetic-data marker as it does, and
+    aligns alike."""
+    tree, meta = aligner_tree
+    _registry(monkeypatch, _registry_with(
+        tmp_path, "jax", "align_meta.json", "SYNTH_TRAINED"))
+    monkeypatch.delenv("MWX_ALLOW_SYNTH_WEIGHTS", raising=False)
+    with pytest.warns(RuntimeWarning, match="synthetic"):
+        tm = talign.load_align_model("en", device="cpu")
+    with pytest.warns(RuntimeWarning, match="synthetic"):
+        jm = jalign.load_align_model("en")
+    assert tm.vocab == meta["vocab"] and tm.blank_id == meta["blank_id"]
     audio, segments, _ = _synth_segments(4)
     assert talign.align(segments, tm, audio) == \
         jalign.align(segments, jm, audio)

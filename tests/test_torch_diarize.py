@@ -10,13 +10,15 @@ Same trees (numpy leaves) and the same seeded numpy inputs through
   also within 1e-5 of its own float64 evaluation;
 - the 40-mel statistics embeddings (batched, and per clip as one row of
   the batched function) within 1e-5;
-- a registry with the JAX tree but no torch export draws a warning;
+- a registry with the JAX tree but no torch export: the port reads the
+  tree as the JAX package does; an empty ``jax/`` fails both alike;
 - the copied clustering and speaker assignment equal exactly on seeded
   embeddings and segments.
 
 The pipelines' flows are in ``tests/test_torch_diarize_pipeline.py``.
 """
 
+import warnings
 from pathlib import Path
 
 import jax
@@ -173,19 +175,51 @@ def test_load_embedding_params_reads_registry(tmp_path, monkeypatch):
         np.testing.assert_array_equal(x, y)
 
 
-def test_jax_tree_without_export_warns(tmp_path, monkeypatch):
-    """A registry holding the JAX package's orbax tree but no torch export:
-    the JAX package would embed with the ResNet34, the port cannot read the
-    tree, and it says so instead of falling back quietly."""
+def _jax_only_registry(tmp_path, monkeypatch):
+    """A registry whose ResNet34 is only the repository's orbax ``jax/``
+    tree (no torch export, no synthetic-data marker)."""
+    from manual_whisper_tpu import config as jconfig
     from manual_whisper_tpu_torch import config as tconfig
     monkeypatch.setenv("MWX_WEIGHTS_DIR", str(tmp_path))
+    jconfig.clear_env_cache()
     tconfig.clear_env_cache()
-    (tmp_path / td.EMBEDDING_NAME / "jax").mkdir(parents=True)
-    with pytest.warns(RuntimeWarning, match="no pytorch_model.bin"):
-        assert td.load_embedding_params() is None
-    with pytest.warns(RuntimeWarning, match="40-mel statistics"):
+    (tmp_path / td.EMBEDDING_NAME).mkdir()
+    return tmp_path / td.EMBEDDING_NAME / "jax"
+
+
+def test_jax_tree_without_export_warns(tmp_path, monkeypatch):
+    """A registry holding the JAX package's orbax tree but no torch export:
+    the port reads the tree, as the JAX package does, without a warning;
+    the tree equals the JAX loader's bit for bit, and the pipeline embeds
+    with the ResNet34 (not the 40-mel statistics)."""
+    if not (EMBED_DIR / "jax").is_dir():
+        pytest.skip("no synthetic speaker embedder in the repository")
+    _jax_only_registry(tmp_path, monkeypatch).symlink_to(EMBED_DIR / "jax")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        tree = td.load_embedding_params()
         pipe = td.DiarizationPipeline(device="cpu")
-    assert pipe.embedding is None
+    got, ref = (jax.tree_util.tree_leaves_with_path(t)
+                for t in (tree, jd.load_embedding_params()))
+    assert [k for k, _ in got] == [k for k, _ in ref] and len(got) == 182
+    for (k, x), (_, y) in zip(got, ref):
+        assert x.dtype == np.asarray(y).dtype, k
+        assert x.tobytes() == np.asarray(y).tobytes(), k
+    assert pipe.embedding is not None
+
+
+def test_empty_jax_tree_fails_as_jax(tmp_path, monkeypatch):
+    """An unreadable ``jax/`` tree (here: empty) fails the port's loader as
+    it fails the JAX one, with the same error; both pipelines then fall
+    back to the statistics embedding."""
+    _jax_only_registry(tmp_path, monkeypatch).mkdir()
+    with pytest.raises(FileNotFoundError) as jax_err:
+        jd.load_embedding_params()
+    with pytest.raises(FileNotFoundError) as port_err:
+        td.load_embedding_params()
+    assert str(port_err.value) == str(jax_err.value)
+    assert jd.DiarizationPipeline().embedding_params is None
+    assert td.DiarizationPipeline(device="cpu").embedding is None
 
 
 # ---------------------------------------------------------------------------

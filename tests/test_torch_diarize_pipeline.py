@@ -9,7 +9,9 @@ offset 0.35, argmax powerset decode).  Held equal, segment for segment (start, e
 speaker): the segmentation flow and the windows flow (no segmentation
 weights, the energy VAD's regions), each with the ResNet and with the
 40-mel statistics embedding; then DER against the conversation's
-reference turns, and ``assign_word_speakers`` on the segments.
+reference turns, and ``assign_word_speakers`` on the segments.  With the
+repository's registry itself (orbax trees only), both pipelines load the
+trained PyanNet and ResNet34 and give the same speakers.
 """
 
 from pathlib import Path
@@ -105,6 +107,30 @@ def test_pipeline_speaker_bounds_and_silence_equal(segmentation):
         assert tp(audio, **kw) == jp(audio, **kw)
     silence = np.zeros(16000, np.float32)
     assert tp(silence) == jp(silence) == []
+
+
+def test_registry_resnet34_speakers_equal(monkeypatch):
+    """The repository's registry as a checkout has it (``.weights``: orbax
+    ``jax/`` trees, no ResNet34 torch export): both pipelines load the
+    trained PyanNet and ResNet34 themselves and give the same speaker
+    turns on a seeded 10 s conversation."""
+    from manual_whisper_tpu import config as jconfig
+    from manual_whisper_tpu_torch import config as tconfig
+    if not (WEIGHTS / td.EMBEDDING_NAME / "jax").is_dir():
+        pytest.skip("no trained ResNet34 in the repository")
+    monkeypatch.setenv("MWX_WEIGHTS_DIR", str(WEIGHTS))
+    monkeypatch.setenv("MWX_ALLOW_SYNTH_WEIGHTS", "1")
+    jconfig.clear_env_cache()
+    tconfig.clear_env_cache()
+    audio, _ = render_conversation(n_turns=4, seed=11, n_speakers=3,
+                                   overlap_prob=0.2)
+    jp = jd.DiarizationPipeline()
+    tp = td.DiarizationPipeline(device="cpu")
+    assert tp.vad.model is not None and tp.embedding is not None
+    assert jp.embedding_params is not None
+    got, ref = tp(audio), jp(audio)
+    assert got == ref
+    assert len({s["speaker"] for s in got}) == 3
 
 
 def test_pipeline_defaults_match_jax():

@@ -1,15 +1,17 @@
 """PyTorch port: torch exports of the repository's orbax checkpoints.
 
-The port cannot read orbax, so the synthetic-data checkpoints are written
-a second time as torch files in the key names of the checkpoints they
-stand for:
+The registry's preferred form is the orbax ``jax/`` tree, which the port
+reads as the JAX package does (``from_hf.load_params``).  The
+synthetic-data checkpoints are also written as torch files in the key
+names of the checkpoints they stand for, the registry's second form:
 
 - ``.weights/jonatasgrosman--wav2vec2-large-xlsr-53-english/
   pytorch_model.bin`` in HF ``Wav2Vec2ForCTC`` keys (the positional conv in
   weight-norm form, ``weight_g`` / ``weight_v``), committed (0.5 MB);
 - ``.weights/wespeaker-voxceleb-resnet34-LM/pytorch_model.bin`` in
   wespeaker ResNet34 keys.  At 26.6 MB it is not committed (the
-  repository's tree must stay small); the test writes it to a temporary
+  repository's tree must stay small) and is optional: the port reads the
+  ResNet34 from its orbax tree.  The test writes it to a temporary
   directory, and ``--export`` writes it beside the orbax tree, where
   ``git`` ignores it.
 

@@ -1,8 +1,8 @@
 """PyTorch port: isolation from JAX and the device contract.
 
 No file of ``manual_whisper_tpu_torch/`` nor ``chip_smoke.py`` may import
-JAX, ml_dtypes, orbax, regex or the JAX package (the machine with the card
-has none of them); importing the port must leave
+JAX, ml_dtypes, orbax, regex, tensorstore, zstandard or the JAX package
+(the machine with the card has none of them); importing the port must leave
 no ``jax`` in ``sys.modules``; entry points default to CUDA and raise
 without it rather than carrying on on the CPU.
 """
@@ -19,8 +19,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "manual_whisper_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "orbax", "regex",
-             "manual_whisper_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "orbax", "regex", "tensorstore",
+             "zstandard", "manual_whisper_tpu")
 
 
 def _imports(path: Path):
@@ -45,7 +45,8 @@ def test_port_files_exist():
                      "models/whisper.py", "models/decode.py",
                      "models/beam.py", "models/timestamps.py",
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
-                     "convert.py", "from_hf.py", "device.py", "config.py",
+                     "convert.py", "from_hf.py", "ocdbt.py", "device.py",
+                     "config.py",
                      "tokenizer/bpe.py", "audio/io.py", "audio/native.py",
                      "audio/flacenc.py", "text/processor.py",
                      "serving/jobs.py", "serving/second_pass.py",
@@ -59,7 +60,8 @@ def test_port_files_exist():
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
         assert (PORT / "csrc" / src).exists()
-    for src in ("mwx_audio.cpp", "mwx_flac.cpp", "mwx_ffdec.cpp"):
+    for src in ("mwx_audio.cpp", "mwx_flac.cpp", "mwx_ffdec.cpp",
+                "mwx_zstd.cpp"):
         assert (PORT / "native" / src).exists()
 
 
@@ -88,6 +90,7 @@ def test_import_pulls_in_no_jax():
             "manual_whisper_tpu_torch.eval.metrics, "
             "manual_whisper_tpu_torch.eval.synth, "
             "manual_whisper_tpu_torch.eval.vad_eval, "
+            "manual_whisper_tpu_torch.ocdbt, "
             "manual_whisper_tpu_torch.training, "
             "manual_whisper_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

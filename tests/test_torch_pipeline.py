@@ -123,13 +123,22 @@ def test_load_model_surface(synth, monkeypatch):
 
 
 def test_load_model_warns_when_registry_has_pyannote(tmp_path, monkeypatch):
-    """A registry whose pyannote checkpoint is only the JAX package's orbax
-    tree: the port falls back to the energy VAD and its warning says why."""
+    """A registry whose pyannote checkpoint is an unreadable orbax tree (an
+    empty ``jax/``): both packages fall back to the energy VAD with the
+    same warning, which says why."""
+    from manual_whisper_tpu.pipeline.transcribe import \
+        load_model as j_load_model
     (tmp_path / "pyannote-segmentation-3.0" / "jax").mkdir(parents=True)
     monkeypatch.setenv("MWX_WEIGHTS_DIR", str(tmp_path))
-    with pytest.warns(RuntimeWarning, match="energy heuristics .*orbax"):
+    with pytest.warns(RuntimeWarning, match="energy heuristics") as port:
         model = load_model("test", device="cpu", compute_type="float32")
     assert model.vad.model is None
+    with pytest.warns(RuntimeWarning, match="energy heuristics") as jax:
+        j_load_model("test", compute_type="float32")
+    said = [[str(w.message) for w in ws if "energy" in str(w.message)]
+            for ws in (port, jax)]
+    assert said[0] == said[1]
+    assert "segmentation weights failed to load: Metadata file" in said[0][0]
 
 
 def _wav_fixture(path):

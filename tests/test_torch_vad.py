@@ -10,7 +10,8 @@ Same inputs (seeded numpy) through ``manual_whisper_tpu.models.vad`` and
   of the same network in float64 and within 3e-4 of the JAX package (its
   own float32 error), and equal ``binarize`` regions;
 - the committed ``pytorch_model.bin`` equal to the orbax tree bit for bit,
-  read back through the JAX package's own converter;
+  read back through the JAX package's own converter; a registry holding
+  only the orbax tree read by the port as by the JAX package;
 - the port's pipeline with PyanNet in 2-window VAD blocks (so dispatch is
   streamed) gives the JAX pipeline's greedy segments with ``.synth_ckpt``.
 
@@ -284,6 +285,30 @@ def test_load_model_registry_with_checkpoint_runs_pyannet(trained, tmp_path,
     assert isinstance(model.vad.model, tvad.PyanNet)
     assert model.vad.model.sinc.device == CPU
     model.vad.warmup()
+    audio, _ = _synth_audio(5, 3)
+    assert model.vad(audio) == jvad.VoiceActivityDetector(trained)(audio)
+
+
+def test_registry_with_only_the_jax_tree(trained, tmp_path, monkeypatch):
+    """A registry whose segmentation checkpoint is only the orbax ``jax/``
+    tree (no torch export, no synthetic-data marker): the port's loader
+    gives the JAX loader's tree bit for bit, and ``load_model`` runs
+    PyanNet with it, without a warning."""
+    from manual_whisper_tpu import config as jconfig
+    seg = tmp_path / "pyannote-segmentation-3.0"
+    seg.mkdir()
+    (seg / "jax").symlink_to(SEG_DIR / "jax")
+    monkeypatch.setenv("MWX_WEIGHTS_DIR", str(tmp_path))
+    jconfig.clear_env_cache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tree = load_segmentation_params()
+        model = load_model("test", device="cpu", compute_type="float32")
+    got, ref = _leaves(tree), _leaves(jvad.load_segmentation_params())
+    assert [k for k, _ in got] == [k for k, _ in ref]
+    for (k, x), (_, y) in zip(got, ref):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), k
+    assert isinstance(model.vad.model, tvad.PyanNet)
     audio, _ = _synth_audio(5, 3)
     assert model.vad(audio) == jvad.VoiceActivityDetector(trained)(audio)
 
