@@ -62,9 +62,16 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    the card (bf16: a dropped encoder layer, a dropped decoder layer, half
    the cross length; int8: one layer's weight scales on the wrong output
    channels, one layer's cross-K/V scales dropped or swapped between K
-   and V) must each exceed it.  Then the ``vad`` phase: PyanNet from the
-   registry's ``pyannote-segmentation-3.0/pytorch_model.bin`` on the card
-   against the same weights on the CPU, over phase 4's audio: speech
+   and V) must each exceed it.  Then ``.synth_ckpt`` (the test config
+   trained on synthetic speech, the JAX package's orbax tree) through
+   ``from_hf.load_params``, ``convert.from_jax_tree`` and the pipeline on
+   the card and on the CPU, bf16 (K2-K4 take no float32): logits within
+   TOL["logits_synth"], two dropped-layer faults caught, each row's
+   tokens and the segments compared (rows that differ printed), the rows
+   ended on EOT printed (at least one), K1-K4 launched.  Then the ``vad``
+   phase: PyanNet from the registry's ``pyannote-segmentation-3.0/jax``
+   tree on the card against the same weights on the CPU, over phase 4's
+   audio: speech
    probabilities within TOL["vad"] and regions equal; two faults (the
    LSTM's directions swapped, the norm after the first conv dropped) must
    each exceed the tolerance; a 16-row and a 4-row block timed with CUDA
@@ -105,7 +112,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    matmul and K4.
 
 6. The speech stages after transcription, with the phase-4 model freed.
-   ``align``: the repository's synthetic aligner from its torch export on
+   ``checkpoint``: the four orbax trees (``.synth_ckpt`` and the
+   registry's ``jax/`` trees) read by the port's reader on the card's
+   host, each tree's leaves, bytes and read ms printed; the PyanNet and
+   aligner trees bit-equal to their committed ``pytorch_model.bin``
+   exports through the port's converters; a flipped byte in a chunk of a
+   copy fails the read.
+   ``align``: the repository's synthetic aligner from its orbax tree on
    the card against the CPU over 6 seeded synthetic files (log-probs
    within TOL["align_logprobs"], words equal, word-timing scores equal, a
    dropped ``n_valid`` mask caught), then wav2vec2 at full width and depth
@@ -113,13 +126,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    audio in every length bucket, with device ms of an 8-row forward per
    bucket, and full-width logits (2 layers) card vs CPU.  ``diarize``:
    ``DiarizationPipeline`` on a 3-speaker conversation of about 2 minutes,
-   the registry's PyanNet and a full-size ResNet34 with seeded random
-   weights, card vs CPU (embeddings within TOL["diarize_emb"], segments
-   and DER equal, K1 launched once a 32-row forward at 80 mels, a swapped
-   BatchNorm caught), then the statistics-embedding and windows
+   the registry's PyanNet and its ResNet34 trained on synthetic speakers
+   (both from their orbax trees), card vs CPU (embeddings within
+   TOL["diarize_emb"], segments and DER equal, the speakers printed, K1
+   launched once a 32-row forward at 80 mels, a swapped BatchNorm
+   caught), then the statistics-embedding and windows
    fallbacks card vs CPU, with device and host times.  ``cli``:
-   ``cli.main`` on a WAV of that conversation with ``HF_TOKEN`` set and
-   random large-v3: every stage runs (no alignment or diarization failure
+   ``cli.main`` on a WAV of that conversation with ``HF_TOKEN`` set,
+   random large-v3 and the trained ResNet34: every stage runs (no alignment or diarization failure
    line), the Markdown has speaker headings, every segment a speaker.
    ``train``: the test config's AdamW steps at f32 card vs CPU (TRAIN_TOL;
    the loss mask ignored must exceed it), then three bf16 steps of
@@ -237,6 +251,15 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        # layer's cross-K/V scales swapped, logits off by 0.067)
        "encoder_int8": (0.1, 0.0),
        "logits_int8": (0.015, 0.0),
+       # .synth_ckpt (the test config trained on synthetic speech) in bf16,
+       # card vs CPU: its logits' std is 0.79, five times the random
+       # weights', and bf16 rounding moves them further: on the CPU its bf16
+       # and float32 forwards differ by 0.088 (random weights: 0.0045, where
+       # card vs CPU measured 0.0047), so TOL["logits"] cannot hold.  The
+       # limit sits about 3x above that; the faults planted with these
+       # weights (a dropped encoder or decoder layer) move the logits by
+       # 5.0 and 6.2 on the CPU.  The encoder keeps TOL["encoder"] (0.043)
+       "logits_synth": (0.25, 0.0),
        # PyanNet's speech probabilities, card vs CPU, both float32 with TF32
        # off: cuDNN sums in another order than the CPU, and the trained
        # network amplifies float32 rounding (the JAX package's CPU forward
@@ -1033,6 +1056,151 @@ def phase_tiny(dev, int8: bool) -> None:
                                  f"{fault_errs[name]}")
 
 
+SYNTH_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          ".synth_ckpt")
+# greedy, gates off: no row climbs to a sampled rung, whose random numbers
+# differ between the card and the CPU
+SYNTH_OPTS = {"max_new_tokens": 40, "suppress_blank": False,
+              "log_prob_threshold": None, "compression_ratio_threshold": None}
+
+
+def synthetic_test_file(seed: int = 123, n_utts: int = 3):
+    """The synthetic-speech file the CPU tests transcribe with
+    ``.synth_ckpt`` (``tests/test_torch_pipeline.py``): audio and its
+    words."""
+    from manual_whisper_tpu_torch.eval.synth import (render_file_with_times,
+                                                     sample_text)
+    rng = np.random.default_rng(seed)
+    utts = [sample_text(rng, 4, 8) for _ in range(n_utts)]
+    audio, words_t = render_file_with_times(utts, seed=seed)
+    return audio, " ".join(w for w, _, _ in words_t)
+
+
+@contextlib.contextmanager
+def _decoded_rows():
+    """Every row ``BatchDecoder.decode_finalize`` builds in the block, as
+    (tokens without EOT, ended on EOT before max_new_tokens)."""
+    from manual_whisper_tpu_torch.models import decode as dec_mod
+    rows = []
+    real = dec_mod.BatchDecoder.decode_finalize
+
+    def spy(self, out, b, temperature=0.0):
+        res = real(self, out, b, temperature)
+        max_new = out.tokens.shape[1]
+        rows.extend((r.tokens, len(r.tokens) < max_new) for r in res)
+        return res
+    dec_mod.BatchDecoder.decode_finalize = spy
+    try:
+        yield rows
+    finally:
+        dec_mod.BatchDecoder.decode_finalize = real
+
+
+def phase_tiny_synth(dev) -> None:
+    """``.synth_ckpt``, the test config trained on synthetic speech (the
+    JAX package's orbax tree), read by ``from_hf.load_params``, crossed by
+    ``convert.from_jax_tree`` (inside ``load_model``) and run on the card
+    and on the CPU, both bf16, on the synthetic test file (3 utterances,
+    seed 123, language en): the prefill-plus-three-steps forward over its
+    first two windows (encoder within TOL["encoder"], logits within
+    TOL["logits_synth"]; a dropped encoder layer and a dropped decoder
+    layer must exceed them), then ``transcribe`` at batch 4 with the gates
+    off: segments and each decoded row's tokens compared (rows that differ
+    printed), the rows that ended on EOT before ``max_new_tokens`` printed
+    (at least one on the card: the trained model emits EOT), word error
+    against the file's words, and the card's launches of K1-K4 counted over
+    the call.  float32 does not run on the card: K2-K4 take bf16 only."""
+    from manual_whisper_tpu_torch.convert import from_jax_tree
+    from manual_whisper_tpu_torch.eval.metrics import wer
+    from manual_whisper_tpu_torch.from_hf import load_params
+    from manual_whisper_tpu_torch.models.whisper import MODEL_CONFIGS
+    from manual_whisper_tpu_torch.pipeline import load_model
+    from manual_whisper_tpu_torch.text import clean_result_segments
+    os.environ["MWX_ALLOW_SYNTH_WEIGHTS"] = "1"
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    tree = load_params(SYNTH_CKPT)
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    if tree is None:
+        raise AssertionError(f"tiny synth: no checkpoint at {SYNTH_CKPT}")
+    cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
+    audio, truth = synthetic_test_file()
+    n = cfg.n_audio_ctx * 2 * 160
+    windows = np.zeros((2, n), np.float32)
+    for i in range(2):
+        part = audio[i * n:(i + 1) * n]
+        windows[i, :len(part)] = part
+    prefix = [257, 258, 359, 362, 65, 66]
+    params = from_jax_tree(tree, cfg, dev)
+    enc_ref, logits_ref = _tiny_forward(from_jax_tree(tree, cfg, cpu), cfg,
+                                        windows, prefix, cpu)
+    enc, logits = _tiny_forward(params, cfg, windows, prefix, dev)
+    fault_errs = {
+        f"{part}_layer_dropped": max_err(_tiny_forward(
+            _drop_last_block(params, part), cfg, windows, prefix, dev)[1],
+            logits_ref) for part in ("encoder", "decoder")}
+
+    runs = {}
+    for name, d in (("cpu", cpu), ("card", dev)):
+        model = load_model(tree, device=d, compute_type="bfloat16",
+                           cfg=MODEL_CONFIGS["test"], asr_options=SYNTH_OPTS,
+                           language="en")
+        if d.type == "cuda":
+            model.warmup(batch_size=4, language="en")
+            torch.cuda.synchronize()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with _decoded_rows() as rows:
+            out = model.transcribe(audio, batch_size=4, language="en")
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cleaned, _, _ = clean_result_segments(out["segments"])
+        runs[name] = {
+            "segments": [(g["text"], g["start"], g["end"])
+                         for g in out["segments"]],
+            "rows": rows, "wall_s": wall, "launches": dict(_build.launches),
+            "wer": wer(truth, " ".join(g["text"].strip() for g in cleaned)),
+            "stats": {k: model.last_stats[k] for k in (
+                "windows", "batches", "decode_calls", "decode_steps")}}
+        del model
+    card, host = runs["card"], runs["cpu"]
+    differ = [{"row": i, "card": a[0], "cpu": b[0]}
+              for i, (a, b) in enumerate(zip(card["rows"], host["rows"]))
+              if a[0] != b[0]]
+    eot = {k: [i for i, r in enumerate(v["rows"]) if r[1]]
+           for k, v in runs.items()}
+    log(json.dumps({
+        "phase": "tiny_synth_ckpt", "read_ms": read_ms,
+        "audio_s": len(audio) / 16000.0,
+        "encoder_max_abs_err": max_err(enc, enc_ref),
+        "encoder_tol": TOL["encoder"],
+        "logits_max_abs_err": max_err(logits, logits_ref),
+        "logits_tol": TOL["logits_synth"],
+        "logits_std": float(logits_ref.std()), "faults": fault_errs,
+        "rows": len(card["rows"]), "rows_cpu": len(host["rows"]),
+        "rows_differ": differ,
+        "segments_equal": card["segments"] == host["segments"],
+        "segments": card["segments"], "segments_cpu": host["segments"],
+        "rows_ended_on_eot": eot["card"], "rows_ended_on_eot_cpu": eot["cpu"],
+        "max_new_tokens": SYNTH_OPTS["max_new_tokens"],
+        "wer_card": card["wer"], "wer_cpu": host["wer"],
+        "launches": card["launches"], "stats": card["stats"],
+        "transcribe_s": {k: v["wall_s"] for k, v in runs.items()}}))
+    compare("encoder", enc, enc_ref)
+    compare("logits_synth", logits, logits_ref)
+    for name, err in fault_errs.items():
+        if err <= TOL["logits_synth"][0]:
+            raise AssertionError(f"tiny synth: the logits tolerance does not "
+                                 f"catch the fault {name}: {err}")
+    if not eot["card"]:
+        raise AssertionError("tiny synth: no row ended on EOT on the card")
+    missing = [k for k in BF16_KERNELS if not card["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"tiny synth: no launch of {missing} on the "
+                             f"card: {card['launches']}")
+
+
 # ---------------------------------------------------------------------------
 # The vad phase: PyanNet on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -1072,8 +1240,9 @@ def _speech_probs_without_norm(det, audio, which: int):
 
 
 def phase_vad(dev) -> None:
-    """PyanNet from the registry's ``pytorch_model.bin`` on the card and on
-    the CPU, same weights, phase 4's 75 s of audio: speech probabilities
+    """PyanNet from the registry (its orbax ``jax/`` tree, read by the
+    port's reader) on the card and on the CPU, same weights, phase 4's 75 s
+    of audio: speech probabilities
     within TOL["vad"] and regions equal; two planted faults on the card (the
     LSTM's directions swapped; the norm after the first conv dropped) must
     each exceed the tolerance; then a 16-row and a 4-row block timed with
@@ -1084,7 +1253,7 @@ def phase_vad(dev) -> None:
         PYANNET_CHUNK, PYANNET_CHUNK_SMALL, VoiceActivityDetector)
     tree = load_segmentation_params()
     if tree is None:
-        raise AssertionError("the registry holds no pytorch_model.bin of "
+        raise AssertionError("the registry holds no checkpoint of "
                              "pyannote-segmentation-3.0")
     cpu_det = VoiceActivityDetector(from_jax_pyannet(tree,
                                                      torch.device("cpu")))
@@ -1605,8 +1774,8 @@ W2V_VOCAB = {ch: i for i, ch in enumerate(
 
 
 def phase_align(dev) -> None:
-    """(a) The repository's synthetic aligner, from its torch export, on
-    the card and on the CPU over 6 seeded ``render_file_with_times`` files:
+    """(a) The repository's synthetic aligner, from its orbax tree (the
+    port's reader), on the card and on the CPU over 6 seeded ``render_file_with_times`` files:
     the log-probs of every padded batch within TOL["align_logprobs"] on
     the valid frames, ``align``'s words equal (text, start, end, score),
     ``word_timing_scores`` against the rendered times equal; a planted
@@ -1763,29 +1932,129 @@ CONVERSATION = dict(n_turns=48, seed=5, n_speakers=3, overlap_prob=0.1)
 
 def make_registry(path: str, resnet: bool) -> str:
     """A checkpoint registry at ``path``: the repository's ``.weights/``
-    entries linked in but the speaker embedder's, whose directory holds
-    either (``resnet``) a full-size ResNet34 with seeded random weights
-    (``init_embedding_params``, seed 3) as ``pytorch_model.bin`` in
-    wespeaker keys, which the pipelines load as they would an export (the
-    repository commits none for its ResNet34), or only the repository's
-    orbax ``jax/`` tree, which the port cannot read."""
-    from manual_whisper_tpu_torch.convert import wespeaker_state_dict
+    entries linked in, with the speaker embedder's only with ``resnet``:
+    then its orbax ``jax/`` tree (the ResNet34 trained on synthetic
+    speakers, which the port reads as the JAX package does) and its
+    synthetic-data marker, and not a torch export that a working tree may
+    hold beside them (git ignores it), so the run reads what a checkout
+    has.  Without ``resnet`` the pipelines embed 40-mel statistics."""
     from manual_whisper_tpu_torch.models import diarize as dmod
     weights = os.path.join(ROOT, ".weights")
-    emb_dir = os.path.join(path, dmod.EMBEDDING_NAME)
-    os.makedirs(emb_dir)
+    os.makedirs(path, exist_ok=True)
     for name in os.listdir(weights):
         if name != dmod.EMBEDDING_NAME:
             os.symlink(os.path.join(weights, name), os.path.join(path, name))
     if resnet:
-        tree = dmod.init_embedding_params(torch.Generator().manual_seed(3),
-                                          dmod.EmbeddingConfig())
-        torch.save(wespeaker_state_dict(tree),
-                   os.path.join(emb_dir, "pytorch_model.bin"))
-    else:
-        os.symlink(os.path.join(weights, dmod.EMBEDDING_NAME, "jax"),
-                   os.path.join(emb_dir, "jax"))
+        emb_dir = os.path.join(path, dmod.EMBEDDING_NAME)
+        os.makedirs(emb_dir)
+        for name in ("jax", "SYNTH_TRAINED"):
+            os.symlink(os.path.join(weights, dmod.EMBEDDING_NAME, name),
+                       os.path.join(emb_dir, name))
     return path
+
+
+def _tree_leaves(tree, path=""):
+    """(path, leaf) of a param tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, np.asarray(tree)
+
+
+def _bit_equal(got, ref) -> bool:
+    """The same leaf paths (in any order), dtypes, shapes and bits."""
+    a, b = dict(_tree_leaves(got)), dict(_tree_leaves(ref))
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+CHECKPOINT_TREES = (".synth_ckpt", ".weights/pyannote-segmentation-3.0/jax",
+                    ".weights/jonatasgrosman--wav2vec2-large-xlsr-53-english"
+                    "/jax",
+                    ".weights/wespeaker-voxceleb-resnet34-LM/jax")
+
+
+def phase_checkpoint(workdir: str) -> None:
+    """The JAX package's orbax trees read on the card's host by the port's
+    reader (``from_hf.load_params``: OCDBT, zarr, ``native/mwx_zstd.cpp``;
+    no orbax, tensorstore or zstd package there): each tree's leaves,
+    bytes, and host ms of three reads (the decoder's g++ build timed
+    apart).  The PyanNet and aligner trees must equal their committed
+    ``pytorch_model.bin`` exports passed through the port's converters
+    (``convert_pyannote_segmentation``, ``convert_wav2vec2_state_dict``)
+    bit for bit; ``tests/test_torch_export.py`` holds those exports equal
+    to orbax's trees.  A copy of the PyanNet tree with the first byte of a
+    chunk's zstd frame flipped must fail to read."""
+    import shutil
+    from manual_whisper_tpu_torch import ocdbt
+    from manual_whisper_tpu_torch.convert import (
+        convert_pyannote_segmentation, convert_wav2vec2_state_dict)
+    from manual_whisper_tpu_torch.from_hf import load_params
+    from manual_whisper_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    t0 = time.perf_counter()
+    ocdbt.crc32c(b"")                            # builds libmwx_zstd
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    trees, read = {}, {}
+    for rel in CHECKPOINT_TREES:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            tree = load_params(os.path.join(ROOT, rel))
+            times.append(1e3 * (time.perf_counter() - t0))
+        if tree is None:
+            raise AssertionError(f"checkpoint: no tree at {rel}")
+        leaves = [x for _, x in _tree_leaves(tree)]
+        trees[rel] = tree
+        read[rel] = {"leaves": len(leaves),
+                     "bytes": int(sum(x.nbytes for x in leaves)),
+                     "read_ms": times}
+    seg_dir = os.path.join(ROOT, ".weights", "pyannote-segmentation-3.0")
+    sd = torch.load(os.path.join(seg_dir, "pytorch_model.bin"),
+                    map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    align_dir = os.path.join(
+        ROOT, ".weights", "jonatasgrosman--wav2vec2-large-xlsr-53-english")
+    with open(os.path.join(align_dir, "align_meta.json"),
+              encoding="utf-8") as f:
+        w2v_cfg = Wav2Vec2Config(**json.load(f)["config"])
+    exports = {
+        "pyannote-segmentation-3.0": _bit_equal(
+            trees[CHECKPOINT_TREES[1]], convert_pyannote_segmentation(sd)),
+        "wav2vec2-large-xlsr-53-english": _bit_equal(
+            trees[CHECKPOINT_TREES[2]], convert_wav2vec2_state_dict(
+                torch.load(os.path.join(align_dir, "pytorch_model.bin"),
+                           map_location="cpu", weights_only=True),
+                w2v_cfg))}
+    copy_dir = os.path.join(workdir, "flipped")
+    shutil.copytree(os.path.join(seg_dir, "jax"), copy_dir)
+    store = ocdbt.KvStore(copy_dir)
+    key, (file, offset, _) = next(
+        (k, v) for k, v in store._entries()
+        if not k.endswith(b"/.zarray") and not isinstance(v, bytes))
+    with open(os.path.join(copy_dir, file[0] + file[1]), "r+b") as f:
+        f.seek(offset)
+        byte = f.read(1)
+        f.seek(offset)
+        f.write(bytes([byte[0] ^ 0x10]))
+    try:
+        load_params(copy_dir)
+        flipped = "read without an error"
+    except ValueError as exc:
+        flipped = f"{type(exc).__name__}: {exc}"
+    log(json.dumps({"phase": "checkpoint", "zstd_build_ms": build_ms,
+                    "trees": read, "exports_bit_equal": exports,
+                    "flipped_chunk": key.decode(), "flipped_read": flipped}))
+    if not all(exports.values()):
+        raise AssertionError(f"checkpoint: a tree differs from its export: "
+                             f"{exports}")
+    if flipped == "read without an error":
+        raise AssertionError("checkpoint: a flipped byte in a chunk was read "
+                             "without an error")
 
 
 @contextlib.contextmanager
@@ -1848,22 +2117,21 @@ def phase_diarize(dev, registry: str) -> None:
     """``DiarizationPipeline`` on the card and on the CPU over a seeded
     ``render_conversation`` (3 speakers, about 2 minutes), both loading
     their weights from ``registry`` (``make_registry`` with the ResNet): the
-    segmentation PyanNet's ``pytorch_model.bin`` and a full-size ResNet34
-    with seeded random weights: the entries' embeddings within
+    segmentation PyanNet and the ResNet34 trained on synthetic speakers,
+    both from their orbax ``jax/`` trees: the entries' embeddings within
     TOL["diarize_emb"], segments equal, DER against the reference turns
     printed for both and equal.  The ResNet path must have run: its
     weights loaded and K1 launched once a 32-row forward, at 80 mels.  A
     planted fault (one BatchNorm's running mean and variance swapped) must
-    exceed the tolerance.  Then the two fallbacks, each card vs CPU with
-    K1 counted: no embedding weights (the speaker embedder's orbax tree
-    only, which must draw the port's warning; 40-mel statistics of the
+    exceed the tolerance.  The speakers found are printed.  Then the two
+    fallbacks, each card vs CPU with K1 counted: no embedding weights (a
+    registry without the speaker embedder; 40-mel statistics of the
     32-row clip buckets), and no segmentation
     weights (an empty registry; the windows flow: 256-row forwards of 3 s
     windows).  Times: ``diarize_s``, device ms of a
     16-window segmentation batch and of one 32-row ResNet forward (K1 and
     the network) per bucket, host ms of the clustering."""
     import tempfile
-    import warnings
     from manual_whisper_tpu_torch.eval.metrics import der
     from manual_whisper_tpu_torch.eval.synth import (render_conversation,
                                                      turns_to_rttm)
@@ -1923,28 +2191,23 @@ def phase_diarize(dev, registry: str) -> None:
                 lambda: gpu.embedding(unnormalized_log_mel(x, 80)), 3)
     del cpu
 
-    # the fallbacks: no embedding weights (the orbax tree only), then no
-    # segmentation weights either (an empty registry)
+    # the fallbacks: no embedding weights (no speaker embedder in the
+    # registry), then no segmentation weights either (an empty registry)
     fallbacks = {}
     with tempfile.TemporaryDirectory() as tmp:
-        orbax_only = make_registry(os.path.join(tmp, "orbax"), resnet=False)
+        no_embedder = tmp + "/no_embedder"
         empty = tmp + "/empty"
+        os.makedirs(no_embedder)
         os.makedirs(empty)
+        make_registry(no_embedder, resnet=False)
         for flow in ("stats_embeddings", "windows"):
-            with _registry(orbax_only if flow == "stats_embeddings"
-                           else empty), \
-                    warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
+            with _registry(no_embedder if flow == "stats_embeddings"
+                           else empty):
                 f_gpu, f_cpu = _diarize_pair(dev)
-            warned = any("no pytorch_model.bin" in str(w.message)
-                         for w in caught)
             if f_gpu.embedding is not None or \
-                    (f_gpu.vad.model is None) != (flow == "windows") or \
-                    warned != (flow == "stats_embeddings"):
+                    (f_gpu.vad.model is None) != (flow == "windows"):
                 raise AssertionError(f"diarize {flow}: the pipeline loaded "
-                                     "other weights than expected, or the "
-                                     "missing ResNet export went unreported "
-                                     f"(warned: {warned})")
+                                     "other weights than expected")
             _build.launches.clear()
             t0 = time.perf_counter()
             with _embed_forwards() as f_calls:
@@ -1973,10 +2236,12 @@ def phase_diarize(dev, registry: str) -> None:
     line = {
         "phase": "diarize", "audio_s": len(audio) / 16000.0,
         "speakers_ref": len({t["speaker"] for t in ref_turns}),
-        "resnet34": "full size, seeded random weights, from the registry",
+        "resnet34": "trained on synthetic speakers, the registry's orbax "
+                    "jax/ tree",
         "entries": len(st_gpu["entries"]), "segments": len(segs),
         "segments_equal": segs == cpu_segs,
-        "speakers": len({s["speaker"] for s in segs}),
+        "speakers": sorted({s["speaker"] for s in segs}),
+        "speakers_cpu": sorted({s["speaker"] for s in cpu_segs}),
         "der_card": der(ref_turns, segs), "der_cpu": der(ref_turns, cpu_segs),
         "embedding_max_abs_err": emb_err, "tol": TOL["diarize_emb"],
         "fault_bn_stats_swapped_err": fault_err,
@@ -2009,7 +2274,8 @@ def phase_cli(workdir: str, registry: str) -> None:
     card, with ``HF_TOKEN`` set and ``MWX_ALLOW_RANDOM_WEIGHTS=1`` (random
     large-v3 in bf16; the zh default aligner is not in the repository, so
     the tiny random aligner) and the diarize phase's ``registry`` (its
-    PyanNet and its ResNet34, which every embedding forward must run):
+    PyanNet and its trained ResNet34, both from their orbax trees, which
+    every embedding forward must run):
     every stage must run (no "对齐失败" or
     "说话人分离失败" line), the Markdown must have ``### SPEAKER_``
     headings, and every segment of the JSON must carry ``speaker``
@@ -3430,8 +3696,9 @@ def main() -> int:
                          "stop without a result line")
     ap.add_argument("--phases", default="", metavar="PHASE[,PHASE]",
                     help="only build the kernels and run these phases of "
-                         "stage 6 (align, diarize, cli, train, mesh, fetch, "
-                         "launch), then stop without a result line")
+                         "stage 6 (checkpoint, align, diarize, cli, train, "
+                         "mesh, fetch, launch), then stop without a result "
+                         "line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3453,7 +3720,8 @@ def main() -> int:
                                        "setmaxnreg")):
                 log(f"  ptxas {name}: {line.strip()}")
 
-    stages = {"align": lambda: phase_align(dev),
+    stages = {"checkpoint": lambda: phase_checkpoint(work),
+              "align": lambda: phase_align(dev),
               "diarize": lambda: phase_diarize(dev, registry),
               "cli": lambda: phase_cli(work, registry),
               "train": lambda: phase_train(dev),
@@ -3483,6 +3751,7 @@ def run_all(args, dev, card, stages, work, registry) -> int:
     timed("host costs", phase_host_costs, dev, main_shapes)
     timed("tiny bf16", phase_tiny, dev, False)
     timed("tiny int8", phase_tiny, dev, True)
+    timed("tiny synth", phase_tiny_synth, dev)
     timed("vad", phase_vad, dev)
     launches = {}
     for compute_type, kernels in (("bfloat16", BF16_KERNELS),
