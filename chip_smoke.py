@@ -2034,7 +2034,7 @@ def phase_checkpoint(workdir: str) -> None:
     shutil.copytree(os.path.join(seg_dir, "jax"), copy_dir)
     store = ocdbt.KvStore(copy_dir)
     key, (file, offset, _) = next(
-        (k, v) for k, v in store._entries()
+        (k, v) for k, v in store.refs.items()
         if not k.endswith(b"/.zarray") and not isinstance(v, bytes))
     with open(os.path.join(copy_dir, file[0] + file[1]), "r+b") as f:
         f.seek(offset)

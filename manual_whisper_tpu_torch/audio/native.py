@@ -19,8 +19,9 @@ a name carrying a hash of its sources and flags, so an edited source is
 rebuilt and a stale library never loaded.  A build writes to a name of
 its own and ``os.replace``s it into place, so processes building at once
 (test workers) never load a half-written file.  As in the JAX package,
-a library that cannot be built or loaded makes its functions return None
-and the callers fall back (``audio/io.py``).
+an audio library that cannot be built or loaded makes its functions return
+None and the callers fall back (``audio/io.py``); ``ocdbt.py`` raises
+instead when ``libmwx_zstd`` does not build.
 """
 
 from __future__ import annotations

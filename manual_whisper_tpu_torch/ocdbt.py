@@ -252,7 +252,10 @@ def _keys(cur: _Cursor, n: int, interior: bool
 
 
 class KvStore:
-    """Read-only OCDBT key-value store at ``root`` (its newest version)."""
+    """Read-only OCDBT key-value store at ``root``, its newest version:
+    ``refs`` maps each key, in order, to its inline value or to the
+    (file, offset, length) of an indirect one; the b-tree is walked once,
+    when the store is opened."""
 
     def __init__(self, root):
         self.root = Path(root)
@@ -260,13 +263,13 @@ class KvStore:
         body = _decode_file(manifest.read_bytes(), MANIFEST_MAGIC,
                             str(manifest))
         cur = _Cursor(body, str(manifest))
-        self.uuid = cur.raw(16)
+        cur.raw(16)                              # uuid
         kind = cur.varint()
         if kind != 0:
             raise FormatError(f"{manifest}: manifest kind {kind} (numbered "
                               "manifests are not read)")
-        self.max_inline_value_bytes = cur.varint()
-        self.max_decoded_node_bytes = cur.varint()
+        cur.varint()                             # max inline value bytes
+        self._max_node_bytes = cur.varint()
         cur.u8()                                 # version tree arity log2
         method = cur.varint()
         if method == 1:
@@ -288,10 +291,10 @@ class KvStore:
             cur.end()
         if n == 0:
             raise FormatError(f"{manifest}: no version")
-        self._root = None
-        if offsets[-1] != _NO_NODE:
-            self._root = (self._file(files, file_ids[-1]), offsets[-1],
-                          lengths[-1], heights[-1])
+        self.refs: Dict[bytes, Any] = {}
+        if offsets[-1] != _NO_NODE:                # else an empty tree
+            self._node(self._file(files, file_ids[-1]), offsets[-1],
+                       lengths[-1], heights[-1], b"")
 
     def _file(self, files: List[Tuple[str, str]], index: int
               ) -> Tuple[str, str]:
@@ -312,11 +315,12 @@ class KvStore:
         return data
 
     def _node(self, file: Tuple[str, str], offset: int, length: int,
-              height: int, prefix: bytes,
-              out: List[Tuple[bytes, Any]]) -> None:
+              height: int, prefix: bytes) -> None:
+        """Add the entries of the subtree at ``file``/``offset`` to
+        ``refs``; ``prefix``: the part of its keys its parents hold."""
         what = f"{self.root / (file[0] + file[1])}@{offset}"
         body = _decode_file(self._read_at(file, offset, length), NODE_MAGIC,
-                            what, self.max_decoded_node_bytes)
+                            what, self._max_node_bytes)
         cur = _Cursor(body, what)
         if cur.u8() != height:
             raise FormatError(f"{what}: height differs from its reference")
@@ -331,7 +335,7 @@ class KvStore:
             for i in range(n):
                 self._node(self._file(files, file_ids[i]), offsets[i],
                            lengths[i], height - 1,
-                           prefix + keys[i][:common[i]], out)
+                           prefix + keys[i][:common[i]])
             return
         sizes = cur.varints(n)
         kinds = cur.varints(n)
@@ -343,30 +347,14 @@ class KvStore:
         refs = {i: (self._file(files, f), o)
                 for i, f, o in zip(indirect, file_ids, offsets)}
         for i in range(n):
-            if i in refs:
-                out.append((prefix + keys[i], (*refs[i], sizes[i])))
-            else:
-                out.append((prefix + keys[i], cur.raw(sizes[i])))
+            self.refs[prefix + keys[i]] = (*refs[i], sizes[i]) if i in refs \
+                else cur.raw(sizes[i])
         cur.end()
 
-    def _entries(self) -> List[Tuple[bytes, Any]]:
-        """(key, inline bytes or (file, offset, length)) in key order."""
-        out: List[Tuple[bytes, Any]] = []
-        if self._root is not None:
-            self._node(*self._root, b"", out)
-        return out
-
-    def list(self) -> List[bytes]:
-        return [k for k, _ in self._entries()]
-
-    def items(self) -> Dict[bytes, bytes]:
-        """Every key and its value."""
-        return {k: self.value(v) for k, v in self._entries()}
-
-    def value(self, ref) -> bytes:
-        if isinstance(ref, bytes):
-            return ref
-        return self._read_at(*ref)
+    def read(self, key: bytes) -> bytes:
+        """The value of ``key`` (KeyError when the store has none)."""
+        ref = self.refs[key]
+        return ref if isinstance(ref, bytes) else self._read_at(*ref)
 
 
 # ---------------------------------------------------------------------------
@@ -389,13 +377,12 @@ def _bf16(bits: np.ndarray):
         return torch.from_numpy(bits).view(torch.bfloat16)
 
 
-def read_zarr(store: KvStore, entries: Dict[bytes, Any], name: str):
-    """The zarr v2 array ``name`` of ``store`` (``entries``: key -> value
-    reference) as numpy, C order."""
-    meta_ref = entries.get(f"{name}/.zarray".encode())
-    if meta_ref is None:
+def read_zarr(store: KvStore, name: str):
+    """The zarr v2 array ``name`` of ``store`` as numpy, C order."""
+    meta_key = f"{name}/.zarray".encode()
+    if meta_key not in store.refs:
         raise KeyError(f"{store.root}: no array {name!r}")
-    meta = json.loads(store.value(meta_ref))
+    meta = json.loads(store.read(meta_key))
     if meta.get("zarr_format") != 2:
         raise FormatError(f"{name}: zarr format {meta.get('zarr_format')}")
     dtype = _DTYPES.get(meta["dtype"])
@@ -424,17 +411,18 @@ def read_zarr(store: KvStore, entries: Dict[bytes, Any], name: str):
     grid = [math.ceil(s / c) for s, c in zip(shape, chunks)]
     for index in np.ndindex(*grid):
         key = sep.join(str(i) for i in index) if shape else "0"
-        ref = entries.get(f"{name}/{key}".encode())
-        if ref is None:
+        chunk_key = f"{name}/{key}".encode()
+        if chunk_key not in store.refs:
             continue
-        raw = store.value(ref)
-        chunk = np.empty(chunks, dtype)
+        raw = store.read(chunk_key)
         if compressor is None:
-            if len(raw) != chunk.nbytes:
+            nbytes = math.prod(chunks) * np.dtype(dtype).itemsize
+            if len(raw) != nbytes:
                 raise FormatError(f"{name}/{key}: {len(raw)} bytes, "
-                                  f"expected {chunk.nbytes}")
+                                  f"expected {nbytes}")
             chunk = np.frombuffer(raw, dtype).reshape(chunks)
         else:
+            chunk = np.empty(chunks, dtype)
             _zstd_into(raw, chunk)
         region = tuple(slice(i * c, min((i + 1) * c, s))
                        for i, c, s in zip(index, chunks, shape))
@@ -456,7 +444,6 @@ def read_checkpoint(path) -> Dict[str, Any]:
     if not meta.get("use_ocdbt", True) or meta.get("use_zarr3"):
         raise FormatError(f"{path}: only OCDBT with zarr v2 is read")
     store = KvStore(path)
-    entries = dict(store._entries())
     tree: Dict[str, Any] = {}
     for item in meta["tree_metadata"].values():
         keys = item["key_metadata"]
@@ -465,7 +452,7 @@ def read_checkpoint(path) -> Dict[str, Any]:
                 or item["value_metadata"].get("skip_deserialize"):
             raise FormatError(f"{path}: leaf {[k['key'] for k in keys]} has "
                               f"value type {value_type!r}")
-        leaf = read_zarr(store, entries, ".".join(k["key"] for k in keys))
+        leaf = read_zarr(store, ".".join(k["key"] for k in keys))
         # a sequence is gathered as a dict of int keys, made a list below
         path_keys = [int(k["key"]) if k["key_type"] == 1 else k["key"]
                      for k in keys]

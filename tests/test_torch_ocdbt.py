@@ -106,6 +106,33 @@ def test_zstd_frames_back_to_back_and_skippable():
     assert ocdbt.zstd_decompress(skippable + frames[0]) == parts[0]
 
 
+def _block(payload: bytes, last: bool) -> bytes:
+    """A compressed block: header (size, type 2, last flag) + payload."""
+    return ((len(payload) << 3) | (2 << 1) | int(last)).to_bytes(3, "little") \
+        + payload
+
+
+def test_zstd_hand_made_frame():
+    """Parts a compressor rarely emits, in a frame built by hand: raw
+    literals with a 3-byte header, 32512 sequences (the count's 3-byte
+    form), RLE tables for all three codes, repeat offset 1; then a block of
+    RLE literals whose tables repeat the previous block's.  ``zstandard``
+    decodes the same bytes."""
+    n = 0x7F00
+    first = (bytes([0x0C, (n >> 4) & 0xFF, n >> 12]) + b"a" * n   # raw lits
+             + b"\xff\x00\x00"                # n sequences
+             + bytes([0x54, 1, 0, 0])          # RLE modes: LL 1, OF 0, ML 0
+             + b"\x01")                        # no bits: every state is 0
+    second = (bytes([(10 << 3) | 1]) + b"b"      # 10 RLE literals
+              + b"\x01" + bytes([0xFC]) + b"\x01")  # 1 sequence, repeat
+    frame = (0xFD2FB528).to_bytes(4, "little") + bytes([0x00, 0x38]) \
+        + _block(first, False) + _block(second, True)
+    ref = zstandard.ZstdDecompressor().decompress(frame,
+                                                   max_output_size=1 << 20)
+    assert ref == b"a" * (4 * n) + b"b" * 13
+    assert ocdbt.zstd_decompress(frame) == ref
+
+
 def test_zstd_rejects_broken_input():
     data = b"a checksum covers every byte " * 40
     frame = zstandard.ZstdCompressor(level=3,
@@ -149,8 +176,8 @@ def _tensorstore_items(root: Path):
 def test_kvstore_equals_tensorstore(tree):
     ref = _tensorstore_items(tree)
     store = ocdbt.KvStore(tree)
-    assert store.list() == sorted(ref)
-    assert store.items() == ref
+    assert list(store.refs) == sorted(ref)
+    assert {k: store.read(k) for k in store.refs} == ref
     assert sum(k.endswith(b"/.zarray") for k in ref) == LEAVES[_tree_id(tree)]
 
 
@@ -178,7 +205,9 @@ def test_kvstore_b_tree_shapes(config, tmp_path):
     if "max_decoded_node_bytes" in config:      # interior nodes were read
         manifest = ts.ocdbt.dump(kv.base).result()
         assert manifest["versions"][-1]["root_height"] > 0
-    assert ocdbt.KvStore(tmp_path).items() == ref
+    store = ocdbt.KvStore(tmp_path)
+    assert list(store.refs) == sorted(ref)
+    assert {k: store.read(k) for k in store.refs} == ref
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +235,7 @@ def test_zarr_equals_tensorstore(dtype, fill, compressor, separator,
     values = np.arange(35).reshape(7, 5) * 3 - 20
     arr[0:6, 0:4] = values[0:6, 0:4].astype(arr.dtype.numpy_dtype)
     ref = arr.read().result()
-    store = ocdbt.KvStore(tmp_path)
-    got = ocdbt.read_zarr(store, dict(store._entries()), "arr")
+    got = ocdbt.read_zarr(ocdbt.KvStore(tmp_path), "arr")
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert got.tobytes() == ref.tobytes()
 
@@ -219,9 +247,8 @@ def test_zarr_other_dtype_raises(tmp_path):
             "metadata": {"shape": [4], "chunks": [4], "dtype": "<f8"},
             "create": True}
     ts.open(spec).result()[...] = np.ones(4)
-    store = ocdbt.KvStore(tmp_path)
     with pytest.raises(ValueError, match="'<f8'"):
-        ocdbt.read_zarr(store, dict(store._entries()), "arr")
+        ocdbt.read_zarr(ocdbt.KvStore(tmp_path), "arr")
 
 
 # ---------------------------------------------------------------------------
@@ -292,9 +319,7 @@ def test_flipped_byte_fails_the_read(mixed_tree, tmp_path):
     """A flipped byte in a chunk (its zstd frame's first byte) and one in
     a b-tree node (caught by the node's CRC-32C) each make the read
     raise."""
-    store = ocdbt.KvStore(mixed_tree)
-    entries = dict(store._entries())
-    file, offset, _ = entries[b"w/0.0"]
+    file, offset, _ = ocdbt.KvStore(mixed_tree).refs[b"w/0.0"]
     copy = tmp_path / "chunk"
     shutil.copytree(mixed_tree, copy)
     data = bytearray((copy / file[0] / file[1]).read_bytes())
