@@ -6,13 +6,17 @@
     python3 chip_smoke.py --phases align,diarize,cli
     python3 chip_smoke.py --phases train,mesh
     python3 chip_smoke.py --phases fetch,launch
+    python3 chip_smoke.py --phases float32
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``mel``, ``flash_attention``,
 ``decode_self_attention``, ``decode_cross_attention``,
-``decode_cross_attention_int8`` and ``int8_matmul``); with ``--phases``
-only the kernels' build and the named phases of stage 6; neither prints
-a result line.
+``decode_cross_attention_int8``, ``int8_matmul`` and the float32 builds
+``flash_attention_f32``, ``decode_self_attention_f32`` and
+``decode_cross_attention_f32``); with ``--phases``
+only the kernels' build and the named phases of stage 6, or ``float32``
+(phases 3-5's float32 parts: the tiny config, ``.synth_ckpt`` and
+large-v3's main path); neither prints a result line.
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -20,8 +24,9 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    CUDA kernels K1-K6 from ``manual_whisper_tpu_torch/csrc`` with nvcc;
    load large-v3 at full width and depth with seeded random weights in
    bf16 and read the decode attentions' shapes from it.  The int8 model
-   (``compute_type="int8"``, ``int8_cross_kv=True``) is loaded in its turn
-   in phase 4, after the bf16 model is freed.
+   (``compute_type="int8"``, ``int8_cross_kv=True``) and then the float32
+   model are each loaded in their turn in phase 4, after the one before is
+   freed.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main paths' large-v3 shapes, with the tolerance printed beside it, and
    time kernel, plain version and one PyTorch library call (a yardstick
@@ -50,7 +55,12 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    1280x5120 and 5120x1280; two
    ``kernel_check`` lines hold ragged tiles and the matvec at M in {1, 2,
    3, 5, 8} against the plain version);
-   K3 and K4 also at batch 16 (extra).  K1 is also checked and timed at
+   K3 and K4 also at batch 16 (extra).  The float32 builds of K2-K4
+   (``compute_type="float32"``) have rows of their own at the bf16 rows'
+   shapes with the same ragged and empty-slice checks, within (1e-4,
+   1e-4); their yardstick is SDPA on float32 inputs with TF32 off, whose
+   device kernels (the backend PyTorch picked) are on the row's line.
+   K1 is also checked and timed at
    diarization's shapes on raw log-mel of zero-padded rows (extra lines,
    TOL["mel_raw"]): 32 rows of each embedding length bucket (0.5, 1, 2, 4
    and 10 s) at 80 mels (the ResNet34) and at 40 (the statistics
@@ -65,10 +75,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    and V) must each exceed it.  Then ``.synth_ckpt`` (the test config
    trained on synthetic speech, the JAX package's orbax tree) through
    ``from_hf.load_params``, ``convert.from_jax_tree`` and the pipeline on
-   the card and on the CPU, bf16 (K2-K4 take no float32): logits within
-   TOL["logits_synth"], two dropped-layer faults caught, each row's
-   tokens and the segments compared (rows that differ printed), the rows
-   ended on EOT printed (at least one), K1-K4 launched.  Then the ``vad``
+   the card and on the CPU, bf16: logits within TOL["logits_synth"], two
+   dropped-layer faults caught, each row's tokens and the segments
+   compared (rows that differ printed), the rows ended on EOT printed (at
+   least one), K1-K4 launched.  Then both again in float32 (the float32
+   builds of K2-K4 on the card, the port's float32 path on the CPU):
+   encoder and logits within 1e-3, the same faults caught, and for
+   ``.synth_ckpt`` each row's tokens and the segments equal, the float32
+   builds launched and no bf16 one.  Then the ``vad``
    phase: PyanNet from the registry's ``pyannote-segmentation-3.0/jax``
    tree on the card against the same weights on the CPU, over phase 4's
    audio: speech
@@ -80,21 +94,22 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    as ``warmup_s``; it captures the decode chunks of batch buckets 1, 2
    and 4 as CUDA graphs, ``capture_s``), then ``transcribe`` of about 75 s
    of seeded amplitude-modulated audio at batch 4, language zh, with the
-   CLI's options and the full temperature ladder, with the bf16 model and
-   then with the int8 model.  Launch counters are zeroed just before each
+   CLI's options and the full temperature ladder, with the bf16 model,
+   then with the int8 model, then with the float32 model.  Launch counters are zeroed just before each
    ``transcribe`` and read just after; the pipeline's VAD must be PyanNet
    on the card (the ``main_path`` line says ``"vad": "pyannet"``); bf16
    must launch K1-K4 and not
-   K5/K6; int8 must launch K1, K2, K3, K5 and K6 and not K4, each exactly
+   K5/K6; float32 K1 and the float32 builds of K2-K4 and no other; int8
+   must launch K1, K2, K3, K5 and K6 and not K4, each exactly
    as often as the batches, decode loops and steps in ``last_stats`` imply
    (a replay adds the launches its capture recorded), and every decode
    step must have run inside a replayed chunk.  Then a ``graph_vs_eager``
    line: one batch-4 loop at T = 0 and one at T = 0.2, replayed against
    the same chunks run eagerly, tokens and lengths equal, sum_logprob
    within SUM_LP_TOL, ms per token row of each.
-   Then, with each model after its phases 4 and 5, ``beam`` and
-   ``timestamps``: pipelines over the same weights with ``beam_size=5``,
-   and with ``without_timestamps=False``; ``warmup`` and ``transcribe`` of
+   Then, with the bf16 and int8 models after their phases 4 and 5 (not
+   float32), ``beam`` and ``timestamps``: pipelines over the same weights
+   with ``beam_size=5``, and with ``without_timestamps=False``; ``warmup`` and ``transcribe`` of
    the same audio at batch 4 (beam: one beam loop and five greedy rungs a
    batch; timestamps: one loop a batch, no ladder), launches exact (a beam
    step launches no K3/K4/K5, and for int8 8 K6 a layer, at M = rows x
@@ -180,8 +195,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    resident, ms per token row and replayed step time per bucket).
 
 The kernels line gives each kernel's launches on the main path that
-runs it (K1-K4 bf16, K5 and K6 int8; the int8 path's K1-K3 counts are on
-its ``main_path`` line).  The line before the last is
+runs it (K1-K4 bf16, K5 and K6 int8, the float32 builds of K2-K4 float32;
+the int8 and float32 paths' K1 counts are on their ``main_path`` lines).  The line before the last is
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
 result.
@@ -235,6 +250,11 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        "decode_self_attention": (1e-2, 1e-2),
        "decode_cross_attention": (1e-2, 1e-2),
        "decode_cross_attention_int8": (1e-2, 1e-2),
+       # the float32 builds of K2-K4 against their plain versions, both
+       # float32 throughout (TF32 off), summing in other orders
+       "flash_attention_f32": (1e-4, 1e-4),
+       "decode_self_attention_f32": (1e-4, 1e-4),
+       "decode_cross_attention_f32": (1e-4, 1e-4),
        # bf16 output of an f32 sum of exact products: one bf16 rounding
        "int8_matmul": (1e-2, 1e-2),
        # test config in bf16, card vs CPU: rounding differs per op.  On an
@@ -251,6 +271,16 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        # layer's cross-K/V scales swapped, logits off by 0.067)
        "encoder_int8": (0.1, 0.0),
        "logits_int8": (0.015, 0.0),
+       # the test config in float32 (TF32 off), card vs CPU: float32
+       # rounding in other summation orders only; the faults phase 3 runs
+       # move the encoder or the logits by far more (in bf16 the smallest,
+       # half the cross length, moved the logits by 0.099)
+       "encoder_f32": (1e-3, 0.0),
+       "logits_f32": (1e-3, 0.0),
+       # .synth_ckpt in float32, card vs CPU: its trained logits (std 0.79)
+       # amplify rounding more than random weights do, but in float32 it is
+       # float32 rounding; its faults move the logits by 5.0 and 6.2 (CPU)
+       "logits_synth_f32": (1e-3, 0.0),
        # .synth_ckpt (the test config trained on synthetic speech) in bf16,
        # card vs CPU: its logits' std is 0.79, five times the random
        # weights', and bf16 rounding moves them further: on the CPU its bf16
@@ -296,6 +326,15 @@ SOURCES = {
     "decode_cross_attention_int8": (
         "manual_whisper_tpu_torch/csrc/decode_attention.cu",
         "manual_whisper_tpu/ops/decode_attention.py:80"),
+    "flash_attention_f32": (
+        "manual_whisper_tpu_torch/csrc/flash_attention.cu",
+        "manual_whisper_tpu/ops/attention.py:32"),
+    "decode_self_attention_f32": (
+        "manual_whisper_tpu_torch/csrc/decode_attention.cu",
+        "manual_whisper_tpu/ops/decode_attention.py:204"),
+    "decode_cross_attention_f32": (
+        "manual_whisper_tpu_torch/csrc/decode_attention.cu",
+        "manual_whisper_tpu/ops/decode_attention.py:150"),
     "int8_matmul": ("manual_whisper_tpu_torch/csrc/int8_matmul.cu",
                     "manual_whisper_tpu/ops/quant.py:102"),
 }
@@ -303,6 +342,8 @@ BF16_KERNELS = ("mel", "flash_attention", "decode_self_attention",
                 "decode_cross_attention")
 INT8_KERNELS = ("mel", "flash_attention", "decode_self_attention",
                 "decode_cross_attention_int8", "int8_matmul")
+F32_KERNELS = ("mel", "flash_attention_f32", "decode_self_attention_f32",
+               "decode_cross_attention_f32")
 
 
 def log(msg: str) -> None:
@@ -351,6 +392,25 @@ def bound(ops: float, nbytes: float, peak: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+
+
+def sdpa_kernels(fn, args) -> list:
+    """The device kernels of one call ``fn(*args)`` (torch.profiler), by
+    name: which SDPA backend PyTorch picked for these inputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sorted({e.name[:90] for e in prof.events()
+                   if e.device_type == DeviceType.CUDA})
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -367,29 +427,33 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def _decode_bound(b, h, dh, n):
+def _decode_bound(b, h, dh, n, elem=2):
     """Bound of one q_len = 1 attention over n positions: K and V read
-    once, q read and the output written once (bf16); 4 FLOP per (key, dim)."""
-    return bound(4.0 * b * h * n * dh, 2.0 * (2 * b * h * n * dh
-                                            + 2 * b * h * dh), F32_FLOPS)
+    once, q read and the output written once (``elem`` bytes a value: 2
+    bf16, 4 float32); 4 FLOP per (key, dim)."""
+    return bound(4.0 * b * h * n * dh, elem * (2 * b * h * n * dh
+                                             + 2 * b * h * dh), F32_FLOPS)
 
 
-def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks):
-    """K3 vs its plain version at every pos in ``checks`` (a sharp softmax:
-    keys scaled 3x), then timed over one call per pos in ``timed_pos``,
-    each on its own K/V copy."""
-    q = randn((b, h, 1, dh))
-    k = randn((b, h, t_max, dh), scale=3.0)
-    v = randn((b, h, t_max, dh))
+def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks,
+                       dtype=torch.bfloat16):
+    """K3 (the build of ``dtype``) vs its plain version at every pos in
+    ``checks`` (a sharp softmax: keys scaled 3x), then timed over one call
+    per pos in ``timed_pos``, each on its own K/V copy."""
+    suffix, elem = _build.ATTENTION_DTYPES[dtype], dtype.itemsize
+    q = randn((b, h, 1, dh), dtype)
+    k = randn((b, h, t_max, dh), dtype, scale=3.0)
+    v = randn((b, h, t_max, dh), dtype)
     err = 0.0
     for pos in checks:
         pos_t = torch.full((1,), pos, dtype=torch.int32, device=dev)
-        err = max(err, compare("decode_self_attention",
+        err = max(err, compare("decode_self_attention" + suffix,
                                decode_self_attention(q, k, v, pos_t),
                                attend_plain(q, k, v, pos + 1)))
-    reps = max(1, math.ceil(copies_for(2 * k.numel() * 2) / len(timed_pos)))
-    sets = [(randn((b, h, 1, dh)), randn((b, h, t_max, dh)),
-             randn((b, h, t_max, dh)),
+    reps = max(1, math.ceil(copies_for(2 * k.numel() * elem)
+                            / len(timed_pos)))
+    sets = [(randn((b, h, 1, dh), dtype), randn((b, h, t_max, dh), dtype),
+             randn((b, h, t_max, dh), dtype),
              torch.full((1,), pos, dtype=torch.int32, device=dev), pos + 1)
             for pos in timed_pos * reps]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -398,58 +462,71 @@ def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks):
         lambda a, c, d, pt, n: decode_self_attention(a, c, d, pt),
         lambda a, c, d, pt, n: attend_plain(a, c, d, n),
         lambda a, c, d, pt, n: sdpa(a, c[:, :, :n], d[:, :, :n])))
-    bounds = [_decode_bound(b, h, dh, s[4]) for s in sets]
-    return dict(
+    bounds = [_decode_bound(b, h, dh, s[4], elem) for s in sets]
+    extra = {}
+    if dtype == torch.float32:
+        a, c, d, _, n = sets[-1]
+        extra["library_kernels"] = sdpa_kernels(
+            sdpa, (a, c[:, :, :n], d[:, :, :n]))
+    return dict(**extra,
         shape=(f"B={b} H={h} T_max={t_max} pos={timed_pos[0]}.."
-               f"{timed_pos[-1]} ({len(timed_pos)} pos) dh={dh} bf16"),
+               f"{timed_pos[-1]} ({len(timed_pos)} pos) dh={dh} "
+               f"{_dtype_name(dtype)}"),
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound=(sum(x[0] for x in bounds) / len(bounds), bounds[0][1]))
 
 
-def self_attention_rows(randn, dev, main: dict):
+def self_attention_rows(randn, dev, main: dict, dtype=torch.bfloat16):
     """K3's row of the kernels line (batch rows of the main path, its
-    self cache, every pos the decode loop visits) and its extra: batch 16,
-    T_max 448.  The checks take pos 6, 7 and 8 (n = 7, 8, 9: the key axis
-    is split over the blocks of a cluster, so short lengths leave blocks
-    without keys) besides the first, middle and last slots."""
+    self cache, every pos the decode loop visits) and, in bf16, its extra:
+    batch 16, T_max 448 (the server's; it runs bf16).  The checks take pos
+    6, 7 and 8 (n = 7, 8, 9: the key axis is split over the blocks of a
+    cluster, so short lengths leave blocks without keys) besides the
+    first, middle and last slots."""
     b, h, dh = main["batch"], main["heads"], main["dh"]
     t_max, p = main["t_max"], main["prefix"]
     steps = np.unique(np.linspace(p, t_max - 2, 20).round().astype(int))
     row = self_attention_row(randn, dev, b, h, dh, t_max,
                              [int(x) for x in steps],
                              checks=(0, 1, 6, 7, 8, p, (p + t_max) // 2,
-                                     t_max - 1))
+                                     t_max - 1), dtype=dtype)
+    if dtype != torch.bfloat16:
+        return row, []
     return row, [self_attention_row(randn, dev, 16, h, dh, 448, [447],
                                     checks=(0, 1, 6, 7, 8, 100, 255, 447))]
 
 
-def cross_attention_row(randn, dev, b, h, dh, ta):
-    """K4 vs its plain version at kv_len Ta, Ta - 1, 1000, 8, 7 and 1 (the
-    key axis is split over 8 blocks: a ragged last slice, slices that are
-    empty for some or all but one block), then timed at kv_len = Ta (the
-    main path's) over K/V copies that exceed L2."""
-    q = randn((b, h, 1, dh))
-    k = randn((b, h, ta, dh))
-    v = randn((b, h, ta, dh))
+def cross_attention_row(randn, dev, b, h, dh, ta, dtype=torch.bfloat16):
+    """K4 (the build of ``dtype``) vs its plain version at kv_len Ta, Ta -
+    1, 1000, 8, 7 and 1 (the key axis is split over 8 blocks: a ragged last
+    slice, slices that are empty for some or all but one block), then timed
+    at kv_len = Ta (the main path's) over K/V copies that exceed L2."""
+    suffix, elem = _build.ATTENTION_DTYPES[dtype], dtype.itemsize
+    q = randn((b, h, 1, dh), dtype)
+    k = randn((b, h, ta, dh), dtype)
+    v = randn((b, h, ta, dh), dtype)
     err = 0.0
     for kv_len in (ta, ta - 1, 1000, 8, 7, 1):
         len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-        err = max(err, compare("decode_cross_attention",
+        err = max(err, compare("decode_cross_attention" + suffix,
                                decode_cross_attention(q, k, v, len_t),
                                attend_plain(q, k, v, kv_len)))
     len_t = torch.full((1,), ta, dtype=torch.int32, device=dev)
-    sets = [(randn((b, h, 1, dh)), randn((b, h, ta, dh)),
-             randn((b, h, ta, dh)))
-            for _ in range(copies_for(2 * k.numel() * 2))]
+    sets = [(randn((b, h, 1, dh), dtype), randn((b, h, ta, dh), dtype),
+             randn((b, h, ta, dh), dtype))
+            for _ in range(copies_for(2 * k.numel() * elem))]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return dict(
-        shape=f"B={b} H={h} Ta={ta} kv_len={ta} dh={dh} bf16",
+    row = dict(
+        shape=f"B={b} H={h} Ta={ta} kv_len={ta} dh={dh} {_dtype_name(dtype)}",
         max_abs_err=err,
         ms=graph_ms(lambda a, c, d: decode_cross_attention(a, c, d, len_t),
                     sets),
         plain_ms=graph_ms(lambda a, c, d: attend_plain(a, c, d, ta), sets),
         library_ms=graph_ms(sdpa, sets),
-        bound=_decode_bound(b, h, dh, ta))
+        bound=_decode_bound(b, h, dh, ta, elem))
+    if dtype == torch.float32:
+        row["library_kernels"] = sdpa_kernels(sdpa, sets[0])
+    return row
 
 
 def _int8_cross_bound(b, h, dh, n, scale_bytes):
@@ -690,49 +767,59 @@ def mel_diarize_rows(randn, dev) -> list:
     return rows
 
 
-def flash_row(randn, b, h, tt, dh):
-    """K2 vs its plain version at [b, h, tt, dh], then timed over copies
-    that exceed L2; the yardstick is SDPA.  Bound: q, k, v read and the
-    output written once, or 4 b h tt^2 dh operations at the bf16
-    tensor-core rate.  ``exp2`` counts the b h tt^2 exponentials of the
-    softmax, which the special-function units run at 16 a cycle and SM."""
-    q, k, v = (randn((b, h, tt, dh)) for _ in range(3))
-    err = compare("flash_attention", flash_attention(q, k, v),
+def flash_row(randn, b, h, tt, dh, dtype=torch.bfloat16):
+    """K2 (the build of ``dtype``) vs its plain version at [b, h, tt, dh],
+    then timed over copies that exceed L2; the yardstick is SDPA on the
+    same inputs (float32 with TF32 off; its kernels are on the row).
+    Bound: q, k, v read and the output written once, or 4 b h tt^2 dh
+    operations at the bf16 tensor-core rate (bf16) or the FMA pipes'
+    float32 rate (float32).  ``exp2`` counts the b h tt^2 exponentials of
+    the softmax, which the special-function units run at 16 a cycle and
+    SM."""
+    suffix, elem = _build.ATTENTION_DTYPES[dtype], dtype.itemsize
+    q, k, v = (randn((b, h, tt, dh), dtype) for _ in range(3))
+    err = compare("flash_attention" + suffix, flash_attention(q, k, v),
                   attention_plain(q, k, v))
-    per = 3 * q.numel() * 2
-    sets = [tuple(randn((b, h, tt, dh)) for _ in range(3))
+    per = 3 * q.numel() * elem
+    sets = [tuple(randn((b, h, tt, dh), dtype) for _ in range(3))
             for _ in range(copies_for(per))]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return dict(
-        shape=f"B={b} H={h} T={tt} dh={dh} bf16", max_abs_err=err,
+    row = dict(
+        shape=f"B={b} H={h} T={tt} dh={dh} {_dtype_name(dtype)}",
+        max_abs_err=err,
         ms=graph_ms(flash_attention, sets),
         plain_ms=graph_ms(attention_plain, sets[:1]),
         library_ms=graph_ms(sdpa, sets),
-        bound=bound(4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * 2,
-                    BF16_FLOPS),
+        bound=bound(4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * elem,
+                    BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS),
         exp2=float(b * h * tt * tt))
+    if dtype == torch.float32:
+        row["library_kernels"] = sdpa_kernels(sdpa, sets[0])
+        row["library_max_abs_err"] = max_err(sdpa(q, k, v),
+                                             attention_plain(q, k, v))
+    return row
 
 
 # (t_q, t_k, dh) of K2's ragged check: a query tile of one row, a last key
-# tile of one key (129 = 128 + 1), the test config's dh=32 at T=150 and the
-# encoder's T=1500 at both head widths
+# tile of one key (129 = 128 + 1 in bf16, 2 x 64 + 1 in float32), the test
+# config's dh=32 at T=150 and the encoder's T=1500 at both head widths
 FLASH_CHECKS = ((1, 70, 64), (150, 150, 32), (127, 129, 64), (1499, 1499, 64),
                 (1500, 1500, 32))
 
 
-def flash_check(randn) -> dict:
-    """K2 vs its plain version at FLASH_CHECKS, B=2, H=3.  Checked, not
-    timed."""
+def flash_check(randn, dtype=torch.bfloat16) -> dict:
+    """K2 (the build of ``dtype``) vs its plain version at FLASH_CHECKS,
+    B=2, H=3.  Checked, not timed."""
+    name = "flash_attention" + _build.ATTENTION_DTYPES[dtype]
     errs = {}
     for t_q, t_k, dh in FLASH_CHECKS:
-        q = randn((2, 3, t_q, dh))
-        k, v = randn((2, 3, t_k, dh)), randn((2, 3, t_k, dh))
+        q = randn((2, 3, t_q, dh), dtype)
+        k, v = randn((2, 3, t_k, dh), dtype), randn((2, 3, t_k, dh), dtype)
         errs[f"t_q={t_q} t_k={t_k} dh={dh}"] = compare(
-            "flash_attention", flash_attention(q, k, v),
-            attention_plain(q, k, v))
-    return {"phase": "kernel_check", "name": "flash_attention",
-            "shape": "B=2 H=3 bf16, ragged tiles", "max_abs_err": errs,
-            "tol": TOL["flash_attention"]}
+            name, flash_attention(q, k, v), attention_plain(q, k, v))
+    return {"phase": "kernel_check", "name": name,
+            "shape": f"B=2 H=3 {_dtype_name(dtype)}, ragged tiles",
+            "max_abs_err": errs, "tol": TOL[name]}
 
 
 def int8_matmul_row(randn, m, k, n):
@@ -823,8 +910,9 @@ def _row_line(phase: str, name: str, row: dict) -> str:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "library_ms": row["library_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1]}
-    if "exp2" in row:
-        line["exp2"] = row["exp2"]
+    for key in ("exp2", "library_kernels", "library_max_abs_err"):
+        if key in row:
+            line[key] = row[key]
     line.update(row.get("other_bounds", {}))
     return json.dumps(line)
 
@@ -848,23 +936,26 @@ def phase_rows(dev, main: dict, names) -> None:
     randn = seeded_randn(dev, 1234)
     b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
     for name in names:
+        # K2-K4's float32 builds are the names with "_f32"
+        dtype = torch.float32 if name.endswith("_f32") else torch.bfloat16
+        base = name.removesuffix("_f32")
         if name == "mel":
             rows = [mel_row(randn, dev)] + mel_diarize_rows(randn, dev)
         elif name == "int8_matmul":
             row, extra = int8_matmul_rows(randn, main)
             rows = [row] + extra
-        elif name == "decode_self_attention":
-            row, extra = self_attention_rows(randn, dev, main)
-            rows = [row] + extra
-        elif name == "decode_cross_attention":
-            rows = [cross_attention_row(randn, dev, bb, h, dh, ta)
-                    for bb in (b, 16)]
         elif name == "decode_cross_attention_int8":
             row, extra = cross_int8_rows(randn, dev, main)
             rows = [row] + extra
-        elif name == "flash_attention":
-            log(json.dumps(flash_check(randn)))
-            rows = [flash_row(randn, 4, 20, 1500, 64)]
+        elif base == "decode_self_attention":
+            row, extra = self_attention_rows(randn, dev, main, dtype)
+            rows = [row] + extra
+        elif base == "decode_cross_attention":
+            rows = [cross_attention_row(randn, dev, bb, h, dh, ta, dtype)
+                    for bb in ((b, 16) if base == name else (b,))]
+        elif base == "flash_attention":
+            log(json.dumps(flash_check(randn, dtype)))
+            rows = [flash_row(randn, 4, 20, 1500, 64, dtype)]
         else:
             raise SystemExit(f"--rows: no rows for {name!r}")
         for row in rows:
@@ -894,6 +985,15 @@ def phase_kernels(dev, main: dict) -> dict:
     rows["decode_cross_attention_int8"], k5_extra = cross_int8_rows(
         randn, dev, main)
     rows["int8_matmul"], k6_extra = int8_matmul_rows(randn, main)
+    # the float32 builds of K2-K4 (compute_type float32) at the same shapes
+    # and checks
+    f32 = torch.float32
+    log(json.dumps(flash_check(randn, f32)))
+    rows["flash_attention_f32"] = flash_row(randn, 4, 20, 1500, 64, f32)
+    rows["decode_self_attention_f32"], _ = self_attention_rows(randn, dev,
+                                                               main, f32)
+    rows["decode_cross_attention_f32"] = cross_attention_row(
+        randn, dev, b, h, dh, ta, f32)
     extra = [("decode_self_attention", row) for row in k3_extra]
     extra += [("decode_cross_attention", cross_attention_row(
         randn, dev, 16, h, dh, ta))]
@@ -983,18 +1083,20 @@ def _to(tree, d):
     return tree.to(d)
 
 
-def phase_tiny(dev, int8: bool) -> None:
-    """The test config in bf16 (``int8``: int8 weights and int8 cross K/V
-    on bf16 activations) on the card vs the CPU, then faults run on the
-    card: each must exceed its tolerance, so the tolerances are shown to
-    catch them.  bf16: a dropped encoder layer, a dropped decoder layer,
-    half the cross length in the decode steps; int8: the last encoder
-    block's weight scales reversed, the last decoder layer's cross-K/V
-    scales dropped, or swapped between K and V."""
+def phase_tiny(dev, int8: bool, dtype=torch.bfloat16) -> None:
+    """The test config in ``dtype`` (bf16 or float32; ``int8``: int8
+    weights and int8 cross K/V on bf16 activations) on the card vs the CPU,
+    then faults run on the card: each must exceed its tolerance, so the
+    tolerances are shown to catch them.  bf16 and float32: a dropped
+    encoder layer, a dropped decoder layer, half the cross length in the
+    decode steps; int8: the last encoder block's weight scales reversed,
+    the last decoder layer's cross-K/V scales dropped, or swapped between K
+    and V.  float32 also counts the card's launches: the float32 builds of
+    K2-K4 only."""
     from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
                                                          init_params)
     from manual_whisper_tpu_torch.ops.quant import quantize_params
-    cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
+    cfg = MODEL_CONFIGS["test"].with_dtype(dtype)
     cpu = torch.device("cpu")
     params_cpu = init_params(cfg, cpu, seed=7)
     if int8:
@@ -1010,7 +1112,9 @@ def phase_tiny(dev, int8: bool) -> None:
                              int8_cross_kv=int8, **kw)
 
     enc_ref, logits_ref = run(params_cpu, cpu)
+    _build.launches.clear()
     enc, logits = run(params_gpu, dev)
+    launches = dict(_build.launches)
     for t in (enc, logits):
         if not torch.isfinite(t).all():
             raise AssertionError("tiny config: non-finite output on the card")
@@ -1035,11 +1139,12 @@ def phase_tiny(dev, int8: bool) -> None:
         caught = {"encoder_layer_dropped": "encoder",
                   "decoder_layer_dropped": "logits",
                   "cross_len_halved": "logits"}
-    suffix = "_int8" if int8 else ""
+    suffix = "_int8" if int8 else _build.ATTENTION_DTYPES[dtype]
     fault_errs = {name: {"encoder_max_abs_err": max_err(out[0], enc_ref),
                          "logits_max_abs_err": max_err(out[1], logits_ref)}
                   for name, out in faults.items()}
     log(json.dumps({"phase": "tiny_test_config" + suffix,
+                    "launches": launches,
                     "encoder_max_abs_err": max_err(enc, enc_ref),
                     "encoder_tol": TOL["encoder" + suffix],
                     "encoder_std": float(enc_ref.std()),
@@ -1054,6 +1159,14 @@ def phase_tiny(dev, int8: bool) -> None:
             raise AssertionError(f"tiny config: the {what} tolerance does "
                                  f"not catch the fault {name}: "
                                  f"{fault_errs[name]}")
+    if dtype == torch.float32:
+        # one encoder pass (2 layers), three decode steps (2 layers each)
+        expected = {"mel": 1, "flash_attention_f32": cfg.n_audio_layer,
+                    "decode_self_attention_f32": 3 * cfg.n_text_layer,
+                    "decode_cross_attention_f32": 3 * cfg.n_text_layer}
+        if launches != expected:
+            raise AssertionError(f"tiny config float32: launches "
+                                 f"{launches}, expected {expected}")
 
 
 SYNTH_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1096,20 +1209,23 @@ def _decoded_rows():
         dec_mod.BatchDecoder.decode_finalize = real
 
 
-def phase_tiny_synth(dev) -> None:
+def phase_tiny_synth(dev, dtype=torch.bfloat16) -> None:
     """``.synth_ckpt``, the test config trained on synthetic speech (the
     JAX package's orbax tree), read by ``from_hf.load_params``, crossed by
     ``convert.from_jax_tree`` (inside ``load_model``) and run on the card
-    and on the CPU, both bf16, on the synthetic test file (3 utterances,
-    seed 123, language en): the prefill-plus-three-steps forward over its
-    first two windows (encoder within TOL["encoder"], logits within
-    TOL["logits_synth"]; a dropped encoder layer and a dropped decoder
+    and on the CPU, both in ``dtype`` (bf16 or float32; the CPU side is the
+    port's own path), on the synthetic test file (3 utterances, seed 123,
+    language en): the prefill-plus-three-steps forward over its first two
+    windows (bf16: encoder within TOL["encoder"], logits within
+    TOL["logits_synth"]; float32: TOL["encoder_f32"] and
+    TOL["logits_synth_f32"]; a dropped encoder layer and a dropped decoder
     layer must exceed them), then ``transcribe`` at batch 4 with the gates
     off: segments and each decoded row's tokens compared (rows that differ
-    printed), the rows that ended on EOT before ``max_new_tokens`` printed
-    (at least one on the card: the trained model emits EOT), word error
-    against the file's words, and the card's launches of K1-K4 counted over
-    the call.  float32 does not run on the card: K2-K4 take bf16 only."""
+    printed; in float32 they must be equal, and so must the segments), the
+    rows that ended on EOT before ``max_new_tokens`` printed (at least one
+    on the card: the trained model emits EOT), word error against the
+    file's words, and the card's launches counted over the call: K1-K4 of
+    the dtype's builds, and none of the other's."""
     from manual_whisper_tpu_torch.convert import from_jax_tree
     from manual_whisper_tpu_torch.eval.metrics import wer
     from manual_whisper_tpu_torch.from_hf import load_params
@@ -1123,7 +1239,11 @@ def phase_tiny_synth(dev) -> None:
     read_ms = 1e3 * (time.perf_counter() - t0)
     if tree is None:
         raise AssertionError(f"tiny synth: no checkpoint at {SYNTH_CKPT}")
-    cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
+    cfg = MODEL_CONFIGS["test"].with_dtype(dtype)
+    f32 = dtype == torch.float32
+    tol_enc, tol_logits = (("encoder_f32", "logits_synth_f32") if f32
+                           else ("encoder", "logits_synth"))
+    kernels = F32_KERNELS if f32 else BF16_KERNELS
     audio, truth = synthetic_test_file()
     n = cfg.n_audio_ctx * 2 * 160
     windows = np.zeros((2, n), np.float32)
@@ -1142,7 +1262,8 @@ def phase_tiny_synth(dev) -> None:
 
     runs = {}
     for name, d in (("cpu", cpu), ("card", dev)):
-        model = load_model(tree, device=d, compute_type="bfloat16",
+        model = load_model(tree, device=d,
+                           compute_type="float32" if f32 else "bfloat16",
                            cfg=MODEL_CONFIGS["test"], asr_options=SYNTH_OPTS,
                            language="en")
         if d.type == "cuda":
@@ -1171,12 +1292,12 @@ def phase_tiny_synth(dev) -> None:
     eot = {k: [i for i, r in enumerate(v["rows"]) if r[1]]
            for k, v in runs.items()}
     log(json.dumps({
-        "phase": "tiny_synth_ckpt", "read_ms": read_ms,
-        "audio_s": len(audio) / 16000.0,
+        "phase": "tiny_synth_ckpt" + ("_f32" if f32 else ""),
+        "read_ms": read_ms, "audio_s": len(audio) / 16000.0,
         "encoder_max_abs_err": max_err(enc, enc_ref),
-        "encoder_tol": TOL["encoder"],
+        "encoder_tol": TOL[tol_enc],
         "logits_max_abs_err": max_err(logits, logits_ref),
-        "logits_tol": TOL["logits_synth"],
+        "logits_tol": TOL[tol_logits],
         "logits_std": float(logits_ref.std()), "faults": fault_errs,
         "rows": len(card["rows"]), "rows_cpu": len(host["rows"]),
         "rows_differ": differ,
@@ -1187,18 +1308,22 @@ def phase_tiny_synth(dev) -> None:
         "wer_card": card["wer"], "wer_cpu": host["wer"],
         "launches": card["launches"], "stats": card["stats"],
         "transcribe_s": {k: v["wall_s"] for k, v in runs.items()}}))
-    compare("encoder", enc, enc_ref)
-    compare("logits_synth", logits, logits_ref)
+    compare(tol_enc, enc, enc_ref)
+    compare(tol_logits, logits, logits_ref)
     for name, err in fault_errs.items():
-        if err <= TOL["logits_synth"][0]:
+        if err <= TOL[tol_logits][0]:
             raise AssertionError(f"tiny synth: the logits tolerance does not "
                                  f"catch the fault {name}: {err}")
     if not eot["card"]:
         raise AssertionError("tiny synth: no row ended on EOT on the card")
-    missing = [k for k in BF16_KERNELS if not card["launches"].get(k)]
-    if missing:
-        raise AssertionError(f"tiny synth: no launch of {missing} on the "
-                             f"card: {card['launches']}")
+    missing = [k for k in kernels if not card["launches"].get(k)]
+    if missing or set(card["launches"]) != set(kernels):
+        raise AssertionError(f"tiny synth: launches {card['launches']}, "
+                             f"expected each of {kernels} and no other")
+    if f32 and (differ or card["segments"] != host["segments"]
+                or len(card["rows"]) != len(host["rows"])):
+        raise AssertionError("tiny synth float32: the card's rows or "
+                             "segments differ from the CPU's")
 
 
 # ---------------------------------------------------------------------------
@@ -1373,18 +1498,20 @@ def expected_launches(cfg, stats: dict, int8: bool) -> dict:
     once per decoder layer, per beam step neither; K6 for every block
     matmul: 6 per encoder layer per batch, per decoder layer 2 (cross K/V)
     + 8 (prefill) per decode loop of any kind and 8 per step of any kind
-    (a beam step's at M = rows x beams)."""
+    (a beam step's at M = rows x beams).  K2-K4 are the builds of
+    ``cfg.dtype`` (bf16, or float32: the names with ``_f32``)."""
     le, ld = cfg.n_audio_layer, cfg.n_text_layer
     batches, calls = stats["batches"], stats["decode_calls"]
     steps = stats["decode_steps"]
-    exp = {"mel": batches, "flash_attention": le * batches,
-           "decode_self_attention": ld * steps}
+    suffix = _build.ATTENTION_DTYPES[cfg.dtype]
+    exp = {"mel": batches, "flash_attention" + suffix: le * batches,
+           "decode_self_attention" + suffix: ld * steps}
     if int8:
         exp["decode_cross_attention_int8"] = ld * steps
         exp["int8_matmul"] = 6 * le * batches + 10 * ld * calls \
             + 8 * ld * (steps + stats.get("beam_steps", 0))
     else:
-        exp["decode_cross_attention"] = ld * steps
+        exp["decode_cross_attention" + suffix] = ld * steps
     return exp
 
 
@@ -3692,13 +3819,15 @@ def main() -> int:
                     help="only build, check and time these kernels' rows "
                          "(mel, flash_attention, decode_self_attention, "
                          "decode_cross_attention, "
-                         "decode_cross_attention_int8, int8_matmul), then "
-                         "stop without a result line")
+                         "decode_cross_attention_int8, int8_matmul, "
+                         "flash_attention_f32, decode_self_attention_f32, "
+                         "decode_cross_attention_f32), then stop without a "
+                         "result line")
     ap.add_argument("--phases", default="", metavar="PHASE[,PHASE]",
                     help="only build the kernels and run these phases of "
                          "stage 6 (checkpoint, align, diarize, cli, train, "
-                         "mesh, fetch, launch), then stop without a result "
-                         "line")
+                         "mesh, fetch, launch) or float32 (phases 3-5's "
+                         "float32 parts), then stop without a result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3728,16 +3857,46 @@ def main() -> int:
               "mesh": lambda: phase_mesh(dev, work),
               "fetch": lambda: phase_fetch(dev),
               "launch": lambda: phase_launch(dev, work)}
+    # run alone only: the whole script runs these parts in phases 3 and 4
+    alone = {"float32": lambda: phase_float32(dev)}
     import tempfile
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
         registry = make_registry(os.path.join(work, "registry"), resnet=True)
         if args.phases:
             for name in args.phases.split(","):
-                if name not in stages:
+                if name not in stages and name not in alone:
                     raise SystemExit(f"--phases: no phase {name!r}")
-                timed(name, stages[name])
+                timed(name, {**stages, **alone}[name])
             return 0
         return run_all(args, dev, card, stages, work, registry)
+
+
+def phase_model(model, load_s: float, compute_type: str,
+                main_shapes: dict) -> dict:
+    """Phases 4 and 5 of one large-v3 model: the main path, graph vs
+    eager and the profile, then (not in float32) beam and timestamps.
+    Returns the main path's launches."""
+    found = timed(f"main {compute_type}", phase_main, model, load_s,
+                  compute_type)
+    timed(f"graph vs eager {compute_type}", phase_graph_vs_eager, model,
+          compute_type)
+    timed(f"profile {compute_type}", phase_profile, model, main_shapes,
+          compute_type)
+    if compute_type != "float32":
+        timed(f"beam {compute_type}", phase_beam, model, compute_type)
+        timed(f"timestamps {compute_type}", phase_timestamps, model,
+              compute_type)
+    return found
+
+
+def phase_float32(dev) -> None:
+    """``--phases float32``: the float32 parts of phases 3-5 alone (the
+    tiny config and ``.synth_ckpt`` card vs CPU, then large-v3's main
+    path, graph vs eager and profile)."""
+    timed("tiny f32", phase_tiny, dev, False, torch.float32)
+    timed("tiny synth f32", phase_tiny_synth, dev, torch.float32)
+    model, load_s = load_main_model("float32", False)
+    phase_model(model, load_s, "float32", main_path_shapes(model))
 
 
 def run_all(args, dev, card, stages, work, registry) -> int:
@@ -3752,24 +3911,20 @@ def run_all(args, dev, card, stages, work, registry) -> int:
     timed("tiny bf16", phase_tiny, dev, False)
     timed("tiny int8", phase_tiny, dev, True)
     timed("tiny synth", phase_tiny_synth, dev)
+    timed("tiny f32", phase_tiny, dev, False, torch.float32)
+    timed("tiny synth f32", phase_tiny_synth, dev, torch.float32)
     timed("vad", phase_vad, dev)
     launches = {}
     for compute_type, kernels in (("bfloat16", BF16_KERNELS),
-                                  ("int8", INT8_KERNELS)):
-        if compute_type == "int8":     # one model on the card at a time
+                                  ("int8", INT8_KERNELS),
+                                  ("float32", F32_KERNELS)):
+        if compute_type != "bfloat16":  # one model on the card at a time
             del model
             torch.cuda.empty_cache()
-            model, load_s = load_main_model("int8", True)
-        found = timed(f"main {compute_type}", phase_main, model, load_s,
-                      compute_type)
+            model, load_s = load_main_model(compute_type,
+                                            compute_type == "int8")
+        found = phase_model(model, load_s, compute_type, main_shapes)
         launches.update({k: found[k] for k in kernels if k not in launches})
-        timed(f"graph vs eager {compute_type}", phase_graph_vs_eager, model,
-              compute_type)
-        timed(f"profile {compute_type}", phase_profile, model, main_shapes,
-              compute_type)
-        timed(f"beam {compute_type}", phase_beam, model, compute_type)
-        timed(f"timestamps {compute_type}", phase_timestamps, model,
-              compute_type)
     del model                          # the stages load their own
     torch.cuda.empty_cache()
     for name, run in stages.items():

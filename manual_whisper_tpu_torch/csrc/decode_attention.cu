@@ -5,9 +5,12 @@
 //   K4 `_cross_bf16_kernel` / `decode_cross_attention` (cross K/V, < kv_len)
 // which share `_attend_all_heads`.  Both compute
 //   out[bh] = softmax(q[bh] . k[bh, t] / sqrt(dh), t < n) @ v[bh, t]
-// with q [B*H, dh], k/v [B*H, T, dh] bf16 (the port's cache layout: the
-// TPU's transposed [.., dh, T] layout existed only for its 128-lane tiles),
-// float32 scores, softmax and sums, bf16 output.
+// with q [B*H, dh], k/v [B*H, T, dh] and the output all bf16 or all
+// float32 (the port's cache layout: the TPU's transposed [.., dh, T] layout
+// existed only for its 128-lane tiles), float32 scores, softmax and sums
+// either way.  The JAX kernels take any dtype and write the output's; the
+// port builds `split_kernel` for the two it runs (`compute_type` bfloat16
+// and float32), with their own entry points.
 //
 // n, the number of valid positions, is read on the device from an int32
 // (`*len_ptr + len_offset`: pos + 1 for the self cache, kv_len for cross
@@ -15,7 +18,8 @@
 // later be captured in a CUDA graph.  Only positions < n are read.
 //
 // Bound on the H100: about one operation per byte (2*n*dh bf16 values read
-// for 4*n*dh operations), so it is bound by device memory bandwidth.
+// for 4*n*dh operations; half that in float32), so it is bound by device
+// memory bandwidth.
 //
 // K3 and K4 share one kernel, `split_kernel`.  One block per (batch, head)
 // walking its keys three times (scores into shared memory, softmax, V),
@@ -23,7 +27,8 @@
 // bound: the serial walk, not the bytes, set their time.  So the key axis
 // is split over the blocks of a thread-block cluster.  A block makes one
 // pass over its slice (derived from n on the device; the last ranks' may
-// be empty): dh/8 lanes share a key, K and V of KEYS keys per lane group
+// be empty): dh/8 lanes share a key (dh/4 in float32: a lane always loads
+// 16 bytes of a row), K and V of KEYS keys per lane group
 // are loaded before any is used, and an online softmax (running max, sum
 // and weighted V in registers, base-2 exponentials with log2(e) folded
 // into q) needs no score buffer.  The lane groups of a block meet in
@@ -94,6 +99,25 @@ __device__ inline void unpack8(const uint4& u, float* f) {
 __device__ inline float to_float(float x) { return x; }
 __device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
 
+// The element types of K3/K4: values in one 16-byte load, widened to float32
+// (`load`), and a float32 result rounded to the element (`store`).
+template <typename T> struct Elem;
+template <> struct Elem<bf16> {
+  static constexpr int kVec = 8;
+  __device__ static void load(const uint4& u, float* f) { unpack8(u, f); }
+  __device__ static bf16 store(float x) { return __float2bfloat16(x); }
+};
+template <> struct Elem<float> {
+  static constexpr int kVec = 4;
+  __device__ static void load(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static float store(float x) { return x; }
+};
+
 // ---- K3 and K4: the key axis split over a cluster ------------------------
 
 // A launch shape of the split kernel: blocks per (batch, head) (the
@@ -117,19 +141,23 @@ using CrossCfg = SplitCfg<8, 8, 128, false>;
 using SelfCfg = SplitCfg<4, 4, 256, true>;
 using SelfWideCfg = SplitCfg<2, 4, 256, true>;
 
-template <int DH, typename C>
+template <int DH, typename C, typename T = bf16>
 __global__ void __launch_bounds__(C::THREADS)
-split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out,
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ out,
              const int* __restrict__ len_ptr, int len_offset, int t_max,
              float scale_log2e) {
+  using E = Elem<T>;
+  constexpr int kVec = E::kVec;                    // values per 16-byte load
   constexpr int kSplit = C::SPLIT;
   constexpr int kKeys = C::KEYS;
   constexpr int kBlock = C::THREADS;
-  constexpr int lanes_per_key = DH / 8;            // 16-byte chunks per row
+  constexpr int lanes_per_key = DH / kVec;         // 16-byte chunks per row
   constexpr int groups = kBlock / lanes_per_key;   // keys per pass and block
   constexpr int dims_per_rank = DH / kSplit;
   static_assert(kBlock >= DH && dims_per_rank >= 1, "combine needs DH lanes");
+  static_assert(lanes_per_key <= 32 && kBlock % lanes_per_key == 0,
+                "a key's lanes lie in one warp");
   __shared__ float part_m[groups];
   __shared__ float part_l[groups];
   __shared__ float part_o[groups][DH];
@@ -154,22 +182,23 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int per = (n + kSplit - 1) / kSplit;
   const int k0 = min(n, rank * per);               // this block's slice; the
   const int k1 = min(n, k0 + per);                 // last ranks' may be empty
-  const bf16* kb = k + (size_t)bh * t_max * DH;
-  const bf16* vb = v + (size_t)bh * t_max * DH;
+  const T* kb = k + (size_t)bh * t_max * DH;
+  const T* vb = v + (size_t)bh * t_max * DH;
   const int tid = threadIdx.x;
   const int sub = tid % lanes_per_key;
   const int g = tid / lanes_per_key;
 
-  float qf[8];
-  unpack8(*reinterpret_cast<const uint4*>(q + (size_t)bh * DH + sub * 8), qf);
+  float qf[kVec];
+  E::load(*reinterpret_cast<const uint4*>(q + (size_t)bh * DH + sub * kVec),
+          qf);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) qf[i] *= scale_log2e;
+  for (int i = 0; i < kVec; ++i) qf[i] *= scale_log2e;
 
   // running max, sum and weighted V of this lane group's keys (the lanes of
-  // a group hold the same m and l and 8 dims of o each); scores in base 2
-  float m = -3.0e38f, l = 0.f, o[8];
+  // a group hold the same m and l and kVec dims of o each); scores in base 2
+  float m = -3.0e38f, l = 0.f, o[kVec];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+  for (int i = 0; i < kVec; ++i) o[i] = 0.f;
 
   // every thread runs the same trip count (the shuffles need whole warps);
   // keys past the slice are masked
@@ -181,20 +210,20 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (t < k1) {
         kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)t * DH
-                                                     + sub * 8));
+                                                     + sub * kVec));
         vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * DH
-                                                     + sub * 8));
+                                                     + sub * kVec));
       }
     }
     float sc[kKeys];
     float mx = m;
 #pragma unroll
     for (int u = 0; u < kKeys; ++u) {
-      float kf[8];
-      unpack8(kr[u], kf);
+      float kf[kVec];
+      E::load(kr[u], kf);
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
+      for (int i = 0; i < kVec; ++i) dot = fmaf(qf[i], kf[i], dot);
 #pragma unroll
       for (int w = lanes_per_key / 2; w > 0; w >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, w);
@@ -204,16 +233,16 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float corr = exp2f(m - mx);
     l *= corr;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] *= corr;
+    for (int i = 0; i < kVec; ++i) o[i] *= corr;
 #pragma unroll
     for (int u = 0; u < kKeys; ++u) {
       const float p =
           base + u * groups + g < k1 ? exp2f(sc[u] - mx) : 0.f;
-      float vf[8];
-      unpack8(vr[u], vf);
+      float vf[kVec];
+      E::load(vr[u], vf);
       l += p;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = fmaf(p, vf[i], o[i]);
+      for (int i = 0; i < kVec; ++i) o[i] = fmaf(p, vf[i], o[i]);
     }
     m = mx;
   }
@@ -224,7 +253,7 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     part_l[g] = l;
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];
+  for (int i = 0; i < kVec; ++i) part_o[g][sub * kVec + i] = o[i];
   __syncthreads();
   float bm = -3.0e38f, bl = 0.f, bo = 0.f;
   if (tid < DH) {
@@ -266,8 +295,7 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         den += inbox_ml[b][1] * w;
         num += inbox_o[b][tid] * w;
       }
-      out[(size_t)bh * DH + rank * dims_per_rank + tid] =
-          __float2bfloat16(num / den);
+      out[(size_t)bh * DH + rank * dims_per_rank + tid] = E::store(num / den);
     }
     return;
   }
@@ -295,13 +323,13 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       den += ml[1] * w;
       num += cluster.map_shared_rank(block_o, b)[d] * w;
     }
-    out[(size_t)bh * DH + d] = __float2bfloat16(num / den);
+    out[(size_t)bh * DH + d] = E::store(num / den);
   }
   cluster.sync();  // keep this block's shared memory until all have read it
 }
 
 // The cluster size is a launch attribute, so one kernel serves every split.
-template <int DH, typename C>
+template <int DH, typename C, typename T = bf16>
 int launch_split(const void* q, const void* k, const void* v, void* out,
                  const void* len_ptr, int len_offset, int bh, int t_max,
                  cudaStream_t stream) {
@@ -317,8 +345,8 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, split_kernel<DH, C>, (const bf16*)q, (const bf16*)k,
-      (const bf16*)v, (bf16*)out, (const int*)len_ptr, len_offset, t_max,
+      &cfg, split_kernel<DH, C, T>, (const T*)q, (const T*)k, (const T*)v,
+      (T*)out, (const int*)len_ptr, len_offset, t_max,
       1.4426950408889634f / sqrtf((float)DH));
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
@@ -498,6 +526,50 @@ int launch_int8(const void* q, const void* kq, const void* ks, const void* vq,
   return (int)cudaGetLastError();
 }
 
+// K3 and K4 of element type T: the launch shape by head_dim and, for K3,
+// by batch x heads.
+template <typename T>
+int self_attention(const void* q, const void* k, const void* v, void* out,
+                   const void* len_ptr, int len_offset, int bh, int t_max,
+                   int head_dim, void* stream) {
+  if (bh <= 0) return 0;
+  if (t_max <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // the launch shape follows batch x heads, never n
+  const bool wide = bh > sm_count();
+  switch (head_dim) {
+    case 64:
+      return wide ? launch_split<64, SelfWideCfg, T>(q, k, v, out, len_ptr,
+                                                     len_offset, bh, t_max, s)
+                  : launch_split<64, SelfCfg, T>(q, k, v, out, len_ptr,
+                                                 len_offset, bh, t_max, s);
+    case 32:
+      return wide ? launch_split<32, SelfWideCfg, T>(q, k, v, out, len_ptr,
+                                                     len_offset, bh, t_max, s)
+                  : launch_split<32, SelfCfg, T>(q, k, v, out, len_ptr,
+                                                 len_offset, bh, t_max, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int cross_attention(const void* q, const void* k, const void* v, void* out,
+                    const void* len_ptr, int bh, int t_max, int head_dim,
+                    void* stream) {
+  if (bh <= 0) return 0;
+  if (t_max <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64:
+      return launch_split<64, CrossCfg, T>(q, k, v, out, len_ptr, 0, bh,
+                                           t_max, s);
+    case 32:
+      return launch_split<32, CrossCfg, T>(q, k, v, out, len_ptr, 0, bh,
+                                           t_max, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q [bh, dh] bf16, k_q/v_q [bh, t_max, dh] int8, k_s/v_s [bh, t_max]
@@ -528,32 +600,26 @@ extern "C" int mwx_decode_attention_int8(const void* q, const void* kq,
   return (int)cudaErrorInvalidValue;
 }
 
-// q [bh, dh], k/v [bh, t_max, dh], out [bh, dh], bf16 contiguous; len_ptr
-// is one int32 on the device: n = *len_ptr + len_offset valid positions
-// (n outside 1..t_max means all t_max).  dh is 32 or 64.
+// K3.  q [bh, dh], k/v [bh, t_max, dh], out [bh, dh], bf16 contiguous;
+// len_ptr is one int32 on the device: n = *len_ptr + len_offset valid
+// positions (n outside 1..t_max means all t_max).  dh is 32 or 64.
 extern "C" int mwx_decode_attention(const void* q, const void* k,
                                     const void* v, void* out,
                                     const void* len_ptr, int len_offset,
                                     int bh, int t_max, int head_dim,
                                     void* stream) {
-  if (bh <= 0) return 0;
-  if (t_max <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  // the launch shape follows batch x heads, never n
-  const bool wide = bh > sm_count();
-  switch (head_dim) {
-    case 64:
-      return wide ? launch_split<64, SelfWideCfg>(q, k, v, out, len_ptr,
-                                                  len_offset, bh, t_max, s)
-                  : launch_split<64, SelfCfg>(q, k, v, out, len_ptr,
-                                              len_offset, bh, t_max, s);
-    case 32:
-      return wide ? launch_split<32, SelfWideCfg>(q, k, v, out, len_ptr,
-                                                  len_offset, bh, t_max, s)
-                  : launch_split<32, SelfCfg>(q, k, v, out, len_ptr,
-                                              len_offset, bh, t_max, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return self_attention<bf16>(q, k, v, out, len_ptr, len_offset, bh, t_max,
+                              head_dim, stream);
+}
+
+// K3 in float32: the same arguments, q, k, v and out float32.
+extern "C" int mwx_decode_attention_f32(const void* q, const void* k,
+                                        const void* v, void* out,
+                                        const void* len_ptr, int len_offset,
+                                        int bh, int t_max, int head_dim,
+                                        void* stream) {
+  return self_attention<float>(q, k, v, out, len_ptr, len_offset, bh, t_max,
+                               head_dim, stream);
 }
 
 // K4.  q [bh, dh], k/v [bh, t_max, dh], out [bh, dh], bf16 contiguous;
@@ -564,16 +630,16 @@ extern "C" int mwx_decode_cross_attention(const void* q, const void* k,
                                           const void* len_ptr, int bh,
                                           int t_max, int head_dim,
                                           void* stream) {
-  if (bh <= 0) return 0;
-  if (t_max <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (head_dim) {
-    case 64:
-      return launch_split<64, CrossCfg>(q, k, v, out, len_ptr, 0, bh, t_max,
-                                        s);
-    case 32:
-      return launch_split<32, CrossCfg>(q, k, v, out, len_ptr, 0, bh, t_max,
-                                        s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return cross_attention<bf16>(q, k, v, out, len_ptr, bh, t_max, head_dim,
+                               stream);
+}
+
+// K4 in float32: the same arguments, q, k, v and out float32.
+extern "C" int mwx_decode_cross_attention_f32(const void* q, const void* k,
+                                              const void* v, void* out,
+                                              const void* len_ptr, int bh,
+                                              int t_max, int head_dim,
+                                              void* stream) {
+  return cross_attention<float>(q, k, v, out, len_ptr, bh, t_max, head_dim,
+                                stream);
 }

@@ -2,7 +2,9 @@
 //
 // Replaces `_flash_kernel` / `flash_attention` of
 // manual_whisper_tpu/ops/attention.py: out = softmax(q k^T / sqrt(dh)) v on
-// [B*H, T, dh] bf16 tensors, with the online-softmax recurrence so the
+// [B*H, T, dh] tensors, bf16 here (`mwx_flash_attention`) and float32 in
+// `flash_f32_kernel` further down (`mwx_flash_attention_f32`; its own
+// design notes), with the online-softmax recurrence so the
 // [T, T] score matrix never reaches device memory.  Running max, running
 // sum and the output accumulator are float32; P enters the second product
 // as bf16.
@@ -472,10 +474,234 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   return (int)cudaGetLastError();
 }
 
+// ---- K2 in float32: FFMA on register tiles -------------------------------
+//
+// compute_type="float32" runs the encoder in float32, and the JAX kernel then
+// computes in float32 throughout (it casts to f32 inside and writes the
+// output's dtype).  The bf16 kernel above cannot take it: its TMA maps,
+// `wgmma` products and register layouts are bf16.  TF32 `wgmma` would keep
+// about three decimal digits, which is not what the float32 reference
+// computes, so this kernel multiplies in full float32 on the FMA pipes.
+//
+// Bound on the H100: the same 4*B*H*T^2*dh operations at the 67 TFLOP/s of
+// the FMA pipes (0.69 ms at B=4, H=20, T=1500, dh=64), about 20x the bytes'
+// time, so it is bound by operations.  Every product has to come from
+// registers at a few operations per shared-memory load:
+//
+// - A block owns 64 query rows of one (batch, head); 256 threads as 16 x 16,
+//   thread (ty, tx) owns rows 4 ty .. 4 ty + 3, of S the keys tx + 16 j
+//   (j < 4) and of O the dims [tx * DH/16, (tx + 1) * DH/16).
+// - Q (scaled by log2(e)/sqrt(dh) as it is stored, so the softmax is base
+//   2), K and V of 64 keys a step sit in shared memory with rows padded to
+//   DH + 4 floats: a quarter warp's 16-byte loads along a row then fall in 8
+//   different bank groups.  S is 4 x 4 scores a thread, built from 16-byte
+//   loads of 4 Q rows and 4 K rows: 64 FMAs for 8 loads.
+// - The online softmax runs on those registers: a row's max is 4 shuffles
+//   across the 16 lanes of its tx, the row sum stays per thread until the
+//   end.  P goes to shared memory (rows padded to 68) and O += P V takes 4 P
+//   rows and 4 V rows a step of 4 keys, again 64 FMAs for 8 loads.
+// - Keys past t_k are zeros in K and V and -3e38 in S (each tile holds at
+//   least one valid key), rows past t_q are zeros and are not written.
+constexpr int kF32Rows = 64;          // query rows per block
+constexpr int kF32Keys = 64;          // keys per step
+constexpr int kF32Threads = 256;      // 16 x 16
+
+template <int DH>
+struct F32Smem {
+  static_assert(DH == 32 || DH == 64, "head dim 32 or 64");
+  static constexpr int ld = DH + 4;           // Q, K, V row stride (floats)
+  static constexpr int ldp = kF32Keys + 4;    // P row stride
+  static constexpr int k_off = kF32Rows * ld;
+  static constexpr int v_off = k_off + kF32Keys * ld;
+  static constexpr int p_off = v_off + kF32Keys * ld;
+  static constexpr int bytes = (p_off + kF32Rows * ldp) * 4;
+};
+
+// Rows [r0, r0 + 64) of a [rows, DH] float32 matrix into a tile of row
+// stride ld, times `scale`; rows at or past `rows` are zeros.
+template <int DH, int LD>
+__device__ __forceinline__ void load_tile_f32(float* tile,
+                                              const float* __restrict__ src,
+                                              int r0, int rows, float scale) {
+  constexpr int chunks = DH / 4;               // 16-byte chunks of a row
+  static_assert(64 * chunks % kF32Threads == 0, "whole passes");
+#pragma unroll
+  for (int it = 0; it < 64 * chunks / kF32Threads; ++it) {
+    const int i = threadIdx.x + it * kF32Threads;
+    const int r = i / chunks, c = i % chunks;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < rows) {
+      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * DH)
+                + c);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(tile + r * LD + c * 4) = x;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 int t_q, int t_k, float c) {
+  using L = F32Smem<DH>;
+  constexpr int kOD = DH / 16;                 // O dims a thread
+  extern __shared__ float4 smem_f32[];
+  float* sq = reinterpret_cast<float*>(smem_f32);
+  float* sk = sq + L::k_off;
+  float* sv = sq + L::v_off;
+  float* sp = sq + L::p_off;
+  const int q0 = blockIdx.x * kF32Rows;
+  const size_t bh = blockIdx.y;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* kb = k + bh * t_k * DH;
+  const float* vb = v + bh * t_k * DH;
+
+  load_tile_f32<DH, L::ld>(sq, q + bh * t_q * DH, q0, t_q, c);
+
+  float m[4], l[4], o[4][kOD];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -3.0e38f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kOD; ++d) o[i][d] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < t_k; k0 += kF32Keys) {
+    __syncthreads();   // the last step's K, V and P are read
+    load_tile_f32<DH, L::ld>(sk, kb, k0, t_k, 1.f);
+    load_tile_f32<DH, L::ld>(sv, vb, k0, t_k, 1.f);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(sq + (4 * ty + i) * L::ld + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(sk + (tx + 16 * j) * L::ld + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+    }
+
+    // online softmax over this step's keys (base 2; the scale is in Q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= t_k) s[i][j] = -3.0e38f;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float corr = exp2f(m[i] - mx);
+      m[i] = mx;
+      l[i] *= corr;
+#pragma unroll
+      for (int d = 0; d < kOD; ++d) o[i][d] *= corr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[i][j] - mx);
+        l[i] += p;
+        sp[(4 * ty + i) * L::ldp + tx + 16 * j] = p;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kF32Keys; j += 4) {
+      float4 p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = *reinterpret_cast<const float4*>(sp + (4 * ty + i) * L::ldp + j);
+      float vr[4][kOD];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) load_f32(sv + (j + u) * L::ld + tx * kOD, vr[u]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int d = 0; d < kOD; ++d) {
+          o[i][d] = fmaf(p[i].x, vr[0][d], o[i][d]);
+          o[i][d] = fmaf(p[i].y, vr[1][d], o[i][d]);
+          o[i][d] = fmaf(p[i].z, vr[2][d], o[i][d]);
+          o[i][d] = fmaf(p[i].w, vr[3][d], o[i][d]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], w);
+    const int r = q0 + 4 * ty + i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / l[i];
+    float* dst = out + (bh * t_q + r) * DH + tx * kOD;
+    if constexpr (kOD == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
+    } else {
+      *reinterpret_cast<float2*>(dst) = make_float2(o[i][0] * inv,
+                                                    o[i][1] * inv);
+    }
+  }
+}
+
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int bh,
+               int t_q, int t_k, cudaStream_t stream) {
+  using L = F32Smem<DH>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((t_q + kF32Rows - 1) / kF32Rows, bh);
+  flash_f32_kernel<DH><<<grid, kF32Threads, L::bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, t_q, t_k,
+      1.4426950408889634f / sqrtf((float)DH));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q [bh, t_q, dh], k/v [bh, t_k, dh], out [bh, t_q, dh], all bf16,
-// contiguous and 16-byte aligned; dh is 32 or 64.
+// K2 in bf16: q [bh, t_q, dh], k/v [bh, t_k, dh], out [bh, t_q, dh], all
+// bf16, contiguous and 16-byte aligned; dh is 32 or 64.
 extern "C" int mwx_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, int bh, int t_q, int t_k,
                                    int head_dim, void* stream) {
@@ -485,6 +711,22 @@ extern "C" int mwx_flash_attention(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64: return launch<64>(q, k, v, out, bh, t_q, t_k, s);
     case 32: return launch<32>(q, k, v, out, bh, t_q, t_k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2 in float32: the same arguments, q, k, v and out float32, contiguous
+// and 16-byte aligned; dh is 32 or 64.
+extern "C" int mwx_flash_attention_f32(const void* q, const void* k,
+                                       const void* v, void* out, int bh,
+                                       int t_q, int t_k, int head_dim,
+                                       void* stream) {
+  if (bh <= 0 || t_q <= 0) return 0;
+  if (t_k <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64: return launch_f32<64>(q, k, v, out, bh, t_q, t_k, s);
+    case 32: return launch_f32<32>(q, k, v, out, bh, t_q, t_k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

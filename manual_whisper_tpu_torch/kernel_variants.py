@@ -93,10 +93,10 @@ def _fixed(c, warps):
 _SELF_PROBES = {
     "no_kv_loads": [
         ("kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)t * DH\n"
-         "                                                     + sub * 8));",
+         "                                                     + sub * kVec));",
          "kr[u] = make_uint4(t, t + 1, t + 2, t + 3);"),
         ("vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * DH\n"
-         "                                                     + sub * 8));",
+         "                                                     + sub * kVec));",
          "vr[u] = make_uint4(t, t, t, t);")],
     "len_from_t_max": [("int n = *len_ptr + len_offset;",
                         "int n = t_max * 3 / 4 + len_offset;")],
@@ -161,7 +161,7 @@ _SELF_MARKS = _marks('#include "hopper.cuh"\n', [
     "<  const int per = (n + kSplit - 1) / kSplit;",
     "<  // the block's lane groups meet in shared memory\n  if (sub == 0) {\n"
     "    part_m[g] = m;\n    part_l[g] = l;\n  }\n#pragma unroll\n"
-    "  for (int i = 0; i < 8; ++i) part_o[g][sub * 8 + i] = o[i];",
+    "  for (int i = 0; i < kVec; ++i) part_o[g][sub * kVec + i] = o[i];",
     "    cluster_wait();   // every rank runs and has set up its barrier",
     "      mbar_wait(smem_u32(&inbox_full), 0);",
     "<    return;\n  }\n  if (tid < DH) {\n    block_o[tid] = bo;"])

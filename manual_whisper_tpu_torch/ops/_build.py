@@ -58,15 +58,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "mwx_log_mel_tile": [_P],
     },
     "flash_attention": {
-        # q, k, v, out, batch*heads, t_q, t_k, head_dim, stream
+        # q, k, v, out, batch*heads, t_q, t_k, head_dim, stream (bf16;
+        # the _f32 entry the same in float32)
         "mwx_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "mwx_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
         # q, k, v, out, len_ptr, len_offset, batch*heads, t_max, head_dim,
-        # stream
+        # stream (bf16; the _f32 entries the same in float32)
         "mwx_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "mwx_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # q, k, v, out, len_ptr, batch*heads, t_max, head_dim, stream
         "mwx_decode_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "mwx_decode_cross_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _P],
         # q, k_q, k_s, v_q, v_s, out, len_ptr, batch*heads, t_max,
         # head_dim, scale_bf16, stream
         "mwx_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -199,6 +204,26 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+# element types of the attention kernels K2-K4: a build each, with its own
+# entry point (symbol suffix) and launch counter (name suffix)
+ATTENTION_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def attention_dtype(what: str, *tensors: torch.Tensor) -> str:
+    """The suffix of the K2-K4 build for ``tensors``: all bf16 (``""``) or
+    all float32 (``"_f32"``).  Raises on any other dtype or a mix."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise ValueError(f"{what}: q, k and v must share one dtype, got "
+                         f"{sorted(str(d) for d in dtypes)}")
+    (dtype,) = dtypes
+    if dtype not in ATTENTION_DTYPES:
+        raise ValueError(f"{what}: the kernel takes bfloat16 or float32 "
+                         f"(compute_type bfloat16/float16/int8 or float32), "
+                         f"got dtype {dtype}")
+    return ATTENTION_DTYPES[dtype]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -11,7 +11,9 @@ int32 tensor on q's device (``pos``: slots <= pos valid; ``kv_len``:
 positions < kv_len valid), so the kernel reads it on the device.
 
 On a CUDA tensor each wrapper launches its kernel (float32 softmax and
-sums, bf16 output).  On a CPU tensor it runs the plain version, which
+sums; K3 and K4 in the build of the inputs' dtype, bf16 or float32, whose
+launches count under the kernel's name with ``_f32`` for float32; K5's
+output bf16).  On a CPU tensor it runs the plain version, which
 follows the JAX einsum paths (``whisper.py`` ``_decoder_block`` and
 ``_cross_attend``): f32 scores and softmax, probabilities cast to q's
 dtype, then the weighted sum in q's dtype.  The int8 cross K/V of K5 is
@@ -78,15 +80,17 @@ def _check_lengths(name: str, q: torch.Tensor, length: torch.Tensor,
 
 
 def _checked_output(name: str, q, k, v, length: torch.Tensor):
-    """Check what K3 and K4 take; returns (batch*heads, t_max, head_dim)
-    and the empty output."""
+    """Check what K3 and K4 take; returns the build's suffix (``""`` bf16,
+    ``"_f32"`` float32), (batch*heads, t_max, head_dim) and the empty
+    output."""
+    suffix = _build.attention_dtype(name, q, k, v)
     b, h, _, dh = q.shape
     t_max = k.shape[2]
-    _build.require(q, "q", torch.bfloat16, (b, h, 1, dh), q.device)
-    _build.require(k, "k", torch.bfloat16, (b, h, t_max, dh), q.device)
-    _build.require(v, "v", torch.bfloat16, (b, h, t_max, dh), q.device)
+    _build.require(q, "q", q.dtype, (b, h, 1, dh), q.device)
+    _build.require(k, "k", q.dtype, (b, h, t_max, dh), q.device)
+    _build.require(v, "v", q.dtype, (b, h, t_max, dh), q.device)
     _check_lengths(name, q, length, t_max)
-    return (b * h, t_max, dh), torch.empty_like(q)
+    return suffix, (b * h, t_max, dh), torch.empty_like(q)
 
 
 def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,17 +99,18 @@ def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the key axis split over a cluster of 4 blocks per (batch, head) while
     there are no more (batch, head) pairs than SMs, of 2 beyond that.
 
-    q [B, H, 1, dh]; k/v [B, H, T_max, dh]; pos one int32.  Returns
-    [B, H, 1, dh]."""
+    q [B, H, 1, dh]; k/v [B, H, T_max, dh], all bf16 or all float32; pos
+    one int32.  Returns [B, H, 1, dh] in their dtype."""
     if q.device.type == "cpu":
         return attend_plain(q, k, v, int(pos.reshape(-1)[0]) + 1)
-    name = "decode_self_attention"
-    dims, out = _checked_output(name, q, k, v, pos)
-    err = _build.library("decode_attention").mwx_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), 1, *dims, _build.stream_of(q))
-    _build.check(err, f"{name} kernel")
-    _build.count(name)
+    suffix, dims, out = _checked_output("decode_self_attention", q, k, v,
+                                        pos)
+    entry = getattr(_build.library("decode_attention"),
+                    "mwx_decode_attention" + suffix)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                pos.data_ptr(), 1, *dims, _build.stream_of(q))
+    _build.check(err, f"decode_self_attention{suffix} kernel")
+    _build.count("decode_self_attention" + suffix)
     return out
 
 
@@ -114,17 +119,18 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K4: q_len = 1 attention over cross K/V, positions < kv_len valid,
     the key axis split over a cluster of blocks per (batch, head).
 
-    q [B, H, 1, dh]; k/v [B, H, Ta, dh]; kv_len one int32.  Returns
-    [B, H, 1, dh]."""
+    q [B, H, 1, dh]; k/v [B, H, Ta, dh], all bf16 or all float32; kv_len
+    one int32.  Returns [B, H, 1, dh] in their dtype."""
     if q.device.type == "cpu":
         return attend_plain(q, k, v, int(kv_len.reshape(-1)[0]))
-    name = "decode_cross_attention"
-    dims, out = _checked_output(name, q, k, v, kv_len)
-    err = _build.library("decode_attention").mwx_decode_cross_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_len.data_ptr(), *dims, _build.stream_of(q))
-    _build.check(err, f"{name} kernel")
-    _build.count(name)
+    suffix, dims, out = _checked_output("decode_cross_attention", q, k, v,
+                                        kv_len)
+    entry = getattr(_build.library("decode_attention"),
+                    "mwx_decode_cross_attention" + suffix)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kv_len.data_ptr(), *dims, _build.stream_of(q))
+    _build.check(err, f"decode_cross_attention{suffix} kernel")
+    _build.count("decode_cross_attention" + suffix)
     return out
 
 

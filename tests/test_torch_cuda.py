@@ -45,6 +45,14 @@ def _randn(shape, dev, seed, dtype=torch.bfloat16):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+# K2-K4 in each build: the launch counter's suffix and (atol, rtol) against
+# the plain version.  bf16: the plain versions round P to bf16 (one ulp is
+# 2^-8 relative); float32: both sum in float32 in other orders
+# (chip_smoke.py's TOL holds the same limits)
+ATTENTION_BUILDS = {"bf16": (torch.bfloat16, "", 1e-2),
+                    "f32": (torch.float32, "_f32", 1e-4)}
+
+
 # K1 takes 96 frames a block: 10 frames (one short block), 96 and 97, 300
 # (three blocks and 12 frames) and the 3000 of a 30 s window
 MEL_SIZES = [(1601, 80), (15360, 80), (15520, 128), (48000, 80),
@@ -130,76 +138,104 @@ def test_mel_kernel_against_float64(dev):
     assert kernel <= 4 * plain, (kernel, plain)
 
 
+@pytest.mark.parametrize("build", ATTENTION_BUILDS)
 @pytest.mark.parametrize("t_q,t_k,dh", [(150, 150, 32), (1500, 1500, 64),
                                         (1, 70, 64), (127, 129, 64),
                                         (129, 1, 32), (1500, 1500, 32)])
-def test_flash_kernel(dev, t_q, t_k, dh):
-    """K2 takes 128 queries a block and 128 keys a step: a query tile of
-    one row, a last key tile of one key, a single key, both head widths."""
-    q = _randn((2, 3, t_q, dh), dev, 1)
-    k = _randn((2, 3, t_k, dh), dev, 2)
-    v = _randn((2, 3, t_k, dh), dev, 3)
-    before = _build.launches["flash_attention"]
+def test_flash_kernel(dev, t_q, t_k, dh, build):
+    """K2 takes 128 queries a block and 128 keys a step in bf16, 64 and 64
+    in float32: a query tile of one row, a last key tile of one key, a
+    single key, both head widths; the output in the inputs' dtype."""
+    dtype, suffix, tol = ATTENTION_BUILDS[build]
+    q = _randn((2, 3, t_q, dh), dev, 1, dtype)
+    k = _randn((2, 3, t_k, dh), dev, 2, dtype)
+    v = _randn((2, 3, t_k, dh), dev, 3, dtype)
+    before = collections.Counter(_build.launches)
     out = flash_attention(q, k, v)
-    assert _build.launches["flash_attention"] == before + 1
+    assert _build.launches - before == {"flash_attention" + suffix: 1}
+    assert out.dtype == dtype
     torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
-                               atol=1e-2, rtol=1e-2)
+                               atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("build", ATTENTION_BUILDS)
 @pytest.mark.parametrize("dh", [32, 64])
-def test_decode_kernels(dev, dh):
-    q = _randn((3, 4, 1, dh), dev, 4)
-    k = _randn((3, 4, 200, dh), dev, 5)
-    v = _randn((3, 4, 200, dh), dev, 6)
+def test_decode_kernels(dev, dh, build):
+    dtype, suffix, tol = ATTENTION_BUILDS[build]
+    q = _randn((3, 4, 1, dh), dev, 4, dtype)
+    k = _randn((3, 4, 200, dh), dev, 5, dtype)
+    v = _randn((3, 4, 200, dh), dev, 6, dtype)
+    before = collections.Counter(_build.launches)
     for n in (1, 77, 200):
         pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
-        torch.testing.assert_close(
-            decode_self_attention(q, k, v, pos).float(),
-            attend_plain(q, k, v, n).float(), atol=1e-2, rtol=1e-2)
+        out = decode_self_attention(q, k, v, pos)
+        assert out.dtype == dtype
+        torch.testing.assert_close(out.float(),
+                                   attend_plain(q, k, v, n).float(),
+                                   atol=tol, rtol=tol)
         kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
         torch.testing.assert_close(
             decode_cross_attention(q, k, v, kv_len).float(),
-            attend_plain(q, k, v, n).float(), atol=1e-2, rtol=1e-2)
+            attend_plain(q, k, v, n).float(), atol=tol, rtol=tol)
+    assert _build.launches - before == {
+        "decode_self_attention" + suffix: 3,
+        "decode_cross_attention" + suffix: 3}
 
 
+@pytest.mark.parametrize("build", ATTENTION_BUILDS)
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("n", [1, 7, 8, 1499, 1500])
-def test_decode_cross_kernel_slices(dev, dh, n):
+def test_decode_cross_kernel_slices(dev, dh, n, build):
     """K4 splits the key axis over 8 blocks: lengths that leave blocks
     without keys, and a ragged last slice, at the encoder's 1500 positions."""
-    q = _randn((2, 3, 1, dh), dev, 19)
-    k = _randn((2, 3, 1500, dh), dev, 20)
-    v = _randn((2, 3, 1500, dh), dev, 21)
+    dtype, suffix, tol = ATTENTION_BUILDS[build]
+    q = _randn((2, 3, 1, dh), dev, 19, dtype)
+    k = _randn((2, 3, 1500, dh), dev, 20, dtype)
+    v = _randn((2, 3, 1500, dh), dev, 21, dtype)
     kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
-    before = _build.launches["decode_cross_attention"]
+    before = collections.Counter(_build.launches)
     out = decode_cross_attention(q, k, v, kv_len)
-    assert _build.launches["decode_cross_attention"] == before + 1
+    assert _build.launches - before == {"decode_cross_attention" + suffix: 1}
     torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
-                               atol=1e-2, rtol=1e-2)
+                               atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("build", ATTENTION_BUILDS)
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 194, 416, 417])
-def test_decode_self_kernel_slices(dev, dh, n):
+def test_decode_self_kernel_slices(dev, dh, n, build):
     """K3 splits the key axis over the blocks of a cluster: lengths n =
     pos + 1 that leave blocks without keys, a ragged last slice, and the
     main path's first, last and full self cache of 417 slots."""
-    q = _randn((2, 3, 1, dh), dev, 25)
-    k = _randn((2, 3, 417, dh), dev, 26)
-    v = _randn((2, 3, 417, dh), dev, 27)
+    dtype, suffix, tol = ATTENTION_BUILDS[build]
+    q = _randn((2, 3, 1, dh), dev, 25, dtype)
+    k = _randn((2, 3, 417, dh), dev, 26, dtype)
+    v = _randn((2, 3, 417, dh), dev, 27, dtype)
     pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
-    before = _build.launches["decode_self_attention"]
+    before = collections.Counter(_build.launches)
     out = decode_self_attention(q, k, v, pos)
-    assert _build.launches["decode_self_attention"] == before + 1
+    assert _build.launches - before == {"decode_self_attention" + suffix: 1}
     torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
-                               atol=1e-2, rtol=1e-2)
+                               atol=tol, rtol=tol)
 
 
 def test_kernels_reject_wrong_inputs(dev):
+    """K2-K4 take bf16 or float32, q, k and v of one dtype: float16 and a
+    mix raise before any launch; so does a length that is not int32."""
     q = _randn((1, 2, 8, 64), dev, 7, torch.float32)
+    q16, qb = q.half(), q.to(torch.bfloat16)
+    one = torch.tensor([3], dtype=torch.int32, device=dev)
+    before = collections.Counter(_build.launches)
     with pytest.raises(ValueError, match="dtype"):
-        flash_attention(q, q, q)
-    qb = q.to(torch.bfloat16)
+        flash_attention(q16, q16, q16)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q, qb, q)
+    for fn in (decode_self_attention, decode_cross_attention):
+        with pytest.raises(ValueError, match="dtype"):
+            fn(q16[:, :, :1].contiguous(), q16, q16, one)
+        with pytest.raises(ValueError, match="one dtype"):
+            fn(qb[:, :, :1].contiguous(), q, q, one)
+    assert _build.launches == before
     with pytest.raises(ValueError, match="int32"):
         decode_cross_attention(qb[:, :, :1].contiguous(), qb, qb,
                                torch.tensor([3], device=dev))
@@ -281,17 +317,18 @@ def test_int8_kernels_reject_wrong_inputs(dev):
 
 # -- the decode loop as replays of captured chunks ---------------------------
 
-def _tiny_decoders(dev, int8):
+def _tiny_decoders(dev, int8, dtype=torch.bfloat16):
     """A captured and an eager ``BatchDecoder`` over the ``test`` config in
-    bf16 with seeded random weights (``int8``: int8 weights and int8 cross
-    K/V); 40 new tokens, so a loop runs 16 + 16 + 7 steps."""
+    ``dtype`` (bf16 or float32) with seeded random weights (``int8``: int8
+    weights and int8 cross K/V on bf16); 40 new tokens, so a loop runs 16 +
+    16 + 7 steps."""
     from manual_whisper_tpu_torch.models.decode import (BatchDecoder,
                                                         DecodingOptions)
     from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
                                                          init_params)
     from manual_whisper_tpu_torch.ops.quant import quantize_params
     from manual_whisper_tpu_torch.tokenizer import make_test_tokenizer
-    cfg = MODEL_CONFIGS["test"].with_dtype(torch.bfloat16)
+    cfg = MODEL_CONFIGS["test"].with_dtype(dtype)
     params = init_params(cfg, dev, seed=7)
     if int8:
         params = quantize_params(params)
@@ -303,17 +340,26 @@ def _tiny_decoders(dev, int8):
 
 
 def _tiny_xa(cfg, dev, rows, seed):
-    return _randn((rows, cfg.n_audio_ctx, cfg.n_text_state), dev, seed)
+    return _randn((rows, cfg.n_audio_ctx, cfg.n_text_state), dev, seed,
+                  cfg.dtype)
+
+
+# the decode loop's modes: bf16, int8 (int8 weights and cross K/V on bf16)
+# and float32, as (int8, activation dtype)
+MODES = {"bf16": (False, torch.bfloat16), "int8": (True, torch.bfloat16),
+         "f32": (False, torch.float32)}
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.6])
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("rows", [1, 2, 4])
-def test_captured_loop_equals_eager(dev, rows, int8, temperature):
+def test_captured_loop_equals_eager(dev, rows, mode, temperature):
     """The replayed chunks give the eager chunks' tokens, lengths and
     summed logprobs (same kernels in the same order, same random numbers
-    from the same seed), and their launches are counted as launched."""
-    cfg, graph, eager = _tiny_decoders(dev, int8)
+    from the same seed), and their launches are counted as launched: a
+    step's K3 and K4 of the mode's build."""
+    int8, dtype = MODES[mode]
+    cfg, graph, eager = _tiny_decoders(dev, int8, dtype)
     xa = _tiny_xa(cfg, dev, rows, 40)
     graph.decode_submit(xa, 0.0)        # captures (its warm-up launches)
     out = {}
@@ -329,6 +375,11 @@ def test_captured_loop_equals_eager(dev, rows, int8, temperature):
     torch.testing.assert_close(g.sum_logprob, e.sum_logprob, atol=1e-4,
                                rtol=0)
     assert out["graph_launches"] == out["eager_launches"]
+    per_step = _step_launches(cfg, int8, dtype)
+    extra = 10 * cfg.n_text_layer if int8 else 0
+    assert dict(out["graph_launches"]) == {
+        k: v * (g.steps - 1) + (extra if k == "int8_matmul" else 0)
+        for k, v in per_step.items()}
 
 
 @pytest.mark.parametrize("kind", ["greedy", "beam", "timestamps"])
@@ -356,14 +407,15 @@ def test_results_leave_as_pinned_copies(dev, kind):
     assert second.tokens.shape == first.tokens.shape
 
 
-def _step_launches(cfg, int8):
+def _step_launches(cfg, int8, dtype=torch.bfloat16):
     layers = cfg.n_text_layer
     if int8:
         return {"decode_self_attention": layers,
                 "decode_cross_attention_int8": layers,
                 "int8_matmul": 8 * layers}
-    return {"decode_self_attention": layers,
-            "decode_cross_attention": layers}
+    suffix = "_f32" if dtype == torch.float32 else ""
+    return {"decode_self_attention" + suffix: layers,
+            "decode_cross_attention" + suffix: layers}
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
@@ -403,11 +455,11 @@ def test_new_capture_leaves_earlier_loops_alone(dev, int8):
         assert torch.equal(getattr(first, name), getattr(again, name)), name
 
 
-def _mode_decoders(dev, int8, **kw):
+def _mode_decoders(dev, int8, dtype=torch.bfloat16, **kw):
     """A captured and an eager ``BatchDecoder`` as ``_tiny_decoders``, with
     the options ``kw`` (beam size, timestamp mode)."""
     from manual_whisper_tpu_torch.models.decode import BatchDecoder
-    cfg, graph, _ = _tiny_decoders(dev, int8)
+    cfg, graph, _ = _tiny_decoders(dev, int8, dtype)
     opts = dataclasses.replace(graph.opts, **kw)
     return (cfg, BatchDecoder(graph.params, cfg, graph.tokenizer, opts, dev),
             BatchDecoder(graph.params, cfg, graph.tokenizer, opts, dev,
@@ -445,13 +497,15 @@ def test_captured_beam_loop_equals_eager(dev, rows, beams, int8):
     assert dict(out["graph_launches"]) == expected
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("rows", [1, 4])
-def test_captured_timestamp_loop_equals_eager(dev, rows, int8):
+def test_captured_timestamp_loop_equals_eager(dev, rows, mode):
     """The replayed timestamp chunks give the eager chunks' tokens,
-    lengths and summed logprobs with the decode step's launches; every
-    step ran in a replay."""
-    cfg, graph, eager = _mode_decoders(dev, int8, without_timestamps=False)
+    lengths and summed logprobs with the decode step's launches (K3 and K4
+    of the mode's build); every step ran in a replay."""
+    int8, dtype = MODES[mode]
+    cfg, graph, eager = _mode_decoders(dev, int8, dtype,
+                                       without_timestamps=False)
     xa = _tiny_xa(cfg, dev, rows, 45)
     graph.timestamps_submit(xa)         # captures
     out = {}
@@ -469,7 +523,7 @@ def test_captured_timestamp_loop_equals_eager(dev, rows, int8):
     assert out["graph_launches"] == out["eager_launches"]
     assert sum(n * c for n, c in loop.graphs.replays.items()) == \
         2 * (g.steps - 1)
-    per_step = _step_launches(cfg, int8)
+    per_step = _step_launches(cfg, int8, dtype)
     extra = 10 * cfg.n_text_layer if int8 else 0
     for k, v in per_step.items():
         assert out["graph_launches"][k] == v * (g.steps - 1) + (
