@@ -43,14 +43,18 @@
 //     results after a cluster barrier.
 //   * K3, over a self cache of at most 448 slots, where a decode step's
 //     call costs a few microseconds and latency, not bandwidth, decides:
-//     at most one (batch, head) per SM gets 4 blocks of 256 threads and 4
-//     keys per lane group; each rank stores its partial result into the
-//     shared memory of the rank that finishes those dims with
-//     asynchronous stores counted at that rank's mbarrier, so each rank
-//     waits only for the bytes it expects: no barrier across the cluster
-//     and no remote read stand between the last key and the output.
+//     each rank stores its partial result into the shared memory of the
+//     rank that finishes those dims with asynchronous stores counted at
+//     that rank's mbarrier, so each rank waits only for the bytes it
+//     expects: no barrier across the cluster and no remote read stand
+//     between the last key and the output.  The shape is the element
+//     type's (`SelfShape`), chosen so that a block covers its slice of
+//     the main paths' 417 slots in one pass: at most one (batch, head)
+//     per SM gets 4 blocks of 256 threads and 4 keys per lane group in
+//     bf16 (32 lane groups x 4 = 128 keys a pass); in float32 a key takes
+//     twice the lanes, so it gets 8 blocks of the same (64 keys a pass).
 //     With more (batch, head) pairs than SMs, where the bytes decide, 2
-//     blocks of 256 threads per pair.
+//     blocks of 256 threads per pair, with 8 keys a lane group in float32.
 //
 // K5: the same attention over int8 cross K/V with per-position scales.
 // Replaces `_cross_int8_kernel` / `decode_cross_attention_int8` of the
@@ -135,11 +139,25 @@ struct SplitCfg {
 // K4 over the 1500 cross positions.
 using CrossCfg = SplitCfg<8, 8, 128, false>;
 // K3 over the self cache (at most 448 slots; 417 on the main paths, of
-// which 194..416 are valid).  Up to one (batch, head) per SM (the main
-// paths' batch 4 is 80): 4 blocks of 256 threads each, one pass of 4 keys
-// per lane group.  More (batch 16 is 320): 2 blocks of 256 threads each.
-using SelfCfg = SplitCfg<4, 4, 256, true>;
-using SelfWideCfg = SplitCfg<2, 4, 256, true>;
+// which 194..416 are valid), by element type: `Narrow` for up to one
+// (batch, head) per SM (the main paths' batch 4 is 80), `Wide` for more
+// (batch 16 is 320).  A block covers THREADS / (dh / kVec) * KEYS keys a
+// pass.  bf16: 4 blocks of 256 threads, 128 keys a pass, so a slice of
+// 417 / 4 = 105 keys takes one; wide, 2 blocks.  float32 takes twice the
+// lanes a key (16-byte loads of 4 values): at bf16's shape a block would
+// cover 64 keys a pass and need two for a slice of 105, so it gets 8
+// blocks of 256 threads (slices of 53 keys, one pass); wide, 2 blocks of
+// 256 threads and 8 keys a lane group (128 keys a pass, bf16's bytes in
+// flight).  Both chosen by timing (kernel_variants.py --dtype float32).
+template <typename T> struct SelfShape;
+template <> struct SelfShape<bf16> {
+  using Narrow = SplitCfg<4, 4, 256, true>;
+  using Wide = SplitCfg<2, 4, 256, true>;
+};
+template <> struct SelfShape<float> {
+  using Narrow = SplitCfg<8, 4, 256, true>;
+  using Wide = SplitCfg<2, 8, 256, true>;
+};
 
 template <int DH, typename C, typename T = bf16>
 __global__ void __launch_bounds__(C::THREADS)
@@ -527,29 +545,37 @@ int launch_int8(const void* q, const void* kq, const void* ks, const void* vq,
 }
 
 // K3 and K4 of element type T: the launch shape by head_dim and, for K3,
-// by batch x heads.
+// by element type and batch x heads (never n).
 template <typename T>
 int self_attention(const void* q, const void* k, const void* v, void* out,
                    const void* len_ptr, int len_offset, int bh, int t_max,
                    int head_dim, void* stream) {
+  using Narrow = typename SelfShape<T>::Narrow;
+  using Wide = typename SelfShape<T>::Wide;
   if (bh <= 0) return 0;
   if (t_max <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // the launch shape follows batch x heads, never n
   const bool wide = bh > sm_count();
   switch (head_dim) {
     case 64:
-      return wide ? launch_split<64, SelfWideCfg, T>(q, k, v, out, len_ptr,
-                                                     len_offset, bh, t_max, s)
-                  : launch_split<64, SelfCfg, T>(q, k, v, out, len_ptr,
-                                                 len_offset, bh, t_max, s);
+      return wide ? launch_split<64, Wide, T>(q, k, v, out, len_ptr,
+                                              len_offset, bh, t_max, s)
+                  : launch_split<64, Narrow, T>(q, k, v, out, len_ptr,
+                                                len_offset, bh, t_max, s);
     case 32:
-      return wide ? launch_split<32, SelfWideCfg, T>(q, k, v, out, len_ptr,
-                                                     len_offset, bh, t_max, s)
-                  : launch_split<32, SelfCfg, T>(q, k, v, out, len_ptr,
-                                                 len_offset, bh, t_max, s);
+      return wide ? launch_split<32, Wide, T>(q, k, v, out, len_ptr,
+                                              len_offset, bh, t_max, s)
+                  : launch_split<32, Narrow, T>(q, k, v, out, len_ptr,
+                                                len_offset, bh, t_max, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename C>
+void put_shape(int* shape) {
+  shape[0] = C::SPLIT;
+  shape[1] = C::KEYS;
+  shape[2] = C::THREADS;
 }
 
 template <typename T>
@@ -620,6 +646,19 @@ extern "C" int mwx_decode_attention_f32(const void* q, const void* k,
                                         void* stream) {
   return self_attention<float>(q, k, v, out, len_ptr, len_offset, bh, t_max,
                                head_dim, stream);
+}
+
+// K3's launch shape at batch x heads `bh` in bf16 (f32 = 0) or float32
+// (f32 = 1): {blocks per (batch, head), keys per lane group, threads}
+// into the three ints at `shape`.
+extern "C" int mwx_decode_self_shape(int f32, int bh, void* shape) {
+  int* out = (int*)shape;
+  const bool wide = bh > sm_count();
+  if (f32 && wide) put_shape<SelfShape<float>::Wide>(out);
+  else if (f32) put_shape<SelfShape<float>::Narrow>(out);
+  else if (wide) put_shape<SelfShape<bf16>::Wide>(out);
+  else put_shape<SelfShape<bf16>::Narrow>(out);
+  return 0;
 }
 
 // K4.  q [bh, dh], k/v [bh, t_max, dh], out [bh, dh], bf16 contiguous;

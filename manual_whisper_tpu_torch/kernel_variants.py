@@ -1,6 +1,8 @@
 """Time launch shapes of one CUDA kernel against each other on one card.
 
     python3 -m manual_whisper_tpu_torch.kernel_variants decode_self_attention
+    python3 -m manual_whisper_tpu_torch.kernel_variants decode_self_attention \
+        --dtype float32
     python3 -m manual_whisper_tpu_torch.kernel_variants int8_matmul
     python3 -m manual_whisper_tpu_torch.kernel_variants mel
 
@@ -16,7 +18,9 @@ build with nvcc in parallel; each non-probe is held against the plain
 version, then all are timed in three rounds, in an order that turns each
 round, beside the shipped kernel and the PyTorch yardstick, at the main
 path's shapes.  Prints one JSON line per (shape, variant) with the median
-of the rounds.
+of the rounds.  ``--dtype float32`` builds and times the variants whose
+names start with ``f32_`` (K3's float32 instance) instead of the others;
+the empty-launch probes time with either.
 """
 
 from __future__ import annotations
@@ -65,8 +69,9 @@ int launch_empty(void* out, int bh, cudaStream_t stream) {
 """
 
 
-def _self(s, u, t, push="true", patches=()):
-    return ("", f"return launch_split<64, SplitCfg<{s}, {u}, {t}, {push}>>("
+def _self(s, u, t, push="true", patches=(), elem=""):
+    return ("", f"return launch_split<64, SplitCfg<{s}, {u}, {t}, {push}>"
+                f"{', ' + elem if elem else ''}>("
                 "q, k, v, out, len_ptr, len_offset, bh, t_max, "
                 "(cudaStream_t)stream);", patches)
 
@@ -251,6 +256,19 @@ VARIANTS = {
          **{f"probe_split4_keys4_threads256_push_{name}":
             _self(4, 4, 256, "true", patches)
             for name, patches in _SELF_PROBES.items()},
+         # the float32 instance (--dtype float32): bf16's shapes, whose
+         # blocks cover half the keys a pass in float32, and shapes that
+         # cover a slice of the 417 slots in one pass again
+         **{f"f32_split{s}_keys{u}_threads{t}_push": _self(
+             s, u, t, "true", elem="float")
+            for s, u, t in ((4, 4, 256), (2, 4, 256), (8, 4, 256),
+                            (4, 8, 256), (8, 8, 128), (2, 8, 256),
+                            (8, 2, 256), (4, 4, 128))},
+         "f32_stamps_split8_keys4_threads256_push": _self(
+             8, 4, 256, "true", _SELF_MARKS, elem="float"),
+         **{f"f32_probe_split8_keys4_threads256_push_{name}":
+            _self(8, 4, 256, "true", patches, elem="float")
+            for name, patches in _SELF_PROBES.items()},
          **{f"probe_empty_split{s}": (
              _EMPTY_SELF, f"return launch_empty<{s}>(out, bh, "
                           "(cudaStream_t)stream);", ())
@@ -316,14 +334,26 @@ def variant_source(name: str, var: str) -> str:
             + _EXPORTS.get(name, ""))
 
 
-def build_variants(name: str) -> dict:
-    """Build every variant of kernel ``name``; {variant: typed function}."""
-    _, _, argtypes, variants = VARIANTS[name]
+def selected(name: str, dtype: str = "bfloat16", only=None) -> list:
+    """The variants of kernel ``name`` that a run in ``dtype`` builds:
+    with float32 those named ``f32_...``, else the others, and the
+    empty-launch probes with either; ``only`` narrows them to a list."""
+    f32 = dtype == "float32"
+    return [var for var in VARIANTS[name][3]
+            if (only is None or var in only)
+            and (var.startswith("probe_empty")
+                 or var.startswith("f32_") == f32)]
+
+
+def build_variants(name: str, dtype: str = "bfloat16", only=None) -> dict:
+    """Build the variants of kernel ``name`` that ``selected`` names;
+    {variant: typed function}."""
+    _, _, argtypes, _ = VARIANTS[name]
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for var in variants:
+    for var in selected(name, dtype, only):
         cu = out_dir / f"{name}-{var}.cu"
         cu.write_text(variant_source(name, var))
         so = cu.with_suffix(".so")
@@ -397,15 +427,21 @@ def timeline(var, fn, call, args) -> None:
 
 
 def _check(var, out, ref, what):
+    """bf16 outputs within 1e-2 + 1e-2 max |ref|; float32 elementwise
+    within chip_smoke's TOL of the float32 build."""
+    if out.dtype == torch.float32:
+        from chip_smoke import compare
+        compare("decode_self_attention_f32", out, ref)
+        return
     err = float((out.float() - ref.float()).abs().max())
     if not err <= 1e-2 + 1e-2 * float(ref.float().abs().max()):
         raise AssertionError(f"{var} at {what}: max abs error {err}")
 
 
-def run_self(fns, randn, dev):
-    """K3 at the main path's shape (B=4, H=20, T_max=417, the decode loop's
-    positions) and at batch 16, T_max 448, pos 447, over K/V copies that
-    exceed L2; the yardstick is SDPA."""
+def run_self(fns, randn, dev, dtype=torch.bfloat16):
+    """K3 in ``dtype`` at the main path's shape (B=4, H=20, T_max=417, the
+    decode loop's positions) and at batch 16, T_max 448, pos 447, over K/V
+    copies that exceed L2; the yardstick is SDPA."""
     from chip_smoke import copies_for
     from .ops.decode_attention import attend_plain, decode_self_attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -413,22 +449,23 @@ def run_self(fns, randn, dev):
     for b, t_max, positions in ((4, 417, [193 + round(i * 222 / 19)
                                           for i in range(20)]),
                                 (16, 448, [447])):
-        reps = max(1, math.ceil(copies_for(4 * b * h * t_max * dh)
-                                / len(positions)))
-        sets = [(randn((b, h, 1, dh)), randn((b, h, t_max, dh), scale=3.0),
-                 randn((b, h, t_max, dh)),
+        reps = max(1, math.ceil(copies_for(2 * dtype.itemsize * b * h
+                                           * t_max * dh) / len(positions)))
+        sets = [(randn((b, h, 1, dh), dtype),
+                 randn((b, h, t_max, dh), dtype, scale=3.0),
+                 randn((b, h, t_max, dh), dtype),
                  torch.full((1,), pos, dtype=torch.int32, device=dev), pos + 1)
                 for pos in positions * reps]
         shape = (f"B={b} H={h} T_max={t_max} pos={positions[0]}.."
-                 f"{positions[-1]} dh={dh}")
+                 f"{positions[-1]} dh={dh} {dtype}".replace("torch.", ""))
         calls = {var: _launcher(fn, 1, b * h, t_max, dh)
                  for var, fn in fns.items()}
         outs = {st[0]: torch.empty_like(st[0]) for st in sets}
         for var, call in calls.items():
             q, k, v, pos, n = sets[0]
-            if var.startswith("stamps"):
+            if "stamps_" in var:
                 timeline(var, fns[var], call, (q, k, v, outs[q], pos))
-            if not var.startswith("probe"):
+            if "probe_" not in var:
                 call(q, k, v, outs[q], pos)
                 _check(var, outs[q], attend_plain(q, k, v, n), shape)
         timed = {var: (lambda c: lambda q, k, v, p, n: c(q, k, v, outs[q], p)
@@ -530,7 +567,14 @@ def report(shape, timed, sets):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(VARIANTS))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="the element type of the variants (float32: "
+                         "decode_self_attention's f32_ variants)")
     args = ap.parse_args()
+    if args.dtype == "float32" and args.kernel != "decode_self_attention":
+        ap.error("--dtype float32: only decode_self_attention has float32 "
+                 "variants")
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 2
@@ -538,10 +582,13 @@ def main() -> int:
     from chip_smoke import card_line, seeded_randn
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}", flush=True)
-    fns = build_variants(args.kernel)
+    fns = build_variants(args.kernel, args.dtype)
     randn = seeded_randn(dev, 4321)
-    {"decode_self_attention": run_self, "int8_matmul": run_matvec,
-     "mel": run_mel}[args.kernel](fns, randn, dev)
+    if args.kernel == "decode_self_attention":
+        run_self(fns, randn, dev, getattr(torch, args.dtype))
+    else:
+        {"int8_matmul": run_matvec, "mel": run_mel}[args.kernel](fns, randn,
+                                                                 dev)
     return 0
 
 

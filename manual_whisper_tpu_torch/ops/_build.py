@@ -68,6 +68,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream (bf16; the _f32 entries the same in float32)
         "mwx_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "mwx_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # float32 (0 or 1), batch*heads, int[3] out: K3's launch shape
+        # (blocks per (batch, head), keys per lane group, threads)
+        "mwx_decode_self_shape": [_I, _I, _P],
         # q, k, v, out, len_ptr, batch*heads, t_max, head_dim, stream
         "mwx_decode_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "mwx_decode_cross_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I,

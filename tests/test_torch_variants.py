@@ -7,6 +7,8 @@ variant's patches are applied here, and ptxas's parser is checked on
 canned text.  Nothing is built.
 """
 
+import re
+
 import pytest
 
 from manual_whisper_tpu_torch import kernel_variants as kv
@@ -24,7 +26,7 @@ def test_variant_patches_apply(name, var):
     for old, new in patches:
         assert text.count(old) == 1, f"{var}: {old!r} not once in {src}"
         text = text.replace(old, new)
-    if var.startswith("stamps"):
+    if "stamps_" in var:
         assert all(f"MWX_STAMP({i});" in text for i in range(6))
     assert body.startswith(("return", "const int stripes"))
 
@@ -69,3 +71,40 @@ def test_mel_variants_name_the_shipped_shape_and_its_packing():
         assert "return launch_mel<VariantMel>(" in src
         assert src.endswith('extern "C" int mwx_variant_tile(void* tile) {\n'
                             "  return report_tile<VariantMel>(tile);\n}\n")
+
+
+def _self_shapes(elem: str) -> dict:
+    """{"Narrow": (split, keys, threads), "Wide": ...} of K3's
+    ``SelfShape<elem>`` in decode_attention.cu."""
+    text = (_build.CSRC_DIR / "decode_attention.cu").read_text()
+    body = re.search(r"struct SelfShape<%s> \{(.*?)\};" % elem, text,
+                     re.S).group(1)
+    return {name: tuple(int(x) for x in args.split(", ")[:3])
+            for name, args in re.findall(
+                r"using (\w+) = SplitCfg<([^>]*), true>;", body)}
+
+
+@pytest.mark.parametrize("dtype,elem,prefix", [("float32", "float", "f32_"),
+                                               ("bfloat16", "bf16", "")])
+def test_self_variants_of_each_dtype_hold_its_shipped_shapes(dtype, elem,
+                                                             prefix):
+    """``--dtype float32`` builds the f32_ variants (K3's float instance)
+    and the empty-launch probes, the default the others; each set holds
+    the shapes the kernel ships for its element type, and every f32_
+    variant instantiates the float kernel."""
+    chosen = kv.selected("decode_self_attention", dtype)
+    assert all(v.startswith(prefix) or v.startswith("probe_empty")
+               for v in chosen)
+    assert {f"probe_empty_split{s}" for s in (1, 2, 4, 8)} <= set(chosen)
+    shapes = _self_shapes(elem)
+    assert set(shapes) == {"Narrow", "Wide"}
+    for split, keys, threads in shapes.values():
+        assert (f"{prefix}split{split}_keys{keys}_threads{threads}_push"
+                in chosen)
+    for var in chosen:
+        if var.startswith("f32_"):
+            src = kv.variant_source("decode_self_attention", var)
+            assert re.search(r"launch_split<64, SplitCfg<\d+, \d+, \d+, "
+                             r"true>, float>\(", src), var
+    assert kv.selected("decode_self_attention", dtype,
+                       only=["probe_empty_split8"]) == ["probe_empty_split8"]
