@@ -1,7 +1,7 @@
 // Shared by the Hopper kernels (K2 to K6): shared-memory and cluster
 // barriers, the Tensor Memory Accelerator (TMA), warpgroup products
-// (wgmma), and tensor maps encoded on the host without a link against
-// libcuda.
+// (wgmma; TF32 ones and the hi/lo split for K2 in float32), and tensor
+// maps encoded on the host without a link against libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -166,6 +166,105 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- TF32 products (K2 in float32: 3xTF32) --------------------------------
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero: a
+// float32 bit pattern whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x as hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact
+// in float32); |x - hi - lo| <= 2^-22 |x|.  Three TF32 products, hi hi +
+// hi lo + lo hi, then give a float32-class product: the dropped lo lo is
+// below 2^-22 of it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d[64, 64] (+)= a[64, 8] b[64, 8]^T in TF32 for one warpgroup, both
+// operands K-major in shared memory (TF32 products take no transpose
+// flag).  d[j] is the fragment of columns [8 j, 8 j + 8): rows 16 (warp %
+// 4) + lane / 4 and + 8, columns 2 (lane % 4) + {0, 1}.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64, 64] (+)= a[64, 8] b[64, 8]^T in TF32, a in registers: four TF32
+// values a thread, rows lane / 4 and + 8 of the warp's 16 (a[0], a[2] and
+// a[1], a[3]), columns lane % 4 (a[0], a[1]) and + 4 (a[2], a[3]); b
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// The same at n = 32: d[64, 32] (+)= a[64, 8] b[32, 8]^T.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
 }
 
 // The SMs of the current device (132 on an H100 SXM).
