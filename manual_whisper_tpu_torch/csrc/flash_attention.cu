@@ -3,11 +3,11 @@
 // Replaces `_flash_kernel` / `flash_attention` of
 // manual_whisper_tpu/ops/attention.py: out = softmax(q k^T / sqrt(dh)) v on
 // [B*H, T, dh] tensors, bf16 here (`mwx_flash_attention`) and float32 in
-// `flash_f32_kernel` further down (`mwx_flash_attention_f32`; its own
-// design notes), with the online-softmax recurrence so the
-// [T, T] score matrix never reaches device memory.  Running max, running
-// sum and the output accumulator are float32; P enters the second product
-// as bf16.
+// `flash_f32_kernel` further down (`mwx_flash_attention_f32`: 3xTF32
+// products on the tensor cores; its own design notes), with the
+// online-softmax recurrence so the [T, T] score matrix never reaches device
+// memory.  Running max, running sum and the output accumulator are
+// float32; in bf16 P enters the second product as bf16.
 //
 // Bound on the H100: 4*B*H*T^2*dh operations against 4*B*H*T*dh*2 bytes,
 // so at T=1500 it is bound by the bf16 tensor-core rate.  Beside the
@@ -474,209 +474,400 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   return (int)cudaGetLastError();
 }
 
-// ---- K2 in float32: FFMA on register tiles -------------------------------
+// ---- K2 in float32: 3xTF32 on the tensor cores ---------------------------
 //
 // compute_type="float32" runs the encoder in float32, and the JAX kernel then
 // computes in float32 throughout (it casts to f32 inside and writes the
-// output's dtype).  The bf16 kernel above cannot take it: its TMA maps,
-// `wgmma` products and register layouts are bf16.  TF32 `wgmma` would keep
-// about three decimal digits, which is not what the float32 reference
-// computes, so this kernel multiplies in full float32 on the FMA pipes.
+// output's dtype).  TF32 products keep 11 significant bits, which is not
+// what the float32 reference computes (one TF32 product a score puts the
+// output about 1e-3 off; tests/test_torch_tf32_split.py shows it).  So each
+// operand x is split into two TF32 values, hi = rna(x) and lo = rna(x - hi)
+// (`split_tf32`, explicit: the tensor cores are never left to truncate an
+// unsplit float32), and every product is three TF32 products summed in
+// float32, lo hi + hi lo + hi hi; the dropped lo lo and the split's own
+// rounding are below 2^-22 of a product, float32-class.
 //
-// Bound on the H100: the same 4*B*H*T^2*dh operations at the 67 TFLOP/s of
-// the FMA pipes (0.69 ms at B=4, H=20, T=1500, dh=64), about 20x the bytes'
-// time, so it is bound by operations.  Every product has to come from
-// registers at a few operations per shared-memory load:
+// Bound on the H100: 3 x 4*B*H*T^2*dh TF32 operations at 495 TFLOP/s (0.279
+// ms at B=4, H=20, T=1500, dh=64), against 0.688 ms for the float32
+// operations on the FMA pipes, 0.047 for the softmax's B*H*T^2 exponentials
+// and 0.037 for the bytes: bound by the tensor cores.  What the design does:
 //
-// - A block owns 64 query rows of one (batch, head); 256 threads as 16 x 16,
-//   thread (ty, tx) owns rows 4 ty .. 4 ty + 3, of S the keys tx + 16 j
-//   (j < 4) and of O the dims [tx * DH/16, (tx + 1) * DH/16).
-// - Q (scaled by log2(e)/sqrt(dh) as it is stored, so the softmax is base
-//   2), K and V of 64 keys a step sit in shared memory with rows padded to
-//   DH + 4 floats: a quarter warp's 16-byte loads along a row then fall in 8
-//   different bank groups.  S is 4 x 4 scores a thread, built from 16-byte
-//   loads of 4 Q rows and 4 K rows: 64 FMAs for 8 loads.
-// - The online softmax runs on those registers: a row's max is 4 shuffles
-//   across the 16 lanes of its tx, the row sum stays per thread until the
-//   end.  P goes to shared memory (rows padded to 68) and O += P V takes 4 P
-//   rows and 4 V rows a step of 4 keys, again 64 FMAs for 8 loads.
-// - Keys past t_k are zeros in K and V and -3e38 in S (each tile holds at
-//   least one valid key), rows past t_q are zeros and are not written.
-constexpr int kF32Rows = 64;          // query rows per block
+// - A block owns 128 query rows of one (batch, head): two consumer
+//   warpgroups of 64 rows and one producer warpgroup, 384 threads with the
+//   launch bound's 168 registers each (no rebalancing).
+// - Every operand sits in shared memory K-major, which is the only layout a
+//   TF32 product reads: 128-byte rows of 32 floats in the 128-byte swizzle
+//   (a 16-byte unit u of row r at u ^ (r mod 8)), so a row of dh=64 is two
+//   such boxes and dh=32 one; a k-step of 8 floats is 32 bytes into a box.
+// - Each consumer warpgroup loads its 64 Q rows once, splits them and
+//   stores Q hi and Q lo (rows past t_q are zeros).  The producer
+//   warpgroup loads K and V of 64 keys a step with 16-byte loads (keys past
+//   t_k are zeros), splits them in registers and stores K hi, K lo and the
+//   transposed V^T hi, V^T lo (dh rows of 64 keys: the product over the
+//   keys needs them contiguous) into a ring of kF32Stages stages, each
+//   announced on a full barrier (128 arrivals, each after the thread's
+//   fence.proxy.async) and handed back on an empty one (K as soon as its
+//   scores are in, V after its product).  Shared memory at dh=64: Q 64 KB,
+//   two stages of 64 KB; 197,696 bytes with the barriers and alignment.
+// - S = Q K^T is `wgmma` m64n64k8 three times a k-step, A and B from
+//   shared memory; S (32 registers a thread) takes the bf16 kernel's
+//   online softmax: log2(e)/sqrt(dh) folded into one FFMA a score, `ex2`,
+//   a row's max across its quad; only the last key tile masks keys >= t_k.
+// - P V is `wgmma` m64n{dh}k8 three times a k-step with P in registers.
+//   The accumulator fragment of S holds keys 2 (lane % 4) and + 1 of each
+//   group of 8, while the TF32 A fragment wants columns lane % 4 and + 4,
+//   so the keys are permuted within each group of 8, in P's fragment and
+//   in V^T's columns alike (`key_slot`: key 2i to column i, 2i + 1 to
+//   i + 4); the sum over the keys is unchanged.  That keeps P in
+//   registers, where a pass through shared memory would cost a store, a
+//   fence and a barrier a tile.  P is split into hi and lo in place.
+// - The tensor cores' float32 sums lose more than float32 rounding along
+//   a long chain of products into one accumulator.  With every tile's
+//   products chained into O (576 at T=1500) the sharp-softmax check (keys
+//   scaled 3x) read 4.3e-5 against the plain version; so each tile's P V
+//   goes into a fresh accumulator and O = alpha O + P V is one FFMA a value
+//   in registers (1.4e-5), and S keeps its hi hi products apart from the
+//   lo hi and hi lo ones, added in registers (1.1e-5; 0.9e-6 at unscaled
+//   keys).  Each cost under 1.5 % of the time.
+// - O is divided by the row sum once at the end and written from
+//   registers as float32; rows past t_q are not written.
+//
+// ptxas: 116 registers at dh=32 and 155 at dh=64, no spills.  On an H100
+// at B=4, H=20, T=1500, dh=64 (chip_smoke.py, PERF.md) this takes 0.63 ms,
+// 2.25x its bound and 2.3x faster than SDPA's float32 kernel.  A build
+// with one TF32 product in place of each three takes 0.46 ms: two products
+// cost 0.17 ms, so the products take about 0.26 ms (near the bound) and
+// the softmax, the splits and the hand-offs, which do not overlap with
+// them (as in the bf16 kernel), the rest.  Rounding with integer
+// operations instead of `cvt.rna.tf32.f32` (bit-identical on finite
+// values) would save 5 %.
+constexpr int kF32Rows = 128;         // query rows per block
 constexpr int kF32Keys = 64;          // keys per step
-constexpr int kF32Threads = 256;      // 16 x 16
+constexpr int kF32Stages = 2;         // depth of the K and V rings
+constexpr int kF32Box = 128;          // bytes of a swizzled row (32 floats)
 
 template <int DH>
 struct F32Smem {
   static_assert(DH == 32 || DH == 64, "head dim 32 or 64");
-  static constexpr int ld = DH + 4;           // Q, K, V row stride (floats)
-  static constexpr int ldp = kF32Keys + 4;    // P row stride
-  static constexpr int k_off = kF32Rows * ld;
-  static constexpr int v_off = k_off + kF32Keys * ld;
-  static constexpr int p_off = v_off + kF32Keys * ld;
-  static constexpr int bytes = (p_off + kF32Rows * ldp) * 4;
+  static constexpr int tile = 64 * DH * 4;            // Q, K or V^T, hi or lo
+  static constexpr int q_off = 0;                     // [wg][hi, lo]
+  static constexpr int stage_off = kConsumers * 2 * tile;
+  static constexpr int stage_bytes = 4 * tile;        // K hi, lo, V^T hi, lo
+  static constexpr int bar_off = stage_off + kF32Stages * stage_bytes;
+  static constexpr int full_k = 0;                    // from bar_off
+  static constexpr int full_v = full_k + kF32Stages * 8;
+  static constexpr int empty_k = full_v + kF32Stages * 8;
+  static constexpr int empty_v = empty_k + kF32Stages * 8;
+  static constexpr int launch_bytes = bar_off + empty_v + kF32Stages * 8
+                                      + 1024;
+  static_assert(tile % 1024 == 0, "swizzle atoms");
 };
 
-// Rows [r0, r0 + 64) of a [rows, DH] float32 matrix into a tile of row
-// stride ld, times `scale`; rows at or past `rows` are zeros.
-template <int DH, int LD>
-__device__ __forceinline__ void load_tile_f32(float* tile,
-                                              const float* __restrict__ src,
-                                              int r0, int rows, float scale) {
-  constexpr int chunks = DH / 4;               // 16-byte chunks of a row
-  static_assert(64 * chunks % kF32Threads == 0, "whole passes");
+// Byte offset of 16-byte unit u (floats 4u .. 4u + 3 along K) of row r in a
+// K-major tile of `rows` rows: box u / 8, then the 128-byte swizzle.
+__device__ __forceinline__ int swz_f32(int rows, int r, int u) {
+  return (u >> 3) * rows * kF32Box + r * kF32Box + (((u & 7) ^ (r & 7)) << 4);
+}
+
+// Descriptor of k-step kk (8 floats along K) of a K-major tile of `rows`
+// rows at `addr`: its box, 32 bytes a step into it; 8-row atoms 1024 bytes
+// apart.
+__device__ __forceinline__ uint64_t desc_f32(uint32_t addr, int rows,
+                                             int kk) {
+  return gmma_desc(addr + (kk >> 2) * rows * kF32Box + (kk & 3) * 32, 16,
+                   8 * kF32Box, kSwizzle128);
+}
+
+// The column of key r (of a 64-key tile) in V^T: keys 2i and 2i + 1 of each
+// group of 8 go to columns i and i + 4, where P's fragment has them.
+__device__ __forceinline__ int key_slot(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+// Rows [r0, r0 + 64) of a row-major [n, DH] float32 matrix into registers,
+// rows at or past n as zeros.  128 threads: thread t takes row t % 64 and
+// the half t / 64 of its 16-byte units.
+template <int DH>
+__device__ __forceinline__ void load_rows(float4 (&x)[DH / 8],
+                                          const float* __restrict__ src,
+                                          int r0, int n, int t) {
+  const int r = t % 64, u0 = (t / 64) * (DH / 8);
 #pragma unroll
-  for (int it = 0; it < 64 * chunks / kF32Threads; ++it) {
-    const int i = threadIdx.x + it * kF32Threads;
-    const int r = i / chunks, c = i % chunks;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows) {
-      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * DH)
-                + c);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(tile + r * LD + c * 4) = x;
+  for (int i = 0; i < DH / 8; ++i)
+    x[i] = r0 + r < n
+               ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r)
+                                                       * DH) + u0 + i)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// The rows of load_rows, split, into K-major hi and lo tiles of 64 rows.
+template <int DH>
+__device__ __forceinline__ void store_rows(unsigned char* hi,
+                                           unsigned char* lo,
+                                           const float4 (&x)[DH / 8], int t) {
+  const int r = t % 64, u0 = (t / 64) * (DH / 8);
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    uint4 h, l;
+    split4(x[i], h, l);
+    const int off = swz_f32(64, r, u0 + i);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x; x[1] = v.y;
+// The rows of load_rows (64 keys), split, into K-major V^T hi and lo tiles:
+// DH rows, key r in column key_slot(r).  A warp's lanes hold 32 keys of one
+// box and store one row of it at a time: 32 banks.
+template <int DH>
+__device__ __forceinline__ void store_cols(unsigned char* hi,
+                                           unsigned char* lo,
+                                           const float4 (&x)[DH / 8], int t) {
+  const int p = key_slot(t % 64), u0 = (t / 64) * (DH / 8);
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    uint4 h, l;
+    split4(x[i], h, l);
+    const uint32_t hv[4] = {h.x, h.y, h.z, h.w}, lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = swz_f32(DH, 4 * (u0 + i) + e, p >> 2) + (p & 3) * 4;
+      *reinterpret_cast<uint32_t*>(hi + off) = hv[e];
+      *reinterpret_cast<uint32_t*>(lo + off) = lv[e];
+    }
+  }
+}
+
+// The producer warpgroup: K and V of every key step, split, into the ring,
+// each half as soon as the consumers have handed its stage back.
+template <int DH>
+__device__ __forceinline__ void produce_f32(unsigned char* smem, uint32_t bars,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            int t_k, int t) {
+  using L = F32Smem<DH>;
+  const int nk = (t_k + kF32Keys - 1) / kF32Keys;
+  for (int j = 0; j < nk; ++j) {
+    const int stage = j % kF32Stages;
+    const int parity = ((j / kF32Stages) & 1) ^ 1;  // a fresh stage is empty
+    unsigned char* st = smem + L::stage_off + stage * L::stage_bytes;
+    float4 xk[DH / 8], xv[DH / 8];
+    load_rows<DH>(xk, k, j * kF32Keys, t_k, t);
+    load_rows<DH>(xv, v, j * kF32Keys, t_k, t);
+    mbar_wait(bars + L::empty_k + stage * 8, parity);
+    store_rows<DH>(st, st + L::tile, xk, t);
+    fence_async_proxy();
+    mbar_arrive(bars + L::full_k + stage * 8);
+    mbar_wait(bars + L::empty_v + stage * 8, parity);
+    store_cols<DH>(st + 2 * L::tile, st + 3 * L::tile, xv, t);
+    fence_async_proxy();
+    mbar_arrive(bars + L::full_v + stage * 8);
+  }
+}
+
+// Online softmax of one 64-key tile for this thread's two rows (row 0: lane
+// / 4 of the warp's 16, row 1: 8 below); keys from `valid` on are masked.
+// On return ph and pl hold exp2(c s - c m) split into TF32 hi and lo as the
+// A fragments of the P V product's k-steps (keys in key_slot order), m is
+// the new running max, l this lane's share of the running sum, and alpha
+// the factor that brings the old O to the new max.
+__device__ __forceinline__ void softmax_tile_f32(float (&s)[8][4],
+                                                 uint32_t (&ph)[8][4],
+                                                 uint32_t (&pl)[8][4],
+                                                 float (&m)[2], float (&l)[2],
+                                                 float (&alpha)[2], float c,
+                                                 int valid, int quad) {
+  if (valid < kF32Keys) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j * 8 + quad * 2 + (e & 1) >= valid) s[j][e] = -INFINITY;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2((m[r] - mx[r]) * c);     // 0 on the first tile
+    m[r] = mx[r];
+    mc[r] = mx[r] * c;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // s[j]: (row 0, key 2 quad), (row 0, + 1), (row 1, key 2 quad), (row
+    // 1, + 1); the A fragment: (row 0, column quad), (row 1, quad), (row
+    // 0, quad + 4), (row 1, quad + 4)
+    const float p0 = ex2(fmaf(s[j][0], c, -mc[0]));
+    const float p1 = ex2(fmaf(s[j][1], c, -mc[0]));
+    const float p2 = ex2(fmaf(s[j][2], c, -mc[1]));
+    const float p3 = ex2(fmaf(s[j][3], c, -mc[1]));
+    sum[0] += p0 + p1;
+    sum[1] += p2 + p3;
+    split_tf32(p0, ph[j][0], pl[j][0]);
+    split_tf32(p2, ph[j][1], pl[j][1]);
+    split_tf32(p1, ph[j][2], pl[j][2]);
+    split_tf32(p3, ph[j][3], pl[j][3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+// A consumer warpgroup: its 64 query rows into Q hi and lo, against every
+// key step, then the output.
+template <int DH>
+__device__ __forceinline__ void consume_f32(unsigned char* smem, uint32_t bars,
+                                            const float* __restrict__ q,
+                                            float* __restrict__ out, int t_q,
+                                            int t_k, int q0, float c, int wg,
+                                            int tid) {
+  using L = F32Smem<DH>;
+  constexpr int kOut = DH / 8;                  // O fragments per thread
+  const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int nk = (t_k + kF32Keys - 1) / kF32Keys;
+  unsigned char* sq = smem + L::q_off + wg * 2 * L::tile;
+  const uint32_t q_hi = smem_u32(sq), q_lo = q_hi + L::tile;
+  {
+    float4 xq[DH / 8];
+    load_rows<DH>(xq, q, q0 + wg * 64, t_q, tid);
+    store_rows<DH>(sq, sq + L::tile, xq, tid);
+    fence_async_proxy();
+    named_sync(1 + wg, 128);
+  }
+
+  float o[kOut][4];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float s[8][4], s_lo[8][4], pv[kOut][4];
+  uint32_t ph[8][4], pl[8][4];
+
+  for (int j = 0; j < nk; ++j) {
+    const int stage = j % kF32Stages;
+    const int parity = (j / kF32Stages) & 1;
+    const uint32_t k_hi = smem_u32(smem + L::stage_off
+                                   + stage * L::stage_bytes);
+    const uint32_t k_lo = k_hi + L::tile;
+    const uint32_t v_hi = k_hi + 2 * L::tile, v_lo = k_hi + 3 * L::tile;
+
+    // S: the hi hi products chained in s, the lo hi and hi lo ones in
+    // s_lo, added in registers
+    mbar_wait(bars + L::full_k + stage * 8, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      wgmma_tf32(s_lo, desc_f32(q_lo, 64, kk), desc_f32(k_hi, 64, kk), kk);
+      wgmma_tf32(s_lo, desc_f32(q_hi, 64, kk), desc_f32(k_lo, 64, kk), 1);
+      wgmma_tf32(s, desc_f32(q_hi, 64, kk), desc_f32(k_hi, 64, kk), kk);
+    }
+    wgmma_commit();
+    keep(s);
+    keep(s_lo);
+    wgmma_wait<0>();
+    keep(s);
+    keep(s_lo);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s_lo[j][e];
+    if (lane == 0) mbar_arrive(bars + L::empty_k + stage * 8);
+
+    softmax_tile_f32(s, ph, pl, m, l, alpha, c, t_k - j * kF32Keys, quad);
+
+    // this tile's P V into a fresh accumulator, then O = alpha O + P V in
+    // registers
+    mbar_wait(bars + L::full_v + stage * 8, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kF32Keys / 8; ++kk) {
+      wgmma_tf32(pv, pl[kk], desc_f32(v_hi, DH, kk), kk);
+      wgmma_tf32(pv, ph[kk], desc_f32(v_lo, DH, kk), 1);
+      wgmma_tf32(pv, ph[kk], desc_f32(v_hi, DH, kk), 1);
+    }
+    wgmma_commit();
+    keep(pv);
+    keep(ph);
+    keep(pl);
+    wgmma_wait<0>();
+    keep(pv);
+    keep(ph);
+    keep(pl);
+    if (lane == 0) mbar_arrive(bars + L::empty_v + stage * 8);
+#pragma unroll
+    for (int jj = 0; jj < kOut; ++jj) {
+      o[jj][0] = fmaf(o[jj][0], alpha[0], pv[jj][0]);
+      o[jj][1] = fmaf(o[jj][1], alpha[0], pv[jj][1]);
+      o[jj][2] = fmaf(o[jj][2], alpha[1], pv[jj][2]);
+      o[jj][3] = fmaf(o[jj][3], alpha[1], pv[jj][3]);
+    }
+  }
+
+  // the row sums meet across the quad; float32 O straight from registers
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + 8 * r >= t_q) continue;
+    float* dst = out + (size_t)(r0 + 8 * r) * DH + quad * 2;
+#pragma unroll
+    for (int jj = 0; jj < kOut; ++jj)
+      *reinterpret_cast<float2*>(dst + jj * 8) =
+          make_float2(o[jj][2 * r] * inv[r], o[jj][2 * r + 1] * inv[r]);
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kF32Threads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  int t_q, int t_k, float c) {
   using L = F32Smem<DH>;
-  constexpr int kOD = DH / 16;                 // O dims a thread
-  extern __shared__ float4 smem_f32[];
-  float* sq = reinterpret_cast<float*>(smem_f32);
-  float* sk = sq + L::k_off;
-  float* sv = sq + L::v_off;
-  float* sp = sq + L::p_off;
-  const int q0 = blockIdx.x * kF32Rows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - smem_u32(smem_raw)) & 1023u);
+  const uint32_t bars = smem_u32(smem) + L::bar_off;
   const size_t bh = blockIdx.y;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* kb = k + bh * t_k * DH;
-  const float* vb = v + bh * t_k * DH;
+  const int wg = threadIdx.x / 128;
 
-  load_tile_f32<DH, L::ld>(sq, q + bh * t_q * DH, q0, t_q, c);
-
-  float m[4], l[4], o[4][kOD];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -3.0e38f;
-    l[i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < kOD; ++d) o[i][d] = 0.f;
+    for (int i = 0; i < kF32Stages; ++i) {
+      mbar_init(bars + L::full_k + i * 8, 128);
+      mbar_init(bars + L::full_v + i * 8, 128);
+      mbar_init(bars + L::empty_k + i * 8, kConsumerWarps);
+      mbar_init(bars + L::empty_v + i * 8, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < t_k; k0 += kF32Keys) {
-    __syncthreads();   // the last step's K, V and P are read
-    load_tile_f32<DH, L::ld>(sk, kb, k0, t_k, 1.f);
-    load_tile_f32<DH, L::ld>(sv, vb, k0, t_k, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(sq + (4 * ty + i) * L::ld + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(sk + (tx + 16 * j) * L::ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
-
-    // online softmax over this step's keys (base 2; the scale is in Q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= t_k) s[i][j] = -3.0e38f;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float corr = exp2f(m[i] - mx);
-      m[i] = mx;
-      l[i] *= corr;
-#pragma unroll
-      for (int d = 0; d < kOD; ++d) o[i][d] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - mx);
-        l[i] += p;
-        sp[(4 * ty + i) * L::ldp + tx + 16 * j] = p;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kF32Keys; j += 4) {
-      float4 p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p[i] = *reinterpret_cast<const float4*>(sp + (4 * ty + i) * L::ldp + j);
-      float vr[4][kOD];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) load_f32(sv + (j + u) * L::ld + tx * kOD, vr[u]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int d = 0; d < kOD; ++d) {
-          o[i][d] = fmaf(p[i].x, vr[0][d], o[i][d]);
-          o[i][d] = fmaf(p[i].y, vr[1][d], o[i][d]);
-          o[i][d] = fmaf(p[i].z, vr[2][d], o[i][d]);
-          o[i][d] = fmaf(p[i].w, vr[3][d], o[i][d]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int w = 8; w > 0; w >>= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], w);
-    const int r = q0 + 4 * ty + i;
-    if (r >= t_q) continue;
-    const float inv = 1.f / l[i];
-    float* dst = out + (bh * t_q + r) * DH + tx * kOD;
-    if constexpr (kOD == 4) {
-      *reinterpret_cast<float4*>(dst) = make_float4(
-          o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
-    } else {
-      *reinterpret_cast<float2*>(dst) = make_float2(o[i][0] * inv,
-                                                    o[i][1] * inv);
-    }
-  }
+  if (wg == kConsumers)
+    produce_f32<DH>(smem, bars, k + bh * t_k * DH, v + bh * t_k * DH, t_k,
+                    threadIdx.x % 128);
+  else
+    consume_f32<DH>(smem, bars, q + bh * t_q * DH, out + bh * t_q * DH, t_q,
+                    t_k, blockIdx.x * kF32Rows, c, wg, threadIdx.x % 128);
 }
 
 template <int DH>
@@ -687,12 +878,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int bh,
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::bytes);
+        L::launch_bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((t_q + kF32Rows - 1) / kF32Rows, bh);
-  flash_f32_kernel<DH><<<grid, kF32Threads, L::bytes, stream>>>(
+  flash_f32_kernel<DH><<<grid, kThreads, L::launch_bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, t_q, t_k,
       1.4426950408889634f / sqrtf((float)DH));
   return (int)cudaGetLastError();
