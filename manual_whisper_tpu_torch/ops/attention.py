@@ -3,10 +3,12 @@
 Replaces ``flash_attention`` / ``_flash_kernel`` of the JAX package's
 ``ops/attention.py``: non-causal softmax(q k^T / sqrt(dh)) v over
 ``[B, H, T, dh]``.  On a CUDA tensor the wrapper launches K2: the bf16
-build (``wgmma`` products) for bf16 q, k and v, the float32 build (FFMA,
-no TF32) for float32 ones, each with a float32 online softmax and the
-output in the inputs' dtype; the ragged edge of T is masked inside the
-kernel, no padding here.  Other dtypes, or a mix, raise.  On a CPU tensor
+build (``wgmma`` products) for bf16 q, k and v, the float32 build for
+float32 ones (3xTF32 ``wgmma`` products: each operand split into two TF32
+values and three TF32 products summed, float32-class where one TF32
+product would not be), each with a float32 online softmax and the output
+in the inputs' dtype; the ragged edge of T is masked inside the kernel,
+no padding here.  Other dtypes, or a mix, raise.  On a CPU tensor
 it runs ``attention_plain``, which follows ``reference_attention``: scores
 and softmax in float32, output in q's dtype.
 """

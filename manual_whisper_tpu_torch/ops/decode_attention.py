@@ -12,8 +12,8 @@ positions < kv_len valid), so the kernel reads it on the device.
 
 On a CUDA tensor each wrapper launches its kernel (float32 softmax and
 sums; K3 and K4 in the build of the inputs' dtype, bf16 or float32, whose
-launches count under the kernel's name with ``_f32`` for float32; K5's
-output bf16).  On a CPU tensor it runs the plain version, which
+launches count under the kernel's name with ``_f32`` for float32, K3 with
+a launch shape of each element type's own; K5's output bf16).  On a CPU tensor it runs the plain version, which
 follows the JAX einsum paths (``whisper.py`` ``_decoder_block`` and
 ``_cross_attend``): f32 scores and softmax, probabilities cast to q's
 dtype, then the weighted sum in q's dtype.  The int8 cross K/V of K5 is
