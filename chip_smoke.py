@@ -60,6 +60,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    shapes with the same ragged and empty-slice checks, within (1e-4,
    1e-4); their yardstick is SDPA on float32 inputs with TF32 off, whose
    device kernels (the backend PyTorch picked) are on the row's line.
+   K2 f32's bound is its 3xTF32 products at the TF32 rate, with the FMA
+   pipes', the exponentials' and the bytes' times beside it; its row also
+   holds it at a sharp softmax (keys scaled 3x), its ragged check at key
+   lengths around its 64-key step.  K3 f32's row names the launch shape
+   the library picked and the empty-launch floor of its split
+   (kernel_variants' ``probe_empty_split{s}``), checks the edges of its
+   slices and passes, and has a batch-16 line (its wide shape).
    K1 is also checked and timed at
    diarization's shapes on raw log-mel of zero-padded rows (extra lines,
    TOL["mel_raw"]): 32 rows of each embedding length bucket (0.5, 1, 2, 4
@@ -120,7 +127,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    beam loop with the server's 4-token prompt for its peak memory.
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
    and 16 eager decode steps of each model (device-busy share, top
-   kernels), and over one replay of the 16-step chunk beside the same
+   kernels, and each of csrc/'s kernels with its share of the device
+   time, ``ours``), and over one replay of the 16-step chunk beside the same
    chunk run eagerly and the cross K/V and the prefill of a loop, run right
    after that model's phase 4; before phase 3, the host time to issue one
    call of K6 (through ``mm``) and K5 against the bf16 step's cuBLAS
@@ -239,7 +247,11 @@ from manual_whisper_tpu_torch.ops.quant import (int8_matmul,
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # non-tensor-core float32
+TF32_FLOPS = 495e12      # TF32 tensor cores
 BF16_FLOPS = 989e12      # bf16 tensor cores
+SMS = 132
+SPEC_CLOCK_HZ = 1.83e9   # the SM clock those peaks assume (989e12 / 132 /
+                         # 4096 bf16 operations a cycle and SM)
 L2_BYTES = 50 * 2 ** 20
 
 # (atol, rtol): |kernel - plain| <= atol + rtol * |plain| elementwise
@@ -468,6 +480,9 @@ def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks,
         a, c, d, _, n = sets[-1]
         extra["library_kernels"] = sdpa_kernels(
             sdpa, (a, c[:, :, :n], d[:, :, :n]))
+        shape = self_launch_shape(dtype, b * h)
+        extra["launch_shape"] = shape
+        extra["empty_launch_ms"] = empty_launch_ms(shape["split"], b * h, dev)
     return dict(**extra,
         shape=(f"B={b} H={h} T_max={t_max} pos={timed_pos[0]}.."
                f"{timed_pos[-1]} ({len(timed_pos)} pos) dh={dh} "
@@ -476,24 +491,50 @@ def self_attention_row(randn, dev, b, h, dh, t_max, timed_pos, checks,
         bound=(sum(x[0] for x in bounds) / len(bounds), bounds[0][1]))
 
 
+def self_launch_shape(dtype, bh: int) -> dict:
+    """K3's launch shape in the build of ``dtype`` at batch x heads ``bh``,
+    as the library reports it (``mwx_decode_self_shape``)."""
+    import ctypes
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.library("decode_attention").mwx_decode_self_shape(
+        int(dtype == torch.float32), bh, shape), "mwx_decode_self_shape")
+    return dict(zip(("split", "keys", "threads"), shape))
+
+
+def empty_launch_ms(split: int, bh: int, dev) -> float:
+    """The floor of a launch of K3's grid: ``kernel_variants``'s
+    ``probe_empty_split{split}`` (bh x split blocks that meet their cluster
+    and write one row each), timed as the kernels are."""
+    from manual_whisper_tpu_torch.kernel_variants import build_variants
+    var = f"probe_empty_split{split}"
+    fn = build_variants("decode_self_attention", "float32", only=[var])[var]
+    out = torch.empty((bh, 64), dtype=torch.float32, device=dev)
+    return graph_ms(lambda o: _build.check(
+        fn(0, 0, 0, o.data_ptr(), 0, 0, bh, 0, 64, _build.stream_of(o)),
+        var), [(out,)])
+
+
 def self_attention_rows(randn, dev, main: dict, dtype=torch.bfloat16):
     """K3's row of the kernels line (batch rows of the main path, its
-    self cache, every pos the decode loop visits) and, in bf16, its extra:
-    batch 16, T_max 448 (the server's; it runs bf16).  The checks take pos
-    6, 7 and 8 (n = 7, 8, 9: the key axis is split over the blocks of a
-    cluster, so short lengths leave blocks without keys) besides the
-    first, middle and last slots."""
+    self cache, every pos the decode loop visits) and its extra: batch 16,
+    T_max 448 (the server's), where the launch shape is the wide one.  The
+    checks take pos 6, 7 and 8 (n = 7, 8, 9: the key axis is split over
+    the blocks of a cluster, so short lengths leave blocks without keys)
+    besides the first, middle and last slots; in float32 also the slice
+    edges of its shapes (n = 53, 54: a slice of the narrow split at 417
+    slots; 63 to 65, 104, 105, 256 and 257)."""
     b, h, dh = main["batch"], main["heads"], main["dh"]
     t_max, p = main["t_max"], main["prefix"]
     steps = np.unique(np.linspace(p, t_max - 2, 20).round().astype(int))
+    edges = ((52, 53, 62, 63, 64, 103, 104, 255, 256)
+             if dtype == torch.float32 else ())
     row = self_attention_row(randn, dev, b, h, dh, t_max,
                              [int(x) for x in steps],
                              checks=(0, 1, 6, 7, 8, p, (p + t_max) // 2,
-                                     t_max - 1), dtype=dtype)
-    if dtype != torch.bfloat16:
-        return row, []
+                                     t_max - 1) + edges, dtype=dtype)
     return row, [self_attention_row(randn, dev, 16, h, dh, 448, [447],
-                                    checks=(0, 1, 6, 7, 8, 100, 255, 447))]
+                                    checks=(0, 1, 6, 7, 8, 100, 255, 447)
+                                    + edges, dtype=dtype)]
 
 
 def cross_attention_row(randn, dev, b, h, dh, ta, dtype=torch.bfloat16):
@@ -772,10 +813,12 @@ def flash_row(randn, b, h, tt, dh, dtype=torch.bfloat16):
     then timed over copies that exceed L2; the yardstick is SDPA on the
     same inputs (float32 with TF32 off; its kernels are on the row).
     Bound: q, k, v read and the output written once, or 4 b h tt^2 dh
-    operations at the bf16 tensor-core rate (bf16) or the FMA pipes'
-    float32 rate (float32).  ``exp2`` counts the b h tt^2 exponentials of
-    the softmax, which the special-function units run at 16 a cycle and
-    SM."""
+    operations at the bf16 tensor-core rate (bf16) or, in float32, three
+    times as many at the TF32 rate (the kernel's 3xTF32: float32-class
+    products); beside it the same operations at the FMA pipes' float32
+    rate, the bytes' time and the b h tt^2 exponentials of the softmax
+    (``exp2``), which the special-function units run at 16 a cycle and
+    SM.  In float32 also the error at a sharp softmax (keys scaled 3x)."""
     suffix, elem = _build.ATTENTION_DTYPES[dtype], dtype.itemsize
     q, k, v = (randn((b, h, tt, dh), dtype) for _ in range(3))
     err = compare("flash_attention" + suffix, flash_attention(q, k, v),
@@ -784,16 +827,27 @@ def flash_row(randn, b, h, tt, dh, dtype=torch.bfloat16):
     sets = [tuple(randn((b, h, tt, dh), dtype) for _ in range(3))
             for _ in range(copies_for(per))]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    ops, nbytes = 4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * elem
+    f32 = dtype == torch.float32
     row = dict(
         shape=f"B={b} H={h} T={tt} dh={dh} {_dtype_name(dtype)}",
         max_abs_err=err,
         ms=graph_ms(flash_attention, sets),
         plain_ms=graph_ms(attention_plain, sets[:1]),
         library_ms=graph_ms(sdpa, sets),
-        bound=bound(4.0 * b * h * tt * tt * dh, 4.0 * b * h * tt * dh * elem,
-                    BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS),
+        bound=(bound(3 * ops, nbytes, TF32_FLOPS) if f32
+               else bound(ops, nbytes, BF16_FLOPS)),
         exp2=float(b * h * tt * tt))
-    if dtype == torch.float32:
+    if f32:
+        sharp = 3.0 * k
+        row["sharp_max_abs_err"] = compare(
+            "flash_attention" + suffix, flash_attention(q, sharp, v),
+            attention_plain(q, sharp, v))
+        row["max_abs_err"] = max(err, row["sharp_max_abs_err"])
+        row["other_bounds"] = {
+            "fma_bound_ms": ops / F32_FLOPS * 1e3,
+            "exp2_ms": b * h * tt * tt / (16 * SMS * SPEC_CLOCK_HZ) * 1e3,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         row["library_kernels"] = sdpa_kernels(sdpa, sets[0])
         row["library_max_abs_err"] = max_err(sdpa(q, k, v),
                                              attention_plain(q, k, v))
@@ -802,17 +856,25 @@ def flash_row(randn, b, h, tt, dh, dtype=torch.bfloat16):
 
 # (t_q, t_k, dh) of K2's ragged check: a query tile of one row, a last key
 # tile of one key (129 = 128 + 1 in bf16, 2 x 64 + 1 in float32), the test
-# config's dh=32 at T=150 and the encoder's T=1500 at both head widths
+# config's dh=32 at T=150 and the encoder's T=1500 at both head widths;
+# float32 (64 keys a step) adds key lengths one short of, at and one past
+# a step at both widths (its row checks a sharp softmax)
 FLASH_CHECKS = ((1, 70, 64), (150, 150, 32), (127, 129, 64), (1499, 1499, 64),
                 (1500, 1500, 32))
+FLASH_F32_CHECKS = tuple((t_q, t_k, dh) for dh in (32, 64)
+                         for t_q, t_k in ((63, 63), (64, 64), (65, 65),
+                                          (130, 63), (1, 65)))
 
 
 def flash_check(randn, dtype=torch.bfloat16) -> dict:
-    """K2 (the build of ``dtype``) vs its plain version at FLASH_CHECKS,
-    B=2, H=3.  Checked, not timed."""
+    """K2 (the build of ``dtype``) vs its plain version at FLASH_CHECKS
+    (float32: and FLASH_F32_CHECKS), B=2, H=3.  Checked, not timed."""
     name = "flash_attention" + _build.ATTENTION_DTYPES[dtype]
     errs = {}
-    for t_q, t_k, dh in FLASH_CHECKS:
+    checks = FLASH_CHECKS
+    if dtype == torch.float32:
+        checks += FLASH_F32_CHECKS
+    for t_q, t_k, dh in checks:
         q = randn((2, 3, t_q, dh), dtype)
         k, v = randn((2, 3, t_k, dh), dtype), randn((2, 3, t_k, dh), dtype)
         errs[f"t_q={t_q} t_k={t_k} dh={dh}"] = compare(
@@ -910,7 +972,8 @@ def _row_line(phase: str, name: str, row: dict) -> str:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "library_ms": row["library_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1]}
-    for key in ("exp2", "library_kernels", "library_max_abs_err"):
+    for key in ("exp2", "sharp_max_abs_err", "launch_shape", "empty_launch_ms",
+                "library_kernels", "library_max_abs_err"):
         if key in row:
             line[key] = row[key]
     line.update(row.get("other_bounds", {}))
@@ -990,11 +1053,12 @@ def phase_kernels(dev, main: dict) -> dict:
     f32 = torch.float32
     log(json.dumps(flash_check(randn, f32)))
     rows["flash_attention_f32"] = flash_row(randn, 4, 20, 1500, 64, f32)
-    rows["decode_self_attention_f32"], _ = self_attention_rows(randn, dev,
-                                                               main, f32)
+    rows["decode_self_attention_f32"], k3_f32_extra = self_attention_rows(
+        randn, dev, main, f32)
     rows["decode_cross_attention_f32"] = cross_attention_row(
         randn, dev, b, h, dh, ta, f32)
     extra = [("decode_self_attention", row) for row in k3_extra]
+    extra += [("decode_self_attention_f32", row) for row in k3_f32_extra]
     extra += [("decode_cross_attention", cross_attention_row(
         randn, dev, 16, h, dh, ta))]
     extra += [("decode_cross_attention_int8", row) for row in k5_extra]
@@ -3136,7 +3200,26 @@ def _profiled(fn, reps: int) -> dict:
             "kernel_launches_per_rep": sum(r[2] for r in rows) / reps,
             "top": [{"kernel": name[:70], "ms_per_rep": us / 1e3 / reps,
                      "calls_per_rep": n / reps}
-                    for us, name, n in rows[:8]]}
+                    for us, name, n in rows[:8]],
+            "ours": {_short_kernel(name): {
+                "ms_per_rep": us / 1e3 / reps, "calls_per_rep": n / reps,
+                "share": us / 1e3 / device_ms}
+                for us, name, n in rows if _short_kernel(name)}}
+
+
+# the kernels of csrc/ by function name (K4's split_kernel shape pulls its
+# partial results, K3's pushes them: ", false>" and ", true>")
+OUR_KERNELS = ("flash_kernel", "flash_f32_kernel", "split_kernel",
+               "cross_int8_kernel", "matvec_kernel", "tile_kernel",
+               "log_mel_kernel")
+
+
+def _short_kernel(name: str) -> str:
+    """A device kernel's name without namespaces and arguments when it is
+    one of csrc/'s (its template arguments kept), else ""."""
+    head = name.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    head = head.removeprefix("void ").strip()
+    return head if head.split("<", 1)[0] in OUR_KERNELS else ""
 
 
 def phase_profile(model, main: dict, compute_type: str) -> None:

@@ -257,8 +257,9 @@ VARIANTS = {
             _self(4, 4, 256, "true", patches)
             for name, patches in _SELF_PROBES.items()},
          # the float32 instance (--dtype float32): bf16's shapes, whose
-         # blocks cover half the keys a pass in float32, and shapes that
-         # cover a slice of the 417 slots in one pass again
+         # blocks cover half the keys a pass in float32, shapes that cover
+         # a slice of the 417 slots in one pass again, and a timeline and
+         # the probes at the narrow shape it ships
          **{f"f32_split{s}_keys{u}_threads{t}_push": _self(
              s, u, t, "true", elem="float")
             for s, u, t in ((4, 4, 256), (2, 4, 256), (8, 4, 256),

@@ -158,6 +158,26 @@ def test_flash_kernel(dev, t_q, t_k, dh, build):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("t_q,t_k,dh,key_scale",
+                         [(130, t_k, dh, 1.0) for dh in (32, 64)
+                          for t_k in (63, 64, 65)]
+                         + [(1500, 1500, 64, 3.0)])
+def test_flash_f32_kernel_key_steps(dev, t_q, t_k, dh, key_scale):
+    """K2 in float32 (3xTF32) takes 64 keys a step: key lengths one short
+    of, at and one past a step at both head widths, and a sharp softmax
+    (keys scaled 3x), where one TF32 product a score would miss the
+    tolerance."""
+    dtype, suffix, tol = ATTENTION_BUILDS["f32"]
+    q = _randn((2, 3, t_q, dh), dev, 41, dtype)
+    k = key_scale * _randn((2, 3, t_k, dh), dev, 42, dtype)
+    v = _randn((2, 3, t_k, dh), dev, 43, dtype)
+    before = collections.Counter(_build.launches)
+    out = flash_attention(q, k, v)
+    assert _build.launches - before == {"flash_attention" + suffix: 1}
+    torch.testing.assert_close(out, attention_plain(q, k, v), atol=tol,
+                               rtol=tol)
+
+
 @pytest.mark.parametrize("build", ATTENTION_BUILDS)
 @pytest.mark.parametrize("dh", [32, 64])
 def test_decode_kernels(dev, dh, build):
@@ -200,13 +220,17 @@ def test_decode_cross_kernel_slices(dev, dh, n, build):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("build", ATTENTION_BUILDS)
 @pytest.mark.parametrize("dh", [32, 64])
-@pytest.mark.parametrize("n", [1, 7, 8, 9, 194, 416, 417])
+@pytest.mark.parametrize("n,build",
+                         [(n, build) for build in ATTENTION_BUILDS
+                          for n in (1, 7, 8, 9, 194, 416, 417)]
+                         + [(n, "f32") for n in (63, 64, 65, 104, 105, 256,
+                                                 257)])
 def test_decode_self_kernel_slices(dev, dh, n, build):
     """K3 splits the key axis over the blocks of a cluster: lengths n =
     pos + 1 that leave blocks without keys, a ragged last slice, and the
-    main path's first, last and full self cache of 417 slots."""
+    main path's first, last and full self cache of 417 slots; in float32
+    also the edges of its blocks' passes and slices (64 keys a pass)."""
     dtype, suffix, tol = ATTENTION_BUILDS[build]
     q = _randn((2, 3, 1, dh), dev, 25, dtype)
     k = _randn((2, 3, 417, dh), dev, 26, dtype)
@@ -215,6 +239,23 @@ def test_decode_self_kernel_slices(dev, dh, n, build):
     before = collections.Counter(_build.launches)
     out = decode_self_attention(q, k, v, pos)
     assert _build.launches - before == {"decode_self_attention" + suffix: 1}
+    torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("build", ATTENTION_BUILDS)
+@pytest.mark.parametrize("n", [1, 9, 128, 129, 256, 257, 448])
+def test_decode_self_kernel_wide(dev, n, build):
+    """Past one (batch, head) per SM K3 takes its wide launch shape (2
+    blocks a pair): batch 16 x 20 heads over the server's 448 slots, slices
+    that fill one pass of 128 keys or spill into a second, and the full
+    cache."""
+    dtype, suffix, tol = ATTENTION_BUILDS[build]
+    q = _randn((16, 20, 1, 64), dev, 28, dtype)
+    k = _randn((16, 20, 448, 64), dev, 29, dtype)
+    v = _randn((16, 20, 448, 64), dev, 30, dtype)
+    pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+    out = decode_self_attention(q, k, v, pos)
     torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
                                atol=tol, rtol=tol)
 
