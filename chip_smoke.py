@@ -501,13 +501,21 @@ def self_launch_shape(dtype, bh: int) -> dict:
     return dict(zip(("split", "keys", "threads"), shape))
 
 
-def empty_launch_ms(split: int, bh: int, dev) -> float:
-    """The floor of a launch of K3's grid: ``kernel_variants``'s
-    ``probe_empty_split{split}`` (bh x split blocks that meet their cluster
-    and write one row each), timed as the kernels are."""
+@functools.lru_cache(maxsize=None)
+def _empty_probes() -> dict:
+    """``kernel_variants``'s empty-launch probes of K3's splits, built once
+    (their nvcc processes side by side)."""
     from manual_whisper_tpu_torch.kernel_variants import build_variants
+    return build_variants("decode_self_attention", "float32",
+                          only=[f"probe_empty_split{s}" for s in (1, 2, 4, 8)])
+
+
+def empty_launch_ms(split: int, bh: int, dev) -> float:
+    """The floor of a launch of K3's grid: ``probe_empty_split{split}`` (bh
+    x split blocks that meet their cluster and write one row each), timed
+    as the kernels are."""
     var = f"probe_empty_split{split}"
-    fn = build_variants("decode_self_attention", "float32", only=[var])[var]
+    fn = _empty_probes()[var]
     out = torch.empty((bh, 64), dtype=torch.float32, device=dev)
     return graph_ms(lambda o: _build.check(
         fn(0, 0, 0, o.data_ptr(), 0, 0, bh, 0, 64, _build.stream_of(o)),
