@@ -362,6 +362,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def span_s(stats: dict, name: str) -> float:
+    """Seconds of the program span ``name`` in a ``last_stats``, summed
+    over the threads that closed it (``manual_whisper_tpu_torch/spans.py``:
+    each thread's clock is its own, so loops of the dispatch thread and the
+    fetch worker's retries add up to the time spent in loops)."""
+    return sum(role.get(name, (0.0,))[0] for role in stats["spans"].values())
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1619,7 +1627,7 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
     line.update({
         "vad": "pyannet", "load_s": load_s, "vad_s": stats["vad_s"],
         "mel_encode_s": stats["encode_s"], "windows": stats["windows"],
-        "ms_per_token_row": 1e3 * stats["decode_s"]
+        "ms_per_token_row": 1e3 * span_s(stats, "decode.loop")
         / max(stats["token_rows"], 1),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "clocks_power_temp_after": clocks})
@@ -1748,7 +1756,9 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
             "int8_cross_kv": decoder.opts.int8_cross_kv,
             "warmup_s": warmup_s, "capture_s": decoder.stats["capture_s"],
             "audio_s": duration, "wall_s": wall, "rtf": wall / duration,
-            "decode_s": stats["decode_s"], "batches": stats["batches"],
+            "decode_loop_s": span_s(stats, "decode.loop"),
+            "finalize_s": span_s(stats, "finalize.batch"),
+            "batches": stats["batches"],
             "rows": stats["rows"], "decode_calls": stats["decode_calls"],
             "decode_steps": stats["decode_steps"],
             "beam_calls": stats["beam_calls"],
@@ -1928,7 +1938,7 @@ def phase_timestamps(model, compute_type: str) -> None:
     n_rows = len(rows_seen)
     line.update({"rows_checked": n_rows, "rule_violations": broken,
                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                 "ms_per_token_row": 1e3 * stats["decode_s"]
+                 "ms_per_token_row": 1e3 * span_s(stats, "decode.loop")
                  / max(stats["token_rows"], 1)})
     if broken or n_rows < stats["rows"]:
         log(json.dumps(line))
@@ -2913,7 +2923,8 @@ def phase_fetch(dev) -> None:
     segments and ``last_stats`` counts equal, launches exact (the
     capture's eager warm-up steps added), every decode step replayed, the
     capture made on the worker in the first run; each run's wall,
-    capture, ``decode_s`` and ``encode_s``, beside the card."""
+    capture, decode-loop and finalize seconds (``span_s``) and
+    ``encode_s``, beside the card."""
     import threading
     from manual_whisper_tpu_torch import config as port_config
     from manual_whisper_tpu_torch.models import graphs as graphs_mod
@@ -2998,7 +3009,9 @@ def phase_fetch(dev) -> None:
             "card": card_line()}
     for name, run in runs.items():
         line[name] = {"wall_s": run["wall"], "capture_s": run["capture_s"],
-                      "decode_s": run["stats"]["decode_s"],
+                      "decode_loop_s": span_s(run["stats"],
+                                              "decode.loop"),
+                      "finalize_s": span_s(run["stats"], "finalize.batch"),
                       "encode_s": run["stats"]["encode_s"],
                       "vad_s": run["stats"]["vad_s"],
                       "replayed_steps": run["replayed_steps"],
@@ -3178,8 +3191,8 @@ def phase_launch(dev, workdir: str) -> None:
 def _profiled(fn, reps: int) -> dict:
     """Time ``reps`` calls of fn() on the host clock (ending in a
     synchronise), then run them again under torch.profiler and sum the
-    device time of the CUDA kernels.  Busy share = kernel time / wall time
-    of the unprofiled run."""
+    device time of the CUDA kernels (user annotations left out).  Busy
+    share = kernel time / wall time of the unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3196,7 +3209,11 @@ def _profiled(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # the program's ``mwx.`` spans have device-side copies on the
+        # trace: spans, not kernels
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith("mwx.")):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(((us, name, n) for name, (us, n) in by_name.items()),
@@ -3804,8 +3821,10 @@ def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
             "rows": st["rows"], "decode_calls": st["decode_calls"],
             "decode_steps": st["decode_steps"],
             "rung_rows": st["rung_rows"], "vad_s": st["vad_s"],
-            "encode_s": st["encode_s"], "decode_s": st["decode_s"],
-            "ms_per_token_row": 1e3 * st["decode_s"]
+            "encode_s": st["encode_s"],
+            "decode_loop_s": span_s(st, "decode.loop"),
+            "finalize_s": span_s(st, "finalize.batch"),
+            "ms_per_token_row": 1e3 * span_s(st, "decode.loop")
             / max(st["token_rows"], 1),
             "segments": len(results[name]["output"]["json"]["segments"])}))
 

@@ -43,6 +43,7 @@ from .whisper import (Params, WhisperConfig, _layer_norm, _mlp,
 from ..ops.decode_attention import attend_plain
 from ..ops.quant import mm
 from ..parallel.mesh import reduce_from_model
+from ..spans import span
 
 NEG_INF = -1e30
 
@@ -241,42 +242,46 @@ class BeamLoop(ChunkedLoop):
         and the no-speech probability at the SOT slot."""
         b, p, st, k = xa.shape[0], len(prefix), self.state, self.beams
         eot, lp_pow = self.eot, self.length_penalty
-        precompute_cross_kv(self.params, xa, self.cfg, quantize=self.quantize,
-                            scale_dtype=self.scale_dtype, out=self.cross,
-                            group=self.group)
-        prefix_b = torch.tensor(prefix, dtype=torch.long,
-                                device=xa.device).expand(b, p)
-        pre_cache = init_kv_cache(self.cfg, b, p, xa.device,
-                                  heads=self.cache[0][0].shape[2])
-        prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
-                                            self.cfg, pos_offset=0,
-                                            kv_cache=pre_cache,
-                                            cross_kv=self.cross,
-                                            group=self.group)
-        for layers, pre in zip(self.cache, pre_cache):
-            for c, c0 in zip(layers, pre):
-                c[:, :, :, :p].copy_(c0[:, None])
-        del pre_cache
-        first = torch.log_softmax(
-            prefill_logits[:, -1, :] + self.suppress + blank_mask, dim=-1)
-        top_lp, top_tok = top_k(first, k)
-        st.tokens.fill_(eot)
-        st.tokens[:, :, 0] = top_tok
-        st.last.copy_(top_tok)
-        st.finished.copy_(top_tok == eot)
-        st.cum_lp.copy_(top_lp)
-        st.lengths.fill_(1)
-        # every slot holds the same prefill for t < p; beam k's first token
-        # goes to its own slot k at t = p
-        st.anc.copy_(self.k_ids[None, :, None].expand_as(st.anc))
-        first_eot = first[:, eot]
-        ones = torch.ones_like(st.fin_len)
-        st.fin_score.copy_(torch.where(
-            first_eot > NEG_INF / 2, norm_score(first_eot, ones, lp_pow),
-            torch.full_like(first_eot, NEG_INF)))
-        st.fin_tokens.fill_(eot)
-        st.fin_lp.copy_(first_eot)
-        st.fin_len.fill_(1)
+        with span("decode.cross_kv"):
+            precompute_cross_kv(self.params, xa, self.cfg,
+                                quantize=self.quantize,
+                                scale_dtype=self.scale_dtype, out=self.cross,
+                                group=self.group)
+        with span("decode.prepare"):
+            prefix_b = torch.tensor(prefix, dtype=torch.long,
+                                    device=xa.device).expand(b, p)
+        with span("decode.prefill"):
+            pre_cache = init_kv_cache(self.cfg, b, p, xa.device,
+                                      heads=self.cache[0][0].shape[2])
+            prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
+                                                self.cfg, pos_offset=0,
+                                                kv_cache=pre_cache,
+                                                cross_kv=self.cross,
+                                                group=self.group)
+            for layers, pre in zip(self.cache, pre_cache):
+                for c, c0 in zip(layers, pre):
+                    c[:, :, :, :p].copy_(c0[:, None])
+            del pre_cache
+            first = torch.log_softmax(
+                prefill_logits[:, -1, :] + self.suppress + blank_mask, dim=-1)
+            top_lp, top_tok = top_k(first, k)
+            st.tokens.fill_(eot)
+            st.tokens[:, :, 0] = top_tok
+            st.last.copy_(top_tok)
+            st.finished.copy_(top_tok == eot)
+            st.cum_lp.copy_(top_lp)
+            st.lengths.fill_(1)
+            # every slot holds the same prefill for t < p; beam k's first token
+            # goes to its own slot k at t = p
+            st.anc.copy_(self.k_ids[None, :, None].expand_as(st.anc))
+            first_eot = first[:, eot]
+            ones = torch.ones_like(st.fin_len)
+            st.fin_score.copy_(torch.where(
+                first_eot > NEG_INF / 2, norm_score(first_eot, ones, lp_pow),
+                torch.full_like(first_eot, NEG_INF)))
+            st.fin_tokens.fill_(eot)
+            st.fin_lp.copy_(first_eot)
+            st.fin_len.fill_(1)
         i = self._run_chunks(st.finished)
 
         score = norm_score(st.cum_lp, st.lengths, lp_pow)

@@ -53,6 +53,7 @@ import torch
 
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_true, axis_group,
                              axis_rank, axis_size, gather_rows, local_rows)
+from ..spans import span
 from ..tokenizer import WhisperTokenizer
 from .graphs import ChunkGraphs
 from .whisper import (Params, StepLengths, WhisperConfig, alloc_cross_kv,
@@ -298,10 +299,11 @@ class ChunkedLoop:
         self.state.pos.fill_(self.p)
 
     def run_chunk(self, n: int) -> None:
-        if self.graphs is None:
-            self._chunk(n)
-        else:
-            self.graphs.replay(n)
+        with span("decode.replay"):
+            if self.graphs is None:
+                self._chunk(n)
+            else:
+                self.graphs.replay(n)
 
     def _run_chunks(self, finished: torch.Tensor) -> int:
         """The chunks after the first token, checking before each that not
@@ -309,7 +311,10 @@ class ChunkedLoop:
         loop's checks).  Returns the positions run."""
         self._rewind()
         i = 1
-        while i < self.max_new and not all_true(finished, self.group):
+        while i < self.max_new:
+            with span("decode.finish_check"):
+                if all_true(finished, self.group):
+                    break
             n = min(FINISH_CHECK_EVERY, self.max_new - i)
             self.run_chunk(n)
             i += n
@@ -361,24 +366,28 @@ class DecodeLoop(ChunkedLoop):
         between them that every row has finished (at steps 1, 17, 33, ...:
         the eager loop's checks).  Returns copies of the results."""
         b, p, st = xa.shape[0], len(prefix), self.state
-        precompute_cross_kv(self.params, xa, self.cfg, quantize=self.quantize,
-                            scale_dtype=self.scale_dtype, out=self.cross,
-                            group=self.group)
-        prefix_b = torch.tensor(prefix, dtype=torch.long,
-                                device=xa.device).expand(b, p)
-        prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
-                                            self.cfg, pos_offset=0,
-                                            kv_cache=self.cache,
-                                            cross_kv=self.cross,
-                                            group=self.group)
-        st.temperature.fill_(temperature)
-        tok, lp = self.pick.first(prefill_logits[:, -1, :], st)
-        st.tok.copy_(tok)
-        st.tokens.fill_(self.eot)
-        st.tokens[:, 0] = tok
-        st.finished.copy_(tok == self.eot)
-        st.lengths.fill_(1)
-        st.sum_lp.copy_(lp)
+        with span("decode.cross_kv"):
+            precompute_cross_kv(self.params, xa, self.cfg,
+                                quantize=self.quantize,
+                                scale_dtype=self.scale_dtype, out=self.cross,
+                                group=self.group)
+        with span("decode.prepare"):
+            prefix_b = torch.tensor(prefix, dtype=torch.long,
+                                    device=xa.device).expand(b, p)
+        with span("decode.prefill"):
+            prefill_logits, _ = decoder_forward(self.params, prefix_b, None,
+                                                self.cfg, pos_offset=0,
+                                                kv_cache=self.cache,
+                                                cross_kv=self.cross,
+                                                group=self.group)
+            st.temperature.fill_(temperature)
+            tok, lp = self.pick.first(prefill_logits[:, -1, :], st)
+            st.tok.copy_(tok)
+            st.tokens.fill_(self.eot)
+            st.tokens[:, 0] = tok
+            st.finished.copy_(tok == self.eot)
+            st.lengths.fill_(1)
+            st.sum_lp.copy_(lp)
         i = self._run_chunks(st.finished)
         no_speech = torch.softmax(prefill_logits[:, sot_index, :], dim=-1)[
             :, no_speech_token]
@@ -500,13 +509,14 @@ class BatchDecoder:
         (gathered over the data dim with a mesh), copied to the host
         (``DecodeOutput.to_host``).  Called under the lock, so the copies
         are enqueued before the next loop may overwrite the buffers."""
-        g = self._data_group
-        if g is not None:
-            out = DecodeOutput(gather_rows(out.tokens, g),
-                               gather_rows(out.sum_logprob, g),
-                               gather_rows(out.lengths, g),
-                               gather_rows(out.no_speech, g), out.steps)
-        return out.to_host()
+        with span("decode.fetch"):
+            g = self._data_group
+            if g is not None:
+                out = DecodeOutput(gather_rows(out.tokens, g),
+                                   gather_rows(out.sum_logprob, g),
+                                   gather_rows(out.lengths, g),
+                                   gather_rows(out.no_speech, g), out.steps)
+            return out.to_host()
 
     def decode_submit(self, xa: torch.Tensor, temperature: float = 0.0,
                       rng_tag: int = 0) -> DecodeOutput:
@@ -515,22 +525,26 @@ class BatchDecoder:
         1`` at T = 0 that is the beam search (JAX ``decode_submit``), else
         the greedy or sampled loop, its generator seeded with ``opts.seed +
         1000003 * rng_tag`` before the loop."""
-        prefix, sot_index = self._prefix()
-        max_new = self._max_new(len(prefix))
-        rows, ta = int(xa.shape[0]), int(xa.shape[1])
-        key = (rows, ta, len(prefix), max_new)
         no_speech = self.tokenizer.special.no_speech
-        with self._lock:
-            if self.opts.beam_size > 1 and temperature == 0.0:
-                loop = self._get(self._beam_loops, key, self._make_beam)
+        beam = self.opts.beam_size > 1 and temperature == 0.0
+        with span("decode.loop"), self._lock:
+            with span("decode.prepare"):
+                prefix, sot_index = self._prefix()
+                max_new = self._max_new(len(prefix))
+                rows, ta = int(xa.shape[0]), int(xa.shape[1])
+                key = (rows, ta, len(prefix), max_new)
+                if beam:
+                    loop = self._get(self._beam_loops, key, self._make_beam)
+                else:
+                    loop = self._get(self._loops, key, self._make_greedy)
+                    self._gen.manual_seed(self.opts.seed + 1000003 * rng_tag)
+            if beam:
                 out = loop.run(xa, prefix, self._blank, sot_index=sot_index,
                                no_speech_token=no_speech)
                 self.stats["token_rows"] += rows * loop.beams * out.steps
                 self.stats["beam_calls"] += 1
                 self.stats["beam_steps"] += out.steps - 1
             else:
-                loop = self._get(self._loops, key, self._make_greedy)
-                self._gen.manual_seed(self.opts.seed + 1000003 * rng_tag)
                 out = loop.run(xa, prefix, float(temperature),
                                sot_index=sot_index, no_speech_token=no_speech)
                 self.stats["token_rows"] += rows * out.steps
@@ -587,18 +601,21 @@ class BatchDecoder:
         suppressed, argmax, no fallback ladder.  Results leave as host
         copies (``_fetched``) that ``timestamps_finalize`` reads."""
         tk = self.tokenizer
-        if self._ts is None:
-            ts_opts = dataclasses.replace(self.opts, without_timestamps=False)
-            self._ts = (torch.from_numpy(build_suppress_mask(
-                tk, self.cfg, ts_opts)).to(self.device),
-                tk.sot_sequence(self.opts.language, self.opts.task,
-                                without_timestamps=False))
-        prefix = self._ts[1]
-        max_new = self._max_new(len(prefix))
-        rows, ta = int(xa.shape[0]), int(xa.shape[1])
-        with self._lock:
-            loop = self._get(self._ts_loops, (rows, ta, len(prefix), max_new),
-                             self._make_ts)
+        with span("decode.loop"), self._lock:
+            with span("decode.prepare"):
+                if self._ts is None:
+                    ts_opts = dataclasses.replace(self.opts,
+                                                  without_timestamps=False)
+                    self._ts = (torch.from_numpy(build_suppress_mask(
+                        tk, self.cfg, ts_opts)).to(self.device),
+                        tk.sot_sequence(self.opts.language, self.opts.task,
+                                        without_timestamps=False))
+                prefix = self._ts[1]
+                max_new = self._max_new(len(prefix))
+                rows, ta = int(xa.shape[0]), int(xa.shape[1])
+                loop = self._get(self._ts_loops,
+                                 (rows, ta, len(prefix), max_new),
+                                 self._make_ts)
             out = loop.run(xa, prefix, 0.0)
             self.stats["token_rows"] += rows * out.steps
             self.stats["decode_calls"] += 1
@@ -612,10 +629,12 @@ class BatchDecoder:
         """Fetch a ``timestamps_submit`` result and cut each row into
         sub-segments at its timestamp pairs."""
         from .timestamps import split_segments_by_timestamps
-        tokens = out.tokens.cpu().numpy()
-        return [split_segments_by_timestamps(
-            tokens[i], self.tokenizer, float(chunk_starts[i]),
-            float(chunk_durations[i])) for i in range(len(chunk_starts))]
+        with span("finalize.wait"):
+            tokens = out.tokens.cpu().numpy()
+        with span("finalize.text"):
+            return [split_segments_by_timestamps(
+                tokens[i], self.tokenizer, float(chunk_starts[i]),
+                float(chunk_durations[i])) for i in range(len(chunk_starts))]
 
     def decode_with_timestamps(self, xa: torch.Tensor,
                                chunk_starts: Sequence[float],
@@ -630,25 +649,27 @@ class BatchDecoder:
                         temperature: float = 0.0) -> List[SegmentResult]:
         """Fetch a decode_submit result and build SegmentResults."""
         tk = self.tokenizer
-        tokens = out.tokens.cpu().numpy()
-        sum_lp = out.sum_logprob.cpu().numpy()
-        lengths = out.lengths.cpu().numpy()
-        no_speech = out.no_speech.cpu().numpy()
+        with span("finalize.wait"):
+            tokens = out.tokens.cpu().numpy()
+            sum_lp = out.sum_logprob.cpu().numpy()
+            lengths = out.lengths.cpu().numpy()
+            no_speech = out.no_speech.cpu().numpy()
         results = []
-        for i in range(b):
-            toks = [int(t) for t in tokens[i] if t != tk.special.eot]
-            text = tk.decode(toks).strip()
-            # lengths counts the EOT-emitting step; a row truncated at
-            # max_new without EOT gets the +1 explicitly (faster-whisper's
-            # gating scale)
-            denom = int(lengths[i]) + (1 if len(toks) == tokens.shape[1]
-                                       else 0)
-            avg_lp = float(sum_lp[i] / max(denom, 1))
-            results.append(SegmentResult(
-                tokens=toks, text=text, avg_logprob=avg_lp,
-                no_speech_prob=float(no_speech[i]),
-                compression_ratio=compression_ratio(text),
-                temperature=temperature))
+        with span("finalize.text"):
+            for i in range(b):
+                toks = [int(t) for t in tokens[i] if t != tk.special.eot]
+                text = tk.decode(toks).strip()
+                # lengths counts the EOT-emitting step; a row truncated at
+                # max_new without EOT gets the +1 explicitly
+                # (faster-whisper's gating scale)
+                denom = int(lengths[i]) + (1 if len(toks) == tokens.shape[1]
+                                           else 0)
+                avg_lp = float(sum_lp[i] / max(denom, 1))
+                results.append(SegmentResult(
+                    tokens=toks, text=text, avg_logprob=avg_lp,
+                    no_speech_prob=float(no_speech[i]),
+                    compression_ratio=compression_ratio(text),
+                    temperature=temperature))
         return results
 
     def _needs_fallback(self, r: SegmentResult) -> bool:
@@ -691,22 +712,25 @@ class BatchDecoder:
         for rung, temp in enumerate(temps[1:], start=1):
             if not pending:
                 break
-            if xa_all is None:
-                xa_all = gather_rows(xa, self._data_group)
-            rows = _bucket_for(len(pending), b, dp)
-            idx = pending + [pending[0]] * (rows - len(pending))
-            sub = local_rows(xa_all[torch.tensor(idx, device=xa.device)],
-                             dp, self._data_rank)
-            with self._lock:
-                self.stats["rung_rows"][rung] += rows // dp
-            retried = self.decode(sub, temperature=temp,
-                                  rng_tag=rng_tag * 16 + rung)[:len(pending)]
-            still = []
-            for j, i in enumerate(pending):
-                results[i] = retried[j]
-                if self._needs_fallback(retried[j]):
-                    still.append(i)
-            pending = still
+            with span("finalize.retry"):
+                if xa_all is None:
+                    xa_all = gather_rows(xa, self._data_group)
+                rows = _bucket_for(len(pending), b, dp)
+                idx = pending + [pending[0]] * (rows - len(pending))
+                sub = local_rows(
+                    xa_all[torch.tensor(idx, device=xa.device)], dp,
+                    self._data_rank)
+                with self._lock:
+                    self.stats["rung_rows"][rung] += rows // dp
+                retried = self.decode(
+                    sub, temperature=temp,
+                    rng_tag=rng_tag * 16 + rung)[:len(pending)]
+                still = []
+                for j, i in enumerate(pending):
+                    results[i] = retried[j]
+                    if self._needs_fallback(retried[j]):
+                        still.append(i)
+                pending = still
         return results
 
     def is_no_speech(self, r: SegmentResult) -> bool:

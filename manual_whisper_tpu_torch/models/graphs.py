@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..ops import _build
+from ..spans import span
 
 _capture_lock = threading.Lock()
 
@@ -65,25 +66,27 @@ class ChunkGraphs:
     def capture(self, n: int, fn: Callable[[int], None],
                 reset: Callable[[], None]) -> None:
         """Warm ``fn(n)`` up eagerly after ``reset()``, then capture it."""
-        t0 = time.perf_counter()
-        current = torch.cuda.current_stream(self._stream.device)
-        reset()
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            fn(n)
-        current.wait_stream(self._stream)
-        graph = torch.cuda.CUDAGraph()
-        if self._generator is not None:
-            graph.register_generator_state(self._generator)
-        # thread_local: CUDA calls of other threads (another decoder's
-        # loop) may go on while this thread captures
-        with _capture_lock, _build.recording() as delta, \
-                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                 capture_error_mode="thread_local"):
-            fn(n)
-        self.graphs[n] = graph
-        self.launch_delta[n] = delta
-        self.capture_s += time.perf_counter() - t0
+        with span("graphs.capture"):
+            t0 = time.perf_counter()
+            current = torch.cuda.current_stream(self._stream.device)
+            reset()
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                fn(n)
+            current.wait_stream(self._stream)
+            graph = torch.cuda.CUDAGraph()
+            if self._generator is not None:
+                graph.register_generator_state(self._generator)
+            # thread_local: CUDA calls of other threads (another decoder's
+            # loop) may go on while this thread captures
+            with _capture_lock, _build.recording() as delta, \
+                    torch.cuda.graph(graph, pool=self._pool,
+                                     stream=self._stream,
+                                     capture_error_mode="thread_local"):
+                fn(n)
+            self.graphs[n] = graph
+            self.launch_delta[n] = delta
+            self.capture_s += time.perf_counter() - t0
 
     def replay(self, n: int) -> None:
         self.graphs[n].replay()

@@ -40,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..spans import span
+
 SAMPLE_RATE = 16000
 
 
@@ -439,19 +441,22 @@ class VoiceActivityDetector:
         n_windows = max(1, int(np.ceil(n / window)))
         parts: List[np.ndarray] = []
         for lo in range(0, n_windows, block_windows):
-            m = min(block_windows, n_windows - lo)
-            block = np.zeros((m, window), np.float32)
-            avail = audio[lo * window: (lo + m) * window]
-            block.reshape(-1)[: len(avail)] = avail
-            log_probs = pyannet_forward_chunked(self.model, block)
-            speech = powerset_to_speech_prob(log_probs)
-            parts.append(speech.reshape(-1))
-            frame_dur = self.cfg.window_sec / speech.shape[1]
-            flat = np.concatenate(parts) if len(parts) > 1 else parts[0]
-            is_last = lo + m >= n_windows
-            if is_last:
-                valid = int(np.ceil(n / SAMPLE_RATE / frame_dur))
-                flat = flat[:valid]
+            # the span closes before the yield: the caller's work between
+            # blocks is not the VAD's
+            with span("vad.pyannet"):
+                m = min(block_windows, n_windows - lo)
+                block = np.zeros((m, window), np.float32)
+                avail = audio[lo * window: (lo + m) * window]
+                block.reshape(-1)[: len(avail)] = avail
+                log_probs = pyannet_forward_chunked(self.model, block)
+                speech = powerset_to_speech_prob(log_probs)
+                parts.append(speech.reshape(-1))
+                frame_dur = self.cfg.window_sec / speech.shape[1]
+                flat = np.concatenate(parts) if len(parts) > 1 else parts[0]
+                is_last = lo + m >= n_windows
+                if is_last:
+                    valid = int(np.ceil(n / SAMPLE_RATE / frame_dur))
+                    flat = flat[:valid]
             yield flat, frame_dur, is_last
 
     def speech_probs(self, audio: np.ndarray) -> Tuple[np.ndarray, float]:

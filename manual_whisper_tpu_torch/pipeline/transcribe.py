@@ -37,11 +37,23 @@ holds the phase times and counts of the calling thread's most recent
 merging, on the calling thread; ``encode_s``: the encodes, on the calling
 thread's clock up to an event recorded after each (on CUDA waited for,
 so it is the encode's device time and that of work enqueued before it);
-``decode_s``: the first rungs on the calling thread plus the
-finalizations on whichever thread ran them, summed, so with the worker it
-can exceed the wall time; ``windows``: real audio windows; ``rows``:
-batch rows, padding included; ``decode_calls`` and ``decode_steps`` as
-``BatchDecoder.stats``).
+``windows``: real audio windows; ``rows``: batch rows, padding included;
+``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``;
+``request``: the call's number in the process).
+
+``last_stats["spans"][role][name]`` is ``[seconds, count]`` of each
+program span (``spans.py``; ``spans.SPANS`` lists them) closed on one
+thread: ``dispatch``, the calling thread (VAD blocks, chunking, the
+encode's preparation, upload, launches and wait, each first-rung decode
+loop and its parts, the hand-off to the in-flight window, and on the
+serial path the finalizations), and ``fetch``, the fetch worker (each
+batch's finalize, its wait for the results, text and gates, the
+ladder's rungs and their decode loops).  A rung's ``decode.loop`` nests
+in its ``finalize.retry``, so on the serial path ``decode.loop`` holds
+the retries' loops too.  Each role's clock is its own thread's, so no
+time is summed across threads.  While a ``torch.profiler`` trace records,
+each span is also an ``mwx.<name>`` annotation on the trace's clock, the
+root ``pipeline.transcribe`` with the request's number as its argument.
 
 Two threads may transcribe at once (the job server decodes a second pass
 while its worker runs the next job): decoders are made under a lock, one
@@ -65,6 +77,7 @@ order.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import pickle
 import threading
 import time
@@ -89,6 +102,7 @@ from ..ops.mel import log_mel_spectrogram
 from ..ops.quant import quantize_params
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
                              axis_size, local_rows, make_mesh, shard_params)
+from ..spans import bind, span
 from ..tokenizer import WhisperTokenizer, make_test_tokenizer
 from .chunking import SpeechChunk, batch_chunks, merge_chunks
 
@@ -99,6 +113,9 @@ ProgressFn = Callable[[float, str], None]
 _UNSET = object()
 
 DEFAULT_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+
+# the number of each transcription in the process, the root span's argument
+_requests = itertools.count(1)
 
 
 class TranscribePipeline:
@@ -201,11 +218,15 @@ class TranscribePipeline:
     def _encode_windows(self, windows: np.ndarray) -> torch.Tensor:
         """Host float windows -> encoder states.  Audio crosses to the
         device as int16 (native PCM width, half the bytes of f32)."""
-        audio_i16 = np.clip(windows * 32768.0, -32768, 32767).astype(np.int16)
-        audio = torch.from_numpy(audio_i16).to(self.device)
-        audio = audio.to(torch.float32) * (1.0 / 32768.0)
-        mel = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
-        return encode(self.params, mel, self.cfg, group=self.model_group)
+        with span("encode.prep"):
+            audio_i16 = np.clip(windows * 32768.0, -32768,
+                                32767).astype(np.int16)
+        with span("encode.upload"):
+            audio = torch.from_numpy(audio_i16).to(self.device)
+            audio = audio.to(torch.float32) * (1.0 / 32768.0)
+        with span("encode.launch"):
+            mel = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
+            return encode(self.params, mel, self.cfg, group=self.model_group)
 
     # -- public API ----------------------------------------------------------
     def detect_language(self, audio: np.ndarray) -> str:
@@ -300,12 +321,23 @@ class TranscribePipeline:
 
         chunk_size = min(chunk_size or self.window_sec, self.window_sec)
         lang = language or self.language
-        duration = len(audio) / 16000.0
-        stats = {"vad_s": 0.0, "encode_s": 0.0, "decode_s": 0.0,
+        request = next(_requests)
+        stats = {"vad_s": 0.0, "encode_s": 0.0,
                  "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
                  "decode_calls": 0, "decode_steps": 0, "beam_calls": 0,
-                 "beam_steps": 0, "rung_rows": {}}
+                 "beam_steps": 0, "rung_rows": {}, "request": request,
+                 "spans": {}}
         self._thread_stats.stats = stats
+        with bind(stats["spans"], "dispatch"), \
+                span("pipeline.transcribe", str(request)):
+            return self._transcribe_phases(
+                audio, batch_size, lang, chunk_size, temperature, report,
+                vad_options, initial_prompt, stats)
+
+    def _transcribe_phases(self, audio, batch_size, lang, chunk_size,
+                           temperature, report, vad_options, initial_prompt,
+                           stats) -> dict:
+        duration = len(audio) / 16000.0
         stats_lock = threading.Lock()
         segments: List[dict] = []
         decoder: Optional[BatchDecoder] = None
@@ -322,32 +354,32 @@ class TranscribePipeline:
         pending: List[tuple] = []
         n_done = 0
         n_dispatched = 0
-        t0 = time.time()
+        t0 = time.perf_counter()
 
         def finalize_one(item) -> None:
             nonlocal n_done
             group, xa, handle, batch_idx, rows = item
-            t_fin = time.perf_counter()
-            if use_ts:
-                # sub-chunk segments from the decoded timestamp pairs;
-                # padding rows get start and duration 0
-                pad = [0.0] * (rows - len(group))
-                found = decoder.timestamps_finalize(
-                    handle, [ch.start for ch in group] + pad,
-                    [ch.duration for ch in group] + pad)
-                new = [seg for row in found[:len(group)] for seg in row]
-            else:
-                results = decoder.decode_with_fallback(
-                    xa, first=handle, n_valid=len(group), rng_tag=batch_idx)
-                new = [_segment(ch, res) for ch, res in zip(group, results)
-                       if res.text and not decoder.is_no_speech(res)]
-            segments.extend(new)
+            with span("finalize.batch"):
+                if use_ts:
+                    # sub-chunk segments from the decoded timestamp pairs;
+                    # padding rows get start and duration 0
+                    pad = [0.0] * (rows - len(group))
+                    found = decoder.timestamps_finalize(
+                        handle, [ch.start for ch in group] + pad,
+                        [ch.duration for ch in group] + pad)
+                    new = [seg for row in found[:len(group)] for seg in row]
+                else:
+                    results = decoder.decode_with_fallback(
+                        xa, first=handle, n_valid=len(group),
+                        rng_tag=batch_idx)
+                    new = [_segment(ch, res)
+                           for ch, res in zip(group, results)
+                           if res.text and not decoder.is_no_speech(res)]
+                segments.extend(new)
             n_done += 1
-            with stats_lock:
-                stats["decode_s"] += time.perf_counter() - t_fin
             pct = 5.0 + 90.0 * min(group[-1].end / max(duration, 1e-9), 1.0)
             report(pct, f"transcribed batch {n_done} "
-                        f"({time.time() - t0:.1f}s)")
+                        f"({time.perf_counter() - t0:.1f}s)")
 
         import queue as queue_mod
         inflight: queue_mod.Queue = queue_mod.Queue(maxsize=max_inflight)
@@ -358,15 +390,16 @@ class TranscribePipeline:
             # on an error keep taking items without finalizing them, so
             # the producer never blocks on a full queue; the first error
             # re-raises on the calling thread after the join
-            while True:
-                item = inflight.get()
-                if item is None:
-                    return
-                if not worker_err:
-                    try:
-                        finalize_one(item)
-                    except BaseException as exc:  # noqa: BLE001 — re-raised
-                        worker_err.append(exc)
+            with bind(stats["spans"], "fetch"):
+                while True:
+                    item = inflight.get()
+                    if item is None:
+                        return
+                    if not worker_err:
+                        try:
+                            finalize_one(item)
+                        except BaseException as exc:  # noqa: BLE001
+                            worker_err.append(exc)    # re-raised
 
         def dispatch(group: List[SpeechChunk]) -> None:
             # the decoder (and language detection) waits for the first
@@ -381,15 +414,17 @@ class TranscribePipeline:
                           dict(decoder.stats["rung_rows"]))
                 first_temp = (decoder.opts.temperatures[0]
                               if decoder.opts.temperatures else 0.0)
-            for windows, grp in batch_chunks(
-                    audio, group, batch_size,
-                    window_samples=self.window_samples,
-                    divisor=self.data_parallel):
+            with span("chunks.batch"):
+                batches = batch_chunks(audio, group, batch_size,
+                                       window_samples=self.window_samples,
+                                       divisor=self.data_parallel)
+            for windows, grp in batches:
                 if worker_err:      # the worker failed: dispatch no more
                     return
                 t_enc = time.perf_counter()
                 xa = self._encode_windows(self._local(windows))
-                self._wait_for_stream()
+                with span("encode.wait"):
+                    self._wait_for_stream()
                 t_dec = time.perf_counter()
                 # rng_tag: the batch's dispatch index, so sampled rungs
                 # draw the same noise however the worker's retries
@@ -401,20 +436,22 @@ class TranscribePipeline:
                 n_dispatched += 1
                 with stats_lock:
                     stats["encode_s"] += t_dec - t_enc
-                    stats["decode_s"] += time.perf_counter() - t_dec
                     stats["batches"] += 1
                     stats["windows"] += len(grp)
                     stats["rows"] += len(windows)
-                if use_worker:
-                    if worker is None:
-                        worker = threading.Thread(target=drain, daemon=True,
-                                                  name="mwx-fetch")
-                        worker.start()
-                    inflight.put(item)   # blocks at max_inflight
-                else:
-                    pending.append(item)
-                    while len(pending) > max_inflight:
-                        finalize_one(pending.pop(0))
+                if use_worker and worker is None:
+                    worker = threading.Thread(target=drain, daemon=True,
+                                              name="mwx-fetch")
+                    worker.start()
+                with span("inflight.wait"):
+                    if use_worker:
+                        inflight.put(item)   # blocks at max_inflight
+                    else:
+                        pending.append(item)
+                # the serial path finalizes here what the worker would,
+                # each under its own finalize.batch
+                while len(pending) > max_inflight:
+                    finalize_one(pending.pop(0))
 
         report(0.0, "voice activity detection")
         # Streamed dispatch, as the JAX pipeline: chunks are final block by
@@ -430,21 +467,22 @@ class TranscribePipeline:
                 t_vad = time.perf_counter()
                 block = next(blocks, None)
                 if block is not None:
-                    probs, frame_dur, is_last = block
-                    regions = [(max(0.0, s), min(duration, e))
-                               for s, e in binarize(probs, frame_dur, opts)]
-                    if not is_last and regions:
-                        # the last region may still extend or merge with
-                        # speech in the next block; chunks touching it
-                        # aren't final yet
-                        regions = regions[:-1]
-                    chunks_all = merge_chunks(regions, chunk_size)
-                    # greedy merging is prefix-stable over the (append-
-                    # only) finalized regions, except its last chunk, which
-                    # may absorb the next region
-                    final = chunks_all if is_last else chunks_all[:-1]
-                    queue.extend(final[emitted:])
-                    emitted = len(final)
+                    with span("vad.segments"):
+                        probs, frame_dur, is_last = block
+                        regions = [(max(0.0, s), min(duration, e)) for s, e
+                                   in binarize(probs, frame_dur, opts)]
+                        if not is_last and regions:
+                            # the last region may still extend or merge
+                            # with speech in the next block; chunks
+                            # touching it aren't final yet
+                            regions = regions[:-1]
+                        chunks_all = merge_chunks(regions, chunk_size)
+                        # greedy merging is prefix-stable over the
+                        # (append-only) finalized regions, except its last
+                        # chunk, which may absorb the next region
+                        final = chunks_all if is_last else chunks_all[:-1]
+                        queue.extend(final[emitted:])
+                        emitted = len(final)
                 stats["vad_s"] += time.perf_counter() - t_vad
                 if block is None:
                     if queue:
@@ -477,7 +515,7 @@ class TranscribePipeline:
             for rung, n in sorted(decoder.stats["rung_rows"].items())
             if n - before[1].get(rung, 0)}
         report(100.0, f"transcribed {n_done} batches "
-                      f"({time.time() - t0:.1f}s)")
+                      f"({time.perf_counter() - t0:.1f}s)")
         return {"segments": segments, "language": lang}
 
 

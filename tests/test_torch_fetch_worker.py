@@ -237,8 +237,12 @@ def test_last_stats_counts_equal(sampled_runs):
     assert w["batches"] >= 3
     assert set(w["rung_rows"]) == set(range(len(LADDER)))
     assert w["decode_calls"] == w["batches"] * len(LADDER)
-    for k in ("vad_s", "encode_s", "decode_s"):
+    for k in ("vad_s", "encode_s"):
         assert w[k] > 0.0 and s[k] > 0.0
+    for st in (w, s):
+        assert st["spans"]["dispatch"]["decode.loop"][0] > 0.0
+        assert sum(role.get("finalize.batch", (0.0,))[0]
+                   for role in st["spans"].values()) > 0.0
 
 
 def test_threads_share_loops_one_run_at_a_time(sampled_runs):

@@ -55,7 +55,8 @@ def test_port_files_exist():
                      "models/wav2vec2.py", "models/align.py",
                      "models/diarize.py", "training/train.py",
                      "training/optim.py", "parallel/mesh.py",
-                     "parallel/dryrun.py", "parallel/launch.py"):
+                     "parallel/dryrun.py", "parallel/launch.py",
+                     "spans.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
                 "int8_matmul.cu"):
