@@ -11,9 +11,10 @@
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``mel``, ``flash_attention``,
 ``decode_self_attention``, ``decode_cross_attention``,
-``decode_cross_attention_int8``, ``int8_matmul`` and the float32 builds
-``flash_attention_f32``, ``decode_self_attention_f32`` and
-``decode_cross_attention_f32``); with ``--phases``
+``decode_cross_attention_int8``, ``int8_matmul``, ``add_layer_norm`` and
+the float32 builds ``flash_attention_f32``, ``decode_self_attention_f32``,
+``decode_cross_attention_f32`` and ``add_layer_norm_f32``); with
+``--phases``
 only the kernels' build and the named phases of stage 6, or ``float32``
 (phases 3-5's float32 parts: the tiny config, ``.synth_ckpt`` and
 large-v3's main path); neither prints a result line.
@@ -55,7 +56,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    1280x5120 and 5120x1280; two
    ``kernel_check`` lines hold ragged tiles and the matvec at M in {1, 2,
    3, 5, 8} against the plain version);
-   K3 and K4 also at batch 16 (extra).  The float32 builds of K2-K4
+   K3 and K4 also at batch 16 (extra).  The decode step's fused bias +
+   residual add + LayerNorm (``add_layer_norm``, bf16 and float32; no
+   Pallas counterpart) is checked at R in {1, 5, 16, 80} and d in {64,
+   384, 1280} (h_new the plain version's bits, y within one bf16 ulp or
+   1e-6) and timed at R = 16, d = 1280 (the main path's batch extra), its
+   plain version (five to seven ATen launches) beside it and no library
+   call.  The float32 builds of K2-K4
    (``compute_type="float32"``) have rows of their own at the bf16 rows'
    shapes with the same ragged and empty-slice checks, within (1e-4,
    1e-4); their yardstick is SDPA on float32 inputs with TF32 off, whose
@@ -240,6 +247,8 @@ from manual_whisper_tpu_torch.ops.mel import (log_mel_spectrogram,
                                               unnormalized_log_mel,
                                               unnormalized_log_mel_f64,
                                               unnormalized_log_mel_plain)
+from manual_whisper_tpu_torch.ops.norm import (add_layer_norm,
+                                               add_layer_norm_plain)
 from manual_whisper_tpu_torch.ops.quant import (int8_matmul,
                                                 int8_matmul_plain,
                                                 quantize_weight)
@@ -269,6 +278,12 @@ TOL = {"mel": (1e-3, 0.0),                   # normalised log-mel, both f32
        "decode_cross_attention_f32": (1e-4, 1e-4),
        # bf16 output of an f32 sum of exact products: one bf16 rounding
        "int8_matmul": (1e-2, 1e-2),
+       # the decode step's LayerNorm against the plain version's (ATen's
+       # LayerNorm in float32): the statistics summed in another order, so
+       # y within one bf16 ulp (at most 2^-7 relative), or 1e-6 in
+       # float32; h_new must be the same bits (checked apart)
+       "add_layer_norm": (1e-6, 2.0 ** -7),
+       "add_layer_norm_f32": (1e-6, 1e-6),
        # test config in bf16, card vs CPU: rounding differs per op.  On an
        # H100 the errors were 0.031 (encoder, 2 bf16 ulps at |x| < 4; std
        # 1.0) and 0.0047 (logits; std 0.16); the limits sit about 3x above
@@ -349,13 +364,19 @@ SOURCES = {
         "manual_whisper_tpu/ops/decode_attention.py:150"),
     "int8_matmul": ("manual_whisper_tpu_torch/csrc/int8_matmul.cu",
                     "manual_whisper_tpu/ops/quant.py:102"),
+    # no Pallas counterpart: XLA fuses the sequence in the JAX package
+    "add_layer_norm": ("manual_whisper_tpu_torch/csrc/add_layer_norm.cu",
+                       None),
+    "add_layer_norm_f32": ("manual_whisper_tpu_torch/csrc/add_layer_norm.cu",
+                           None),
 }
 BF16_KERNELS = ("mel", "flash_attention", "decode_self_attention",
-                "decode_cross_attention")
+                "decode_cross_attention", "add_layer_norm")
 INT8_KERNELS = ("mel", "flash_attention", "decode_self_attention",
-                "decode_cross_attention_int8", "int8_matmul")
+                "decode_cross_attention_int8", "int8_matmul",
+                "add_layer_norm")
 F32_KERNELS = ("mel", "flash_attention_f32", "decode_self_attention_f32",
-               "decode_cross_attention_f32")
+               "decode_cross_attention_f32", "add_layer_norm_f32")
 
 
 def log(msg: str) -> None:
@@ -981,6 +1002,69 @@ def int8_matmul_rows(randn, main: dict):
     return row, [int8_matmul_row(randn, *shape) for shape in shapes]
 
 
+def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |out - ref| in units of one bf16 ulp of ref (2^(e - 7) for
+    |ref| in [2^e, 2^(e + 1)))."""
+    ref = ref.float()
+    e = torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126)))
+    return float(((out.float() - ref).abs() / torch.exp2(e - 7)).max())
+
+
+def add_layer_norm_row(randn, dev, rows: int, d: int,
+                       dtype=torch.bfloat16) -> dict:
+    """The decode step's fused bias + residual add + LayerNorm (the build of
+    ``dtype``) against its plain version (the unfused sequence: two adds,
+    ATen's LayerNorm in float32, the cast) at R in {1, 5, 16, 80} and d in
+    {64, 384, 1280}, with a delta and a bias, a delta alone and neither:
+    h_new the same bits, y within TOL (in bf16 also in ulps); then timed
+    at (rows, d) with a delta and a bias over copies that exceed L2.  Bound:
+    the bytes of h, delta, h_new and y [R, d] and bias, gamma and beta [d].
+    No single PyTorch call computes it: no library time."""
+    name = "add_layer_norm" + _build.ATTENTION_DTYPES[dtype]
+    err, ulps, equal = 0.0, 0.0, True
+    for r in (1, 5, 16, 80):
+        for dd in (64, 384, 1280):
+            for inputs in ("ln_only", "delta", "delta_bias"):
+                args = (randn((r, 1, dd), dtype, 4.0),
+                        randn((r, 1, dd), dtype, 3.0)
+                        if inputs != "ln_only" else None,
+                        randn((dd,), dtype) if inputs == "delta_bias"
+                        else None,
+                        randn((dd,), dtype) + 1, randn((dd,), dtype))
+                h_new, y = add_layer_norm(*args)
+                ref_h, ref_y = add_layer_norm_plain(*args)
+                equal = equal and torch.equal(h_new, ref_h)
+                err = max(err, compare(name, y, ref_y))
+                if dtype == torch.bfloat16:
+                    ulps = max(ulps, bf16_ulps(y, ref_y))
+    if not equal:
+        raise AssertionError(f"{name}: h_new differs from the plain "
+                             f"version's bits")
+    nbytes = dtype.itemsize * (4 * rows * d + 3 * d)
+    sets = [(randn((rows, 1, d), dtype), randn((rows, 1, d), dtype),
+             randn((d,), dtype), randn((d,), dtype) + 1, randn((d,), dtype))
+            for _ in range(copies_for(nbytes))]
+    row = dict(shape=f"R={rows} d={d} delta+bias {_dtype_name(dtype)}",
+               max_abs_err=err, h_new_equal=equal,
+               ms=graph_ms(add_layer_norm, sets),
+               plain_ms=graph_ms(add_layer_norm_plain, sets),
+               library_ms=None,
+               # about 10 operations an element: two adds, the two sums,
+               # the centred square, the scale and shift
+               bound=bound(10.0 * rows * d, nbytes, F32_FLOPS))
+    if dtype == torch.bfloat16:
+        row["y_max_bf16_ulps"] = ulps
+    return row
+
+
+def add_layer_norm_rows(randn, dev, main: dict, dtype=torch.bfloat16):
+    """The row at the benchmark's and the server's 16 rows of large-v3's
+    width, and an extra at the main path's batch."""
+    d = main["d"]
+    return (add_layer_norm_row(randn, dev, 16, d, dtype),
+            [add_layer_norm_row(randn, dev, main["batch"], d, dtype)])
+
+
 def _row_line(phase: str, name: str, row: dict) -> str:
     line = {"phase": phase, "name": name, "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
@@ -989,7 +1073,8 @@ def _row_line(phase: str, name: str, row: dict) -> str:
             "library_ms": row["library_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1]}
     for key in ("exp2", "sharp_max_abs_err", "launch_shape", "empty_launch_ms",
-                "library_kernels", "library_max_abs_err"):
+                "library_kernels", "library_max_abs_err", "h_new_equal",
+                "y_max_bf16_ulps"):
         if key in row:
             line[key] = row[key]
     line.update(row.get("other_bounds", {}))
@@ -1035,6 +1120,9 @@ def phase_rows(dev, main: dict, names) -> None:
         elif base == "flash_attention":
             log(json.dumps(flash_check(randn, dtype)))
             rows = [flash_row(randn, 4, 20, 1500, 64, dtype)]
+        elif base == "add_layer_norm":
+            row, extra = add_layer_norm_rows(randn, dev, main, dtype)
+            rows = [row] + extra
         else:
             raise SystemExit(f"--rows: no rows for {name!r}")
         for row in rows:
@@ -1073,7 +1161,13 @@ def phase_kernels(dev, main: dict) -> dict:
         randn, dev, main, f32)
     rows["decode_cross_attention_f32"] = cross_attention_row(
         randn, dev, b, h, dh, ta, f32)
-    extra = [("decode_self_attention", row) for row in k3_extra]
+    # the decode step's bias + residual add + LayerNorm, bf16 and float32
+    rows["add_layer_norm"], aln_extra = add_layer_norm_rows(randn, dev, main)
+    rows["add_layer_norm_f32"], aln_f32_extra = add_layer_norm_rows(
+        randn, dev, main, f32)
+    extra = [("add_layer_norm", row) for row in aln_extra]
+    extra += [("add_layer_norm_f32", row) for row in aln_f32_extra]
+    extra += [("decode_self_attention", row) for row in k3_extra]
     extra += [("decode_self_attention_f32", row) for row in k3_f32_extra]
     extra += [("decode_cross_attention", cross_attention_row(
         randn, dev, 16, h, dh, ta))]
@@ -1243,7 +1337,8 @@ def phase_tiny(dev, int8: bool, dtype=torch.bfloat16) -> None:
         # one encoder pass (2 layers), three decode steps (2 layers each)
         expected = {"mel": 1, "flash_attention_f32": cfg.n_audio_layer,
                     "decode_self_attention_f32": 3 * cfg.n_text_layer,
-                    "decode_cross_attention_f32": 3 * cfg.n_text_layer}
+                    "decode_cross_attention_f32": 3 * cfg.n_text_layer,
+                    "add_layer_norm_f32": 3 * (3 * cfg.n_text_layer + 1)}
         if launches != expected:
             raise AssertionError(f"tiny config float32: launches "
                                  f"{launches}, expected {expected}")
@@ -1575,17 +1670,20 @@ def expected_launches(cfg, stats: dict, int8: bool) -> dict:
     """Launches a path implies for the batches, decode loops and steps in
     ``last_stats``: K1 once and K2 once per encoder layer per batch; per
     greedy or timestamp step K3 and the cross kernel (K4, or K5 for int8)
-    once per decoder layer, per beam step neither; K6 for every block
+    once per decoder layer and ``add_layer_norm`` 3 times a layer and once
+    more, per beam step none of them; K6 for every block
     matmul: 6 per encoder layer per batch, per decoder layer 2 (cross K/V)
     + 8 (prefill) per decode loop of any kind and 8 per step of any kind
-    (a beam step's at M = rows x beams).  K2-K4 are the builds of
-    ``cfg.dtype`` (bf16, or float32: the names with ``_f32``)."""
+    (a beam step's at M = rows x beams).  K2-K4 and ``add_layer_norm`` are
+    the builds of ``cfg.dtype`` (bf16, or float32: the names with
+    ``_f32``)."""
     le, ld = cfg.n_audio_layer, cfg.n_text_layer
     batches, calls = stats["batches"], stats["decode_calls"]
     steps = stats["decode_steps"]
     suffix = _build.ATTENTION_DTYPES[cfg.dtype]
     exp = {"mel": batches, "flash_attention" + suffix: le * batches,
-           "decode_self_attention" + suffix: ld * steps}
+           "decode_self_attention" + suffix: ld * steps,
+           "add_layer_norm" + suffix: (3 * ld + 1) * steps}
     if int8:
         exp["decode_cross_attention_int8"] = ld * steps
         exp["int8_matmul"] = 6 * le * batches + 10 * ld * calls \
@@ -2981,10 +3079,11 @@ def phase_fetch(dev) -> None:
             expected = expected_launches(pipe.cfg, stats, False)
             if new:
                 # each captured chunk first runs its steps eagerly
-                extra = pipe.cfg.n_text_layer * sum(
-                    decoder._loops[dropped[0]].chunk_lengths())
+                warm = sum(decoder._loops[dropped[0]].chunk_lengths())
+                ld = pipe.cfg.n_text_layer
                 for k in ("decode_self_attention", "decode_cross_attention"):
-                    expected[k] += extra
+                    expected[k] += ld * warm
+                expected["add_layer_norm"] += (3 * ld + 1) * warm
             runs[name] = {"result": result, "stats": stats, "wall": wall,
                           "launches": launches, "expected": expected,
                           "replayed_steps": replayed, "captures": new,
@@ -3223,6 +3322,10 @@ def _profiled(fn, reps: int) -> dict:
             "device_ms_per_rep": device_ms / reps,
             "device_busy_share": device_ms / wall_ms,
             "kernel_launches_per_rep": sum(r[2] for r in rows) / reps,
+            # ATen's LayerNorm kernels (the decode step's run in ours)
+            "aten_layer_norm_calls_per_rep": sum(
+                n for _, name, n in rows
+                if "layer_norm" in name and not _short_kernel(name)) / reps,
             "top": [{"kernel": name[:70], "ms_per_rep": us / 1e3 / reps,
                      "calls_per_rep": n / reps}
                     for us, name, n in rows[:8]],
@@ -3236,7 +3339,7 @@ def _profiled(fn, reps: int) -> dict:
 # partial results, K3's pushes them: ", false>" and ", true>")
 OUR_KERNELS = ("flash_kernel", "flash_f32_kernel", "split_kernel",
                "cross_int8_kernel", "matvec_kernel", "tile_kernel",
-               "log_mel_kernel")
+               "log_mel_kernel", "add_layer_norm_kernel")
 
 
 def _short_kernel(name: str) -> str:
@@ -3277,6 +3380,9 @@ def phase_profile(model, main: dict, compute_type: str) -> None:
         state["pos"] = pos + 1
 
     dec = _profiled(step, reps=16)
+    before = collections.Counter(_build.launches)
+    step()
+    dec["launches_per_step"] = dict(_build.launches - before)
     log(json.dumps({"phase": "profile", "compute_type": compute_type,
                     "batch": b,
                     "first_pos": (main["prefix"] + main["t_max"]) // 2 - 8,
@@ -3333,6 +3439,9 @@ def phase_profile_chunks(model, xa, compute_type: str) -> None:
     out = {"phase": "profile_chunk", "compute_type": compute_type,
            "batch": BATCH, "steps": n, "first_pos": loop.p + first - 1,
            "launch_delta": dict(loop.graphs.launch_delta[n]),
+           "add_layer_norm_per_step": sum(
+               v for k, v in loop.graphs.launch_delta[n].items()
+               if k.startswith("add_layer_norm")) / n,
            "cross_kv": _profiled(cross_kv, reps=2),
            "prefill": _profiled(prefill, reps=2),
            "chunk_replay": replay, "chunk_eager": eager}
@@ -3776,6 +3885,7 @@ def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
     warm_steps = sum(sum(lp.chunk_lengths()) for lp in new_loops)
     for k in ("decode_self_attention", "decode_cross_attention"):
         expected[k] += ld * warm_steps
+    expected["add_layer_norm"] += (3 * ld + 1) * warm_steps
     if launches != dict(expected):
         raise AssertionError(f"serve: launches {launches}, expected "
                              f"{dict(expected)} (two threads)")

@@ -13,12 +13,14 @@ in float32, logits as x . tok_emb^T accumulated in float32.
 Kernels: encoder self-attention goes through ``ops.attention``
 (K2), decode-step self- and cross-attention through
 ``ops.decode_attention`` (K3, K4, or K5 over int8 cross K/V), every block
-matmul through ``ops.quant.mm`` (K6 for int8 ``{q, s}`` weights); on a
-CUDA tensor those launch the hand-written kernels, on a CPU tensor they
-run the plain versions.  The prefill's attention (q_len = prefix) is plain
-PyTorch, as it is XLA einsum in JAX; so is the encoder's with
-``encode(..., use_flash=False)``, the differentiable path training takes
-(JAX trains through the same einsum branch; K2 has no backward).
+matmul through ``ops.quant.mm`` (K6 for int8 ``{q, s}`` weights), and
+the decode step's bias + residual add + LayerNorm through
+``ops.norm.add_layer_norm``; on a CUDA tensor those launch the
+hand-written kernels, on a CPU tensor they run the plain versions.  The
+prefill's attention (q_len = prefix) is plain PyTorch, as it is XLA
+einsum in JAX; so is the encoder's with ``encode(..., use_flash=False)``,
+the differentiable path training takes (JAX trains through the same
+einsum branch; K2 has no backward).
 
 Tensor parallelism (``parallel/mesh.py``): on the rank's shards of the
 weights every function computes the rank's heads (shard width over
@@ -48,6 +50,7 @@ from ..ops.decode_attention import (attend_int8_plain, attend_plain,
                                     decode_cross_attention,
                                     decode_cross_attention_int8,
                                     decode_self_attention)
+from ..ops.norm import add_layer_norm, layer_norm_plain
 from ..ops.quant import is_quantized, mm
 from ..parallel.mesh import copy_to_model, reduce_from_model
 
@@ -197,9 +200,14 @@ def local_heads(params: Params, part: str, cfg: WhisperConfig) -> int:
 
 
 def _layer_norm(x: torch.Tensor, ln: Dict[str, torch.Tensor]) -> torch.Tensor:
-    y = F.layer_norm(x.float(), (x.shape[-1],), ln["g"].float(),
-                     ln["b"].float(), eps=1e-5)
-    return y.to(x.dtype)
+    return layer_norm_plain(x, ln["g"], ln["b"])
+
+
+def _add_layer_norm(h: torch.Tensor, pending, ln: Dict[str, torch.Tensor]):
+    """(h + (delta + bias), its LayerNorm) for ``pending`` = (delta, bias),
+    or (h, its LayerNorm) for None: one ``add_layer_norm`` launch."""
+    delta, bias = pending or (None, None)
+    return add_layer_norm(h, delta, bias, ln["g"], ln["b"])
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -359,29 +367,21 @@ class StepLengths:
 
 
 def _decoder_block(h, blk, n_head, self_k, self_v, self_mask, xkv,
-                   step: Optional[StepLengths] = None, group=None):
-    """One decoder block.  ``step`` set (q_len = 1) routes both attentions
-    through the decode kernels; otherwise the plain einsum path runs.
-    ``xkv`` is the layer's cross (k, v) or its int8 4-tuple; ``group``
-    the model group of tensor-parallel shards."""
+                   group=None):
+    """One decoder block of the prefill (plain einsum attention; the decode
+    step's is ``_step_block``).  ``xkv`` is the layer's cross (k, v) or its
+    int8 4-tuple; ``group`` the model group of tensor-parallel shards."""
     a_in = copy_to_model(_layer_norm(h, blk["ln1"]), group)
     att = blk["attn"]
     q = _split_heads(mm(a_in, att["q_w"]) + att["q_b"], n_head)
-    if step is not None:
-        attn_out = decode_self_attention(q, self_k, self_v, step.pos)
-    else:
-        attn_out = attend_plain(q, self_k, self_v, mask=self_mask)
-    h = h + _attn_out(attn_out, att, group)
+    h = h + _attn_out(attend_plain(q, self_k, self_v, mask=self_mask), att,
+                      group)
 
     x_in = copy_to_model(_layer_norm(h, blk["lnx"]), group)
     xat = blk["xattn"]
     xq = _split_heads(mm(x_in, xat["q_w"]) + xat["q_b"], n_head)
-    if len(xkv) == 2 and step is not None:
-        xout = decode_cross_attention(xq, *xkv, step.cross_len)
-    elif len(xkv) == 2:
+    if len(xkv) == 2:
         xout = attend_plain(xq, *xkv)
-    elif step is not None:
-        xout = decode_cross_attention_int8(xq, *xkv, step.cross_len)
     else:
         xout = attend_int8_plain(xq, *xkv)
     h = h + _attn_out(xout, xat, group)
@@ -440,6 +440,43 @@ def decoder_forward(params: Params, tokens: torch.Tensor,
     return logits_f32(x, dec["tok_emb"].float()), kv_cache
 
 
+def _step_block(h, pending, blk, n_head, self_k, self_v, xkv,
+                step: StepLengths, group=None):
+    """One decoder block of ``decode_step`` (q_len = 1): h [B, 1, d] and
+    ``pending``, the (delta, bias) of the previous block's fc2 (None before
+    the first block) -> (h, this block's fc2 (delta, bias)).
+
+    The three residual points go through ``add_layer_norm``: the pending
+    fc2 with ``ln1``, the o projection with ``lnx``, the cross o projection
+    with ``ln2``; the row-parallel partial sums are reduced before it and
+    its y passes ``copy_to_model``, as in ``_decoder_block``.  The plain
+    version gives the unfused sequence's bits.  The self cache's slot
+    ``step.pos`` is written in place."""
+    att, xat, mlp = blk["attn"], blk["xattn"], blk["mlp"]
+    h, a_in = _add_layer_norm(h, pending, blk["ln1"])
+    a_in = copy_to_model(a_in, group)
+    b = self_k.shape[0]
+    slot = step.pos.long()
+    self_k.index_copy_(2, slot, mm(a_in[:, 0], att["k_w"]).reshape(
+        b, n_head, 1, -1))
+    self_v.index_copy_(2, slot, (mm(a_in[:, 0], att["v_w"])
+                                 + att["v_b"]).reshape(b, n_head, 1, -1))
+    q = _split_heads(mm(a_in, att["q_w"]) + att["q_b"], n_head)
+    out = decode_self_attention(q, self_k, self_v, step.pos)
+    o = reduce_from_model(mm(_merge_heads(out), att["o_w"]), group)
+    h, x_in = _add_layer_norm(h, (o, att["o_b"]), blk["lnx"])
+    xq = _split_heads(mm(copy_to_model(x_in, group), xat["q_w"])
+                      + xat["q_b"], n_head)
+    if len(xkv) == 2:
+        xout = decode_cross_attention(xq, *xkv, step.cross_len)
+    else:
+        xout = decode_cross_attention_int8(xq, *xkv, step.cross_len)
+    o = reduce_from_model(mm(_merge_heads(xout), xat["o_w"]), group)
+    h, m_in = _add_layer_norm(h, (o, xat["o_b"]), blk["ln2"])
+    f = F.gelu(mm(copy_to_model(m_in, group), mlp["fc1_w"]) + mlp["fc1_b"])
+    return h, (reduce_from_model(mm(f, mlp["fc2_w"]), group), mlp["fc2_b"])
+
+
 def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
                 kv_cache: KVCache, cross_kv, cfg: WhisperConfig,
                 tok_emb_f32: torch.Tensor, group=None) -> torch.Tensor:
@@ -450,24 +487,19 @@ def decode_step(params: Params, token: torch.Tensor, lengths: StepLengths,
     read it): the position embedding through ``index_select`` and slot
     ``pos`` of every layer's cache written in place with ``index_copy_``
     (the JAX version returns a new cache), so a CUDA graph of the step
-    replays at every position.  ``tok_emb_f32`` is the float32 view of the
-    embedding the caller keeps for the whole loop; ``group`` the model
-    group of tensor-parallel shards."""
+    replays at every position.  Each residual add, its bias and the
+    LayerNorm after it are one ``add_layer_norm`` (``_step_block``): 3
+    launches a layer and one for the final LayerNorm.  ``tok_emb_f32`` is
+    the float32 view of the embedding the caller keeps for the whole loop;
+    ``group`` the model group of tensor-parallel shards."""
     dec = params["decoder"]
     n_head = kv_cache[0][0].shape[1]
-    slot = lengths.pos.long()
     x = dec["tok_emb"][token] + dec["pos_emb"].index_select(0, lengths.pos)
     h = x[:, None, :].to(cfg.dtype)                        # [B, 1, d]
+    pending = None
     for blk, ck, cv, xkv in zip(dec["blocks"], kv_cache[0], kv_cache[1],
                                 cross_kv):
-        a_in = _layer_norm(h, blk["ln1"])
-        att = blk["attn"]
-        b = ck.shape[0]
-        ck.index_copy_(2, slot, mm(a_in[:, 0], att["k_w"]).reshape(
-            b, n_head, 1, -1))
-        cv.index_copy_(2, slot, (mm(a_in[:, 0], att["v_w"])
-                                 + att["v_b"]).reshape(b, n_head, 1, -1))
-        h = _decoder_block(h, blk, n_head, ck, cv, None, xkv, step=lengths,
-                           group=group)
-    x = _layer_norm(h, dec["ln"])[:, 0, :]
-    return logits_f32(x, tok_emb_f32)
+        h, pending = _step_block(h, pending, blk, n_head, ck, cv, xkv,
+                                 lengths, group)
+    _, x = _add_layer_norm(h, pending, dec["ln"])
+    return logits_f32(x[:, 0, :], tok_emb_f32)

@@ -84,6 +84,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, q, s, out, m, k, n, stream
         "mwx_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "add_layer_norm": {
+        # h, delta (or null), bias (or null), gamma, beta, h_out, y, rows,
+        # d, stream (bf16; the _f32 entry the same in float32)
+        "mwx_add_layer_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "mwx_add_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 launches: collections.Counter = collections.Counter()

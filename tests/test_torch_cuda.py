@@ -20,6 +20,8 @@ from manual_whisper_tpu_torch.models.whisper import quantize_cross_kv
 from manual_whisper_tpu_torch.ops.decode_attention import (
     attend_int8_plain, attend_plain, decode_cross_attention,
     decode_cross_attention_int8, decode_self_attention)
+from manual_whisper_tpu_torch.ops.norm import (add_layer_norm,
+                                               add_layer_norm_plain)
 from manual_whisper_tpu_torch.ops.quant import (int8_matmul,
                                                 int8_matmul_plain,
                                                 quantize_weight)
@@ -356,6 +358,65 @@ def test_int8_kernels_reject_wrong_inputs(dev):
         decode_cross_attention_int8(q, *kv4, kv_len.long())
 
 
+# -- the decode step's bias + residual add + LayerNorm -----------------------
+
+def _bf16_ulps(out, ref):
+    """|out - ref| in units of one bf16 ulp of ref (2^(e - 7) for |ref|
+    in [2^e, 2^(e + 1)))."""
+    ref = ref.float()
+    e = torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126)))
+    return (out.float() - ref).abs() / torch.exp2(e - 7)
+
+
+def _norm_inputs(dev, rows, d, dtype, inputs):
+    h = 4 * _randn((rows, 1, d), dev, 50, dtype)
+    delta = 3 * _randn((rows, 1, d), dev, 51, dtype) \
+        if inputs != "ln_only" else None
+    bias = _randn((d,), dev, 52, dtype) if inputs == "delta_bias" else None
+    return h, delta, bias, _randn((d,), dev, 53, dtype) + 1, \
+        _randn((d,), dev, 54, dtype)
+
+
+@pytest.mark.parametrize("inputs", ["ln_only", "delta", "delta_bias"])
+@pytest.mark.parametrize("build", ATTENTION_BUILDS)
+@pytest.mark.parametrize("d", [64, 384, 1280])
+@pytest.mark.parametrize("rows", [1, 5, 16, 80])
+def test_add_layer_norm_kernel(dev, rows, d, build, inputs):
+    """h_new the plain version's bits (the same two rounded adds); y within
+    one bf16 ulp in bf16 (the statistics summed in another order), 1e-6 in
+    float32."""
+    dtype, suffix, _ = ATTENTION_BUILDS[build]
+    args = _norm_inputs(dev, rows, d, dtype, inputs)
+    before = collections.Counter(_build.launches)
+    h_new, y = add_layer_norm(*args)
+    assert _build.launches - before == {"add_layer_norm" + suffix: 1}
+    ref_h, ref_y = add_layer_norm_plain(*args)
+    assert torch.equal(h_new, ref_h)
+    if dtype == torch.bfloat16:
+        assert float(_bf16_ulps(y, ref_y).max()) <= 1.0
+    else:
+        torch.testing.assert_close(y, ref_y, rtol=1e-6, atol=1e-6)
+
+
+def test_add_layer_norm_rejects_wrong_inputs(dev):
+    h, delta, bias, g, b = _norm_inputs(dev, 4, 64, torch.bfloat16,
+                                        "delta_bias")
+    before = collections.Counter(_build.launches)
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        add_layer_norm(h.half(), delta.half(), bias.half(), g.half(),
+                       b.half())
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        add_layer_norm(h, delta, bias.float(), g, b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        add_layer_norm(h[..., :60].contiguous(), None, None, g[:60], b[:60])
+    with pytest.raises(ValueError, match="contiguous"):
+        add_layer_norm(torch.cat([h, h], -1)[..., :64], delta, bias, g, b)
+    shifted = _randn((4 * 64 + 1,), dev, 55)[1:].view(4, 1, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        add_layer_norm(shifted, delta, bias, g, b)
+    assert _build.launches == before
+
+
 # -- the decode loop as replays of captured chunks ---------------------------
 
 def _tiny_decoders(dev, int8, dtype=torch.bfloat16):
@@ -389,6 +450,73 @@ def _tiny_xa(cfg, dev, rows, seed):
 # and float32, as (int8, activation dtype)
 MODES = {"bf16": (False, torch.bfloat16), "int8": (True, torch.bfloat16),
          "f32": (False, torch.float32)}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_captured_decode_steps_equal_eager(dev, mode):
+    """16 decode steps, each fed the last one's argmax, captured in one
+    CUDA graph and replayed from the state the eager steps start from: the
+    same logits and self caches, bit for bit; the capture records 3L + 1
+    fused launches a step."""
+    from manual_whisper_tpu_torch.models.whisper import (
+        MODEL_CONFIGS, StepLengths, decode_step, init_kv_cache, init_params,
+        precompute_cross_kv)
+    from manual_whisper_tpu_torch.ops.quant import quantize_params
+    int8, dtype = MODES[mode]
+    cfg = MODEL_CONFIGS["test"].with_dtype(dtype)
+    params = init_params(cfg, dev, seed=9)
+    if int8:
+        params = quantize_params(params)
+    rows, prefix, steps = 4, 6, 16
+    cross = precompute_cross_kv(params, _tiny_xa(cfg, dev, rows, 46), cfg,
+                                quantize=int8)
+    cross_len = torch.tensor([cfg.n_audio_ctx - 5], dtype=torch.int32,
+                             device=dev)
+    tok_emb_f32 = params["decoder"]["tok_emb"].float()
+
+    def state():
+        cache = init_kv_cache(cfg, rows, prefix + steps, dev)
+        for i, t in enumerate(cache[0] + cache[1]):
+            t[:, :, :prefix] = _randn(t[:, :, :prefix].shape, dev, 60 + i,
+                                      dtype)
+        return (cache, torch.tensor([3, 70, 700, 1999], device=dev),
+                torch.tensor([prefix], dtype=torch.int32, device=dev))
+
+    def run(cache, tok, pos):
+        out = []
+        for _ in range(steps):
+            logits = decode_step(params, tok, StepLengths(pos, cross_len),
+                                 cache, cross, cfg, tok_emb_f32)
+            tok.copy_(logits.argmax(-1))
+            pos += 1
+            out.append(logits)
+        return torch.stack(out)
+
+    eager_state = state()
+    eager = run(*eager_state)
+    graph_state = state()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(*state())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as record, torch.cuda.graph(graph):
+        replayed = run(*graph_state)
+    fresh = state()
+    for dst, src in zip(graph_state[0][0] + graph_state[0][1]
+                        + list(graph_state[1:]),
+                        fresh[0][0] + fresh[0][1] + list(fresh[1:])):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    for a, b in zip(graph_state[0][0] + graph_state[0][1],
+                    eager_state[0][0] + eager_state[0][1]):
+        assert torch.equal(a, b)
+    suffix = "" if int8 else _build.ATTENTION_DTYPES[dtype]
+    assert record["add_layer_norm" + suffix] == \
+        steps * (3 * cfg.n_text_layer + 1)
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.6])
@@ -449,14 +577,19 @@ def test_results_leave_as_pinned_copies(dev, kind):
 
 
 def _step_launches(cfg, int8, dtype=torch.bfloat16):
+    """One decode step's launches: K3 and the cross kernel a layer, the
+    fused bias + residual add + LayerNorm 3 a layer and once at the end,
+    and with int8 weights 8 K6 a layer."""
     layers = cfg.n_text_layer
     if int8:
         return {"decode_self_attention": layers,
                 "decode_cross_attention_int8": layers,
-                "int8_matmul": 8 * layers}
+                "int8_matmul": 8 * layers,
+                "add_layer_norm": 3 * layers + 1}
     suffix = "_f32" if dtype == torch.float32 else ""
     return {"decode_self_attention" + suffix: layers,
-            "decode_cross_attention" + suffix: layers}
+            "decode_cross_attention" + suffix: layers,
+            "add_layer_norm" + suffix: 3 * layers + 1}
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])

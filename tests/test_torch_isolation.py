@@ -41,7 +41,7 @@ def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for expected in ("ops/mel.py", "ops/attention.py",
                      "ops/decode_attention.py", "ops/quant.py",
-                     "ops/_build.py",
+                     "ops/norm.py", "ops/_build.py",
                      "models/whisper.py", "models/decode.py",
                      "models/beam.py", "models/timestamps.py",
                      "models/vad.py", "pipeline/transcribe.py", "cli.py",
@@ -59,7 +59,7 @@ def test_port_files_exist():
                      "spans.py"):
         assert expected in names
     for src in ("mel.cu", "flash_attention.cu", "decode_attention.cu",
-                "int8_matmul.cu"):
+                "int8_matmul.cu", "add_layer_norm.cu"):
         assert (PORT / "csrc" / src).exists()
     for src in ("mwx_audio.cpp", "mwx_flac.cpp", "mwx_ffdec.cpp",
                 "mwx_zstd.cpp"):
