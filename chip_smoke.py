@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases train,mesh
     python3 chip_smoke.py --phases fetch,launch
     python3 chip_smoke.py --phases float32
+    python3 chip_smoke.py --phases int8
 
 With ``--rows`` only phase 1 and the named kernels' checks and timed rows
 run (for work on one kernel; the names are ``mel``, ``flash_attention``,
@@ -17,7 +18,8 @@ the float32 builds ``flash_attention_f32``, ``decode_self_attention_f32``,
 ``--phases``
 only the kernels' build and the named phases of stage 6, or ``float32``
 (phases 3-5's float32 parts: the tiny config, ``.synth_ckpt`` and
-large-v3's main path); neither prints a result line.
+large-v3's main path), or ``int8`` (phases 3-5's int8 parts: the tiny
+config and large-v3's int8 model); neither prints a result line.
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -117,7 +119,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    must launch K1, K2, K3, K5 and K6 and not K4, each exactly
    as often as the batches, decode loops and steps in ``last_stats`` imply
    (a replay adds the launches its capture recorded), and every decode
-   step must have run inside a replayed chunk.  Then a ``graph_vs_eager``
+   step must have run inside a replayed chunk; int8's K5 and K6 launches
+   by shape (``last_stats["kernel_shapes"]``) must add up to the counted
+   launches and, summed by (K, N) and by K5's shape, to the launches and
+   rows that ``last_stats`` implies (``kernel_shape_totals``).  Then a ``graph_vs_eager``
    line: one batch-4 loop at T = 0 and one at T = 0.2, replayed against
    the same chunks run eagerly, tokens and lengths equal, sum_logprob
    within SUM_LP_TOL, ms per token row of each.
@@ -1693,6 +1698,66 @@ def expected_launches(cfg, stats: dict, int8: bool) -> dict:
     return exp
 
 
+def shape_totals(rows) -> dict:
+    """``last_stats["kernel_shapes"]`` rows summed: K6 by (kernel, K, N)
+    and K5 by (kernel, heads, cross positions, head dim, scale dtype), each
+    as [launches, summed M (K6) or rows (K5)]."""
+    out: dict = {}
+    for name, shape, n in rows:
+        tot = out.setdefault((name, *shape[1:]), [0, 0])
+        tot[0] += n
+        tot[1] += n * shape[0]
+    return out
+
+
+def expected_shape_totals(cfg, stats: dict, prefix: int) -> dict:
+    """The totals ``shape_totals`` must read on the int8 greedy main path,
+    from the counts in ``last_stats``: the encoder's 6 K6 a layer at M =
+    rows x Ta per batch; per decode loop of r rows (the rung rows), cross
+    K/V 2 a decoder layer at M = r Ta and the prefill's 8 at M = r x prompt
+    length; per step 8 K6 and one K5 a layer at M = r (the token rows
+    after each loop's first token)."""
+    le, ld = cfg.n_audio_layer, cfg.n_text_layer
+    d, ta = cfg.n_text_state, cfg.n_audio_ctx
+    heads, dh = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
+    b, rows = stats["batches"], stats["rows"]
+    calls, steps = stats["decode_calls"], stats["decode_steps"]
+    loop_rows = sum(stats["rung_rows"].values())
+    step_rows = stats["token_rows"] - loop_rows
+    mm = "int8_matmul"
+    return {
+        (mm, d, d): [4 * le * b + 8 * ld * calls + 6 * ld * steps,
+                     4 * le * ta * rows + 2 * ld * ta * loop_rows
+                     + 6 * ld * prefix * loop_rows + 6 * ld * step_rows],
+        **{(mm, k, n): [le * b + ld * calls + ld * steps,
+                        le * ta * rows + ld * prefix * loop_rows
+                        + ld * step_rows]
+           for k, n in ((d, 4 * d), (4 * d, d))},
+        ("decode_cross_attention_int8", heads, ta, dh, "float32"):
+            [ld * steps, ld * step_rows]}
+
+
+def check_kernel_shapes(pipe, stats: dict, launches: dict,
+                        label: str) -> dict:
+    """The int8 main path's K5 and K6 launches by shape
+    (``last_stats["kernel_shapes"]``) against ``launches`` and the totals
+    that ``last_stats`` implies; returns the totals."""
+    rows = stats["kernel_shapes"]
+    for name in ("int8_matmul", "decode_cross_attention_int8"):
+        n = sum(c for kernel, _, c in rows if kernel == name)
+        if n != launches.get(name):
+            raise AssertionError(f"{label}: {n} {name} launches by shape, "
+                                 f"{launches.get(name)} counted")
+    prefix = len(pipe._decoder("zh", 0.0)._prefix()[0])
+    got = shape_totals(rows)
+    want = expected_shape_totals(pipe.cfg, stats, prefix)
+    if got != want:
+        raise AssertionError(f"{label}: kernel shape totals {got}, "
+                             f"expected {want}")
+    return {" ".join(map(str, k)): v for k, v in sorted(
+        got.items(), key=lambda kv: repr(kv[0]))}
+
+
 def graph_replays(decoder, kind: str = "_loops") -> dict:
     """Replays so far of each captured chunk of ``decoder``'s loops of one
     kind (``_loops``, ``_beam_loops``, ``_ts_loops``), by (rows, steps of
@@ -1706,10 +1771,14 @@ def phase_main(model, load_s: float, compute_type: str) -> dict:
     """``warmup`` (timed alone; it captures the decode chunks of batch
     buckets 1, 2 and 4), then the launch counters are zeroed and
     ``transcribe`` runs.  Every decode step must have run inside a replayed
-    chunk, and the launches must be the ones ``last_stats`` implies."""
+    chunk, and the launches must be the ones ``last_stats`` implies (int8:
+    by shape too, ``check_kernel_shapes``)."""
     torch.cuda.reset_peak_memory_stats()
     result, stats, launches, line = _mode_transcribe(
         model, compute_type, ("_loops",), "main_path")
+    if compute_type == "int8":
+        line["kernel_shape_totals"] = check_kernel_shapes(
+            model, stats, launches, "main_path")
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4046,8 +4115,9 @@ def main() -> int:
     ap.add_argument("--phases", default="", metavar="PHASE[,PHASE]",
                     help="only build the kernels and run these phases of "
                          "stage 6 (checkpoint, align, diarize, cli, train, "
-                         "mesh, fetch, launch) or float32 (phases 3-5's "
-                         "float32 parts), then stop without a result line")
+                         "mesh, fetch, launch), float32 or int8 (phases "
+                         "3-5's float32 or int8 parts), then stop without a "
+                         "result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4078,7 +4148,8 @@ def main() -> int:
               "fetch": lambda: phase_fetch(dev),
               "launch": lambda: phase_launch(dev, work)}
     # run alone only: the whole script runs these parts in phases 3 and 4
-    alone = {"float32": lambda: phase_float32(dev)}
+    alone = {"float32": lambda: phase_float32(dev),
+             "int8": lambda: phase_int8(dev)}
     import tempfile
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".serve-") as work:
         registry = make_registry(os.path.join(work, "registry"), resnet=True)
@@ -4117,6 +4188,15 @@ def phase_float32(dev) -> None:
     timed("tiny synth f32", phase_tiny_synth, dev, torch.float32)
     model, load_s = load_main_model("float32", False)
     phase_model(model, load_s, "float32", main_path_shapes(model))
+
+
+def phase_int8(dev) -> None:
+    """``--phases int8``: the int8 parts of phases 3-5 alone (the tiny
+    config card vs CPU, then large-v3's main path with its launches by
+    shape, graph vs eager, profile, beam and timestamps)."""
+    timed("tiny int8", phase_tiny, dev, True)
+    model, load_s = load_main_model("int8", True)
+    phase_model(model, load_s, "int8", main_path_shapes(model))
 
 
 def run_all(args, dev, card, stages, work, registry) -> int:

@@ -14,7 +14,8 @@ that run.  The caller re-initialises its state after the capture.
 A replay issues no Python call, so ``_build.launches`` would count
 nothing: while a capture runs, the wrappers of the capturing thread count
 into the capture's own record (``_build.recording``; nothing launches
-then), which every replay adds to ``_build.launches``.  So a count stays
+then), which every replay adds to ``_build.launches`` (and its K5 and K6
+shapes to the replaying thread's ``_build.tally`` sink).  So a count stays
 what each wrapper's count means, the kernel launches that ran, also when
 another thread launches kernels during a capture.
 
@@ -48,7 +49,8 @@ _capture_lock = threading.Lock()
 class ChunkGraphs:
     """Captured chunks of one set of static buffers, by step count n.
     ``launch_delta[n]``: the kernel launches one replay of n steps makes,
-    by kernel name; ``replays[n]``: replays so far; ``capture_s``: host
+    by kernel name (a ``_build.Record``: its ``shapes`` hold K5's and
+    K6's by shape); ``replays[n]``: replays so far; ``capture_s``: host
     seconds spent in warm-up runs and captures.  Holds no reference to
     the function it captures, so the buffers' owner is freed with no
     cycle to collect."""
@@ -59,7 +61,7 @@ class ChunkGraphs:
         self._pool = pool
         self._stream = torch.cuda.Stream(device)
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
-        self.launch_delta: Dict[int, collections.Counter] = {}
+        self.launch_delta: Dict[int, _build.Record] = {}
         self.replays: collections.Counter = collections.Counter()
         self.capture_s = 0.0
 

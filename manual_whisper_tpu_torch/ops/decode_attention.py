@@ -143,7 +143,8 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
 
     q [B, H, 1, dh] bf16; k_q/v_q int8 [B, H, Ta, dh]; k_s/v_s [B, H, Ta]
     float32 or bf16 (both the same); kv_len one int32.  Returns
-    [B, H, 1, dh] in q's dtype."""
+    [B, H, 1, dh] in q's dtype.  Each launch counts under its name and
+    (B, H, Ta, dh, the scales' dtype)."""
     if q.device.type == "cpu":
         return attend_int8_plain(q, k_q, k_s, v_q, v_s,
                                  int(kv_len.reshape(-1)[0]))
@@ -167,4 +168,5 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
         int(k_s.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(err, f"{name} kernel")
     _build.count(name)
+    _build.count_shape(name, (b, h, ta, dh, str(k_s.dtype).split(".")[-1]))
     return out

@@ -67,7 +67,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     """K6: x [M, K] bf16 @ dequant(q int8 [K, N], s f32 [N]) -> [M, N] bf16.
 
     On a CPU tensor runs ``int8_matmul_plain``.  On a CUDA tensor launches
-    the kernel or raises (K a multiple of 8 and N of 16: 16-byte loads)."""
+    the kernel or raises (K a multiple of 8 and N of 16: 16-byte loads);
+    each launch counts under ``int8_matmul`` and its (M, K, N)."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, s)
     m, k = x.shape
@@ -84,6 +85,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                               out.data_ptr(), m, k, n, _build.stream_of(x))
     _build.check(err, "int8_matmul kernel")
     _build.count("int8_matmul")
+    _build.count_shape("int8_matmul", (m, k, n))
     return out
 
 

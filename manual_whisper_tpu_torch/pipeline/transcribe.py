@@ -39,7 +39,9 @@ thread's clock up to an event recorded after each (on CUDA waited for,
 so it is the encode's device time and that of work enqueued before it);
 ``windows``: real audio windows; ``rows``: batch rows, padding included;
 ``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``;
-``request``: the call's number in the process).
+``request``: the call's number in the process; ``kernel_shapes``: the
+launches of K5 and K6 the call made, replays included, by shape, as
+``_build.shape_rows`` gives them, filled when the call returns).
 
 ``last_stats["spans"][role][name]`` is ``[seconds, count]`` of each
 program span (``spans.py``; ``spans.SPANS`` lists them) closed on one
@@ -76,6 +78,7 @@ order.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import pickle
@@ -98,6 +101,7 @@ from ..models.decode import BatchDecoder, DecodingOptions
 from ..models.vad import VadOptions, VoiceActivityDetector, binarize
 from ..models.whisper import (MODEL_CONFIGS, WhisperConfig, decoder_forward,
                               encode, init_params)
+from ..ops import _build
 from ..ops.mel import log_mel_spectrogram
 from ..ops.quant import quantize_params
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
@@ -326,17 +330,21 @@ class TranscribePipeline:
                  "batches": 0, "windows": 0, "rows": 0, "token_rows": 0,
                  "decode_calls": 0, "decode_steps": 0, "beam_calls": 0,
                  "beam_steps": 0, "rung_rows": {}, "request": request,
-                 "spans": {}}
+                 "spans": {}, "kernel_shapes": []}
         self._thread_stats.stats = stats
-        with bind(stats["spans"], "dispatch"), \
-                span("pipeline.transcribe", str(request)):
-            return self._transcribe_phases(
-                audio, batch_size, lang, chunk_size, temperature, report,
-                vad_options, initial_prompt, stats)
+        shapes = collections.Counter()
+        try:
+            with bind(stats["spans"], "dispatch"), _build.tally(shapes), \
+                    span("pipeline.transcribe", str(request)):
+                return self._transcribe_phases(
+                    audio, batch_size, lang, chunk_size, temperature, report,
+                    vad_options, initial_prompt, stats, shapes)
+        finally:
+            stats["kernel_shapes"] = _build.shape_rows(shapes)
 
     def _transcribe_phases(self, audio, batch_size, lang, chunk_size,
                            temperature, report, vad_options, initial_prompt,
-                           stats) -> dict:
+                           stats, shapes) -> dict:
         duration = len(audio) / 16000.0
         stats_lock = threading.Lock()
         segments: List[dict] = []
@@ -390,7 +398,7 @@ class TranscribePipeline:
             # on an error keep taking items without finalizing them, so
             # the producer never blocks on a full queue; the first error
             # re-raises on the calling thread after the join
-            with bind(stats["spans"], "fetch"):
+            with bind(stats["spans"], "fetch"), _build.tally(shapes):
                 while True:
                     item = inflight.get()
                     if item is None:

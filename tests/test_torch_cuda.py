@@ -457,7 +457,8 @@ def test_captured_decode_steps_equal_eager(dev, mode):
     """16 decode steps, each fed the last one's argmax, captured in one
     CUDA graph and replayed from the state the eager steps start from: the
     same logits and self caches, bit for bit; the capture records 3L + 1
-    fused launches a step."""
+    fused launches a step, and with int8 K5's and K6's launches by
+    shape."""
     from manual_whisper_tpu_torch.models.whisper import (
         MODEL_CONFIGS, StepLengths, decode_step, init_kv_cache, init_params,
         precompute_cross_kv)
@@ -517,6 +518,15 @@ def test_captured_decode_steps_equal_eager(dev, mode):
     suffix = "" if int8 else _build.ATTENTION_DTYPES[dtype]
     assert record["add_layer_norm" + suffix] == \
         steps * (3 * cfg.n_text_layer + 1)
+    # K5 and K6 also record their launches by shape; no other kernel does
+    d, layers, heads = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
+    assert dict(record.shapes) == ({} if not int8 else {
+        ("int8_matmul", (rows, d, d)): 6 * layers * steps,
+        ("int8_matmul", (rows, d, 4 * d)): layers * steps,
+        ("int8_matmul", (rows, 4 * d, d)): layers * steps,
+        ("decode_cross_attention_int8",
+         (rows, heads, cfg.n_audio_ctx, d // heads, "float32")):
+            layers * steps})
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.6])
