@@ -53,11 +53,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    K4 and K5 also checked at lengths that leave some of their blocks
    without keys), K6 at a decode
    step's M=4 with K, N = 1280, 5120 (on extra lines the other decode
-   shapes and every M > 8 shape of the int8 path: M = 4 x 1500,
-   M = 4 x 193 and the beam step's M = 10, 20 and 80, each with 1280x1280,
-   1280x5120 and 5120x1280; two
-   ``kernel_check`` lines hold ragged tiles and the matvec at M in {1, 2,
-   3, 5, 8} against the plain version);
+   shapes, the three decode shapes at M = 8 and at the benchmark's M = 16,
+   and every M > 16 shape of the int8 path: M = 4 x 1500, M = 4 x 193
+   and the beam step's M = 10, 20 and 80, each with 1280x1280, 1280x5120
+   and 5120x1280; two ``kernel_check`` lines hold ragged tiles and the
+   matvec at M in {1, 2, 3, 5, 8, 9, 12, 16} against the plain version);
    K3 and K4 also at batch 16 (extra).  The decode step's fused bias +
    residual add + LayerNorm (``add_layer_norm``, bf16 and float32; no
    Pallas counterpart) is checked at R in {1, 5, 16, 80} and d in {64,
@@ -137,6 +137,12 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    (``timestamp_rule_violations``), peak memory, one loop of each replayed
    against the same loop eager; the beam phase then runs one batch-16
    beam loop with the server's 4-token prompt for its peak memory.
+   Last with the int8 model, ``int8_routes``: K6's route by M in a
+   request at the benchmark's batch of 16 (``warmup`` at 16, then
+   ``transcribe`` of about 8 min of audio under ``torch.profiler``): the
+   trace's ``matvec_kernel`` launches must equal the request's counted K6
+   launches at M <= 16, and its ``tile_kernel`` launches those at
+   M > 16, so no tile product ran at M <= 16.
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
    and 16 eager decode steps of each model (device-busy share, top
    kernels, and each of csrc/'s kernels with its share of the device
@@ -233,6 +239,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -971,36 +978,42 @@ MATVEC_CHECKS = ((64, 256), (1288, 1296), (5120, 1280))
 
 
 def int8_matvec_check(randn) -> dict:
-    """K6's matvec (M <= 8) vs its plain version at every M in {1, 2, 3,
-    5, 8} and (K, N) in MATVEC_CHECKS.  Checked, not timed."""
+    """K6's matvec (M <= 16: one group of 8 rows of x up to 8, two above)
+    vs its plain version at every M in {1, 2, 3, 5, 8, 9, 12, 16} and
+    (K, N) in MATVEC_CHECKS.  Checked, not timed."""
     errs = {}
     for k, n in MATVEC_CHECKS:
         w = quantize_weight(randn((k, n), torch.float32) / math.sqrt(k))
-        for m in (1, 2, 3, 5, 8):
+        for m in (1, 2, 3, 5, 8, 9, 12, 16):
             x = randn((m, k))
             errs[f"M={m} K={k} N={n}"] = compare(
                 "int8_matmul", int8_matmul(x, w["q"], w["s"]),
                 int8_matmul_plain(x, w["q"], w["s"]))
     return {"phase": "kernel_check", "name": "int8_matmul",
-            "shape": "M <= 8 (matvec) bf16 x int8", "max_abs_err": errs,
+            "shape": "M <= 16 (matvec) bf16 x int8", "max_abs_err": errs,
             "tol": TOL["int8_matmul"]}
 
 
 def int8_matmul_rows(randn, main: dict):
     """K6 at every shape the int8 main path gives it: the row of the
     kernels line at a decode step's fc1 (M = batch rows), and as extras the
-    other decode shapes and every M > 8 shape: the encoder's and the
-    cross-K/V's M = batch x Ta, the prefill's M = batch x prompt length,
-    and the beam step's M = rows x beams (10, 20, 80), each with the
-    attention projections' and both MLP weights' (K, N).
-    Logs the ragged-tile and matvec checks on its way."""
+    other decode shapes, the three decode shapes at M = 8 and at the
+    benchmark's and the server's M = 16 (the matvec's two row groups),
+    and the shapes of the encoder and the cross-K/V (M = batch x Ta), the
+    prefill (M = batch x prompt length) and the beam step (M = rows x
+    beams: 10, 20, 80), each with the attention projections' and both MLP
+    weights' (K, N).  Logs the ragged-tile and matvec checks on its
+    way."""
     b, d, p, ta = main["batch"], main["d"], main["prefix"], main["ta"]
     log(json.dumps(int8_matmul_ragged(randn)))
     log(json.dumps(int8_matvec_check(randn)))
     row = int8_matmul_row(randn, b, d, 4 * d)
     shapes = [(b, d, d), (b, 4 * d, d)]
+    shapes += [(m, k, n) for m in (8, SERVE_BATCH)
+               for k, n in ((d, d), (d, 4 * d), (4 * d, d))]
     # the beam step's M = rows x beams: buckets 2 and 4 of batch 4, and
-    # the server's batch 16 (the tile product; bucket 1's M = 5 is a matvec)
+    # the server's batch 16 (M = 5 and 10 are matvecs, 20 and 80 tile
+    # products)
     shapes += [(m, k, n) for m in (b * ta, b * p, 2 * BEAM, b * BEAM,
                                    SERVE_BATCH * BEAM)
                for k, n in ((d, d), (d, 4 * d), (4 * d, d))]
@@ -4177,7 +4190,66 @@ def phase_model(model, load_s: float, compute_type: str,
         timed(f"beam {compute_type}", phase_beam, model, compute_type)
         timed(f"timestamps {compute_type}", phase_timestamps, model,
               compute_type)
+    if compute_type == "int8":
+        timed("int8 routes", phase_int8_routes, model)
     return found
+
+
+# K6's route by M: the matvec takes M <= 16 (csrc/int8_matmul.cu
+# kVecMaxM), the tile product the rest; the benchmark's reader finds K6 in
+# a trace by these names
+K6_MATVEC_MAX_M = 16
+K6_TRACE_NAME = re.compile(r"(?:^|[\s:])(matvec_kernel|tile_kernel)<")
+ROUTES_AUDIO_S = 480.0
+
+
+def phase_int8_routes(model) -> None:
+    """K6's route by M in an int8 request at the benchmark's batch of 16:
+    ``warmup`` at 16 rows, then ``transcribe`` of 480 s of seeded speech
+    (16 windows with the repository's PyanNet: one batch whose loop runs
+    at 16 rows) under ``torch.profiler``.  The
+    trace's ``matvec_kernel`` launches must equal the request's counted K6
+    launches at M <= 16 (``last_stats["kernel_shapes"]``) and its
+    ``tile_kernel`` launches those at M > 16: no tile product ran at
+    M <= 16.  The request must have launched K6 at M = 16."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    audio = synthetic_speech(ROUTES_AUDIO_S, seed=7)
+    model.warmup(batch_size=SERVE_BATCH, language="zh")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.transcribe(audio, batch_size=SERVE_BATCH, language="zh")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traced: collections.Counter = collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        found = (K6_TRACE_NAME.search(ev.name())
+                 if ev.device_type() == DeviceType.CUDA else None)
+        if found:
+            traced[found.group(1)] += 1
+    stats = model.last_stats
+    by_m: collections.Counter = collections.Counter()
+    for name, shape, n in stats["kernel_shapes"]:
+        if name == "int8_matmul":
+            by_m[shape[0]] += n
+    counted = {"matvec_kernel": sum(n for m, n in by_m.items()
+                                    if m <= K6_MATVEC_MAX_M),
+               "tile_kernel": sum(n for m, n in by_m.items()
+                                  if m > K6_MATVEC_MAX_M)}
+    if dict(traced) != counted:
+        raise AssertionError(f"int8 routes: traced K6 launches "
+                             f"{dict(traced)}, counted by M {counted}")
+    if not by_m[SERVE_BATCH]:
+        raise AssertionError(f"int8 routes: no K6 launch at M = "
+                             f"{SERVE_BATCH}: {dict(by_m)}")
+    log(json.dumps({
+        "phase": "int8_routes", "batch": SERVE_BATCH,
+        "audio_s": ROUTES_AUDIO_S, "traced_wall_s": wall,
+        "windows": stats["windows"], "token_rows": stats["token_rows"],
+        "traced_launches": dict(traced),
+        "k6_launches_by_m": {str(m): n for m, n in sorted(by_m.items())}}))
 
 
 def phase_float32(dev) -> None:

@@ -9,9 +9,10 @@
 // order of the float32 sums.  The scale is applied once per output, after
 // the sum.
 //
-// Two launch shapes, chosen by M:
+// Two routes, chosen by M alone:
 //
-// - M <= 8 (decode steps): a weight-streaming product, bound by the int8
+// - M <= 16 (decode steps: the greedy loops' 16, 8, 4, 2 and 1 rows, the
+//   beam step's 5 and 10): a weight-streaming product, bound by the int8
 //   weight bytes (K*N bytes for 2*M*K*N operations).  A code widened to
 //   float32 on the converter (a quarter of the FMA rate) and multiplied
 //   into M sums on the FMA pipe keeps the ALU about as busy as device
@@ -20,17 +21,27 @@
 //   q^T x^T as mma.sync m16n8k16, the codes read straight
 //   from device memory into A fragments (a lane's four rows of a 16-row
 //   step, interleaved by one byte permute and widened exactly to bf16
-//   pairs), x's M <= 8 rows as the B operand.  A block owns a stripe of
-//   32 to 64 columns; K is split over its warps and, where the stripes
-//   alone would leave SMs idle, over a cluster of blocks, whose sums meet
-//   through asynchronous stores into the finishing block's shared memory.
-//   The launch shape follows (K, N) so each decode shape fills the SMs
-//   about once with a few steps per warp, all of a warp's loads in flight.
-// - M > 8 (prefill, encoder, cross-K/V): a tiled tensor-core product,
-//   bound by the bf16 tensor-core rate at M >= 772.  What a tile product
-//   loses on this card is time in which the tensor cores wait: for device
-//   memory, for the int8 -> bf16 widening, for threads that do something
-//   else.  So the block is split into roles that meet only at mbarriers:
+//   pairs), x's rows as the B operand in groups of 8: one group for
+//   M <= 8, two for M = 9..16, where each widened A fragment feeds one
+//   product per group (the widening per code stays, the tensor work
+//   doubles, far below mma.sync's rate at the byte bound).  A block owns a
+//   stripe of 32 to 64 columns; K is split over its warps and, where the
+//   stripes alone would leave SMs idle, over a cluster of blocks, whose
+//   sums meet through asynchronous stores into the finishing block's
+//   shared memory.  The launch shape follows (K, N) and the number of
+//   row groups so each decode shape fills the SMs about once with a few
+//   steps per warp, all of a warp's loads in flight.
+// - M > 16 (prefill, encoder, cross-K/V, the beam step's 20 and 80): a
+//   tiled tensor-core product, bound by the bf16 tensor-core rate at
+//   M >= 772.  It loses at M <= 16: its blocks are 128 rows, so at M = 16
+//   seven eighths of every x tile are zeros that TMA still loads, and with
+//   one block per column tile and no split along K a decode shape gets 10
+//   to 40 blocks for 132 SMs, each walking all of K and sending the codes
+//   through shared memory to be widened.
+//   What a tile product loses on this card is time in which the tensor
+//   cores wait: for device memory, for the int8 -> bf16 widening, for
+//   threads that do something else.  So the block is split into roles
+//   that meet only at mbarriers:
 //   * A block owns 128 x BN outputs (BN = 256, or 128 where 256 would
 //     leave SMs without work) and walks K in steps of 64.  One thread
 //     asks the Tensor Memory Accelerator for each step's x tile and int8
@@ -82,7 +93,8 @@ using bf16 = __nv_bfloat16;
 
 // ---- small M: split-K matvec on the tensor cores --------------------------
 
-constexpr int kVecMaxM = 8;
+constexpr int kGroup = 8;           // rows of x in one product's B operand
+constexpr int kVecMaxM = 2 * kGroup;   // the matvec's route: M <= 16
 constexpr int kVecMaxCluster = 8;
 
 // WORDS 32-bit words of weight codes, streamed: read once, so not kept in
@@ -114,12 +126,13 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// out[M, N] for M <= 8 as out^T = q^T x^T: the widened codes are the A
+// out[M, N] for M <= 8 R as out^T = q^T x^T: the widened codes are the A
 // operand of m16n8k16 products (16 weight columns as its rows), x's rows
-// the B operand (its 8 columns; rows of x past m read as zeros).  A block
-// of WARPS warps owns COLS columns; the key to reading the codes straight
-// from device memory into A fragments is the freedom in which weight
-// column stands for which A row, and in the order of K within a product:
+// 8 h .. 8 h + 7 the B operand of group h < R's product (its 8 columns;
+// rows of x past m read as zeros).  A block of WARPS warps owns COLS
+// columns; the key to reading the codes straight from device memory into
+// A fragments is the freedom in which weight column stands for which A
+// row, and in the order of K within a product:
 //   * lane (g, c) loads BYTES = COLS / 8 codes of its weight rows 2c,
 //     2c + 1, 2c + 8 and 2c + 9 of each 16-row step (four loads of 4 or 8
 //     bytes: eight lanes cover a row's COLS contiguous bytes);
@@ -127,7 +140,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 //     column by column, and the tile product's widening turns each pair
 //     into the bf16 pair (k, k + 1) of one column: an A register;
 //   * product j takes columns 2j (as A row g) and 2j + 1 (row g + 8) of
-//     the lane's codes, so BYTES / 2 products cover a step.
+//     the lane's codes, so BYTES / 2 products a row group cover a step.
 // Each warp owns a contiguous run of 16-row steps (the K axis is split over
 // the warps of a block and the `cs` blocks of a cluster), keeps U steps'
 // loads (U * 4 * BYTES bytes a lane) in flight before it widens any, and
@@ -137,26 +150,37 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 // at the receiver's mbarrier), and each block waits only for the bytes it
 // expects, then scales, rounds and writes its columns; with cs = 1 there
 // is no cluster and the block writes at once.  One launch, no workspace,
-// no atomics.
-template <int COLS, int U, int WARPS>
+// no atomics.  The second row group's work stands apart (`if constexpr`)
+// and its rows' pointer is a variable of its own, so that R = 1 compiles
+// to the same machine code as the single-group kernel before it: written
+// as loops over per-group arrays, R = 1 reloaded n from the constant bank
+// at every code load and its M <= 8 launches ran 3-4 % slower on an H100
+// (R = 2 ran 2-6 % faster that way).
+template <int COLS, int U, int WARPS, int R>
 __global__ void __launch_bounds__(WARPS * 32)
 matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
               const float* __restrict__ s, bf16* __restrict__ out, int m,
               int k, int n) {
+  static_assert(R == 1 || R == 2, "one or two groups of 8 rows");
   constexpr int kThreads = WARPS * 32;
   constexpr int BYTES = COLS / 8;          // codes of a row per lane
   constexpr int WORDS = BYTES / 4;
   constexpr int J = BYTES / 2;             // products per 16-row step
-  constexpr int kOut = COLS * kVecMaxM;    // a stripe's outputs, column-major
+  constexpr int kOut = COLS * kGroup;      // a stripe's outputs of a row
+                                           // group, column-major
   constexpr int kChunks = (kOut + kThreads - 1) / kThreads;
   // a warp's sums in shared memory: per lane group g its BYTES columns of
   // 8 rows of out (column by column), groups kPad floats apart: 8 more
-  // than they fill, so the float2 stores of a half-warp meet no bank twice
+  // than they fill, so the float2 stores of a half-warp meet no bank
+  // twice; the second row group's 8 kPad floats further on
   constexpr int kPad = BYTES * 8 + 8;
-  __shared__ float red[WARPS][8 * kPad];
-  // sums sent by the cluster's blocks: [sender][this block's columns][row]
-  __shared__ float inbox[kOut + kVecMaxCluster * kVecMaxM];
+  __shared__ float red[WARPS][R * 8 * kPad];
+  // sums sent by the cluster's blocks: [sender][row group][this block's
+  // columns][row]
+  __shared__ float inbox[R * (kOut + kVecMaxCluster * kGroup)];
   __shared__ alignas(8) uint64_t inbox_full;
+  static_assert(sizeof(red) + sizeof(inbox) + 8 <= 48 * 1024,
+                "a launch shape's sums fit the static 48 KB");
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -182,32 +206,41 @@ matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
   const bool row_ok = g < m;
   const int8_t* qc = q + col;
   const bf16* xg = x + (size_t)(row_ok ? g : 0) * k;
+  // the second row group's row 8 + g (R = 2)
+  const bool row_ok1 = R == 2 && kGroup + g < m;
+  const bf16* xg1 = x + (size_t)(row_ok1 ? kGroup + g : 0) * k;
 
   // The block finishes the stripe's columns rank, rank + cs, ...: its
-  // output l (row l % 8 of its column l / 8) is the stripe's output
-  // ((l / 8) * cs + rank) * 8 + l % 8, and thread tid takes l = tid,
-  // tid + kThreads, ...  The scales are loaded now, off the epilogue's
-  // path.
-  const int own = (COLS + cs - 1) / cs * kVecMaxM;   // outputs it finishes
+  // output l of a row group (row l % 8 of its column l / 8) is the
+  // stripe's output ((l / 8) * cs + rank) * 8 + l % 8, and thread tid
+  // takes l = tid, tid + kThreads, ...  The scales are loaded now, off the
+  // epilogue's path.
+  const int own = (COLS + cs - 1) / cs * kGroup;   // outputs it finishes
   float scale[kChunks];
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     const int l = j * kThreads + tid;
-    const int cl = (l / kVecMaxM) * cs + rank;
+    const int cl = (l / kGroup) * cs + rank;
     scale[j] = l < own && cl < COLS && n0 + cl < n ? __ldg(s + n0 + cl)
                                                    : 0.f;
   }
 
-  float acc[J][4];
+  float acc[J][4], acc1[J][4];             // rows g and 8 + g of x
 #pragma unroll
   for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if constexpr (R == 2) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc1[j][e] = 0.f;
+  }
 
   for (int st = s0; st < s1; st += U) {
     // U steps of codes and x: rows past the warp's steps or past k, and
     // columns past n, read as zeros
-    uint32_t w[U][4][WORDS], b[U][2];
+    uint32_t w[U][4][WORDS], b[U][2], b1[U][2];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const bool live = st + u < s1;
@@ -228,6 +261,15 @@ matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
       b[u][1] = live && row_ok && r0 + 8 < k
                     ? __ldg(reinterpret_cast<const unsigned int*>(xg + r0 + 8))
                     : 0u;
+      if constexpr (R == 2) {
+        b1[u][0] = live && row_ok1 && r0 < k
+                       ? __ldg(reinterpret_cast<const unsigned int*>(xg1 + r0))
+                       : 0u;
+        b1[u][1] = live && row_ok1 && r0 + 8 < k
+                       ? __ldg(reinterpret_cast<const unsigned int*>(
+                             xg1 + r0 + 8))
+                       : 0u;
+      }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -239,41 +281,55 @@ matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
         widen4(__byte_perm(w[u][0][j / 2], w[u][1][j / 2], sel), a[0], a[1]);
         widen4(__byte_perm(w[u][2][j / 2], w[u][3][j / 2], sel), a[2], a[3]);
         mma_16816(acc[j], a, b[u][0], b[u][1]);
+        if constexpr (R == 2) mma_16816(acc1[j], a, b1[u][0], b1[u][1]);
       }
     }
   }
 
   // the warps meet in shared memory: acc[j] holds columns g * BYTES + 2j
-  // (d[0], d[1]) and + 2j + 1 (d[2], d[3]) at rows 2c, 2c + 1 of out
+  // (d[0], d[1]) and + 2j + 1 (d[2], d[3]) at rows 2c, 2c + 1 of out,
+  // acc1[j] the same columns at rows 8 + 2c, 8 + 2c + 1
   float* rw = red[warp] + g * kPad + 2 * c;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     *reinterpret_cast<float2*>(rw + 16 * j) = make_float2(acc[j][0], acc[j][1]);
     *reinterpret_cast<float2*>(rw + 16 * j + 8) =
         make_float2(acc[j][2], acc[j][3]);
+    if constexpr (R == 2) {
+      *reinterpret_cast<float2*>(rw + 8 * kPad + 16 * j) =
+          make_float2(acc1[j][0], acc1[j][1]);
+      *reinterpret_cast<float2*>(rw + 8 * kPad + 16 * j + 8) =
+          make_float2(acc1[j][2], acc1[j][3]);
+    }
   }
   __syncthreads();
   if (cs > 1) cluster_wait();   // every block of the cluster runs by now
+  // each of the thread's outputs o of a row group h: the warps' sums,
+  // scaled and written (cs = 1) or sent to the block that finishes its
+  // column
+  auto meet = [&](int h, int o, float sc) {
+    const int idx = h * 8 * kPad + (o / (8 * BYTES)) * kPad + o % (8 * BYTES);
+    float v = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < WARPS; ++w8) v += red[w8][idx];
+    const int cl = o / kGroup;
+    if (cs == 1) {
+      if (n0 + cl < n)
+        out[(size_t)(h * kGroup + o % kGroup) * n + n0 + cl] =
+            __float2bfloat16(v * sc);
+    } else {
+      st_async(cluster_addr(smem_u32(inbox + (rank * R + h) * own
+                                     + (cl / cs) * kGroup + o % kGroup),
+                            cl % cs),
+               v, cluster_addr(smem_u32(&inbox_full), cl % cs));
+    }
+  };
 #pragma unroll
   for (int jj = 0; jj < kChunks; ++jj) {
     const int o = jj * kThreads + tid;         // column o / 8, row o % 8
-    if (o < kOut && o % kVecMaxM < m) {
-      const int idx = (o / (8 * BYTES)) * kPad + o % (8 * BYTES);
-      float v = 0.f;
-#pragma unroll
-      for (int w8 = 0; w8 < WARPS; ++w8) v += red[w8][idx];
-      const int cl = o / kVecMaxM;
-      if (cs == 1) {
-        if (n0 + cl < n)
-          out[(size_t)(o % kVecMaxM) * n + n0 + cl] =
-              __float2bfloat16(v * scale[jj]);
-      } else {
-        st_async(cluster_addr(smem_u32(inbox + rank * own
-                                       + (cl / cs) * kVecMaxM + o % kVecMaxM),
-                              cl % cs),
-                 v, cluster_addr(smem_u32(&inbox_full), cl % cs));
-      }
-    }
+    if (o < kOut && o % kGroup < m) meet(0, o, scale[jj]);
+    if constexpr (R == 2)
+      if (o < kOut && kGroup + o % kGroup < m) meet(1, o, scale[jj]);
   }
   if (cs == 1) return;
   // every block sends each of this block's columns its m rows
@@ -282,23 +338,30 @@ matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
                    cs * ((COLS - rank + cs - 1) / cs) * m * 4);
   mbar_wait(smem_u32(&inbox_full), 0);
 
+  // the block's output l of row group h: the senders' sums, scaled and
+  // written
+  auto finish = [&](int h, int l, int cl, float sc) {
+    float v = 0.f;
+#pragma unroll
+    for (int b = 0; b < kVecMaxCluster; ++b)
+      if (b < cs) v += inbox[(b * R + h) * own + l];
+    out[(size_t)(h * kGroup + l % kGroup) * n + n0 + cl] =
+        __float2bfloat16(v * sc);
+  };
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     const int l = j * kThreads + tid;
-    const int cl = (l / kVecMaxM) * cs + rank;
-    if (l < own && cl < COLS && n0 + cl < n && l % kVecMaxM < m) {
-      float v = 0.f;
-#pragma unroll
-      for (int b = 0; b < kVecMaxCluster; ++b)
-        if (b < cs) v += inbox[b * own + l];
-      out[(size_t)(l % kVecMaxM) * n + n0 + cl] =
-          __float2bfloat16(v * scale[j]);
+    const int cl = (l / kGroup) * cs + rank;
+    if (l < own && cl < COLS && n0 + cl < n) {
+      if (l % kGroup < m) finish(0, l, cl, scale[j]);
+      if constexpr (R == 2)
+        if (kGroup + l % kGroup < m) finish(1, l, cl, scale[j]);
     }
   }
 }
 
 // One cluster of `cs` blocks per COLS columns (no cluster for cs = 1).
-template <int COLS, int U, int WARPS>
+template <int COLS, int U, int WARPS, int R>
 int launch_matvec(const void* x, const void* q, const void* s, void* out,
                   int m, int k, int n, int cs, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -313,8 +376,8 @@ int launch_matvec(const void* x, const void* q, const void* s, void* out,
   cfg.attrs = attr;
   cfg.numAttrs = cs > 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, matvec_kernel<COLS, U, WARPS>, (const bf16*)x, (const int8_t*)q,
-      (const float*)s, (bf16*)out, m, k, n);
+      &cfg, matvec_kernel<COLS, U, WARPS, R>, (const bf16*)x,
+      (const int8_t*)q, (const float*)s, (bf16*)out, m, k, n);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -810,7 +873,8 @@ extern "C" int mwx_int8_matmul(const void* x, const void* q, const void* s,
   if (m <= 0 || n <= 0) return 0;
   if (k <= 0 || k % 8 || n % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (m <= kVecMaxM) {
+  const int steps = (k + 15) / 16;
+  if (m <= kGroup) {
     // Launch shapes measured at a decode step's three shapes (K, N) on an
     // H100: each fills the SMs about once with a few 16-row steps per warp.
     // Wide (fc1, 1280 x 5120): 80 stripes of 64 columns, no cluster, 16
@@ -818,14 +882,27 @@ extern "C" int mwx_int8_matmul(const void* x, const void* q, const void* s,
     // columns, clusters of 8 along K.  Square (1280 x 1280): 40 stripes
     // of 32 columns, clusters of 4.  Clusters never exceed one 16-row step
     // per warp.
-    const int steps = (k + 15) / 16;
-    if (n >= 4 * k) return launch_matvec<64, 5, 16>(x, q, s, out, m, k, n, 1,
-                                                     st);
+    if (n >= 4 * k)
+      return launch_matvec<64, 5, 16, 1>(x, q, s, out, m, k, n, 1, st);
     if (k >= 4 * n)
-      return launch_matvec<64, 2, 8>(x, q, s, out, m, k, n,
-                                     max(1, min(8, steps / 8)), st);
-    return launch_matvec<32, 3, 8>(x, q, s, out, m, k, n,
-                                   max(1, min(4, steps / 8)), st);
+      return launch_matvec<64, 2, 8, 1>(x, q, s, out, m, k, n,
+                                        max(1, min(8, steps / 8)), st);
+    return launch_matvec<32, 3, 8, 1>(x, q, s, out, m, k, n,
+                                      max(1, min(4, steps / 8)), st);
+  }
+  if (m <= kVecMaxM) {
+    // Two row groups: twice the products and x loads for every code, and
+    // a second group of sums to meet over.  Measured at the same three
+    // shapes: stripes of 32 columns and 8 warps, K split over clusters of
+    // steps / 40 blocks (2 at K = 1280, 8 at K = 5120), so each warp has
+    // about five 16-row steps.  Where the blocks fit twice on the SMs
+    // (square: 80) all five steps' loads are in flight at once; where
+    // they do not (wide and deep: 320), three at a time, so that three
+    // blocks fit an SM and the grid runs in one wave.
+    const int cs = max(1, min(kVecMaxCluster, steps / 40));
+    if ((n + 31) / 32 * cs <= 2 * sm_count())
+      return launch_matvec<32, 5, 8, 2>(x, q, s, out, m, k, n, cs, st);
+    return launch_matvec<32, 3, 8, 2>(x, q, s, out, m, k, n, cs, st);
   }
   // 256-column tiles where they fill the SMs one and a half times over
   // (a round of tiles that leaves most SMs idle costs more than the wide

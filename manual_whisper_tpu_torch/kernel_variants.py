@@ -76,11 +76,16 @@ def _self(s, u, t, push="true", patches=(), elem=""):
                 "(cudaStream_t)stream);", patches)
 
 
-def _matvec(cols, u, warps, cs, patches=()):
+def _matvec(cols, u, warps, cs, patches=(), groups=1):
     return ("", f"const int stripes = (n + {cols - 1}) / {cols};\n"
                 f"  const int cs = {cs};\n"
-                f"  return launch_matvec<{cols}, {u}, {warps}>(x, q, s, out, "
-                "m, k, n, cs, (cudaStream_t)stream);", patches)
+                f"  return launch_matvec<{cols}, {u}, {warps}, {groups}>(x, q, "
+                "s, out, m, k, n, cs, (cudaStream_t)stream);", patches)
+
+
+# the matvec's variants for M = 9..16 (two groups of 8 rows of x) are
+# named rows16_...; the others take M <= 8
+_ROWS16 = "rows16_"
 
 
 # cluster sizes: as many blocks along K as fill the SMs once, or fixed; at
@@ -109,7 +114,9 @@ _SELF_PROBES = {
 _MATVEC_PROBES = {
     "no_mma": [("mma_16816(acc[j], a, b[u][0], b[u][1]);",
                 "acc[j][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ "
-                "b[u][0] ^ b[u][1]);")],
+                "b[u][0] ^ b[u][1]);"),
+               ("mma_16816(acc1[j], a, b1[u][0], b1[u][1]);",
+                "acc1[j][0] += __uint_as_float(a[0] ^ b1[u][0] ^ b1[u][1]);")],
     "no_widen": [
         ("widen4(__byte_perm(w[u][0][j / 2], w[u][1][j / 2], sel), a[0], "
          "a[1]);", "a[0] = w[u][0][j / 2]; a[1] = w[u][1][j / 2];"),
@@ -123,6 +130,9 @@ _MATVEC_PROBES = {
          "  float sum_ = 0.f;\n"
          "  for (int j = 0; j < J; ++j) sum_ += acc[j][0] + acc[j][1] + "
          "acc[j][2] + acc[j][3];\n"
+         "  if constexpr (R == 2)\n"
+         "    for (int j = 0; j < J; ++j) sum_ += acc1[j][0] + acc1[j][1] + "
+         "acc1[j][2] + acc1[j][3];\n"
          "  if (sum_ == 1.2345f) out[threadIdx.x] = bf16();\n  return;\n"
          "  // the warps meet in shared memory: acc[j]")],
 }
@@ -292,6 +302,23 @@ VARIANTS = {
                                                 _MATVEC_MARKS),
          **{f"probe_cols64_u2_warps8_cs8_{name}": _matvec(
              64, 2, 8, _fixed(8, 8), patches)
+            for name, patches in _MATVEC_PROBES.items()},
+         # M = 9..16 (two row groups): the shipped shapes (square
+         # cols32_u5_warps8_cs2, wide cols32_u3_warps8_cs2, deep
+         # cols32_u3_warps8_cs8), the M <= 8 square and deep shapes (the
+         # wide one's sums of two groups pass the static 48 KB), and shapes
+         # with fewer warps, other clusters or fewer loads in flight
+         **{f"{_ROWS16}cols{c}_u{u}_warps{w}_cs{cs}": _matvec(
+             c, u, w, _fixed(cs, w), groups=2)
+            for c, u, w, cs in (
+                (32, 5, 8, 2), (32, 3, 8, 2), (32, 3, 8, 8), (32, 3, 8, 4),
+                (64, 2, 8, 8), (32, 2, 8, 8), (32, 2, 8, 4), (32, 5, 4, 4),
+                (32, 3, 4, 4))},
+         f"stamps_{_ROWS16}cols32_u3_warps8_cs2": _matvec(
+             32, 3, 8, _fixed(2, 8), _MATVEC_MARKS, groups=2),
+         **{f"probe_{_ROWS16}cols{c}_u{u}_warps{w}_cs{cs}_{name}": _matvec(
+             c, u, w, _fixed(cs, w), patches, groups=2)
+            for c, u, w, cs in ((32, 5, 8, 2), (32, 3, 8, 2))
             for name, patches in _MATVEC_PROBES.items()}}),
     "mel": (
         "mel.cu",
@@ -478,19 +505,22 @@ def run_self(fns, randn, dev, dtype=torch.bfloat16):
 
 
 def run_matvec(fns, randn, dev):
-    """K6's matvec at the int8 decode step's shapes, M = 4, over weight
-    copies that exceed L2; the yardstick is cuBLAS on a bf16 copy of the
+    """K6's matvec at the int8 decode step's shapes, M = 4, 8 and 16 (the
+    rows16_ variants at M = 16, the others at M <= 8), over weight copies
+    that exceed L2; the yardstick is cuBLAS on a bf16 copy of the
     weight."""
     from chip_smoke import copies_for
     from .ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
-    for m, k, n in ((4, 1280, 1280), (4, 1280, 5120), (4, 5120, 1280)):
+    for m, k, n in [(m, k, n) for m in (4, 8, 16)
+                    for k, n in ((1280, 1280), (1280, 5120), (5120, 1280))]:
         def weight():
             w = quantize_weight(randn((k, n), torch.float32) / math.sqrt(k))
             return w["q"], w["s"]
         sets = [(randn((m, k)), *weight())
                 for _ in range(copies_for(k * n + 2 * m * k))]
         shape = f"M={m} K={k} N={n}"
-        calls = {var: _launcher(fn, m, k, n) for var, fn in fns.items()}
+        calls = {var: _launcher(fn, m, k, n) for var, fn in fns.items()
+                 if (_ROWS16 in var) == (m > 8)}
         outs = {st[0]: torch.empty((m, n), dtype=torch.bfloat16, device=dev)
                 for st in sets}
         for var, call in calls.items():

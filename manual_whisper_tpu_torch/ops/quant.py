@@ -10,6 +10,15 @@ which launches K6 on a CUDA tensor and runs ``int8_matmul_plain`` on a CPU
 tensor.  K6 replaces ``_int8_mm_kernel`` / ``int8_matmul_pallas``; in the
 JAX package that kernel is only tested and ``mm`` goes through XLA, in the
 port K6 carries every int8 block matmul.
+
+K6 picks its route by M alone.  M <= 16 (every decode step of the greedy,
+timestamp and beam loops up to 16 rows, such as the benchmark's batch of
+16) goes to ``matvec_kernel``, which streams the codes from device memory
+into tensor-core fragments and splits K over warps and clusters, so that
+a decode shape fills the card's SMs.  M > 16 (encoder, cross K/V,
+prefill, larger beam steps) goes to ``tile_kernel``, whose blocks are 128
+rows: at M <= 16 most of each x tile would be zeros, and one block per
+column tile would leave most SMs idle while each block walks all of K.
 """
 
 from __future__ import annotations

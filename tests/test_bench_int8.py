@@ -15,6 +15,7 @@ rounded to int4.
 
 import collections
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +30,7 @@ sys.path[:0] = [str(BENCH), str(ROOT)]
 
 from harness import audio as audio_mod  # noqa: E402
 from harness import cell as cell_mod  # noqa: E402
-from harness import flops, weights  # noqa: E402
+from harness import flops, kernel_shapes, weights  # noqa: E402
 from harness.main import whisper_config  # noqa: E402
 from reference import int8_ref, tokens_ref, whisper_ref  # noqa: E402
 
@@ -303,6 +304,32 @@ def test_cross_int8_reader_by_hand():
     assert flops.bound_s(ops, 65361920, 67e12) == 65361920 / 3.35e12
     assert read(FakeRun(shapes, device_s)) == pytest.approx(
         100 * 3 * (65361920 + 63441920) / 3.35e12 / 1e-3)
+
+
+# a kernel in a CUDA source: "__global__ void [__launch_bounds__(...)]
+# name(", with the line before it (its template head, if any)
+_GLOBAL = re.compile(r"^(.*)\n__global__\s+void\s+"
+                     r"(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(",
+                     re.M)
+
+
+def test_k6_kernels_match_the_trace_reader():
+    """Every ``__global__`` kernel of K6's source is a template whose
+    demangled name the roofline reader's pattern finds in a trace
+    (``harness/kernel_shapes.py`` ``TRACE_NAMES["int8_matmul"]``): a K6
+    kernel under another name would drop out of the reader's device
+    time, and ``int8_matmul_roofline`` would read too high."""
+    src = (ROOT / "manual_whisper_tpu_torch" / "csrc"
+           / "int8_matmul.cu").read_text()
+    found = _GLOBAL.findall(src)
+    assert len(found) == src.count("__global__") >= 2
+    assert {name for _, name in found} >= {"matvec_kernel", "tile_kernel"}
+    pattern = kernel_shapes.TRACE_NAMES["int8_matmul"]
+    for head, name in found:
+        assert head.startswith("template <"), name
+        assert pattern.search(f"void (anonymous namespace)::{name}<64>(x)")
+        assert pattern.search(f"{name}<64>(x)")
+        assert not pattern.search(f"void (anonymous namespace)::x{name}<64>")
 
 
 @pytest.mark.parametrize("name", ["int8_matmul_roofline.meeting",

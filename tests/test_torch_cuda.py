@@ -317,7 +317,10 @@ def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
                                atol=1e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 17, 129, 300, 772])
+# the matvec takes M <= 16 (one group of 8 rows of x, or two from M = 9),
+# the tile product M >= 17
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 10, 12, 15, 16, 17, 129, 300,
+                               772])
 @pytest.mark.parametrize("k,n", [(64, 256), (1280, 5120), (1288, 1296),
                                  (5120, 1280)])
 def test_int8_matmul_kernel(dev, m, k, n):
