@@ -111,18 +111,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    and 4 as CUDA graphs, ``capture_s``), then ``transcribe`` of about 75 s
    of seeded amplitude-modulated audio at batch 4, language zh, with the
    CLI's options and the full temperature ladder, with the bf16 model,
-   then with the int8 model, then with the float32 model.  Launch counters are zeroed just before each
-   ``transcribe`` and read just after; the pipeline's VAD must be PyanNet
-   on the card (the ``main_path`` line says ``"vad": "pyannet"``); bf16
-   must launch K1-K4 and not
-   K5/K6; float32 K1 and the float32 builds of K2-K4 and no other; int8
-   must launch K1, K2, K3, K5 and K6 and not K4, each exactly
-   as often as the batches, decode loops and steps in ``last_stats`` imply
-   (a replay adds the launches its capture recorded), and every decode
-   step must have run inside a replayed chunk; int8's K5 and K6 launches
-   by shape (``last_stats["kernel_shapes"]``) must add up to the counted
-   launches and, summed by (K, N) and by K5's shape, to the launches and
-   rows that ``last_stats`` implies (``kernel_shape_totals``).  Then a ``graph_vs_eager``
+   then with the int8 model, then with the float32 model.  The
+   pipeline's VAD must be PyanNet on the card (the ``main_path`` line
+   says ``"vad": "pyannet"``); each request's launches
+   (``last_stats["kernel_shapes"]``, replays included: a replay adds the
+   launches its capture recorded), summed by kernel and the dims after
+   the first into launches and summed rows (``launch_totals``), must be
+   exactly those the batches, decode loops, steps and replays imply
+   (``expected_totals``): bf16 K1-K4 and not K5/K6, float32 K1 and the
+   float32 builds of K2-K4 and no other, int8 K1, K2, K3, K5 and K6 and
+   not K4; every decode step must have run inside a replayed chunk.  Then
+   a ``graph_vs_eager``
    line: one batch-4 loop at T = 0 and one at T = 0.2, replayed against
    the same chunks run eagerly, tokens and lengths equal, sum_logprob
    within SUM_LP_TOL, ms per token row of each.
@@ -212,11 +211,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    the FFmpeg shim is missing) go through upload, create and polls, with
    a second pass (``transcribe_clip`` on the server's thread) decoding
    beside the long job; the WAV job also asks for word alignment and
-   diarization, and its segments must carry speakers (the diarizer's K1
-   launches are counted apart); every job must succeed on
-   ``load_audio``'s audio,
-   a 16-row loop must replay, and the launches of both threads must be
-   the ones their calls' stats imply.  One ``serve_request`` line a job,
+   diarization, and its segments must carry speakers; every job must
+   succeed on ``load_audio``'s audio, a 16-row loop must replay, and the
+   launches of both threads' requests must be the ones their calls'
+   stats imply.  One ``serve_request`` line a job,
    then a ``serve`` line (warmup, capture, peak memory with both decoders
    resident, ms per token row and replayed step time per bucket).
 
@@ -247,6 +245,7 @@ import time
 import numpy as np
 import torch
 
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.ops import _build
 from manual_whisper_tpu_torch.ops.attention import (attention_plain,
                                                     flash_attention)
@@ -1304,9 +1303,9 @@ def phase_tiny(dev, int8: bool, dtype=torch.bfloat16) -> None:
                              int8_cross_kv=int8, **kw)
 
     enc_ref, logits_ref = run(params_cpu, cpu)
-    _build.launches.clear()
-    enc, logits = run(params_gpu, dev)
-    launches = dict(_build.launches)
+    with counting() as sink:
+        enc, logits = run(params_gpu, dev)
+    launches = by_kernel(sink)
     for t in (enc, logits):
         if not torch.isfinite(t).all():
             raise AssertionError("tiny config: non-finite output on the card")
@@ -1462,7 +1461,6 @@ def phase_tiny_synth(dev, dtype=torch.bfloat16) -> None:
         if d.type == "cuda":
             model.warmup(batch_size=4, language="en")
             torch.cuda.synchronize()
-        _build.launches.clear()
         t0 = time.perf_counter()
         with _decoded_rows() as rows:
             out = model.transcribe(audio, batch_size=4, language="en")
@@ -1473,7 +1471,8 @@ def phase_tiny_synth(dev, dtype=torch.bfloat16) -> None:
         runs[name] = {
             "segments": [(g["text"], g["start"], g["end"])
                          for g in out["segments"]],
-            "rows": rows, "wall_s": wall, "launches": dict(_build.launches),
+            "rows": rows, "wall_s": wall,
+            "launches": by_kernel(launch_totals(model.last_stats)),
             "wer": wer(truth, " ".join(g["text"].strip() for g in cleaned)),
             "stats": {k: model.last_stats[k] for k in (
                 "windows", "batches", "decode_calls", "decode_steps")}}
@@ -1684,91 +1683,131 @@ def main_path_shapes(model) -> dict:
             "ta": cfg.n_audio_ctx}
 
 
-def expected_launches(cfg, stats: dict, int8: bool) -> dict:
-    """Launches a path implies for the batches, decode loops and steps in
-    ``last_stats``: K1 once and K2 once per encoder layer per batch; per
-    greedy or timestamp step K3 and the cross kernel (K4, or K5 for int8)
-    once per decoder layer and ``add_layer_norm`` 3 times a layer and once
-    more, per beam step none of them; K6 for every block
-    matmul: 6 per encoder layer per batch, per decoder layer 2 (cross K/V)
-    + 8 (prefill) per decode loop of any kind and 8 per step of any kind
-    (a beam step's at M = rows x beams).  K2-K4 and ``add_layer_norm`` are
-    the builds of ``cfg.dtype`` (bf16, or float32: the names with
-    ``_f32``)."""
-    le, ld = cfg.n_audio_layer, cfg.n_text_layer
-    batches, calls = stats["batches"], stats["decode_calls"]
-    steps = stats["decode_steps"]
-    suffix = _build.ATTENTION_DTYPES[cfg.dtype]
-    exp = {"mel": batches, "flash_attention" + suffix: le * batches,
-           "decode_self_attention" + suffix: ld * steps,
-           "add_layer_norm" + suffix: (3 * ld + 1) * steps}
-    if int8:
-        exp["decode_cross_attention_int8"] = ld * steps
-        exp["int8_matmul"] = 6 * le * batches + 10 * ld * calls \
-            + 8 * ld * (steps + stats.get("beam_steps", 0))
-    else:
-        exp["decode_cross_attention" + suffix] = ld * steps
-    return exp
+@contextlib.contextmanager
+def counting():
+    """A fresh launch sink (``Counter`` of (kernel, shape)) bound on this
+    thread while the block runs: the launches of work outside
+    ``transcribe``, whose own are ``last_stats["kernel_shapes"]``."""
+    launches = collections.Counter()
+    with spans.bind({}, "smoke", launches):
+        yield launches
 
 
-def shape_totals(rows) -> dict:
-    """``last_stats["kernel_shapes"]`` rows summed: K6 by (kernel, K, N)
-    and K5 by (kernel, heads, cross positions, head dim, scale dtype), each
-    as [launches, summed M (K6) or rows (K5)]."""
+def by_kernel(launches) -> dict:
+    """Launches summed by kernel, from a sink or from ``launch_totals``."""
+    out = collections.Counter()
+    for (kernel, *_), n in launches.items():
+        out[kernel] += n if isinstance(n, int) else n[0]
+    return dict(out)
+
+
+def _add(tot: dict, key: tuple, n: int, rows: int) -> None:
+    cell = tot.setdefault(key, [0, 0])
+    cell[0] += n
+    cell[1] += rows
+
+
+def launch_totals(stats: dict) -> dict:
+    """A request's ``last_stats["kernel_shapes"]`` rows summed by (kernel,
+    its dims after the first) into [launches, summed first dim]: the first
+    dim is the rows (K1, K5, ``add_layer_norm``), batch x heads (K2-K4) or
+    M (K6)."""
     out: dict = {}
-    for name, shape, n in rows:
-        tot = out.setdefault((name, *shape[1:]), [0, 0])
-        tot[0] += n
-        tot[1] += n * shape[0]
+    for kernel, shape, n in stats["kernel_shapes"]:
+        _add(out, (kernel, *shape[1:]), n, n * shape[0])
     return out
 
 
-def expected_shape_totals(cfg, stats: dict, prefix: int) -> dict:
-    """The totals ``shape_totals`` must read on the int8 greedy main path,
-    from the counts in ``last_stats``: the encoder's 6 K6 a layer at M =
-    rows x Ta per batch; per decode loop of r rows (the rung rows), cross
-    K/V 2 a decoder layer at M = r Ta and the prefill's 8 at M = r x prompt
-    length; per step 8 K6 and one K5 a layer at M = r (the token rows
-    after each loop's first token)."""
-    le, ld = cfg.n_audio_layer, cfg.n_text_layer
-    d, ta = cfg.n_text_state, cfg.n_audio_ctx
-    heads, dh = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
+def _step_totals(tot: dict, decoder, steps: int, rows: int,
+                 t_max: int) -> None:
+    """Greedy or timestamp steps of ``decoder`` (``rows`` their rows summed)
+    into ``tot``, per decoder layer: K3 at rows x heads over the ``t_max``
+    self-cache slots, K4 at rows x heads over the cross positions (int8
+    cross K/V: K5 at rows), ``add_layer_norm`` 3 times and once more at
+    rows; the builds of the model's dtype."""
+    cfg = decoder.cfg
+    ld, heads, d = cfg.n_text_layer, cfg.n_text_head, cfg.n_text_state
+    dh, ta, sfx = d // heads, cfg.n_audio_ctx, \
+        _build.ATTENTION_DTYPES[cfg.dtype]
+    _add(tot, ("decode_self_attention" + sfx, t_max, dh), ld * steps,
+         ld * heads * rows)
+    if decoder.opts.int8_cross_kv:
+        scale = str(decoder._scale_dtype()).split(".")[-1]
+        _add(tot, ("decode_cross_attention_int8", heads, ta, dh, scale),
+             ld * steps, ld * rows)
+    else:
+        _add(tot, ("decode_cross_attention" + sfx, ta, dh), ld * steps,
+             ld * heads * rows)
+    _add(tot, ("add_layer_norm" + sfx, d), (3 * ld + 1) * steps,
+         (3 * ld + 1) * rows)
+
+
+def _block_matmuls(d: int, cross: int = 0) -> dict:
+    """A block's K6 by (K, N): q, k, v and o at (d, d) (a decoder block's
+    cross q and o too: ``cross`` 2), fc1 at (d, 4d), fc2 at (4d, d)."""
+    return {(d, d): 4 + cross, (d, 4 * d): 1, (4 * d, d): 1}
+
+
+def expected_totals(pipe, stats: dict, step_rows: dict,
+                    int8: bool) -> dict:
+    """The ``launch_totals`` a request through ``pipe`` implies for the
+    batches, loops and steps in ``last_stats`` and ``step_rows``, each loop
+    kind's rows summed over its steps (a replayed chunk of n steps at r
+    rows gives n r; the kinds ``_loops``, ``_beam_loops``, ``_ts_loops``
+    that ran).  Per batch of r rows: K1 at (r, window samples, mels) and K2
+    once an encoder layer at r x heads.  Per greedy or timestamp step
+    ``_step_totals``; a beam step none of those.  With int8 weights K6 by
+    (K, N) at M: the encoder's 6 a layer at r x cross positions; per loop
+    of r rows cross K/V 2 a decoder layer at r x cross positions and the
+    prefill's 8 at r x prompt; per step 8 a layer at r (a beam step's r x
+    beams).  A kind's prompt and self-cache slots come from its loops'
+    keys (rows, cross positions, prompt, max_new)."""
+    cfg, decoder = pipe.cfg, pipe._decoder("zh", 0.0)
+    le, ld, ta = cfg.n_audio_layer, cfg.n_text_layer, cfg.n_audio_ctx
+    sfx = _build.ATTENTION_DTYPES[cfg.dtype]
     b, rows = stats["batches"], stats["rows"]
-    calls, steps = stats["decode_calls"], stats["decode_steps"]
-    loop_rows = sum(stats["rung_rows"].values())
-    step_rows = stats["token_rows"] - loop_rows
-    mm = "int8_matmul"
-    return {
-        (mm, d, d): [4 * le * b + 8 * ld * calls + 6 * ld * steps,
-                     4 * le * ta * rows + 2 * ld * ta * loop_rows
-                     + 6 * ld * prefix * loop_rows + 6 * ld * step_rows],
-        **{(mm, k, n): [le * b + ld * calls + ld * steps,
-                        le * ta * rows + ld * prefix * loop_rows
-                        + ld * step_rows]
-           for k, n in ((d, 4 * d), (4 * d, d))},
-        ("decode_cross_attention_int8", heads, ta, dh, "float32"):
-            [ld * steps, ld * step_rows]}
+    tot: dict = {}
+    _add(tot, ("mel", pipe.window_samples, cfg.n_mels), b, rows)
+    _add(tot, ("flash_attention" + sfx, ta, ta,
+               cfg.n_audio_state // cfg.n_audio_head), le * b,
+         le * cfg.n_audio_head * rows)
+    if int8:
+        for (k, n), per in _block_matmuls(cfg.n_audio_state).items():
+            _add(tot, ("int8_matmul", k, n), per * le * b,
+                 per * le * ta * rows)
+    rungs = stats["rung_rows"]
+    beam = "_beam_loops" in step_rows
+    ts = "_ts_loops" in step_rows
+    loop_rows = {"_beam_loops": rungs.get(0, 0) if beam else 0,
+                 "_ts_loops": rows if ts else 0}
+    loop_rows["_loops"] = sum(rungs.values()) - loop_rows["_beam_loops"]
+    calls = {"_beam_loops": stats["beam_calls"],
+             "_ts_loops": stats["decode_calls"] if ts else 0}
+    calls["_loops"] = stats["decode_calls"] - sum(calls.values())
+    steps = {"_loops": stats["decode_steps"], "_ts_loops":
+             stats["decode_steps"], "_beam_loops": stats["beam_steps"]}
+    d = cfg.n_text_state
+    for kind, srows in step_rows.items():
+        _, _, prompt, max_new = next(iter(getattr(decoder, kind)))
+        if kind != "_beam_loops":
+            _step_totals(tot, decoder, steps[kind], srows, prompt + max_new)
+        if not int8:
+            continue
+        m_step = srows * (decoder.opts.beam_size if kind == "_beam_loops"
+                          else 1)
+        _add(tot, ("int8_matmul", d, d), 2 * ld * calls[kind],
+             2 * ld * ta * loop_rows[kind])
+        for (k, n), per in _block_matmuls(d, 2).items():
+            _add(tot, ("int8_matmul", k, n), per * ld * calls[kind],
+                 per * ld * prompt * loop_rows[kind])
+            _add(tot, ("int8_matmul", k, n), per * ld * steps[kind],
+                 per * ld * m_step)
+    return tot
 
 
-def check_kernel_shapes(pipe, stats: dict, launches: dict,
-                        label: str) -> dict:
-    """The int8 main path's K5 and K6 launches by shape
-    (``last_stats["kernel_shapes"]``) against ``launches`` and the totals
-    that ``last_stats`` implies; returns the totals."""
-    rows = stats["kernel_shapes"]
-    for name in ("int8_matmul", "decode_cross_attention_int8"):
-        n = sum(c for kernel, _, c in rows if kernel == name)
-        if n != launches.get(name):
-            raise AssertionError(f"{label}: {n} {name} launches by shape, "
-                                 f"{launches.get(name)} counted")
-    prefix = len(pipe._decoder("zh", 0.0)._prefix()[0])
-    got = shape_totals(rows)
-    want = expected_shape_totals(pipe.cfg, stats, prefix)
-    if got != want:
-        raise AssertionError(f"{label}: kernel shape totals {got}, "
-                             f"expected {want}")
-    return {" ".join(map(str, k)): v for k, v in sorted(
-        got.items(), key=lambda kv: repr(kv[0]))}
+def _totals_line(totals: dict) -> dict:
+    return {" ".join(map(str, k)): v
+            for k, v in sorted(totals.items(), key=lambda kv: repr(kv[0]))}
 
 
 def graph_replays(decoder, kind: str = "_loops") -> dict:
@@ -1782,16 +1821,13 @@ def graph_replays(decoder, kind: str = "_loops") -> dict:
 
 def phase_main(model, load_s: float, compute_type: str) -> dict:
     """``warmup`` (timed alone; it captures the decode chunks of batch
-    buckets 1, 2 and 4), then the launch counters are zeroed and
-    ``transcribe`` runs.  Every decode step must have run inside a replayed
-    chunk, and the launches must be the ones ``last_stats`` implies (int8:
-    by shape too, ``check_kernel_shapes``)."""
+    buckets 1, 2 and 4), then ``transcribe``.  Every decode step must have
+    run inside a replayed chunk, and the request's launches by (kernel,
+    shape) must be the ones ``last_stats`` implies (``_mode_transcribe``).
+    Returns the launches by kernel."""
     torch.cuda.reset_peak_memory_stats()
     result, stats, launches, line = _mode_transcribe(
         model, compute_type, ("_loops",), "main_path")
-    if compute_type == "int8":
-        line["kernel_shape_totals"] = check_kernel_shapes(
-            model, stats, launches, "main_path")
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1886,10 +1922,11 @@ def _mode_pipeline(model, **asr):
 
 def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
     """``warmup`` then ``transcribe`` of phase 4's audio at batch 4 through
-    ``pipe``, with the launch counters zeroed just before and read just
-    after; the launches must be the ones ``last_stats`` implies, and every
-    step of each loop kind in ``kinds`` must have run inside a replay.
-    Returns (result, stats, launches, line)."""
+    ``pipe``; the request's launches (``last_stats["kernel_shapes"]``)
+    summed by (kernel, shape) must be the ones ``last_stats`` and the
+    replays imply (``expected_totals``), and every step of each loop kind
+    in ``kinds`` must have run inside a replay.  Returns (result, stats,
+    launches by kernel, line)."""
     audio = synthetic_speech(75.0, seed=0)
     decoder = pipe._decoder("zh", 0.0)
     if not decoder.captured:
@@ -1899,18 +1936,11 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     before = {kind: graph_replays(decoder, kind) for kind in kinds}
-    _build.launches.clear()
     t0 = time.perf_counter()
     result = pipe.transcribe(audio, batch_size=BATCH, language="zh")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.launches)
     stats = pipe.last_stats
-    int8 = compute_type == "int8"
-    expected = expected_launches(pipe.cfg, stats, int8)
-    if launches != expected or 0 in expected.values():
-        raise AssertionError(f"{label} {compute_type}: launches {launches}, "
-                             f"expected {expected}")
     steps_of = {"_loops": stats["decode_steps"], "_ts_loops":
                 stats["decode_steps"], "_beam_loops": stats["beam_steps"]}
     replays = {(kind, rows, n): count - before[kind].get((rows, n), 0)
@@ -1923,6 +1953,15 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
             raise AssertionError(f"{label} {compute_type}: {replayed[kind]} "
                                  f"{kind} steps replayed, {steps_of[kind]} "
                                  "run")
+    step_rows = {kind: sum(r * n * c for (k, r, n), c in replays.items()
+                           if k == kind) for kind in kinds}
+    got = launch_totals(stats)
+    want = expected_totals(pipe, stats, step_rows, compute_type == "int8")
+    if got != want or any(n == 0 for n, _ in want.values()):
+        raise AssertionError(f"{label} {compute_type}: launch totals "
+                             f"{_totals_line(got)}, expected "
+                             f"{_totals_line(want)}")
+    launches = by_kernel(got)
     duration = len(audio) / 16000.0
     if result["language"] != "zh" or not isinstance(result["segments"],
                                                     list):
@@ -1948,7 +1987,7 @@ def _mode_transcribe(pipe, compute_type: str, kinds: tuple, label: str):
             "segments": len(result["segments"]),
             "replays": {f"{LOOP_KINDS[kind]} rows={r} steps={n}": c
                         for (kind, r, n), c in sorted(replays.items()) if c},
-            "launches": launches}
+            "launches": launches, "launch_totals": _totals_line(got)}
     return result, stats, launches, line
 
 
@@ -2012,21 +2051,17 @@ def phase_beam(model, compute_type: str) -> None:
     xa = model._encode_windows(windows)
     # K6's rows in the eager loop: every beam step's 8 matmuls a layer at
     # M = rows x beams
-    from manual_whisper_tpu_torch.ops import quant
-    kernel, rows_m = quant.int8_matmul, collections.Counter()
-
-    def counting(x, q, s):
-        rows_m[x.shape[0]] += 1
-        return kernel(x, q, s)
+    rows_m = collections.Counter()
 
     def run(dec):
         if dec is not eager:
             return dec.decode_submit(xa, 0.0)
-        quant.int8_matmul = counting
-        try:
-            return dec.decode_submit(xa, 0.0)
-        finally:
-            quant.int8_matmul = kernel
+        with counting() as sink:
+            out = dec.decode_submit(xa, 0.0)
+        for (kernel, shape), n in sink.items():
+            if kernel == "int8_matmul":
+                rows_m[shape[0]] += n
+        return out
     line["beam_vs_eager"] = _loop_vs_eager(decoder, eager, run, BATCH * BEAM)
     steps = line["beam_vs_eager"]["steps"][1] - 1
     ld = model.cfg.n_text_layer
@@ -2537,13 +2572,12 @@ def phase_diarize(dev, registry: str) -> None:
                              "both on the card")
     gpu(audio)                                   # cuDNN set-up
     torch.cuda.synchronize()
-    _build.launches.clear()
     t0 = time.perf_counter()
-    with _embed_forwards() as calls:
+    with _embed_forwards() as calls, counting() as sink:
         segs = gpu(audio)
         torch.cuda.synchronize()
     diarize_s = time.perf_counter() - t0
-    launches = dict(_build.launches)
+    launches = by_kernel(sink)
     if not calls or launches != {"mel": len(calls)} \
             or any(c[0] != 32 or not c[2] for c in calls):
         raise AssertionError(f"diarize: K1 launches {launches} for the "
@@ -2597,13 +2631,12 @@ def phase_diarize(dev, registry: str) -> None:
                     (f_gpu.vad.model is None) != (flow == "windows"):
                 raise AssertionError(f"diarize {flow}: the pipeline loaded "
                                      "other weights than expected")
-            _build.launches.clear()
             t0 = time.perf_counter()
-            with _embed_forwards() as f_calls:
+            with _embed_forwards() as f_calls, counting() as sink:
                 f_segs = f_gpu(audio)
                 torch.cuda.synchronize()
             f_s = time.perf_counter() - t0
-            f_launches = dict(_build.launches)
+            f_launches = by_kernel(sink)
             rows = 256 if flow == "windows" else 32
             if not f_calls or f_launches != {"mel": len(f_calls)} \
                     or any(c[0] != rows or c[2] for c in f_calls):
@@ -2773,8 +2806,8 @@ def phase_train(dev) -> None:
     weights): batch 2 of 30 s windows of seeded synthetic speech, each
     step's log-mel through K1 (``training.features``), tokens at
     n_text_ctx with the loss over the first 200, TRAIN_STEPS steps at lr
-    1e-5 on the same batch; the launch counters are zeroed before the
-    steps and read after (K1 once a step, K2 never: the encoder trains
+    1e-5 on the same batch; the steps' launches are counted into a bound
+    sink (``counting``; K1 once a step, K2 never: the encoder trains
     through its einsum attention), the losses must be finite and the last
     below the first; ms per step of steps 2 on, and peak memory; then
     ``torch.profiler`` over one more step (device busy share, top
@@ -2847,15 +2880,15 @@ def phase_train(dev) -> None:
     step = make_train_step(cfg, optimizer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _build.launches.clear()
     losses, ms = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, loss = step(state, features(audio, cfg), tokens, mask)
-        losses.append(float(loss))          # waits for the step
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-    launches = dict(_build.launches)
+    with counting() as sink:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, loss = step(state, features(audio, cfg), tokens, mask)
+            losses.append(float(loss))          # waits for the step
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    launches = by_kernel(sink)
     line = {"phase": "train_large_v3", "batch": 2, "tokens": cfg.n_text_ctx,
             "labels_per_row": 200, "dtype": "bfloat16",
             "moments_dtype": str(state.opt_state.mu["decoder"]["tok_emb"]
@@ -3146,26 +3179,28 @@ def phase_fetch(dev) -> None:
             os.environ["MWX_FETCH_WORKER"] = worker
             port_config.clear_env_cache()
             replays_before = graph_replays(decoder)
-            _build.launches.clear()
             n_captures = len(captures)
             capture_s = decoder.stats["capture_s"]
             t0 = time.perf_counter()
             result = pipe.transcribe(audio, batch_size=BATCH, language="zh")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(_build.launches)
             stats = dict(pipe.last_stats)
-            replayed = sum(n * (c - replays_before.get((rows, n), 0))
-                           for (rows, n), c in graph_replays(decoder).items())
+            launches = launch_totals(stats)
+            ran = {(rows, n): c - replays_before.get((rows, n), 0)
+                   for (rows, n), c in graph_replays(decoder).items()}
+            replayed = sum(n * c for (_, n), c in ran.items())
             new = captures[n_captures:]
-            expected = expected_launches(pipe.cfg, stats, False)
+            expected = expected_totals(
+                pipe, stats,
+                {"_loops": sum(r * n * c for (r, n), c in ran.items())},
+                False)
             if new:
                 # each captured chunk first runs its steps eagerly
                 warm = sum(decoder._loops[dropped[0]].chunk_lengths())
-                ld = pipe.cfg.n_text_layer
-                for k in ("decode_self_attention", "decode_cross_attention"):
-                    expected[k] += ld * warm
-                expected["add_layer_norm"] += (3 * ld + 1) * warm
+                r, _, prompt, max_new = dropped[0]
+                _step_totals(expected, decoder, warm, r * warm,
+                             prompt + max_new)
             runs[name] = {"result": result, "stats": stats, "wall": wall,
                           "launches": launches, "expected": expected,
                           "replayed_steps": replayed, "captures": new,
@@ -3197,7 +3232,7 @@ def phase_fetch(dev) -> None:
                       "vad_s": run["stats"]["vad_s"],
                       "replayed_steps": run["replayed_steps"],
                       "launches_exact": run["launches"] == run["expected"],
-                      "launches": run["launches"]}
+                      "launches": by_kernel(run["launches"])}
     log(json.dumps(line))
     if w["stats"]["batches"] < 4:
         raise AssertionError(f"fetch: {w['stats']['batches']} batches")
@@ -3209,8 +3244,9 @@ def phase_fetch(dev) -> None:
                              f"{rungs}")
     for name, run in runs.items():
         if run["launches"] != run["expected"]:
-            raise AssertionError(f"fetch {name}: launches {run['launches']}, "
-                                 f"expected {run['expected']}")
+            raise AssertionError(
+                f"fetch {name}: launch totals {_totals_line(run['launches'])}"
+                f", expected {_totals_line(run['expected'])}")
         if run["replayed_steps"] != run["stats"]["decode_steps"]:
             raise AssertionError(f"fetch {name}: {run['replayed_steps']} "
                                  "steps replayed, "
@@ -3321,7 +3357,6 @@ def phase_launch(dev, workdir: str) -> None:
                                        headers=headers or {})
             with urllib.request.urlopen(r, timeout=120) as resp:
                 return json.loads(resp.read().decode())
-        _build.launches.clear()
         t0 = time.perf_counter()
         with open(wav, "rb") as f:
             up = req("POST", "/api/upload", f.read(),
@@ -3340,7 +3375,6 @@ def phase_launch(dev, workdir: str) -> None:
         line["server_job"] = {"status": out["status"],
                               "s": time.perf_counter() - t0,
                               "leader_calls": backend.model.calls,
-                              "launches": dict(_build.launches),
                               "world": world.size,
                               "backend": torch.distributed.get_backend()}
     del backend
@@ -3462,9 +3496,9 @@ def phase_profile(model, main: dict, compute_type: str) -> None:
         state["pos"] = pos + 1
 
     dec = _profiled(step, reps=16)
-    before = collections.Counter(_build.launches)
-    step()
-    dec["launches_per_step"] = dict(_build.launches - before)
+    with counting() as sink:
+        step()
+    dec["launches_per_step"] = by_kernel(sink)
     log(json.dumps({"phase": "profile", "compute_type": compute_type,
                     "batch": b,
                     "first_pos": (main["prefix"] + main["t_max"]) // 2 - 8,
@@ -3520,9 +3554,9 @@ def phase_profile_chunks(model, xa, compute_type: str) -> None:
     eager = _profiled(lambda: loop._chunk(n), reps=2)
     out = {"phase": "profile_chunk", "compute_type": compute_type,
            "batch": BATCH, "steps": n, "first_pos": loop.p + first - 1,
-           "launch_delta": dict(loop.graphs.launch_delta[n]),
+           "launch_delta": by_kernel(loop.graphs.launch_delta[n]),
            "add_layer_norm_per_step": sum(
-               v for k, v in loop.graphs.launch_delta[n].items()
+               v for k, v in by_kernel(loop.graphs.launch_delta[n]).items()
                if k.startswith("add_layer_norm")) / n,
            "cross_kv": _profiled(cross_kv, reps=2),
            "prefill": _profiled(prefill, reps=2),
@@ -3863,7 +3897,6 @@ def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
     else:
         line["m4a"] = "not made: no FFmpeg shim to encode it"
 
-    _build.launches.clear()
     loops_before = {id(main_dec): set(main_dec._loops)}
     replays_before = graph_replays(main_dec)
     jobs = {}
@@ -3914,7 +3947,6 @@ def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
         raise AssertionError("the WAV job's first success poll started no "
                              "second pass")
     torch.cuda.synchronize()
-    launches = dict(_build.launches)
     srv.shutdown()
     srv.server_close()
     http_thread.join(10)
@@ -3957,20 +3989,27 @@ def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
     if len(decoders) != 2 or len(clip_dec) != 1:
         raise AssertionError(f"decoders: {list(model._decoders)}")
     clip_dec = clip_dec[0]
-    ld = model.cfg.n_text_layer
-    expected = collections.Counter()
+    # each call's request launches, by kernel (the rows of a call's
+    # steps do not show by kernel); a loop new in the phase first ran its
+    # chunks eagerly inside the call that captured it
+    launches, expected = collections.Counter(), collections.Counter()
     for c in calls:
-        expected.update(expected_launches(model.cfg, c["stats"], False))
-    expected["mel"] += len(embed_forwards)
-    new_loops = [lp for dec in decoders for key, lp in dec._loops.items()
+        launches.update(by_kernel(launch_totals(c["stats"])))
+        rows = c["stats"]["token_rows"] - sum(c["stats"]["rung_rows"].values())
+        expected.update(by_kernel(expected_totals(model, c["stats"],
+                                                  {"_loops": rows}, False)))
+    new_loops = [(dec, key, lp) for dec in decoders
+                 for key, lp in dec._loops.items()
                  if key not in loops_before.get(id(dec), ())]
-    warm_steps = sum(sum(lp.chunk_lengths()) for lp in new_loops)
-    for k in ("decode_self_attention", "decode_cross_attention"):
-        expected[k] += ld * warm_steps
-    expected["add_layer_norm"] += (3 * ld + 1) * warm_steps
-    if launches != dict(expected):
+    for dec, key, lp in new_loops:
+        warm: dict = {}
+        steps = sum(lp.chunk_lengths())
+        _step_totals(warm, dec, steps, key[0] * steps, key[2] + key[3])
+        expected.update(by_kernel(warm))
+    launches, expected = dict(launches), dict(expected)
+    if launches != expected:
         raise AssertionError(f"serve: launches {launches}, expected "
-                             f"{dict(expected)} (two threads)")
+                             f"{expected} (two threads)")
     replays = {("main",) + k: n - replays_before.get(k, 0)
                for k, n in graph_replays(main_dec).items()}
     replays.update({("clip",) + k: n for k, n in
@@ -4050,7 +4089,7 @@ def phase_serve(workdir: str, native_line: dict, registry: str) -> None:
             "resnet_forwards": embed_forwards},
         "launches": launches, "new_loops_during_phase": [
             (lp.state.tokens.shape[0], sum(lp.chunk_lengths()))
-            for lp in new_loops],
+            for _, _, lp in new_loops],
         "replays": {f"{k[0]} rows={k[1]} steps={k[2]}": n
                     for k, n in sorted(replays.items()) if n},
         "peak_mem_gib_two_decoders": peak_gib,

@@ -11,13 +11,12 @@ entry points' ``static`` flags, cuBLAS handles and workspaces) never first
 happens inside a capture; ``reset()`` puts the state back in bounds before
 that run.  The caller re-initialises its state after the capture.
 
-A replay issues no Python call, so ``_build.launches`` would count
-nothing: while a capture runs, the wrappers of the capturing thread count
-into the capture's own record (``_build.recording``; nothing launches
-then), which every replay adds to ``_build.launches`` (and its K5 and K6
-shapes to the replaying thread's ``_build.tally`` sink).  So a count stays
-what each wrapper's count means, the kernel launches that ran, also when
-another thread launches kernels during a capture.
+A replay issues no Python call, so no wrapper would count its launches:
+while a capture runs, the wrappers of the capturing thread count into the
+capture's own record (``spans.recording``; nothing launches then), which
+every replay adds to the replaying thread's launch sink (``spans.add``).
+So a count stays what each wrapper's count means, the kernel launches that
+ran, also when another thread launches kernels during a capture.
 
 The sampling generator, where the chunk draws random numbers (the
 greedy and sampled chunks; a beam or timestamp chunk draws none and passes
@@ -40,8 +39,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..ops import _build
-from ..spans import span
+from ..spans import add, recording, span
 
 _capture_lock = threading.Lock()
 
@@ -49,8 +47,7 @@ _capture_lock = threading.Lock()
 class ChunkGraphs:
     """Captured chunks of one set of static buffers, by step count n.
     ``launch_delta[n]``: the kernel launches one replay of n steps makes,
-    by kernel name (a ``_build.Record``: its ``shapes`` hold K5's and
-    K6's by shape); ``replays[n]``: replays so far; ``capture_s``: host
+    by (kernel, shape); ``replays[n]``: replays so far; ``capture_s``: host
     seconds spent in warm-up runs and captures.  Holds no reference to
     the function it captures, so the buffers' owner is freed with no
     cycle to collect."""
@@ -61,7 +58,7 @@ class ChunkGraphs:
         self._pool = pool
         self._stream = torch.cuda.Stream(device)
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
-        self.launch_delta: Dict[int, _build.Record] = {}
+        self.launch_delta: Dict[int, collections.Counter] = {}
         self.replays: collections.Counter = collections.Counter()
         self.capture_s = 0.0
 
@@ -81,7 +78,7 @@ class ChunkGraphs:
                 graph.register_generator_state(self._generator)
             # thread_local: CUDA calls of other threads (another decoder's
             # loop) may go on while this thread captures
-            with _capture_lock, _build.recording() as delta, \
+            with _capture_lock, recording() as delta, \
                     torch.cuda.graph(graph, pool=self._pool,
                                      stream=self._stream,
                                      capture_error_mode="thread_local"):
@@ -92,5 +89,5 @@ class ChunkGraphs:
 
     def replay(self, n: int) -> None:
         self.graphs[n].replay()
-        _build.add(self.launch_delta[n])
+        add(self.launch_delta[n])
         self.replays[n] += 1

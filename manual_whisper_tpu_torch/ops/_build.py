@@ -12,30 +12,11 @@ source is rebuilt and a stale library is never loaded.  Libraries go to
 first call to any kernel builds every missing library, all nvcc processes
 started together.  Each C entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; ``check()`` raises when that is not 0.
-
-``launches`` counts kernel launches by kernel name.  Each wrapper adds one
-(``count``) where it launches its kernel and nowhere else, so a run can
-show that its main path went through the kernels.  Updates take a lock,
-so threads decoding at once lose no count; while a thread captures a CUDA
-graph (``recording``) its wrappers count into that capture's own record,
-which every replay then adds (``add``), and launches of other threads in
-the meantime stay theirs.
-
-K5's and K6's launches are also counted by (kernel, shape), since their
-work depends on the shape: K6 (``int8_matmul``) by (M, K, N), K5
-(``decode_cross_attention_int8``) by (rows, heads, cross positions, head
-dim, scale dtype).  Their wrappers add one (``count_shape``) beside
-``count`` into the sink the thread is bound to (``tally``); a capture
-records them in its ``Record.shapes``, which each replay adds to the
-replaying thread's sink.  The pipeline binds one sink per request, on its
-calling thread and its fetch worker (``shape_rows`` makes it JSON-able).
-No other kernel counts shapes, so the bf16 path does no more per launch.
+The wrappers count their launches through ``spans.count``.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, List
+from typing import Dict, List
 
 import torch
 
@@ -101,11 +82,6 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "mwx_add_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
-
-launches: collections.Counter = collections.Counter()
-_count_lock = threading.Lock()
-_capture = threading.local()
-_sink = threading.local()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -184,84 +160,6 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-class Record(collections.Counter):
-    """A capture's launches by kernel name, and in ``shapes`` K5's and
-    K6's by (kernel, shape)."""
-
-    def __init__(self):
-        super().__init__()
-        self.shapes: collections.Counter = collections.Counter()
-
-
-def count(name: str) -> None:
-    """One launch of kernel ``name``: into ``launches``, or into the
-    record of the capture this thread is making."""
-    record = getattr(_capture, "record", None)
-    if record is not None:
-        record[name] += 1
-        return
-    with _count_lock:
-        launches[name] += 1
-
-
-def count_shape(name: str, shape: tuple) -> None:
-    """One launch of K5 or K6 at ``shape``: into this thread's sink, or
-    into the record of the capture this thread is making."""
-    record = getattr(_capture, "record", None)
-    if record is not None:
-        record.shapes[name, shape] += 1
-        return
-    sink = getattr(_sink, "counts", None)
-    if sink is not None:
-        with _count_lock:
-            sink[name, shape] += 1
-
-
-def add(counts: collections.Counter) -> None:
-    """Add ``counts`` (a capture's record, at each replay) to ``launches``,
-    and its shapes to this thread's sink."""
-    shapes = getattr(counts, "shapes", None)
-    sink = getattr(_sink, "counts", None) if shapes else None
-    with _count_lock:
-        launches.update(counts)
-        if sink is not None:
-            sink.update(shapes)
-
-
-@contextlib.contextmanager
-def recording() -> Iterator[Record]:
-    """While a CUDA graph is captured on this thread: the launches its
-    wrappers count go into the ``Record`` yielded, not into ``launches``
-    (a capture launches nothing; its replays do)."""
-    record = Record()
-    _capture.record = record
-    try:
-        yield record
-    finally:
-        _capture.record = None
-
-
-@contextlib.contextmanager
-def tally(sink: collections.Counter) -> Iterator[collections.Counter]:
-    """While bound: the (kernel, shape) launches this thread counts, its
-    replays' included, are added into ``sink`` too (updated under the
-    counters' lock, so two threads may share one sink).  The binding
-    before is restored on exit."""
-    before = getattr(_sink, "counts", None)
-    _sink.counts = sink
-    try:
-        yield sink
-    finally:
-        _sink.counts = before
-
-
-def shape_rows(counts: collections.Counter) -> list:
-    """(kernel, shape) counts as JSON-able rows ``[kernel, [dims...],
-    launches]``, sorted."""
-    return [[name, list(shape), n]
-            for (name, shape), n in sorted(counts.items())]
-
-
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -275,7 +173,7 @@ def check(err: int, what: str) -> None:
 
 
 # element types of the attention kernels K2-K4: a build each, with its own
-# entry point (symbol suffix) and launch counter (name suffix)
+# entry point (symbol suffix) and kernel name (name suffix)
 ATTENTION_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 

@@ -2,7 +2,8 @@
 
 Replaces ``flash_attention`` / ``_flash_kernel`` of the JAX package's
 ``ops/attention.py``: non-causal softmax(q k^T / sqrt(dh)) v over
-``[B, H, T, dh]``.  On a CUDA tensor the wrapper launches K2: the bf16
+``[B, H, T, dh]``.  On a CUDA tensor the wrapper launches K2, counted as
+(batch x heads, t_q, t_k, dh): the bf16
 build (``wgmma`` products) for bf16 q, k and v, the float32 build for
 float32 ones (3xTF32 ``wgmma`` products: each operand split into two TF32
 values and three TF32 products summed, float32-class where one TF32
@@ -19,6 +20,7 @@ import math
 
 import torch
 
+from ..spans import count
 from . import _build
 
 
@@ -50,5 +52,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b * h, t_q, t_k, dh, _build.stream_of(q))
     _build.check(err, f"flash_attention{suffix} kernel")
-    _build.count("flash_attention" + suffix)
+    count("flash_attention" + suffix, (b * h, t_q, t_k, dh))
     return out

@@ -12,8 +12,9 @@ positions < kv_len valid), so the kernel reads it on the device.
 
 On a CUDA tensor each wrapper launches its kernel (float32 softmax and
 sums; K3 and K4 in the build of the inputs' dtype, bf16 or float32, whose
-launches count under the kernel's name with ``_f32`` for float32, K3 with
-a launch shape of each element type's own; K5's output bf16).  On a CPU tensor it runs the plain version, which
+launches count under the kernel's name with ``_f32`` for float32 and
+(batch x heads, positions, dh), K3 with a launch shape of each element
+type's own; K5's output bf16).  On a CPU tensor it runs the plain version, which
 follows the JAX einsum paths (``whisper.py`` ``_decoder_block`` and
 ``_cross_attend``): f32 scores and softmax, probabilities cast to q's
 dtype, then the weighted sum in q's dtype.  The int8 cross K/V of K5 is
@@ -28,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..spans import count
 from . import _build
 
 
@@ -110,7 +112,7 @@ def decode_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 pos.data_ptr(), 1, *dims, _build.stream_of(q))
     _build.check(err, f"decode_self_attention{suffix} kernel")
-    _build.count("decode_self_attention" + suffix)
+    count("decode_self_attention" + suffix, dims)
     return out
 
 
@@ -130,7 +132,7 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 kv_len.data_ptr(), *dims, _build.stream_of(q))
     _build.check(err, f"decode_cross_attention{suffix} kernel")
-    _build.count("decode_cross_attention" + suffix)
+    count("decode_cross_attention" + suffix, dims)
     return out
 
 
@@ -143,8 +145,8 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
 
     q [B, H, 1, dh] bf16; k_q/v_q int8 [B, H, Ta, dh]; k_s/v_s [B, H, Ta]
     float32 or bf16 (both the same); kv_len one int32.  Returns
-    [B, H, 1, dh] in q's dtype.  Each launch counts under its name and
-    (B, H, Ta, dh, the scales' dtype)."""
+    [B, H, 1, dh] in q's dtype.  Each launch counts as (B, H, Ta, dh,
+    the scales' dtype)."""
     if q.device.type == "cpu":
         return attend_int8_plain(q, k_q, k_s, v_q, v_s,
                                  int(kv_len.reshape(-1)[0]))
@@ -167,6 +169,5 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
         v_s.data_ptr(), out.data_ptr(), kv_len.data_ptr(), b * h, ta, dh,
         int(k_s.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(err, f"{name} kernel")
-    _build.count(name)
-    _build.count_shape(name, (b, h, ta, dh, str(k_s.dtype).split(".")[-1]))
+    count(name, (b, h, ta, dh, str(k_s.dtype).split(".")[-1]))
     return out

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..spans import count
 from . import _build
 
 SAMPLE_RATE = 16000
@@ -233,7 +234,8 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
                          ) -> torch.Tensor:
     """[B, T] f32 -> raw log10-mel [B, T//160, n_mels].
 
-    Kernel K1 on a CUDA tensor, the plain version on a CPU tensor.  The
+    Kernel K1 on a CUDA tensor (counted as (B, T, n_mels)), the plain
+    version on a CPU tensor.  The
     kernel's build follows the filterbank's widest band: up to 16 bins (80
     and 128 mels) or up to 32 (40 mels, widest 28); wider raises."""
     if audio.ndim != 2:
@@ -260,7 +262,7 @@ def unnormalized_log_mel(audio: torch.Tensor, n_mels: int = 80
         c.bands.data_ptr(), c.weights.data_ptr(), out.data_ptr(), batch,
         n_samples, n_frames, n_mels, c.widest, _build.stream_of(audio))
     _build.check(err, "mel kernel")
-    _build.count("mel")
+    count("mel", (batch, n_samples, n_mels))
     return out
 
 

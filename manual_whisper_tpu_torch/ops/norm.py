@@ -8,10 +8,10 @@ LayerNorm: ``h_new = h + (delta + bias)``, then ``y = LayerNorm(h_new)``,
 where ``delta`` is a projection's output (all-reduced over the model group
 first) and h the residual stream.  On a CUDA tensor ``add_layer_norm``
 launches the kernel, bf16 or float32 (launches counted as
-``add_layer_norm`` and ``add_layer_norm_f32``), or raises; on a CPU tensor
-it runs ``add_layer_norm_plain``, the unfused sequence.  Both round where
-PyTorch's unfused sequence rounds, so ``h_new`` is the same bits on the
-card; y is LayerNorm in float32 (eps 1e-5) rounded to the element type
+``add_layer_norm`` and ``add_layer_norm_f32``, by (rows, d)), or raises;
+on a CPU tensor it runs ``add_layer_norm_plain``, the unfused sequence.
+Both round where PyTorch's unfused sequence rounds, so ``h_new`` is the
+same bits on the card; y is LayerNorm in float32 (eps 1e-5) rounded to the element type
 once, as ``layer_norm_plain``.
 """
 
@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..spans import count
 from . import _build
 
 # widest row a block holds in registers: 1024 threads of one 16-byte load
@@ -86,5 +87,5 @@ def add_layer_norm(h: torch.Tensor, delta: Optional[torch.Tensor],
                 b.data_ptr(), h_new.data_ptr(), y.data_ptr(),
                 h.numel() // d, d, _build.stream_of(h))
     _build.check(err, f"{name}{suffix} kernel")
-    _build.count(name + suffix)
+    count(name + suffix, (h.numel() // d, d))
     return h_new, y

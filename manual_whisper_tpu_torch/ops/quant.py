@@ -27,6 +27,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..spans import count
 from . import _build
 
 # weights quantized inside transformer blocks (biases and norms excluded)
@@ -77,7 +78,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 
     On a CPU tensor runs ``int8_matmul_plain``.  On a CUDA tensor launches
     the kernel or raises (K a multiple of 8 and N of 16: 16-byte loads);
-    each launch counts under ``int8_matmul`` and its (M, K, N)."""
+    each launch counts as (M, K, N)."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, s)
     m, k = x.shape
@@ -93,8 +94,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     err = lib.mwx_int8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
                               out.data_ptr(), m, k, n, _build.stream_of(x))
     _build.check(err, "int8_matmul kernel")
-    _build.count("int8_matmul")
-    _build.count_shape("int8_matmul", (m, k, n))
+    count("int8_matmul", (m, k, n))
     return out
 
 

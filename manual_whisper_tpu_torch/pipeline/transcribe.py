@@ -40,8 +40,9 @@ so it is the encode's device time and that of work enqueued before it);
 ``windows``: real audio windows; ``rows``: batch rows, padding included;
 ``decode_calls`` and ``decode_steps`` as ``BatchDecoder.stats``;
 ``request``: the call's number in the process; ``kernel_shapes``: the
-launches of K5 and K6 the call made, replays included, by shape, as
-``_build.shape_rows`` gives them, filled when the call returns).
+kernel launches the call made on both threads, replays included, by
+(kernel, shape), as ``spans.launch_rows`` gives them, filled when the
+call returns).
 
 ``last_stats["spans"][role][name]`` is ``[seconds, count]`` of each
 program span (``spans.py``; ``spans.SPANS`` lists them) closed on one
@@ -53,9 +54,11 @@ batch's finalize, its wait for the results, text and gates, the
 ladder's rungs and their decode loops).  A rung's ``decode.loop`` nests
 in its ``finalize.retry``, so on the serial path ``decode.loop`` holds
 the retries' loops too.  Each role's clock is its own thread's, so no
-time is summed across threads.  While a ``torch.profiler`` trace records,
-each span is also an ``mwx.<name>`` annotation on the trace's clock, the
-root ``pipeline.transcribe`` with the request's number as its argument.
+time is summed across threads.  Each thread binds its role's span dict
+and the request's launch sink together (``spans.bind``).  While a
+``torch.profiler`` trace records, each span is also an ``mwx.<name>``
+annotation on the trace's clock, the root ``pipeline.transcribe`` with
+the request's number as its argument.
 
 Two threads may transcribe at once (the job server decodes a second pass
 while its worker runs the next job): decoders are made under a lock, one
@@ -101,12 +104,11 @@ from ..models.decode import BatchDecoder, DecodingOptions
 from ..models.vad import VadOptions, VoiceActivityDetector, binarize
 from ..models.whisper import (MODEL_CONFIGS, WhisperConfig, decoder_forward,
                               encode, init_params)
-from ..ops import _build
 from ..ops.mel import log_mel_spectrogram
 from ..ops.quant import quantize_params
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
                              axis_size, local_rows, make_mesh, shard_params)
-from ..spans import bind, span
+from ..spans import bind, launch_rows, span
 from ..tokenizer import WhisperTokenizer, make_test_tokenizer
 from .chunking import SpeechChunk, batch_chunks, merge_chunks
 
@@ -332,19 +334,19 @@ class TranscribePipeline:
                  "beam_steps": 0, "rung_rows": {}, "request": request,
                  "spans": {}, "kernel_shapes": []}
         self._thread_stats.stats = stats
-        shapes = collections.Counter()
+        launches = collections.Counter()
         try:
-            with bind(stats["spans"], "dispatch"), _build.tally(shapes), \
+            with bind(stats["spans"], "dispatch", launches), \
                     span("pipeline.transcribe", str(request)):
                 return self._transcribe_phases(
                     audio, batch_size, lang, chunk_size, temperature, report,
-                    vad_options, initial_prompt, stats, shapes)
+                    vad_options, initial_prompt, stats, launches)
         finally:
-            stats["kernel_shapes"] = _build.shape_rows(shapes)
+            stats["kernel_shapes"] = launch_rows(launches)
 
     def _transcribe_phases(self, audio, batch_size, lang, chunk_size,
                            temperature, report, vad_options, initial_prompt,
-                           stats, shapes) -> dict:
+                           stats, launches) -> dict:
         duration = len(audio) / 16000.0
         stats_lock = threading.Lock()
         segments: List[dict] = []
@@ -398,7 +400,7 @@ class TranscribePipeline:
             # on an error keep taking items without finalizing them, so
             # the producer never blocks on a full queue; the first error
             # re-raises on the calling thread after the join
-            with bind(stats["spans"], "fetch"), _build.tally(shapes):
+            with bind(stats["spans"], "fetch", launches):
                 while True:
                     item = inflight.get()
                     if item is None:

@@ -17,13 +17,23 @@ Spans sit at layer boundaries on the host, never inside a function that
 ``ChunkGraphs`` captures nor inside per-step code, and none stays open
 across a ``yield``.  ``SPANS`` names every span with the layer it
 belongs to; readers and tests take the names from here.
+
+The kernel launches are counted here too.  Each wrapper in ``ops/`` calls
+``count(kernel, shape)`` after a launch that succeeded (the CPU path counts
+nothing).  The count goes into the record of the CUDA graph the thread is
+capturing (``recording``), which each replay adds (``add``), else into
+the launch sink ``bind`` gave the thread, else nowhere.  The pipeline
+binds one sink a request on both of its threads, so a sink is updated
+under a lock; ``launch_rows`` gives it as ``last_stats["kernel_shapes"]``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 from torch.autograd import profiler as _profiler
 
@@ -63,25 +73,71 @@ SPANS = (
 NAMES = tuple(name for name, _ in SPANS)
 
 _local = threading.local()
+_launch_lock = threading.Lock()
 
 
 class bind:
-    """``with bind(sink, role):`` the spans this thread closes add into
-    ``sink[role]`` (made if absent); the binding before is restored on
-    exit.  One thread writes each role's dict."""
+    """``with bind(sink, role, launches):`` the spans this thread closes
+    add into ``sink[role]`` (made if absent) and the launches it counts
+    into ``launches`` (none without it); the bindings before are restored
+    on exit.  One thread writes each role's dict."""
 
-    __slots__ = ("_sink", "_before")
+    __slots__ = ("_sink", "_launches", "_before")
 
-    def __init__(self, sink: Dict[str, Dict[str, List]], role: str):
+    def __init__(self, sink: Dict[str, Dict[str, List]], role: str,
+                 launches: Optional[collections.Counter] = None):
         self._sink = sink.setdefault(role, {})
+        self._launches = launches
 
     def __enter__(self) -> Dict[str, List]:
-        self._before = getattr(_local, "sink", None)
-        _local.sink = self._sink
+        self._before = (getattr(_local, "sink", None),
+                        getattr(_local, "launches", None))
+        _local.sink, _local.launches = self._sink, self._launches
         return self._sink
 
     def __exit__(self, *exc) -> None:
-        _local.sink = self._before
+        _local.sink, _local.launches = self._before
+
+
+def count(kernel: str, shape: tuple) -> None:
+    """One launch of ``kernel`` at ``shape``: into the record of the
+    capture this thread is making, else into its bound sink."""
+    record = getattr(_local, "record", None)
+    if record is not None:
+        record[kernel, shape] += 1
+        return
+    launches = getattr(_local, "launches", None)
+    if launches is not None:
+        with _launch_lock:
+            launches[kernel, shape] += 1
+
+
+def add(record: collections.Counter) -> None:
+    """A replay: the launches its capture recorded into this thread's
+    bound sink."""
+    launches = getattr(_local, "launches", None)
+    if launches is not None:
+        with _launch_lock:
+            launches.update(record)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[collections.Counter]:
+    """While a CUDA graph is captured on this thread: the launches its
+    wrappers count go into the ``Counter`` yielded (a capture launches
+    nothing; its replays do)."""
+    _local.record = record = collections.Counter()
+    try:
+        yield record
+    finally:
+        _local.record = None
+
+
+def launch_rows(launches: collections.Counter) -> list:
+    """``launches`` as JSON-able rows ``[kernel, [dims...], launches]``,
+    sorted."""
+    return [[kernel, list(shape), n]
+            for (kernel, shape), n in sorted(launches.items())]
 
 
 class span:

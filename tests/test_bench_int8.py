@@ -34,10 +34,10 @@ from harness import flops, kernel_shapes, weights  # noqa: E402
 from harness.main import whisper_config  # noqa: E402
 from reference import int8_ref, tokens_ref, whisper_ref  # noqa: E402
 
+from manual_whisper_tpu_torch import spans  # noqa: E402
 from manual_whisper_tpu_torch.models.whisper import (  # noqa: E402
     StepLengths, decode_step, decoder_forward, encode, init_kv_cache,
     precompute_cross_kv, quantize_cross_kv)
-from manual_whisper_tpu_torch.ops import _build  # noqa: E402
 from manual_whisper_tpu_torch.ops.quant import (  # noqa: E402
     quantize_params, quantize_weight)
 
@@ -349,59 +349,53 @@ def test_int8_readers_silent_without_counts(name):
     assert read(run) is None
 
 
-# -- the port's count of K5 and K6 launches by shape ---------------------
+# -- the port's launch count by (kernel, shape) -------------------------
 
 def test_shape_counts_follow_captures_and_replays():
-    """``count_shape`` on a capturing thread goes into the capture's record
-    only, not into a sink the thread is bound to; each replay (``add``)
-    adds the record's shapes to the replaying thread's sink, as
-    ``launches`` gets the record's names; an unbound thread's launches and
-    replays reach no sink."""
+    """``spans.count`` on a capturing thread goes into the capture's record
+    only, not into the launch sink the thread is bound to; each replay
+    (``spans.add``) adds the record to the replaying thread's sink; an
+    unbound thread's launches and replays reach no sink."""
     k6, k5 = ("int8_matmul", (16, 1280, 1280)), (
         "decode_cross_attention_int8", (16, 20, 1500, 64, "float32"))
-    before = _build.launches.copy()
     sink, outer = collections.Counter(), collections.Counter()
-    try:
-        with _build.tally(outer), _build.recording() as record:
-            for _ in range(8):
-                _build.count("int8_matmul")
-                _build.count_shape(*k6)
-            _build.count("decode_cross_attention_int8")
-            _build.count_shape(*k5)
-        assert not outer
-        assert dict(record) == {"int8_matmul": 8,
-                                "decode_cross_attention_int8": 1}
-        assert dict(record.shapes) == {k6: 8, k5: 1}
-        with _build.tally(sink):
-            for _ in range(3):
-                _build.add(record)
-            _build.count_shape(*k6)                  # one eager launch
-        _build.add(record)                           # unbound: no sink
-        _build.count_shape(*k5)
-        assert dict(sink) == {k6: 25, k5: 3}
-        assert (_build.launches - before) == {
-            "int8_matmul": 32, "decode_cross_attention_int8": 4}
-        assert _build.shape_rows(sink) == [
-            ["decode_cross_attention_int8", [16, 20, 1500, 64, "float32"], 3],
-            ["int8_matmul", [16, 1280, 1280], 25]]
-    finally:
-        _build.launches.clear()
-        _build.launches.update(before)
+    with spans.bind({}, "dispatch", outer), spans.recording() as record:
+        for _ in range(8):
+            spans.count(*k6)
+        spans.count(*k5)
+    assert not outer
+    assert dict(record) == {k6: 8, k5: 1}
+    with spans.bind({}, "dispatch", sink):
+        for _ in range(3):
+            spans.add(record)
+        spans.count(*k6)                             # one eager launch
+    spans.add(record)                                # unbound: no sink
+    spans.count(*k5)
+    assert dict(sink) == {k6: 25, k5: 3}
+    assert spans.launch_rows(sink) == [
+        ["decode_cross_attention_int8", [16, 20, 1500, 64, "float32"], 3],
+        ["int8_matmul", [16, 1280, 1280], 25]]
 
 
 def test_bf16_record_adds_no_shapes():
-    """A capture that counts no shape (the bf16 step) replays into
-    ``launches`` only."""
-    with _build.recording() as record:
-        _build.count("test_kernel")
-    try:
-        with _build.tally(collections.Counter()) as sink:
-            _build.add(record)
-        assert not sink and not record.shapes
-    finally:
-        _build.launches["test_kernel"] -= 1
-        if not _build.launches["test_kernel"]:
-            del _build.launches["test_kernel"]
+    """A bf16 step's capture records its own kernels by shape (K3, K4,
+    ``add_layer_norm``) and no K5 or K6 row, so its replays give the int8
+    readers (``harness/kernel_shapes.py``, rows picked by name) no
+    launch."""
+    rows = (("decode_self_attention", (320, 417, 64)),
+            ("decode_cross_attention", (320, 1500, 64)),
+            ("add_layer_norm", (16, 1280)))
+    with spans.recording() as record:
+        for row in rows:
+            spans.count(*row)
+    sink = collections.Counter()
+    with spans.bind({}, "dispatch", sink):
+        spans.add(record)
+    assert dict(sink) == dict.fromkeys(rows, 1)
+    run = FakeRun(spans.launch_rows(sink), {})
+    for kernel in kernel_shapes.TRACE_NAMES:
+        assert kernel_shapes.counted(run, kernel, lambda *dims: 1.0) == (
+            0, 0.0)
 
 
 def test_pipeline_reports_kernel_shapes():

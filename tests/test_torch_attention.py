@@ -5,6 +5,8 @@ do.  Layouts: the JAX decode kernels take K/V as [B, H, dh, T]; the port
 takes [B, H, T, dh], so the tests transpose.  Float32 inputs, atol 1e-5.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,7 @@ import jax.numpy as jnp
 
 from manual_whisper_tpu.ops import attention as jatt
 from manual_whisper_tpu.ops import decode_attention as jdec
-from manual_whisper_tpu_torch.ops import _build
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.ops import attention as tatt
 from manual_whisper_tpu_torch.ops import decode_attention as tdec
 
@@ -81,11 +83,12 @@ def test_decode_cross_matches_jax_interpret(kv_len):
 
 
 def test_cpu_tensors_launch_no_kernel():
-    before = dict(_build.launches)
+    launches = collections.Counter()
     x = torch.zeros(1, 1, 4, 32)
-    tatt.flash_attention(x, x, x)
-    tdec.decode_self_attention(x[:, :, :1], x, x,
-                               torch.tensor([2], dtype=torch.int32))
-    tdec.decode_cross_attention(x[:, :, :1], x, x,
-                                torch.tensor([4], dtype=torch.int32))
-    assert dict(_build.launches) == before
+    with spans.bind({}, "test", launches):
+        tatt.flash_attention(x, x, x)
+        tdec.decode_self_attention(x[:, :, :1], x, x,
+                                   torch.tensor([2], dtype=torch.int32))
+        tdec.decode_cross_attention(x[:, :, :1], x, x,
+                                    torch.tensor([4], dtype=torch.int32))
+    assert not launches

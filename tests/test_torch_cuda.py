@@ -7,12 +7,14 @@ the tiny ``test`` config's head_dim 32, ragged lengths and edge lengths.
 """
 
 import collections
+import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.ops import _build
 from manual_whisper_tpu_torch.ops.attention import (attention_plain,
                                                     flash_attention)
@@ -47,7 +49,24 @@ def _randn(shape, dev, seed, dtype=torch.bfloat16):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-# K2-K4 in each build: the launch counter's suffix and (atol, rtol) against
+@contextlib.contextmanager
+def _counting():
+    """A fresh launch sink (``Counter`` of (kernel, shape)), bound on this
+    thread while the block runs."""
+    launches = collections.Counter()
+    with spans.bind({}, "test", launches):
+        yield launches
+
+
+def _by_kernel(launches):
+    """Launches of (kernel, shape) summed by kernel."""
+    out = collections.Counter()
+    for (kernel, _), n in launches.items():
+        out[kernel] += n
+    return out
+
+
+# K2-K4 in each build: the kernel name's suffix and (atol, rtol) against
 # the plain version.  bf16: the plain versions round P to bf16 (one ulp is
 # 2^-8 relative); float32: both sum in float32 in other orders
 # (chip_smoke.py's TOL holds the same limits)
@@ -64,9 +83,9 @@ MEL_SIZES = [(1601, 80), (15360, 80), (15520, 128), (48000, 80),
 @pytest.mark.parametrize("n_samples,n_mels", MEL_SIZES)
 def test_mel_kernel(dev, n_samples, n_mels):
     audio = 0.1 * _randn((2, n_samples), dev, 0, torch.float32)
-    before = _build.launches["mel"]
-    out = unnormalized_log_mel(audio, n_mels)
-    assert _build.launches["mel"] == before + 1
+    with _counting() as launches:
+        out = unnormalized_log_mel(audio, n_mels)
+    assert launches == {("mel", (2, n_samples, n_mels)): 1}
     ref = unnormalized_log_mel_plain(audio, n_mels)
     torch.testing.assert_close(out, ref, atol=2e-3, rtol=0)
 
@@ -103,9 +122,9 @@ def test_mel_kernel_diarization_shapes(dev, n_samples, n_mels):
     lengths = torch.linspace(n_samples // 3, n_samples, 8).long()
     for r, n in enumerate(lengths.tolist()):
         rows[r, n:] = 0.0
-    before = _build.launches["mel"]
-    out = unnormalized_log_mel(rows, n_mels)
-    assert _build.launches["mel"] == before + 1
+    with _counting() as launches:
+        out = unnormalized_log_mel(rows, n_mels)
+    assert launches == {("mel", (8, n_samples, n_mels)): 1}
     ref = unnormalized_log_mel_plain(rows, n_mels)
     torch.testing.assert_close(out, ref, atol=2e-3, rtol=0)
     assert torch.equal(out[0, -1], ref[0, -1])
@@ -152,9 +171,9 @@ def test_flash_kernel(dev, t_q, t_k, dh, build):
     q = _randn((2, 3, t_q, dh), dev, 1, dtype)
     k = _randn((2, 3, t_k, dh), dev, 2, dtype)
     v = _randn((2, 3, t_k, dh), dev, 3, dtype)
-    before = collections.Counter(_build.launches)
-    out = flash_attention(q, k, v)
-    assert _build.launches - before == {"flash_attention" + suffix: 1}
+    with _counting() as launches:
+        out = flash_attention(q, k, v)
+    assert launches == {("flash_attention" + suffix, (6, t_q, t_k, dh)): 1}
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
                                atol=tol, rtol=tol)
@@ -173,9 +192,9 @@ def test_flash_f32_kernel_key_steps(dev, t_q, t_k, dh, key_scale):
     q = _randn((2, 3, t_q, dh), dev, 41, dtype)
     k = key_scale * _randn((2, 3, t_k, dh), dev, 42, dtype)
     v = _randn((2, 3, t_k, dh), dev, 43, dtype)
-    before = collections.Counter(_build.launches)
-    out = flash_attention(q, k, v)
-    assert _build.launches - before == {"flash_attention" + suffix: 1}
+    with _counting() as launches:
+        out = flash_attention(q, k, v)
+    assert launches == {("flash_attention" + suffix, (6, t_q, t_k, dh)): 1}
     torch.testing.assert_close(out, attention_plain(q, k, v), atol=tol,
                                rtol=tol)
 
@@ -187,21 +206,21 @@ def test_decode_kernels(dev, dh, build):
     q = _randn((3, 4, 1, dh), dev, 4, dtype)
     k = _randn((3, 4, 200, dh), dev, 5, dtype)
     v = _randn((3, 4, 200, dh), dev, 6, dtype)
-    before = collections.Counter(_build.launches)
-    for n in (1, 77, 200):
-        pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
-        out = decode_self_attention(q, k, v, pos)
-        assert out.dtype == dtype
-        torch.testing.assert_close(out.float(),
-                                   attend_plain(q, k, v, n).float(),
-                                   atol=tol, rtol=tol)
-        kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
-        torch.testing.assert_close(
-            decode_cross_attention(q, k, v, kv_len).float(),
-            attend_plain(q, k, v, n).float(), atol=tol, rtol=tol)
-    assert _build.launches - before == {
-        "decode_self_attention" + suffix: 3,
-        "decode_cross_attention" + suffix: 3}
+    with _counting() as launches:
+        for n in (1, 77, 200):
+            pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+            out = decode_self_attention(q, k, v, pos)
+            assert out.dtype == dtype
+            torch.testing.assert_close(out.float(),
+                                       attend_plain(q, k, v, n).float(),
+                                       atol=tol, rtol=tol)
+            kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+            torch.testing.assert_close(
+                decode_cross_attention(q, k, v, kv_len).float(),
+                attend_plain(q, k, v, n).float(), atol=tol, rtol=tol)
+    assert launches == {
+        ("decode_self_attention" + suffix, (12, 200, dh)): 3,
+        ("decode_cross_attention" + suffix, (12, 200, dh)): 3}
 
 
 @pytest.mark.parametrize("build", ATTENTION_BUILDS)
@@ -215,9 +234,9 @@ def test_decode_cross_kernel_slices(dev, dh, n, build):
     k = _randn((2, 3, 1500, dh), dev, 20, dtype)
     v = _randn((2, 3, 1500, dh), dev, 21, dtype)
     kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
-    before = collections.Counter(_build.launches)
-    out = decode_cross_attention(q, k, v, kv_len)
-    assert _build.launches - before == {"decode_cross_attention" + suffix: 1}
+    with _counting() as launches:
+        out = decode_cross_attention(q, k, v, kv_len)
+    assert launches == {("decode_cross_attention" + suffix, (6, 1500, dh)): 1}
     torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
                                atol=tol, rtol=tol)
 
@@ -238,9 +257,9 @@ def test_decode_self_kernel_slices(dev, dh, n, build):
     k = _randn((2, 3, 417, dh), dev, 26, dtype)
     v = _randn((2, 3, 417, dh), dev, 27, dtype)
     pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
-    before = collections.Counter(_build.launches)
-    out = decode_self_attention(q, k, v, pos)
-    assert _build.launches - before == {"decode_self_attention" + suffix: 1}
+    with _counting() as launches:
+        out = decode_self_attention(q, k, v, pos)
+    assert launches == {("decode_self_attention" + suffix, (6, 417, dh)): 1}
     torch.testing.assert_close(out.float(), attend_plain(q, k, v, n).float(),
                                atol=tol, rtol=tol)
 
@@ -268,17 +287,17 @@ def test_kernels_reject_wrong_inputs(dev):
     q = _randn((1, 2, 8, 64), dev, 7, torch.float32)
     q16, qb = q.half(), q.to(torch.bfloat16)
     one = torch.tensor([3], dtype=torch.int32, device=dev)
-    before = collections.Counter(_build.launches)
-    with pytest.raises(ValueError, match="dtype"):
-        flash_attention(q16, q16, q16)
-    with pytest.raises(ValueError, match="one dtype"):
-        flash_attention(q, qb, q)
-    for fn in (decode_self_attention, decode_cross_attention):
+    with _counting() as launches:
         with pytest.raises(ValueError, match="dtype"):
-            fn(q16[:, :, :1].contiguous(), q16, q16, one)
+            flash_attention(q16, q16, q16)
         with pytest.raises(ValueError, match="one dtype"):
-            fn(qb[:, :, :1].contiguous(), q, q, one)
-    assert _build.launches == before
+            flash_attention(q, qb, q)
+        for fn in (decode_self_attention, decode_cross_attention):
+            with pytest.raises(ValueError, match="dtype"):
+                fn(q16[:, :, :1].contiguous(), q16, q16, one)
+            with pytest.raises(ValueError, match="one dtype"):
+                fn(qb[:, :, :1].contiguous(), q, q, one)
+    assert not launches
     with pytest.raises(ValueError, match="int32"):
         decode_cross_attention(qb[:, :, :1].contiguous(), qb, qb,
                                torch.tensor([3], device=dev))
@@ -290,13 +309,15 @@ def test_decode_int8_kernel(dev, dh, scale_dtype):
     q = _randn((3, 4, 1, dh), dev, 8)
     kv4 = quantize_cross_kv(_randn((3, 4, 300, dh), dev, 9),
                             _randn((3, 4, 300, dh), dev, 10), scale_dtype)
-    before = _build.launches["decode_cross_attention_int8"]
-    for n in (1, 77, 300):
-        kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
-        torch.testing.assert_close(
-            decode_cross_attention_int8(q, *kv4, kv_len).float(),
-            attend_int8_plain(q, *kv4, n).float(), atol=1e-2, rtol=1e-2)
-    assert _build.launches["decode_cross_attention_int8"] == before + 3
+    with _counting() as launches:
+        for n in (1, 77, 300):
+            kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+            torch.testing.assert_close(
+                decode_cross_attention_int8(q, *kv4, kv_len).float(),
+                attend_int8_plain(q, *kv4, n).float(), atol=1e-2, rtol=1e-2)
+    scales = str(scale_dtype).split(".")[-1]
+    assert launches == {("decode_cross_attention_int8",
+                         (3, 4, 300, dh, scales)): 3}
 
 
 @pytest.mark.parametrize("dh", [32, 64])
@@ -309,9 +330,11 @@ def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
     kv4 = quantize_cross_kv(_randn((2, 3, 1500, dh), dev, 23),
                             _randn((2, 3, 1500, dh), dev, 24), scale_dtype)
     kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
-    before = _build.launches["decode_cross_attention_int8"]
-    out = decode_cross_attention_int8(q, *kv4, kv_len)
-    assert _build.launches["decode_cross_attention_int8"] == before + 1
+    with _counting() as launches:
+        out = decode_cross_attention_int8(q, *kv4, kv_len)
+    scales = str(scale_dtype).split(".")[-1]
+    assert launches == {("decode_cross_attention_int8",
+                         (2, 3, 1500, dh, scales)): 1}
     torch.testing.assert_close(out.float(),
                                attend_int8_plain(q, *kv4, n).float(),
                                atol=1e-2, rtol=1e-2)
@@ -326,9 +349,9 @@ def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
 def test_int8_matmul_kernel(dev, m, k, n):
     x = _randn((m, k), dev, 11)
     w = quantize_weight(_randn((k, n), dev, 12, torch.float32) / k ** 0.5)
-    before = _build.launches["int8_matmul"]
-    out = int8_matmul(x, w["q"], w["s"])
-    assert _build.launches["int8_matmul"] == before + 1
+    with _counting() as launches:
+        out = int8_matmul(x, w["q"], w["s"])
+    assert launches == {("int8_matmul", (m, k, n)): 1}
     assert out.dtype == torch.bfloat16 and out.shape == (m, n)
     torch.testing.assert_close(out.float(),
                                int8_matmul_plain(x, w["q"], w["s"]).float(),
@@ -390,9 +413,9 @@ def test_add_layer_norm_kernel(dev, rows, d, build, inputs):
     float32."""
     dtype, suffix, _ = ATTENTION_BUILDS[build]
     args = _norm_inputs(dev, rows, d, dtype, inputs)
-    before = collections.Counter(_build.launches)
-    h_new, y = add_layer_norm(*args)
-    assert _build.launches - before == {"add_layer_norm" + suffix: 1}
+    with _counting() as launches:
+        h_new, y = add_layer_norm(*args)
+    assert launches == {("add_layer_norm" + suffix, (rows, d)): 1}
     ref_h, ref_y = add_layer_norm_plain(*args)
     assert torch.equal(h_new, ref_h)
     if dtype == torch.bfloat16:
@@ -404,20 +427,22 @@ def test_add_layer_norm_kernel(dev, rows, d, build, inputs):
 def test_add_layer_norm_rejects_wrong_inputs(dev):
     h, delta, bias, g, b = _norm_inputs(dev, 4, 64, torch.bfloat16,
                                         "delta_bias")
-    before = collections.Counter(_build.launches)
-    with pytest.raises(ValueError, match="bfloat16 or all float32"):
-        add_layer_norm(h.half(), delta.half(), bias.half(), g.half(),
-                       b.half())
-    with pytest.raises(ValueError, match="bfloat16 or all float32"):
-        add_layer_norm(h, delta, bias.float(), g, b)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        add_layer_norm(h[..., :60].contiguous(), None, None, g[:60], b[:60])
-    with pytest.raises(ValueError, match="contiguous"):
-        add_layer_norm(torch.cat([h, h], -1)[..., :64], delta, bias, g, b)
     shifted = _randn((4 * 64 + 1,), dev, 55)[1:].view(4, 1, 64)
-    with pytest.raises(ValueError, match="aligned"):
-        add_layer_norm(shifted, delta, bias, g, b)
-    assert _build.launches == before
+    with _counting() as launches:
+        with pytest.raises(ValueError, match="bfloat16 or all float32"):
+            add_layer_norm(h.half(), delta.half(), bias.half(), g.half(),
+                           b.half())
+        with pytest.raises(ValueError, match="bfloat16 or all float32"):
+            add_layer_norm(h, delta, bias.float(), g, b)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            add_layer_norm(h[..., :60].contiguous(), None, None, g[:60],
+                           b[:60])
+        with pytest.raises(ValueError, match="contiguous"):
+            add_layer_norm(torch.cat([h, h], -1)[..., :64], delta, bias, g,
+                           b)
+        with pytest.raises(ValueError, match="aligned"):
+            add_layer_norm(shifted, delta, bias, g, b)
+    assert not launches
 
 
 # -- the decode loop as replays of captured chunks ---------------------------
@@ -459,9 +484,9 @@ MODES = {"bf16": (False, torch.bfloat16), "int8": (True, torch.bfloat16),
 def test_captured_decode_steps_equal_eager(dev, mode):
     """16 decode steps, each fed the last one's argmax, captured in one
     CUDA graph and replayed from the state the eager steps start from: the
-    same logits and self caches, bit for bit; the capture records 3L + 1
-    fused launches a step, and with int8 K5's and K6's launches by
-    shape."""
+    same logits and self caches, bit for bit; the capture records each
+    step's launches by shape: K3 and the cross kernel a layer, 3L + 1
+    fused launches, and with int8 8 K6 a layer."""
     from manual_whisper_tpu_torch.models.whisper import (
         MODEL_CONFIGS, StepLengths, decode_step, init_kv_cache, init_params,
         precompute_cross_kv)
@@ -505,7 +530,7 @@ def test_captured_decode_steps_equal_eager(dev, mode):
         run(*state())
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with _build.recording() as record, torch.cuda.graph(graph):
+    with spans.recording() as record, torch.cuda.graph(graph):
         replayed = run(*graph_state)
     fresh = state()
     for dst, src in zip(graph_state[0][0] + graph_state[0][1]
@@ -518,18 +543,23 @@ def test_captured_decode_steps_equal_eager(dev, mode):
     for a, b in zip(graph_state[0][0] + graph_state[0][1],
                     eager_state[0][0] + eager_state[0][1]):
         assert torch.equal(a, b)
-    suffix = "" if int8 else _build.ATTENTION_DTYPES[dtype]
-    assert record["add_layer_norm" + suffix] == \
-        steps * (3 * cfg.n_text_layer + 1)
-    # K5 and K6 also record their launches by shape; no other kernel does
+    suffix = _build.ATTENTION_DTYPES[dtype]
     d, layers, heads = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
-    assert dict(record.shapes) == ({} if not int8 else {
-        ("int8_matmul", (rows, d, d)): 6 * layers * steps,
-        ("int8_matmul", (rows, d, 4 * d)): layers * steps,
-        ("int8_matmul", (rows, 4 * d, d)): layers * steps,
-        ("decode_cross_attention_int8",
-         (rows, heads, cfg.n_audio_ctx, d // heads, "float32")):
-            layers * steps})
+    dh, ta = d // heads, cfg.n_audio_ctx
+    want = {("add_layer_norm" + suffix, (rows, d)): (3 * layers + 1) * steps,
+            ("decode_self_attention" + suffix,
+             (rows * heads, prefix + steps, dh)): layers * steps}
+    if int8:
+        want.update({
+            ("int8_matmul", (rows, d, d)): 6 * layers * steps,
+            ("int8_matmul", (rows, d, 4 * d)): layers * steps,
+            ("int8_matmul", (rows, 4 * d, d)): layers * steps,
+            ("decode_cross_attention_int8",
+             (rows, heads, ta, dh, "float32")): layers * steps})
+    else:
+        want[("decode_cross_attention" + suffix, (rows * heads, ta, dh))] = \
+            layers * steps
+    assert dict(record) == want
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.6])
@@ -546,10 +576,10 @@ def test_captured_loop_equals_eager(dev, rows, mode, temperature):
     graph.decode_submit(xa, 0.0)        # captures (its warm-up launches)
     out = {}
     for name, dec in (("graph", graph), ("eager", eager)):
-        before = collections.Counter(_build.launches)
-        out[name] = dec.decode_submit(xa, temperature, rng_tag=3)
+        with _counting() as launches:
+            out[name] = dec.decode_submit(xa, temperature, rng_tag=3)
         torch.cuda.synchronize()
-        out[name + "_launches"] = _build.launches - before
+        out[name + "_launches"] = launches
     g, e = out["graph"], out["eager"]
     assert graph.captured and not eager.captured
     assert torch.equal(g.tokens, e.tokens)
@@ -559,7 +589,7 @@ def test_captured_loop_equals_eager(dev, rows, mode, temperature):
     assert out["graph_launches"] == out["eager_launches"]
     per_step = _step_launches(cfg, int8, dtype)
     extra = 10 * cfg.n_text_layer if int8 else 0
-    assert dict(out["graph_launches"]) == {
+    assert dict(_by_kernel(out["graph_launches"])) == {
         k: v * (g.steps - 1) + (extra if k == "int8_matmul" else 0)
         for k, v in per_step.items()}
 
@@ -608,20 +638,20 @@ def _step_launches(cfg, int8, dtype=torch.bfloat16):
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_capture_records_each_chunks_launches(dev, int8):
     """Each captured chunk's launch delta is its steps times one step's
-    launches; the capture itself leaves the counters as they were."""
+    launches; the capture itself adds nothing to the bound sink."""
     cfg, graph, _ = _tiny_decoders(dev, int8)
     xa = _tiny_xa(cfg, dev, 2, 41)
-    before = collections.Counter(_build.launches)
-    out = graph.decode_submit(xa, 0.0)
+    with _counting() as launches:
+        out = graph.decode_submit(xa, 0.0)
     (loop,) = graph._loops.values()
     assert sorted(loop.graphs.graphs) == [7, 16]
     per_step = _step_launches(cfg, int8)
     for n, delta in loop.graphs.launch_delta.items():
-        assert delta == {k: n * v for k, v in per_step.items()}
+        assert _by_kernel(delta) == {k: n * v for k, v in per_step.items()}
     # this decode: the warm-up runs before each capture (16 + 7 steps),
     # the loop's replays (out.steps - 1 steps), and with int8 weights the
     # cross K/V's 2 and the prefill's 8 matmuls a layer
-    ran = _build.launches - before
+    ran = _by_kernel(launches)
     for k, v in per_step.items():
         assert ran[k] - v * (16 + 7 + out.steps - 1) == (
             10 * cfg.n_text_layer if k == "int8_matmul" else 0)
@@ -664,10 +694,10 @@ def test_captured_beam_loop_equals_eager(dev, rows, beams, int8):
     graph.decode_submit(xa, 0.0)        # captures (its warm-up launches)
     out = {}
     for name, dec in (("graph", graph), ("eager", eager)):
-        before = collections.Counter(_build.launches)
-        out[name] = dec.decode_submit(xa, 0.0)
+        with _counting() as launches:
+            out[name] = dec.decode_submit(xa, 0.0)
         torch.cuda.synchronize()
-        out[name + "_launches"] = _build.launches - before
+        out[name + "_launches"] = launches
     g, e = out["graph"], out["eager"]
     (loop,) = graph._beam_loops.values()
     assert not graph._loops and loop.graphs is not None
@@ -681,7 +711,7 @@ def test_captured_beam_loop_equals_eager(dev, rows, beams, int8):
     layers = cfg.n_text_layer
     expected = ({"int8_matmul": 10 * layers + 8 * layers * (g.steps - 1)}
                 if int8 else {})
-    assert dict(out["graph_launches"]) == expected
+    assert dict(_by_kernel(out["graph_launches"])) == expected
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -697,10 +727,10 @@ def test_captured_timestamp_loop_equals_eager(dev, rows, mode):
     graph.timestamps_submit(xa)         # captures
     out = {}
     for name, dec in (("graph", graph), ("eager", eager)):
-        before = collections.Counter(_build.launches)
-        out[name] = dec.timestamps_submit(xa)
+        with _counting() as launches:
+            out[name] = dec.timestamps_submit(xa)
         torch.cuda.synchronize()
-        out[name + "_launches"] = _build.launches - before
+        out[name + "_launches"] = launches
     g, e = out["graph"], out["eager"]
     (loop,) = graph._ts_loops.values()
     assert torch.equal(g.tokens, e.tokens)
@@ -712,8 +742,9 @@ def test_captured_timestamp_loop_equals_eager(dev, rows, mode):
         2 * (g.steps - 1)
     per_step = _step_launches(cfg, int8, dtype)
     extra = 10 * cfg.n_text_layer if int8 else 0
+    ran = _by_kernel(out["graph_launches"])
     for k, v in per_step.items():
-        assert out["graph_launches"][k] == v * (g.steps - 1) + (
+        assert ran[k] == v * (g.steps - 1) + (
             extra if k == "int8_matmul" else 0)
 
 
@@ -772,7 +803,8 @@ def test_two_decoders_on_two_threads_equal_one_after_the_other(dev):
     """Two captured decoders (another prompt each, so other loop shapes)
     decoding at once from two threads, each capturing its loops while the
     other replays: the tokens of the same decodes run one after the other,
-    and the launches counted are those of the sequential run."""
+    and the launches counted into one sink bound on both threads are
+    those of the sequential run."""
     from manual_whisper_tpu_torch.models.decode import (BatchDecoder,
                                                         DecodingOptions)
     from manual_whisper_tpu_torch.models.whisper import (MODEL_CONFIGS,
@@ -790,29 +822,28 @@ def test_two_decoders_on_two_threads_equal_one_after_the_other(dev):
     work = [(_tiny_xa(cfg, dev, rows, 50 + rows), 0.6 * (rows % 2), rows)
             for rows in (1, 2, 4, 2, 1)]
 
-    def run(dec, out):
-        for xa, temp, tag in work:
-            o = dec.decode_submit(xa, temp, rng_tag=tag)
-            out.append((o.tokens, o.lengths))
+    def run(dec, out, launches):
+        with spans.bind({}, "test", launches):
+            for xa, temp, tag in work:
+                o = dec.decode_submit(xa, temp, rng_tag=tag)
+                out.append((o.tokens, o.lengths))
 
-    seq = {}
-    before = collections.Counter(_build.launches)
+    seq, seq_launches = {}, collections.Counter()
     for i, dec in enumerate(decoders()):
         seq[i] = []
-        run(dec, seq[i])
+        run(dec, seq[i], seq_launches)
     torch.cuda.synchronize()
-    seq_launches = _build.launches - before
 
-    par = {0: [], 1: []}
-    before = collections.Counter(_build.launches)
-    threads = [threading.Thread(target=run, args=(dec, par[i]))
+    par, par_launches = {0: [], 1: []}, collections.Counter()
+    threads = [threading.Thread(target=run,
+                                args=(dec, par[i], par_launches))
                for i, dec in enumerate(decoders())]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     torch.cuda.synchronize()
-    assert _build.launches - before == seq_launches
+    assert par_launches == seq_launches
     for i in (0, 1):
         assert len(par[i]) == len(work)
         for (tok_a, len_a), (tok_b, len_b) in zip(par[i], seq[i]):

@@ -2,14 +2,15 @@
 
 On the card float32 runs through float32 builds of K2 (encoder flash
 attention), K3 and K4 (decode attention), each with its own entry point and
-launch counter (``flash_attention_f32``, ``decode_self_attention_f32``,
+kernel name (``flash_attention_f32``, ``decode_self_attention_f32``,
 ``decode_cross_attention_f32``); bf16 runs the bf16 builds.  Here:
 
 - the wrappers' dtype rule (``_build.attention_dtype``: bf16 or float32, one
   dtype for q, k and v), and that a wrapper given tensors off the CPU calls
-  the entry point of their dtype, counts that launch under its name, and
-  raises, with no fallback, when the build or the launch fails (``meta``
-  tensors and a stand-in library take the card's place);
+  the entry point of their dtype, counts that launch under its name and
+  shape into the bound launch sink (``spans.count``; K1, K5 and K6 too),
+  and raises, with no fallback, when the build or the launch fails
+  (``meta`` tensors and a stand-in library take the card's place);
 - ``load_model("test", device="cpu", compute_type="float32")`` on the
   synthetic test file: every tensor that reaches the K2-K4 wrappers is
   float32 (q, the self cache, the cross K/V and the output), and bf16 for
@@ -28,15 +29,18 @@ import torch
 
 from manual_whisper_tpu.models import decode as jdecode
 from manual_whisper_tpu.pipeline.transcribe import load_model as j_load_model
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.eval.synth import (render_file_with_times,
                                                  sample_text)
 from manual_whisper_tpu_torch.models import MODEL_CONFIGS
 from manual_whisper_tpu_torch.models import decode as tdecode
 from manual_whisper_tpu_torch.models import whisper as tw
-from manual_whisper_tpu_torch.ops import _build
+from manual_whisper_tpu_torch.ops import _build, mel
 from manual_whisper_tpu_torch.ops.attention import flash_attention
 from manual_whisper_tpu_torch.ops.decode_attention import (
-    decode_cross_attention, decode_self_attention)
+    decode_cross_attention, decode_cross_attention_int8,
+    decode_self_attention)
+from manual_whisper_tpu_torch.ops.quant import int8_matmul
 from manual_whisper_tpu_torch.pipeline import load_model
 
 # greedy with the ladder's gates off: no row climbs to a sampled rung,
@@ -72,11 +76,13 @@ def test_attention_dtype_refuses_other_dtypes_and_mixes(dtypes, match):
 
 class _Library:
     """Stands in for a built library: records each entry point called and
-    returns ``err`` (a cudaError_t) from it."""
+    returns ``err`` (a cudaError_t) from it; ``launches`` is the launch
+    sink bound while a test runs."""
 
     def __init__(self, err=0):
         self.err = err
         self.called = []
+        self.launches = collections.Counter()
 
     def __getattr__(self, symbol):
         if not symbol.startswith("mwx_"):
@@ -89,14 +95,28 @@ class _Library:
 
 
 def _meta_call(wrapper, dtype):
-    """One call of ``wrapper`` (flash, self or cross) on meta tensors at
-    the test config's head_dim 32."""
+    """One call of ``wrapper`` on meta tensors: the attention wrappers at
+    the test config's head_dim 32, K1 on two rows of 1600 samples at 80
+    mels, K6 at (M, K, N) = (3, 64, 32), K5 with float32 scales."""
     meta = torch.device("meta")
     length = torch.zeros(1, dtype=torch.int32, device=meta)
     if wrapper == "flash_attention":
         q = torch.empty((1, 2, 10, 32), dtype=dtype, device=meta)
         return flash_attention(q, q, q)
+    if wrapper == "mel":
+        audio = torch.empty((2, 1600), dtype=dtype, device=meta)
+        return mel.unnormalized_log_mel(audio, 80)
+    if wrapper == "int8_matmul":
+        return int8_matmul(
+            torch.empty((3, 64), dtype=dtype, device=meta),
+            torch.empty((64, 32), dtype=torch.int8, device=meta),
+            torch.empty((32,), dtype=F32, device=meta))
     q = torch.empty((1, 2, 1, 32), dtype=dtype, device=meta)
+    if wrapper == "decode_cross_attention_int8":
+        codes = torch.empty((1, 2, 24, 32), dtype=torch.int8, device=meta)
+        scales = torch.empty((1, 2, 24), dtype=F32, device=meta)
+        return decode_cross_attention_int8(q, codes, scales, codes, scales,
+                                           length)
     kv = torch.empty((1, 2, 24, 32), dtype=dtype, device=meta)
     fn = {"decode_self_attention": decode_self_attention,
           "decode_cross_attention": decode_cross_attention}[wrapper]
@@ -107,37 +127,53 @@ ENTRY = {"flash_attention": "mwx_flash_attention",
          "decode_self_attention": "mwx_decode_attention",
          "decode_cross_attention": "mwx_decode_cross_attention"}
 
+# each wrapper's launch: (wrapper, dtype, entry point, counted (kernel,
+# shape)); K2-K4 in both builds, K1, K5 and K6 in the dtype they take
+LAUNCHES = [
+    *(pytest.param(wrapper, dtype, ENTRY[wrapper] + suffix,
+                   (wrapper + suffix, shape), id=f"{wrapper}-{tag}")
+      for wrapper, shape in (("flash_attention", (2, 10, 10, 32)),
+                             ("decode_self_attention", (2, 24, 32)),
+                             ("decode_cross_attention", (2, 24, 32)))
+      for dtype, suffix, tag in ((BF16, "", "bf16"), (F32, "_f32", "f32"))),
+    pytest.param("mel", F32, "mwx_log_mel", ("mel", (2, 1600, 80)),
+                 id="mel-f32"),
+    pytest.param("int8_matmul", BF16, "mwx_int8_matmul",
+                 ("int8_matmul", (3, 64, 32)), id="int8_matmul-bf16"),
+    pytest.param("decode_cross_attention_int8", BF16,
+                 "mwx_decode_attention_int8",
+                 ("decode_cross_attention_int8", (1, 2, 24, 32, "float32")),
+                 id="decode_cross_attention_int8-bf16")]
+
 
 @pytest.fixture
 def stand_in(monkeypatch):
     """``_build.library`` returns one ``_Library`` (its ``err`` settable);
-    the stream is 0; the launch counters start empty and are put back."""
+    the stream is 0; K1's packed DFT is two meta tensors; the library's
+    ``launches`` is bound as the launch sink."""
     lib = _Library()
     monkeypatch.setattr(_build, "library", lambda name: lib)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    saved = collections.Counter(_build.launches)
-    _build.launches.clear()
-    yield lib
-    _build.launches.clear()
-    _build.launches.update(saved)
+    folds = torch.empty(1, device="meta")
+    monkeypatch.setattr(mel, "_kernel_folds", lambda device: (folds, folds))
+    with spans.bind({}, "test", lib.launches):
+        yield lib
 
 
-@pytest.mark.parametrize("dtype,suffix", [(BF16, ""), (F32, "_f32")],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("wrapper", list(ENTRY))
+@pytest.mark.parametrize("wrapper,dtype,symbol,row", LAUNCHES)
 def test_wrapper_launches_the_build_of_its_dtype(stand_in, wrapper, dtype,
-                                                 suffix):
+                                                 symbol, row):
     out = _meta_call(wrapper, dtype)
     assert out.dtype == dtype
-    assert stand_in.called == [ENTRY[wrapper] + suffix]
-    assert dict(_build.launches) == {wrapper + suffix: 1}
+    assert stand_in.called == [symbol]
+    assert stand_in.launches == {row: 1}
 
 
 @pytest.mark.parametrize("wrapper", list(ENTRY))
 def test_wrapper_refuses_float16_before_any_launch(stand_in, wrapper):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         _meta_call(wrapper, torch.float16)
-    assert stand_in.called == [] and not _build.launches
+    assert stand_in.called == [] and not stand_in.launches
 
 
 @pytest.mark.parametrize("wrapper", list(ENTRY))
@@ -146,7 +182,7 @@ def test_failed_f32_launch_raises_and_is_not_counted(stand_in, wrapper):
     with pytest.raises(RuntimeError, match="_f32 kernel"):
         _meta_call(wrapper, F32)
     assert stand_in.called == [ENTRY[wrapper] + "_f32"]
-    assert not _build.launches
+    assert not stand_in.launches
 
 
 @pytest.mark.parametrize("wrapper", list(ENTRY))

@@ -9,7 +9,8 @@
   formula kept here, in bf16 and float32, with plain and int8 weights and
   with int8 cross K/V;
 - off the CPU the wrapper calls the entry point of its dtype, counts the
-  launch under its name and raises, with no fallback, on what the kernel
+  launch under its name and (rows, d) into the bound launch sink
+  (``spans.count``) and raises, with no fallback, on what the kernel
   does not take or when the launch fails (``meta`` tensors and a stand-in
   library take the card's place).
 
@@ -23,6 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.models import whisper as tw
 from manual_whisper_tpu_torch.ops import _build
 from manual_whisper_tpu_torch.ops.decode_attention import (
@@ -88,11 +90,12 @@ def test_bf16_sums_round_where_two_adds_round():
 def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     h, delta = _randn((3, 1, 64), 6, BF16), _randn((3, 1, 64), 7, BF16)
     bias, g, b = (_randn((64,), s, BF16) for s in (8, 9, 10))
-    before = collections.Counter(_build.launches)
-    got = add_layer_norm(h, delta, bias, g, b)
+    launches = collections.Counter()
+    with spans.bind({}, "test", launches):
+        got = add_layer_norm(h, delta, bias, g, b)
     want = add_layer_norm_plain(h, delta, bias, g, b)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert _build.launches == before
+    assert not launches
 
 
 # -- decode_step against the formula it had before the kernel ----------------
@@ -215,11 +218,13 @@ def test_decode_step_equals_the_unfused_formula(mode):
 
 class _Library:
     """Stands in for the built library: records each entry point called
-    with its pointer arguments and returns ``err`` (a cudaError_t)."""
+    with its pointer arguments and returns ``err`` (a cudaError_t);
+    ``launches`` is the launch sink bound while a test runs."""
 
     def __init__(self, err=0):
         self.err = err
         self.called = []
+        self.launches = collections.Counter()
 
     def __getattr__(self, symbol):
         if not symbol.startswith("mwx_"):
@@ -236,11 +241,8 @@ def stand_in(monkeypatch):
     lib = _Library()
     monkeypatch.setattr(_build, "library", lambda name: lib)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    saved = collections.Counter(_build.launches)
-    _build.launches.clear()
-    yield lib
-    _build.launches.clear()
-    _build.launches.update(saved)
+    with spans.bind({}, "test", lib.launches):
+        yield lib
 
 
 def _meta(shape, dtype=BF16):
@@ -264,7 +266,7 @@ def test_wrapper_launches_the_build_of_its_dtype(stand_in, dtype, suffix,
     assert args[1:3] == (None if delta is None else 0,
                          None if bias is None else 0)
     assert args[7:9] == (16, 1280)
-    assert dict(_build.launches) == {"add_layer_norm" + suffix: 1}
+    assert stand_in.launches == {("add_layer_norm" + suffix, (16, 1280)): 1}
 
 
 @pytest.mark.parametrize("case,match", [
@@ -291,7 +293,7 @@ def test_wrapper_refuses_before_any_launch(stand_in, case, match):
         h = _meta((4, 1, 2 * d), dt)[..., :d]
     with pytest.raises(ValueError, match=match):
         add_layer_norm(h, delta, bias, g, _meta((d,), dt))
-    assert stand_in.called == [] and not _build.launches
+    assert stand_in.called == [] and not stand_in.launches
 
 
 @pytest.mark.parametrize("dtype,suffix", [(BF16, ""), (F32, "_f32")],
@@ -301,7 +303,7 @@ def test_failed_launch_raises_and_is_not_counted(stand_in, dtype, suffix):
     with pytest.raises(RuntimeError, match=f"add_layer_norm{suffix} kernel"):
         add_layer_norm(_meta((2, 1, 64), dtype), None, None,
                        _meta((64,), dtype), _meta((64,), dtype))
-    assert not _build.launches
+    assert not stand_in.launches
 
 
 def test_failed_build_raises(monkeypatch):

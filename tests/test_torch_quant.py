@@ -10,6 +10,8 @@ K/V as [B, H, dh, T] and scales as [B, H, 1, T]; the port takes
 [B, H, T, dh] and [B, H, T], so the tests transpose.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -19,9 +21,9 @@ import jax.numpy as jnp
 from manual_whisper_tpu.models import whisper as jw
 from manual_whisper_tpu.ops import decode_attention as jdec
 from manual_whisper_tpu.ops import quant as jq
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.convert import from_jax_tree
 from manual_whisper_tpu_torch.models import whisper as tw
-from manual_whisper_tpu_torch.ops import _build
 from manual_whisper_tpu_torch.ops import decode_attention as tdec
 from manual_whisper_tpu_torch.ops import quant as tq
 
@@ -202,11 +204,13 @@ def test_int8_cross_bf16_query_matches_jax_einsum():
 
 
 def test_int8_cpu_tensors_launch_no_kernel():
-    before = dict(_build.launches)
+    launches = collections.Counter()
     x = torch.zeros(3, 64, dtype=torch.bfloat16)
     wq = tq.quantize_weight(torch.ones(64, 32))
-    tq.mm(x, wq)
     kv4 = tw.quantize_cross_kv(torch.ones(1, 2, 8, 32), torch.ones(1, 2, 8, 32))
-    tdec.decode_cross_attention_int8(x[:2, :32].reshape(1, 2, 1, 32), *kv4,
-                                     torch.tensor([8], dtype=torch.int32))
-    assert dict(_build.launches) == before
+    with spans.bind({}, "test", launches):
+        tq.mm(x, wq)
+        tdec.decode_cross_attention_int8(x[:2, :32].reshape(1, 2, 1, 32),
+                                         *kv4,
+                                         torch.tensor([8], dtype=torch.int32))
+    assert not launches

@@ -39,9 +39,9 @@ from manual_whisper_tpu.serving import jobs as jjobs
 from manual_whisper_tpu.serving import second_pass as jsecond
 from manual_whisper_tpu.text import post_process_segments as j_post
 from manual_whisper_tpu.text.formatting import format_to_markdown as j_md
+from manual_whisper_tpu_torch import spans
 from manual_whisper_tpu_torch.audio import native as tnative
 from manual_whisper_tpu_torch.audio import write_flac
-from manual_whisper_tpu_torch.ops import _build
 from manual_whisper_tpu_torch.serving import jobs as tjobs
 from manual_whisper_tpu_torch.serving import second_pass as tsecond
 from manual_whisper_tpu_torch.text import (format_to_markdown,
@@ -804,25 +804,28 @@ def test_decoder_made_once_under_racing_threads(synth, monkeypatch):
 
 
 def test_launch_counts_exact_with_threads_counting_and_recording():
-    """Wrappers on many threads lose no count; the launches one thread
+    """Wrappers on many threads bound to one request's launch sink (as the
+    pipeline's two threads are) lose no count; the launches one thread
     makes while it records a capture go into the capture's record only,
-    and another thread's launches meanwhile stay in ``launches``."""
-    before = collections.Counter(_build.launches)
+    and the other threads' launches meanwhile stay in the sink."""
+    row = ("test_kernel", (16, 1280))
+    sink = collections.Counter()
     n_threads, per_thread = 8, 2000
     start = threading.Barrier(n_threads + 1)
     recorded = {}
     in_capture, counted = threading.Event(), threading.Event()
 
     def hammer():
-        start.wait()
-        for _ in range(per_thread):
-            _build.count("test_kernel")
+        with spans.bind({}, "fetch", sink):
+            start.wait()
+            for _ in range(per_thread):
+                spans.count(*row)
 
     def capture():
-        with _build.recording() as record:
+        with spans.bind({}, "dispatch", sink), spans.recording() as record:
             in_capture.set()
             for _ in range(5):
-                _build.count("test_kernel")
+                spans.count(*row)
             assert counted.wait(10)
             recorded["record"] = record
 
@@ -837,15 +840,11 @@ def test_launch_counts_exact_with_threads_counting_and_recording():
         t.join()
     counted.set()
     cap.join()
-    ran = _build.launches - before
-    try:
-        assert ran["test_kernel"] == n_threads * per_thread
-        assert recorded["record"] == collections.Counter(test_kernel=5)
-        _build.add(recorded["record"])      # one replay
-        assert (_build.launches - before)["test_kernel"] == \
-            n_threads * per_thread + 5
-    finally:
-        del _build.launches["test_kernel"]
+    assert sink == {row: n_threads * per_thread}
+    assert recorded["record"] == {row: 5}
+    with spans.bind({}, "dispatch", sink):
+        spans.add(recorded["record"])       # one replay
+    assert sink == {row: n_threads * per_thread + 5}
 
 
 def test_pipeline_backend_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
