@@ -49,9 +49,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    plain version at ragged query and key tiles and at dh=32).  K3 is timed
    over the positions the decode loop visits (and checked at slots that
    leave some of its blocks without keys), K4 and K5 at the full cross
-   length (K5 with f32 scales; bf16 scales and batch 16 on extra lines;
-   K4 and K5 also checked at lengths that leave some of their blocks
-   without keys), K6 at a decode
+   length (K5 with f32 scales; bf16 scales and the other decode loops'
+   batches, 2, 8 and 16 rows, in both scale dtypes on extra lines, each
+   with the launch shape the library picked; K4 and K5 also checked at
+   lengths that leave some of their blocks without keys, K5 at the edges
+   of its 16-key slices and stages), K6 at a decode
    step's M=4 with K, N = 1280, 5120 (on extra lines the other decode
    shapes, the three decode shapes at M = 8 and at the benchmark's M = 16,
    and every M > 16 shape of the int8 path: M = 4 x 1500, M = 4 x 193
@@ -141,7 +143,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    ``transcribe`` of about 8 min of audio under ``torch.profiler``): the
    trace's ``matvec_kernel`` launches must equal the request's counted K6
    launches at M <= 16, and its ``tile_kernel`` launches those at
-   M > 16, so no tile product ran at M <= 16.
+   M > 16, so no tile product ran at M <= 16; its ``cross_int8_kernel``
+   launches must equal the counted K5 launches (one kernel a call).
 5. Where the time goes: ``torch.profiler`` over one batch-4 encoder pass
    and 16 eager decode steps of each model (device-busy share, top
    kernels, and each of csrc/'s kernels with its share of the device
@@ -626,12 +629,38 @@ def _int8_cross_bound(b, h, dh, n, scale_bytes):
                  + 2.0 * 2 * b * h * dh, F32_FLOPS)
 
 
+def int8_launch_shape(bh: int, scale_dtype) -> dict:
+    """K5's launch shape at batch x heads ``bh`` and dh 64, as the library
+    reports it (``mwx_decode_int8_shape``)."""
+    import ctypes
+    shape = (ctypes.c_int * len(INT8_SHAPE_KEYS))()
+    _build.check(_build.library("decode_attention").mwx_decode_int8_shape(
+        bh, int(scale_dtype == torch.bfloat16), shape),
+        "mwx_decode_int8_shape")
+    return dict(zip(INT8_SHAPE_KEYS, shape))
+
+
+# the fields of K5's launch shape (``put_int8_shape`` in the kernel's source)
+INT8_SHAPE_KEYS = ("split", "stages", "keys", "threads", "ring_bytes",
+                   "blocks_per_sm")
+
+
+# K5's checks: 16-key slice and stage edges (15 to 17, 63 to 65), the
+# lengths that leave all but one of 8 blocks without keys (1, 7, 8), the
+# 8-block slice of 1500 (192) and lengths about it (188, 189, 193), a
+# ragged last stage (1000, Ta - 1) and Ta
+K5_CHECK_LENGTHS = (1, 7, 8, 15, 16, 17, 63, 64, 65, 188, 189, 192, 193,
+                    1000)
+
+
 def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
-    """K5 vs its plain version at kv_len Ta, Ta - 1, 1000, 8, 7 and 1 (the
-    key axis is split over 8 blocks: a ragged last slice, slices that are
-    empty for some or all but one block), then timed at kv_len = Ta over
-    K/V copies that exceed L2; the yardstick is SDPA over a bf16 copy of
-    K/V dequantized before timing."""
+    """K5 vs its plain version at kv_len Ta, Ta - 1 and K5_CHECK_LENGTHS
+    (the key axis is split over a cluster of blocks in 16-key slices,
+    streamed in stages of 16-key multiples: ragged last slices and stages,
+    slices that are empty for some or all but one block), then timed at
+    kv_len = Ta over K/V copies that exceed L2, with the launch shape the
+    library picked; the yardstick is SDPA over a bf16 copy of K/V
+    dequantized before timing."""
     from manual_whisper_tpu_torch.models.whisper import quantize_cross_kv
 
     def kv4():
@@ -639,7 +668,7 @@ def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
                                  scale_dtype)
     q, kv = randn((b, h, 1, dh)), kv4()
     err = 0.0
-    for kv_len in (ta, ta - 1, 1000, 8, 7, 1):
+    for kv_len in (ta, ta - 1) + K5_CHECK_LENGTHS:
         len_t = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
         err = max(err, compare("decode_cross_attention_int8",
                                decode_cross_attention_int8(q, *kv, len_t),
@@ -659,16 +688,21 @@ def cross_int8_row(randn, dev, b, h, dh, ta, scale_dtype):
         ms=graph_ms(lambda *a: decode_cross_attention_int8(*a, len_t), sets),
         plain_ms=graph_ms(lambda *a: attend_int8_plain(*a, ta), sets),
         library_ms=graph_ms(sdpa, deq),
-        bound=_int8_cross_bound(b, h, dh, ta, scale_bytes))
+        bound=_int8_cross_bound(b, h, dh, ta, scale_bytes),
+        launch_shape=int8_launch_shape(b * h, scale_dtype))
 
 
 def cross_int8_rows(randn, dev, main: dict):
     """K5's row of the kernels line (batch rows of the main path, f32
-    scales, the default) and its extras: bf16 scales, and batch 16."""
+    scales, the default) and its extras: bf16 scales, then the other
+    decode loops' batches (2, 8 and the benchmark's 16 rows) in both scale
+    dtypes."""
     b, h, dh, ta = main["batch"], main["heads"], main["dh"], main["ta"]
     row = cross_int8_row(randn, dev, b, h, dh, ta, torch.float32)
-    return row, [cross_int8_row(randn, dev, b, h, dh, ta, torch.bfloat16),
-                 cross_int8_row(randn, dev, 16, h, dh, ta, torch.float32)]
+    return row, [cross_int8_row(randn, dev, rows, h, dh, ta, scale_dtype)
+                 for rows in (b, 2, 8, 16)
+                 for scale_dtype in (torch.float32, torch.bfloat16)
+                 if (rows, scale_dtype) != (b, torch.float32)]
 
 
 def mel_hard_rows(n_samples: int, dev, randn) -> torch.Tensor:
@@ -4239,6 +4273,8 @@ def phase_model(model, load_s: float, compute_type: str,
 # a trace by these names
 K6_MATVEC_MAX_M = 16
 K6_TRACE_NAME = re.compile(r"(?:^|[\s:])(matvec_kernel|tile_kernel)<")
+# K5's one kernel, by the name the benchmark's reader finds it
+K5_TRACE_NAME = re.compile(r"(?:^|[\s:])(cross_int8_kernel)<")
 ROUTES_AUDIO_S = 480.0
 
 
@@ -4250,7 +4286,10 @@ def phase_int8_routes(model) -> None:
     trace's ``matvec_kernel`` launches must equal the request's counted K6
     launches at M <= 16 (``last_stats["kernel_shapes"]``) and its
     ``tile_kernel`` launches those at M > 16: no tile product ran at
-    M <= 16.  The request must have launched K6 at M = 16."""
+    M <= 16.  The request must have launched K6 at M = 16.  Its
+    ``cross_int8_kernel`` launches must equal the counted K5 launches, at
+    least one of them at 16 rows: K5 is one launch a call, all of it under
+    the name its reader finds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     audio = synthetic_speech(ROUTES_AUDIO_S, seed=7)
@@ -4264,31 +4303,41 @@ def phase_int8_routes(model) -> None:
     wall = time.perf_counter() - t0
     traced: collections.Counter = collections.Counter()
     for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
         found = (K6_TRACE_NAME.search(ev.name())
-                 if ev.device_type() == DeviceType.CUDA else None)
+                 or K5_TRACE_NAME.search(ev.name()))
         if found:
             traced[found.group(1)] += 1
     stats = model.last_stats
     by_m: collections.Counter = collections.Counter()
+    k5_by_rows: collections.Counter = collections.Counter()
     for name, shape, n in stats["kernel_shapes"]:
         if name == "int8_matmul":
             by_m[shape[0]] += n
+        elif name == "decode_cross_attention_int8":
+            k5_by_rows[shape[0]] += n
     counted = {"matvec_kernel": sum(n for m, n in by_m.items()
                                     if m <= K6_MATVEC_MAX_M),
                "tile_kernel": sum(n for m, n in by_m.items()
-                                  if m > K6_MATVEC_MAX_M)}
+                                  if m > K6_MATVEC_MAX_M),
+               "cross_int8_kernel": sum(k5_by_rows.values())}
     if dict(traced) != counted:
-        raise AssertionError(f"int8 routes: traced K6 launches "
-                             f"{dict(traced)}, counted by M {counted}")
-    if not by_m[SERVE_BATCH]:
+        raise AssertionError(f"int8 routes: traced K5/K6 launches "
+                             f"{dict(traced)}, counted {counted}")
+    if not by_m[SERVE_BATCH] or not k5_by_rows[SERVE_BATCH]:
         raise AssertionError(f"int8 routes: no K6 launch at M = "
-                             f"{SERVE_BATCH}: {dict(by_m)}")
+                             f"{SERVE_BATCH} or no K5 launch at "
+                             f"{SERVE_BATCH} rows: {dict(by_m)}, "
+                             f"{dict(k5_by_rows)}")
     log(json.dumps({
         "phase": "int8_routes", "batch": SERVE_BATCH,
         "audio_s": ROUTES_AUDIO_S, "traced_wall_s": wall,
         "windows": stats["windows"], "token_rows": stats["token_rows"],
         "traced_launches": dict(traced),
-        "k6_launches_by_m": {str(m): n for m, n in sorted(by_m.items())}}))
+        "k6_launches_by_m": {str(m): n for m, n in sorted(by_m.items())},
+        "k5_launches_by_rows": {str(r): n
+                                for r, n in sorted(k5_by_rows.items())}}))
 
 
 def phase_float32(dev) -> None:

@@ -63,23 +63,56 @@
 // with k_q/v_q int8 [B*H, T, dh] and k_s/v_s [B*H, T] float32 or bf16
 // (`ckv_scale_bf16`).  The scales commute out of both dot products, so
 // each multiplies once per position; the softmax's sum takes the
-// exponentials without v_s.  Half of K4's bytes (one byte per value, plus
-// 2*T scales), so it too is bound by device memory.  A block per (batch,
-// head) walking its keys three times (scores, softmax, V) left it at
-// K4's old speed although it reads half the bytes, so K5 takes K4's
-// split: the 8 blocks of a cluster each make one pass over their slice of
-// the keys (derived from kv_len on the device; the last ranks' may be
-// empty), dh/16 lanes share one key's 16-byte code loads, the codes and
-// both scales of eight keys per lane group are loaded before any is used,
-// the codes are widened exactly on the ALU (a byte permute under 2^23 and
-// one subtraction, not the slower int-to-float converter), and the lane
-// groups and then the 8 ranks combine (max, sum, o[dh]) in shared and
-// distributed shared memory.  One launch, no workspace, no atomics.
+// exponentials without v_s.
+//
+// Bound: the bytes.  Half of K4's (one byte a value, plus 2*T scales) for
+// the same 4*n*dh operations, so device memory bounds it too; but each
+// code is widened on the ALU first (a byte permute under 2^23 and one
+// subtraction, exact, not the slower int-to-float converter), three times
+// K4's ALU work per byte.  Loaded into registers and then used, as K4
+// does, that work left no load in flight while a block summed, and K5 read
+// at about 42 % of the card's bandwidth.  So each block streams its keys
+// through a ring of shared memory: a producer warp, one of whose threads
+// asks for a stage with four 1-D bulk copies (K codes, V codes, k_s and
+// v_s, each contiguous over the positions of a (batch, head)), counted at
+// the stage's full mbarrier, and refills a slot as soon as every consumer
+// warp has arrived at its empty mbarrier; while the consumer warps widen
+// and sum one stage, the next ones are in flight, and no barrier across
+// the block stands between two stages.  Registers hold q (scaled by
+// log2(e)/sqrt(dh)), the online softmax's running max and sum and o, and
+// nothing of the loads.  dh/16 lanes share a key's code rows.
+//
+// The key axis is split over the blocks of a cluster (derived from kv_len
+// on the device; the last ranks' slices may be empty).  Slices and stages
+// start on 16-key boundaries.  The codes of any run of keys fill whole
+// 16-byte units (dh is 32 or 64); the scales need not, so a stage's scale
+// copy takes the 16-byte lines that hold its keys, clipped to the lines
+// inside the row, and reads the keys of a line that would reach outside
+// the row (only where a row does not start or end on a line) with plain
+// loads: no copy reads outside its (batch, head)'s row.  Positions >= n
+// are never copied, and masked where a lane group reads past its stage.
+// The lane groups meet in shared memory (the idle ring), and the ranks
+// push their (max, sum, o) to the rank that writes those dims with
+// asynchronous stores counted at its mbarrier (K3's combine), so no
+// cluster barrier stands between the last key and the output.  One
+// launch, no workspace, no atomics.
+//
+// The launch shape (`Int8Shape`, `int8_split`) follows batch x heads,
+// which the host knows, never n, so a captured CUDA graph replays one
+// launch at every step.  It is one algorithm whose split adapts: as many
+// blocks a pair, up to a cluster of 8, as keep the grid within about 2.5
+// blocks an SM.  The 2-row loop's 40 pairs, where a launch's 8 MB leave
+// latency to decide, get 8 blocks of 192-key slices; the 16-row loop's
+// 320 pairs, where the bytes decide, one block each, which streams all
+// 1500 keys and needs no combine across blocks.  Chosen by timing
+// (`kernel_variants.py decode_cross_attention_int8`).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -87,8 +120,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;      // K5's block
 
 __device__ inline void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -369,10 +400,71 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// ---- K5: int8 cross attention, the same split ----------------------------
+// ---- K5: int8 cross attention, keys streamed through a bulk-copy ring ----
 
-constexpr int kCrossSplit = 8;     // blocks per (batch, head): one cluster
-constexpr int kInt8Keys = 8;       // keys in flight per lane group
+// A launch shape of K5: blocks per (batch, head) (a cluster when more than
+// one), stages of the ring, keys a stage, consumer threads per block (the
+// producer warp comes on top).
+template <int SPLIT_, int STAGES_, int KEYS_, int THREADS_>
+struct Int8Cfg {
+  static constexpr int SPLIT = SPLIT_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int KEYS = KEYS_;
+  static constexpr int THREADS = THREADS_;
+};
+
+// K5's launch shape with SPLIT blocks a (batch, head) pair: a ring of 4
+// stages of 64 keys, 128 consumer threads.
+template <int SPLIT>
+using Int8Shape = Int8Cfg<SPLIT, 4, 64, 128>;
+
+// The blocks a pair at `bh` pairs: the most, up to a portable cluster of 8,
+// that keep the grid within about 2.5 blocks an SM (330 on an H100).  The
+// decode loops' 16 rows of 20 heads take 1, 8 rows 2, 4 rows 4, 2 and 1
+// rows 8: few pairs are spread wide, for latency; many are not split, for
+// the bytes, with no combine across blocks.  Timed against 2, 3 and 6
+// stages, 32 and 128 keys, 64 and 256 threads and two lanes a key
+// (kernel_variants.py).
+inline int int8_split(int bh) {
+  int split = 8;
+  while (split > 1 && 2 * bh * split > 5 * sm_count()) split /= 2;
+  return split;
+}
+
+// One stage of the ring: the K codes and the V codes of KEYS keys, then a
+// window of k scales and one of v scales (the 16-byte lines that hold the
+// stage's scales: up to 15 bytes more on each side).
+template <int DH, typename S, typename C>
+struct Int8Ring {
+  static constexpr int kCodeBytes = C::KEYS * DH;
+  static constexpr int kScaleBytes = C::KEYS * (int)sizeof(S) + 32;
+  static constexpr int kStageBytes = 2 * kCodeBytes + 2 * kScaleBytes;
+  static constexpr int kBytes = C::STAGES * kStageBytes;
+};
+
+// Where a row of scales lies among 16-byte lines, in keys: a bulk copy
+// moves whole lines, so a stage's copy brings the lines that hold its keys
+// [t0, t1), clipped to the lines that lie inside the row.  The keys of a
+// line that reaches outside the row (at most 15 bytes at each end, where
+// the row does not start or end on a line) are read with plain loads.
+template <typename S>
+struct ScaleLines {
+  static constexpr int kPer = 16 / (int)sizeof(S);  // scales a line
+  int mis;    // the row's first scale's place in its line
+  int first;  // the first key of a line that starts inside the row
+  int last;   // one past the last key of a line that ends inside it
+  __device__ ScaleLines(const S* row, int t_max) {
+    mis = (int)(reinterpret_cast<uintptr_t>(row) / sizeof(S) % kPer);
+    first = (mis + kPer - 1) / kPer * kPer - mis;
+    last = (mis + t_max) / kPer * kPer - mis;
+  }
+  __device__ int lo(int t0) const {
+    return max(first, (mis + t0) / kPer * kPer - mis);
+  }
+  __device__ int hi(int t1) const {
+    return min(last, (mis + t1 + kPer - 1) / kPer * kPer - mis);
+  }
+};
 
 // 16 int8 codes of one 16-byte load to float32, exact and without the
 // converter unit: a code c as the byte c + 128 under the float 2^23
@@ -389,38 +481,115 @@ __device__ inline void widen16(const uint4& u, float* f) {
           8388736.f;
 }
 
-template <int DH, typename S>
-__global__ void __cluster_dims__(kCrossSplit, 1, 1) __launch_bounds__(kThreads)
+// The consumer warps of a block meet: named barrier 1, which the producer
+// warp does not take.
+template <int THREADS>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
+}
+
+// The scale of key t: from the stage's window [lo, hi) in shared memory,
+// else (a line outside the row) from device memory.
+template <typename S>
+__device__ inline float scale_at(const S* window, const S* row, int lo,
+                                 int hi, int t) {
+  return to_float(t >= lo && t < hi ? window[t - lo] : row[t]);
+}
+
+template <int DH, typename S, typename C>
+__global__ void __launch_bounds__(C::THREADS + 32)
 cross_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
                   const S* __restrict__ ks, const int8_t* __restrict__ vq,
                   const S* __restrict__ vs, bf16* __restrict__ out,
                   const int* __restrict__ len_ptr, int t_max,
                   float scale_log2e) {
+  using R = Int8Ring<DH, S, C>;
+  constexpr int kSplit = C::SPLIT;
+  constexpr int kStages = C::STAGES;
+  constexpr int kKeys = C::KEYS;
+  constexpr int kBlock = C::THREADS;               // the consumer threads
   constexpr int lanes_per_key = DH / 16;           // 16-byte chunks per row
-  constexpr int groups = kThreads / lanes_per_key; // keys per pass and block
-  constexpr int dims_per_rank = DH / kCrossSplit;
-  __shared__ float part_m[groups];
-  __shared__ float part_l[groups];
-  __shared__ float part_o[groups][DH];
-  __shared__ float block_o[DH];                    // read by the other ranks
-  __shared__ float block_ml[2];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int bh = blockIdx.x / kCrossSplit;
+  constexpr int groups = kBlock / lanes_per_key;   // keys a block reads at once
+  constexpr int kPer = (kKeys + groups - 1) / groups;  // a group's, a stage
+  constexpr int dims_per_rank = DH / kSplit;
+  static_assert(kKeys % 16 == 0, "a stage starts on 16 keys");
+  static_assert(kBlock >= DH && dims_per_rank >= 1, "combine needs DH lanes");
+  static_assert(R::kBytes >= (groups * DH + 2 * groups) * 4,
+                "the block's combine reuses the ring");
+  extern __shared__ __align__(16) unsigned char int8_ring[];  // the ring
+  __shared__ alignas(8) uint64_t full[kStages];    // a slot's copies landed
+  __shared__ alignas(8) uint64_t empty[kStages];   // a slot's stage was read
+  __shared__ int4 windows[kStages];  // a slot's scale lines: klo, khi, vlo, vhi
+  __shared__ float inbox_o[kSplit][dims_per_rank];  // sent by the other ranks
+  __shared__ float inbox_ml[kSplit][2];
+  __shared__ alignas(8) uint64_t inbox_full;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kBlock / 32);
+    }
+    if constexpr (kSplit > 1) mbar_init(smem_u32(&inbox_full), 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  if constexpr (kSplit > 1) cluster_arrive_relaxed();
+  const int rank = blockIdx.x % kSplit, bh = blockIdx.x / kSplit;
 
+  // this block's slice of the keys, on 16-key boundaries (the last ranks'
+  // may be empty), streamed in stages of kKeys
   int n = *len_ptr;
   if (n <= 0 || n > t_max) n = t_max;
-  const int per = (n + kCrossSplit - 1) / kCrossSplit;
-  const int k0 = min(n, rank * per);               // this block's slice; the
-  const int k1 = min(n, k0 + per);                 // last ranks' may be empty
+  const int per = ((n + kSplit - 1) / kSplit + 15) / 16 * 16;
+  const int k0 = min(n, rank * per);
+  const int k1 = min(n, k0 + per);
+  const int stages = (k1 - k0 + kKeys - 1) / kKeys;
   const int8_t* kb = kq + (size_t)bh * t_max * DH;
   const int8_t* vb = vq + (size_t)bh * t_max * DH;
   const S* ksb = ks + (size_t)bh * t_max;
   const S* vsb = vs + (size_t)bh * t_max;
-  const int tid = threadIdx.x;
+  const ScaleLines<S> k_lines(ksb, t_max), v_lines(vsb, t_max);
+
+  // the producer warp: one thread fills stage i's slot with four bulk copies
+  // counted at its full barrier, once the consumers have read the slot's
+  // stage i - kStages
+  auto fill = [&](int i) {
+    unsigned char* slot = int8_ring + (i % kStages) * R::kStageBytes;
+    const uint32_t bar = smem_u32(&full[i % kStages]);
+    const int t0 = k0 + i * kKeys, t1 = min(k1, t0 + kKeys);
+    const int klo = k_lines.lo(t0), khi = k_lines.hi(t1);
+    const int vlo = v_lines.lo(t0), vhi = v_lines.hi(t1);
+    const int k_bytes = max(0, khi - klo) * (int)sizeof(S);
+    const int v_bytes = max(0, vhi - vlo) * (int)sizeof(S);
+    // the arrival below releases this store to the consumers' wait
+    windows[i % kStages] = make_int4(klo, khi, vlo, vhi);
+    mbar_expect_tx(bar, 2 * (t1 - t0) * DH + k_bytes + v_bytes);
+    bulk_load_once(smem_u32(slot), kb + (size_t)t0 * DH, (t1 - t0) * DH,
+                   bar);
+    bulk_load_once(smem_u32(slot + R::kCodeBytes), vb + (size_t)t0 * DH,
+                   (t1 - t0) * DH, bar);
+    if (k_bytes)
+      bulk_load_once(smem_u32(slot + 2 * R::kCodeBytes), ksb + klo, k_bytes,
+                     bar);
+    if (v_bytes)
+      bulk_load_once(smem_u32(slot + 2 * R::kCodeBytes + R::kScaleBytes),
+                     vsb + vlo, v_bytes, bar);
+  };
+  if (tid >= kBlock) {
+    if (tid == kBlock) {
+      for (int i = 0; i < stages; ++i) {
+        if (i >= kStages)
+          mbar_wait(smem_u32(&empty[i % kStages]), (i / kStages - 1) & 1);
+        fill(i);
+      }
+    }
+    __syncwarp();
+    if constexpr (kSplit > 1) cluster_wait();
+    return;
+  }
+
   const int sub = tid % lanes_per_key;
   const int g = tid / lanes_per_key;
-
   float qf[16];
   const bf16* qb = q + (size_t)bh * DH + sub * 16;
   unpack8(*reinterpret_cast<const uint4*>(qb), qf);
@@ -434,114 +603,245 @@ cross_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
 #pragma unroll
   for (int i = 0; i < 16; ++i) o[i] = 0.f;
 
-  // every thread runs the same trip count (the shuffles need whole warps);
-  // keys past the slice are masked
-  for (int base = k0; base < k1; base += groups * kInt8Keys) {
-    uint4 kr[kInt8Keys], vr[kInt8Keys];
-    float k_s[kInt8Keys], v_s[kInt8Keys];
-#pragma unroll
-    for (int u = 0; u < kInt8Keys; ++u) {
-      const int t = base + u * groups + g;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      k_s[u] = v_s[u] = 0.f;
-      if (t < k1) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)t * DH
-                                                     + sub * 16));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * DH
-                                                     + sub * 16));
-        k_s[u] = to_float(ksb[t]);
-        v_s[u] = to_float(vsb[t]);
-      }
-    }
-    float sc[kInt8Keys];
+  // One stage: key j of the slot goes to lane group j % groups.  Every
+  // thread runs the same trip count (the shuffles need whole warps).  A
+  // whole stage (kKeys keys, every scale in the copied windows) needs no
+  // masks; the last stage of a slice, or one whose scales reach outside
+  // the copied lines, masks the keys past it (they read in-bounds rows of
+  // the slot) and reads those scales from device memory.
+  auto consume = [&](auto whole, const unsigned char* slot, int t0, int t1,
+                     int klo, int khi, int vlo, int vhi) {
+    constexpr bool kWhole = decltype(whole)::value;
+    const S* k_win = reinterpret_cast<const S*>(slot + 2 * R::kCodeBytes);
+    const S* v_win = reinterpret_cast<const S*>(slot + 2 * R::kCodeBytes
+                                                + R::kScaleBytes);
+    auto valid = [&](int j) {
+      return kWhole ? kPer * groups == kKeys || j < kKeys : t0 + j < t1;
+    };
+    auto k_scale = [&](int t) {
+      return kWhole ? to_float(k_win[t - klo])
+                    : scale_at(k_win, ksb, klo, khi, t);
+    };
+    auto v_scale = [&](int t) {
+      return kWhole ? to_float(v_win[t - vlo])
+                    : scale_at(v_win, vsb, vlo, vhi, t);
+    };
+    float sc[kPer];
     float mx = m;
 #pragma unroll
-    for (int u = 0; u < kInt8Keys; ++u) {
+    for (int u = 0; u < kPer; ++u) {
+      const int j = u * groups + g;
+      const int row = kPer * groups > kKeys ? min(j, kKeys - 1) : j;
       float kf[16];
-      widen16(kr[u], kf);
-      float dot = 0.f;
+      widen16(*reinterpret_cast<const uint4*>(slot + row * DH + sub * 16),
+              kf);
+      float even = 0.f, odd = 0.f;   // two chains of the dot: half the wait
 #pragma unroll
-      for (int i = 0; i < 16; ++i) dot = fmaf(qf[i], kf[i], dot);
+      for (int d = 0; d < 16; d += 2) {
+        even = fmaf(qf[d], kf[d], even);
+        odd = fmaf(qf[d + 1], kf[d + 1], odd);
+      }
+      float dot = even + odd;
 #pragma unroll
       for (int w = lanes_per_key / 2; w > 0; w >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, w);
-      sc[u] = base + u * groups + g < k1 ? dot * k_s[u] : -3.0e38f;
+      sc[u] = valid(j) ? dot * k_scale(t0 + j) : -3.0e38f;
       mx = fmaxf(mx, sc[u]);
     }
-    const float corr = exp2f(m - mx);
-    l *= corr;
+    if (mx != m) {   // else corr = 1: the rescale would change no bit
+      const float corr = exp2f(m - mx);
+      l *= corr;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] *= corr;
+      for (int d = 0; d < 16; ++d) o[d] *= corr;
+      m = mx;
+    }
 #pragma unroll
-    for (int u = 0; u < kInt8Keys; ++u) {
+    for (int u = 0; u < kPer; ++u) {
       // the softmax's sum takes p; the output takes p * v_s (K5's plain
       // version rounds p * v_s to q's dtype before it meets v_q)
-      const float p =
-          base + u * groups + g < k1 ? exp2f(sc[u] - mx) : 0.f;
-      const float pv = p * v_s[u];
+      const int j = u * groups + g;
+      const int row = kPer * groups > kKeys ? min(j, kKeys - 1) : j;
+      const float p = valid(j) ? exp2f(sc[u] - mx) : 0.f;
+      const float pv = valid(j) ? p * v_scale(t0 + j) : 0.f;
       float vf[16];
-      widen16(vr[u], vf);
+      widen16(*reinterpret_cast<const uint4*>(slot + R::kCodeBytes + row * DH
+                                              + sub * 16),
+              vf);
       l += p;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) o[i] = fmaf(pv, vf[i], o[i]);
+      for (int d = 0; d < 16; ++d) o[d] = fmaf(pv, vf[d], o[d]);
     }
-    m = mx;
+  };
+
+  for (int i = 0; i < stages; ++i) {
+    const unsigned char* slot = int8_ring + (i % kStages) * R::kStageBytes;
+    const int t0 = k0 + i * kKeys, t1 = min(k1, t0 + kKeys);
+    mbar_wait(smem_u32(&full[i % kStages]), (i / kStages) & 1);
+    const int4 win = windows[i % kStages];
+    const int klo = win.x, khi = win.y, vlo = win.z, vhi = win.w;
+    if (t1 - t0 == kKeys && klo <= t0 && khi >= t1 && vlo <= t0 && vhi >= t1)
+      consume(std::true_type(), slot, t0, t1, klo, khi, vlo, vhi);
+    else
+      consume(std::false_type(), slot, t0, t1, klo, khi, vlo, vhi);
+    __syncwarp();      // this warp has read the slot
+    if (tid % 32 == 0) mbar_arrive(smem_u32(&empty[i % kStages]));
   }
 
-  // the block's lane groups meet in shared memory
+  // the block's lane groups meet in shared memory (the ring, idle once
+  // every consumer warp is past its last stage: every copy has landed)
+  consumers_sync<kBlock>();
+  float* part_o = reinterpret_cast<float*>(int8_ring);     // [groups][DH]
+  float* part_m = part_o + groups * DH;
+  float* part_l = part_m + groups;
   if (sub == 0) {
     part_m[g] = m;
     part_l[g] = l;
   }
 #pragma unroll
-  for (int i = 0; i < 16; ++i) part_o[g][sub * 16 + i] = o[i];
-  __syncthreads();
+  for (int d = 0; d < 16; ++d) part_o[g * DH + sub * 16 + d] = o[d];
+  consumers_sync<kBlock>();
+  float bm = -3.0e38f, bl = 0.f, bo = 0.f;
   if (tid < DH) {
-    float bm = -3.0e38f;
     for (int j = 0; j < groups; ++j) bm = fmaxf(bm, part_m[j]);
-    float bl = 0.f, bo = 0.f;
     for (int j = 0; j < groups; ++j) {
       const float w = exp2f(part_m[j] - bm);       // 0 for a group without keys
       bl += part_l[j] * w;
-      bo += part_o[j][tid] * w;
-    }
-    block_o[tid] = bo;
-    if (tid == 0) {
-      block_ml[0] = bm;
-      block_ml[1] = bl;
+      bo += part_o[j * DH + tid] * w;
     }
   }
-  cluster.sync();  // every block's partial result is written and visible
-
-  // rank r normalises and writes dims [r * dh / 8, (r + 1) * dh / 8)
+  if constexpr (kSplit == 1) {
+    if (tid < DH) out[(size_t)bh * DH + tid] = __float2bfloat16(bo / bl);
+    return;
+  }
+  // each rank stores its (max, sum) into every rank and its dims of o into
+  // the rank that writes them (asynchronous stores counted at the
+  // receiver's mbarrier); each rank waits for its own bytes only
+  cluster_wait();   // every rank runs and has set up its barrier
+  if (tid < DH) {
+    const int to = tid / dims_per_rank;
+    st_async(cluster_addr(smem_u32(&inbox_o[rank][tid % dims_per_rank]), to),
+             bo, cluster_addr(smem_u32(&inbox_full), to));
+    if (tid < kSplit) {
+      const uint32_t bar = cluster_addr(smem_u32(&inbox_full), tid);
+      st_async(cluster_addr(smem_u32(&inbox_ml[rank][0]), tid), bm, bar);
+      st_async(cluster_addr(smem_u32(&inbox_ml[rank][1]), tid), bl, bar);
+    }
+  }
+  if (tid == 0)
+    mbar_expect_tx(smem_u32(&inbox_full), kSplit * (dims_per_rank + 2) * 4);
   if (tid < dims_per_rank) {
-    const int d = rank * dims_per_rank + tid;
+    mbar_wait(smem_u32(&inbox_full), 0);
     float cm = -3.0e38f;
 #pragma unroll
-    for (int b = 0; b < kCrossSplit; ++b)
-      cm = fmaxf(cm, cluster.map_shared_rank(block_ml, b)[0]);
+    for (int b = 0; b < kSplit; ++b) cm = fmaxf(cm, inbox_ml[b][0]);
     float num = 0.f, den = 0.f;
 #pragma unroll
-    for (int b = 0; b < kCrossSplit; ++b) {
-      const float* ml = cluster.map_shared_rank(block_ml, b);
-      const float w = exp2f(ml[0] - cm);           // 0 for an empty slice
-      den += ml[1] * w;
-      num += cluster.map_shared_rank(block_o, b)[d] * w;
+    for (int b = 0; b < kSplit; ++b) {
+      const float w = exp2f(inbox_ml[b][0] - cm);  // 0 for an empty slice
+      den += inbox_ml[b][1] * w;
+      num += inbox_o[b][tid] * w;
     }
-    out[(size_t)bh * DH + d] = __float2bfloat16(num / den);
+    out[(size_t)bh * DH + rank * dims_per_rank + tid] =
+        __float2bfloat16(num / den);
   }
-  cluster.sync();  // keep this block's shared memory until all have read it
 }
 
-template <int DH, typename S>
+// Opts the kernel into its ring's shared memory (above 48 KB only so) and
+// the largest shared-memory carve-out, once.
+template <int DH, typename S, typename C>
+int configure_int8() {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cross_int8_kernel<DH, S, C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Int8Ring<DH, S, C>::kBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(cross_int8_kernel<DH, S, C>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  return 0;
+}
+
+// The cluster size is a launch attribute (none for one block per pair).
+template <int DH, typename S, typename C>
 int launch_int8(const void* q, const void* kq, const void* ks, const void* vq,
                 const void* vs, void* out, const void* len_ptr, int bh,
                 int t_max, cudaStream_t stream) {
-  cross_int8_kernel<DH, S><<<bh * kCrossSplit, kThreads, 0, stream>>>(
-      (const bf16*)q, (const int8_t*)kq, (const S*)ks, (const int8_t*)vq,
-      (const S*)vs, (bf16*)out, (const int*)len_ptr, t_max,
-      1.4426950408889634f / sqrtf((float)DH));
-  return (int)cudaGetLastError();
+  const int err = configure_int8<DH, S, C>();
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * C::SPLIT);
+  cfg.blockDim = dim3(C::THREADS + 32);   // and the producer warp
+  cfg.dynamicSmemBytes = Int8Ring<DH, S, C>::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C::SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C::SPLIT > 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, cross_int8_kernel<DH, S, C>, (const bf16*)q, (const int8_t*)kq,
+      (const S*)ks, (const int8_t*)vq, (const S*)vs, (bf16*)out,
+      (const int*)len_ptr, t_max, 1.4426950408889634f / sqrtf((float)DH));
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// K5 at head_dim DH with scales of type S, SPLIT blocks a pair.
+template <int DH, typename S>
+int launch_int8_split(int split, const void* q, const void* kq,
+                      const void* ks, const void* vq, const void* vs,
+                      void* out, const void* len_ptr, int bh, int t_max,
+                      cudaStream_t stream) {
+  switch (split) {
+    case 8: return launch_int8<DH, S, Int8Shape<8>>(q, kq, ks, vq, vs, out,
+                                                    len_ptr, bh, t_max, stream);
+    case 4: return launch_int8<DH, S, Int8Shape<4>>(q, kq, ks, vq, vs, out,
+                                                    len_ptr, bh, t_max, stream);
+    case 2: return launch_int8<DH, S, Int8Shape<2>>(q, kq, ks, vq, vs, out,
+                                                    len_ptr, bh, t_max, stream);
+    default: return launch_int8<DH, S, Int8Shape<1>>(q, kq, ks, vq, vs, out,
+                                                     len_ptr, bh, t_max,
+                                                     stream);
+  }
+}
+
+// K5 with scales of type S: the launch shape by head_dim and by batch x
+// heads (never n).
+template <typename S>
+int int8_attention(const void* q, const void* kq, const void* ks,
+                   const void* vq, const void* vs, void* out,
+                   const void* len_ptr, int bh, int t_max, int head_dim,
+                   cudaStream_t stream) {
+  const int split = int8_split(bh);
+  switch (head_dim) {
+    case 64: return launch_int8_split<64, S>(split, q, kq, ks, vq, vs, out,
+                                             len_ptr, bh, t_max, stream);
+    case 32: return launch_int8_split<32, S>(split, q, kq, ks, vq, vs, out,
+                                             len_ptr, bh, t_max, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K5's launch shape of config C at head_dim 64 and scales S into `shape`:
+// {blocks per (batch, head), stages, keys a stage, threads (the producer
+// warp's too), shared-memory bytes of the ring, blocks resident per SM}.
+template <typename C, typename S>
+int put_int8_shape(int* shape) {
+  const int err = configure_int8<64, S, C>();
+  if (err) return err;
+  shape[0] = C::SPLIT;
+  shape[1] = C::STAGES;
+  shape[2] = C::KEYS;
+  shape[3] = C::THREADS + 32;
+  shape[4] = Int8Ring<64, S, C>::kBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &shape[5], cross_int8_kernel<64, S, C>, C::THREADS + 32, shape[4]);
 }
 
 // K3 and K4 of element type T: the launch shape by head_dim and, for K3,
@@ -600,8 +900,9 @@ int cross_attention(const void* q, const void* k, const void* v, void* out,
 
 // q [bh, dh] bf16, k_q/v_q [bh, t_max, dh] int8, k_s/v_s [bh, t_max]
 // float32 (scale_bf16 = 0) or bf16 (scale_bf16 = 1), out [bh, dh] bf16,
-// all contiguous; len_ptr is one int32 on the device: positions < *len_ptr
-// are valid (outside 1..t_max means all t_max).  dh is 32 or 64.
+// all contiguous, q and the codes 16-byte aligned; len_ptr is one int32 on
+// the device: positions < *len_ptr are valid (outside 1..t_max means all
+// t_max).  dh is 32 or 64.
 extern "C" int mwx_decode_attention_int8(const void* q, const void* kq,
                                          const void* ks, const void* vq,
                                          const void* vs, void* out,
@@ -611,19 +912,26 @@ extern "C" int mwx_decode_attention_int8(const void* q, const void* kq,
   if (bh <= 0) return 0;
   if (t_max <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (head_dim == 64 && !scale_bf16)
-    return launch_int8<64, float>(q, kq, ks, vq, vs, out, len_ptr, bh, t_max,
-                                  st);
-  if (head_dim == 64)
-    return launch_int8<64, bf16>(q, kq, ks, vq, vs, out, len_ptr, bh, t_max,
-                                 st);
-  if (head_dim == 32 && !scale_bf16)
-    return launch_int8<32, float>(q, kq, ks, vq, vs, out, len_ptr, bh, t_max,
-                                  st);
-  if (head_dim == 32)
-    return launch_int8<32, bf16>(q, kq, ks, vq, vs, out, len_ptr, bh, t_max,
-                                 st);
-  return (int)cudaErrorInvalidValue;
+  return scale_bf16 ? int8_attention<bf16>(q, kq, ks, vq, vs, out, len_ptr,
+                                           bh, t_max, head_dim, st)
+                    : int8_attention<float>(q, kq, ks, vq, vs, out, len_ptr,
+                                            bh, t_max, head_dim, st);
+}
+
+// K5's launch shape at batch x heads `bh` with f32 (scale_bf16 = 0) or
+// bf16 scales, dh 64: six ints into `shape` (see put_int8_shape).
+extern "C" int mwx_decode_int8_shape(int bh, int scale_bf16, void* shape) {
+  int* out = (int*)shape;
+  switch (int8_split(bh)) {
+    case 8: return scale_bf16 ? put_int8_shape<Int8Shape<8>, bf16>(out)
+                              : put_int8_shape<Int8Shape<8>, float>(out);
+    case 4: return scale_bf16 ? put_int8_shape<Int8Shape<4>, bf16>(out)
+                              : put_int8_shape<Int8Shape<4>, float>(out);
+    case 2: return scale_bf16 ? put_int8_shape<Int8Shape<2>, bf16>(out)
+                              : put_int8_shape<Int8Shape<2>, float>(out);
+    default: return scale_bf16 ? put_int8_shape<Int8Shape<1>, bf16>(out)
+                               : put_int8_shape<Int8Shape<1>, float>(out);
+  }
 }
 
 // K3.  q [bh, dh], k/v [bh, t_max, dh], out [bh, dh], bf16 contiguous;

@@ -77,6 +77,22 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// One thread asks for `bytes` contiguous bytes at `src` in device memory to
+// be copied to `dst` in this block's shared memory, counted at `bar`: a
+// 1-D bulk copy, no tensor map.  Both addresses and `bytes` are multiples
+// of 16.  The bytes are read once: their L2 lines are the first to go.
+__device__ __forceinline__ void bulk_load_once(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 // One thread stores the box at `src` to `map` at (c0, c1, c2) and waits
 // until the TMA has read it (the shared memory may then be reused or
 // released).  What falls outside the tensor is not written.  The threads

@@ -5,6 +5,8 @@
         --dtype float32
     python3 -m manual_whisper_tpu_torch.kernel_variants int8_matmul
     python3 -m manual_whisper_tpu_torch.kernel_variants mel
+    python3 -m manual_whisper_tpu_torch.kernel_variants \
+        decode_cross_attention_int8 --baseline _checkout/parent
 
 Run from the repository root (it times with ``chip_smoke.py``'s CUDA-graph
 timer).  Each variant is a small source under ``_kernels/variants/`` that
@@ -20,7 +22,11 @@ round, beside the shipped kernel and the PyTorch yardstick, at the main
 path's shapes.  Prints one JSON line per (shape, variant) with the median
 of the rounds.  ``--dtype float32`` builds and times the variants whose
 names start with ``f32_`` (K3's float32 instance) instead of the others;
-the empty-launch probes time with either.
+the empty-launch probes time with either.  ``--baseline DIR`` also builds
+the kernel's source as it stands in another checkout at DIR (say an older
+commit unpacked with ``git archive``) and checks and times its shipped
+entry point beside the variants, as ``baseline`` (K5, whose variants take
+its entry point's arguments).
 """
 
 from __future__ import annotations
@@ -74,6 +80,46 @@ def _self(s, u, t, push="true", patches=(), elem=""):
                 f"{', ' + elem if elem else ''}>("
                 "q, k, v, out, len_ptr, len_offset, bh, t_max, "
                 "(cudaStream_t)stream);", patches)
+
+
+def _int8(split, stages, keys, threads, patches=()):
+    """K5 at dh 64 with ``Int8Cfg<split, stages, keys, threads>``, f32 or
+    bf16 scales as the entry point's ``scale_bf16`` says."""
+    return (f"using VariantInt8 = Int8Cfg<{split}, {stages}, {keys}, "
+            f"{threads}>;",
+            "return scale_bf16 ? launch_int8<64, bf16, VariantInt8>(q, kq, "
+            "ks, vq, vs, out, len_ptr, bh, t_max, (cudaStream_t)stream)\n"
+            "                  : launch_int8<64, float, VariantInt8>(q, kq, "
+            "ks, vq, vs, out, len_ptr, bh, t_max, (cudaStream_t)stream);",
+            patches)
+
+
+def _int8_name(split, stages, keys, threads):
+    return f"split{split}_stages{stages}_keys{keys}_threads{threads}"
+
+
+# K5's shapes: the shipped ones (Int8Shape<split>, split 1, 2, 4 and 8 by
+# B x H), shallower and deeper rings, shorter and longer stages, smaller
+# and wider blocks
+_INT8_SHAPES = ((1, 4, 64, 128), (2, 4, 64, 128), (4, 4, 64, 128),
+                (8, 4, 64, 128), (8, 2, 64, 128), (4, 6, 64, 128),
+                (2, 6, 64, 128), (4, 3, 64, 64), (8, 3, 64, 64),
+                (1, 3, 64, 128), (1, 6, 64, 128), (1, 3, 128, 128),
+                (1, 8, 32, 128), (1, 4, 64, 256), (4, 4, 64, 256))
+
+# probes: no copies (the slots' stale bytes are summed: the ring's
+# arithmetic and barriers alone), and no arithmetic (the stages are
+# waited for and released: the ring's streaming alone)
+_INT8_PROBES = {
+    "no_copies": [("    mbar_expect_tx(bar, 2 * (t1 - t0) * DH + k_bytes + "
+                   "v_bytes);",
+                   "    mbar_arrive(bar);\n    if (bar) return;\n"
+                   "    mbar_expect_tx(bar, 2 * (t1 - t0) * DH + k_bytes + "
+                   "v_bytes);")],
+    "no_math": [("    constexpr bool kWhole = decltype(whole)::value;",
+                 "    constexpr bool kWhole = decltype(whole)::value;\n"
+                 "    if (klo >= 0) return;")],
+}
 
 
 def _matvec(cols, u, warps, cs, patches=(), groups=1):
@@ -320,6 +366,16 @@ VARIANTS = {
              c, u, w, _fixed(cs, w), patches, groups=2)
             for c, u, w, cs in ((32, 5, 8, 2), (32, 3, 8, 2))
             for name, patches in _MATVEC_PROBES.items()}}),
+    "decode_cross_attention_int8": (
+        "decode_attention.cu",
+        "const void* q, const void* kq, const void* ks, const void* vq, "
+        "const void* vs, void* out, const void* len_ptr, int bh, int t_max, "
+        "int head_dim, int scale_bf16, void* stream",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        {**{_int8_name(*shape): _int8(*shape) for shape in _INT8_SHAPES},
+         **{f"probe_{_int8_name(*shape)}_{name}": _int8(*shape, patches)
+            for shape in ((1, 4, 64, 128), (4, 4, 64, 128))
+            for name, patches in _INT8_PROBES.items()}}),
     "mel": (
         "mel.cu",
         "const void* audio, const void* cos_p, const void* sin_p, "
@@ -344,7 +400,17 @@ VARIANTS = {
 
 
 _EXPORTS = {"mel": 'extern "C" int mwx_variant_tile(void* tile) {\n'
-                   "  return report_tile<VariantMel>(tile);\n}\n"}
+                   "  return report_tile<VariantMel>(tile);\n}\n",
+            # K5: the variant's launch shape, ring bytes and blocks resident
+            # per SM (put_int8_shape), with f32 scales
+            "decode_cross_attention_int8":
+                'extern "C" int mwx_variant_shape(void* shape) {\n'
+                "  return put_int8_shape<VariantInt8, float>((int*)shape);"
+                "\n}\n"}
+
+# the shipped entry point of each kernel whose variants take its arguments
+# (``--baseline``)
+SHIPPED_ENTRY = {"decode_cross_attention_int8": "mwx_decode_attention_int8"}
 
 
 def variant_source(name: str, var: str) -> str:
@@ -403,16 +469,42 @@ def build_variants(name: str, dtype: str = "bfloat16", only=None) -> dict:
     return fns
 
 
+def build_baseline(name: str, root) -> object:
+    """Kernel ``name``'s source as it stands in the checkout at ``root``,
+    built as a library; its shipped entry point (``SHIPPED_ENTRY``) typed
+    as the variants are."""
+    from pathlib import Path
+    src, _, argtypes, _ = VARIANTS[name]
+    csrc = Path(root) / _build.CSRC_DIR.relative_to(_build.PACKAGE_DIR.parent)
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"{name}-baseline.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+                           "-o", str(so), str(csrc / src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    log = proc.stdout.decode(errors="replace")
+    if proc.returncode != 0:
+        raise RuntimeError(f"baseline of {name} failed to build:\n{log}")
+    print(json.dumps({"variant": "baseline", "source": str(csrc / src),
+                      "ptxas": _ptxas(log)}), flush=True)
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, SHIPPED_ENTRY[name])
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    fn.lib = lib
+    return fn
+
+
 def _ptxas(log: str) -> list:
     """ptxas's register and spill lines of the variant's kernels
     (``split_kernel``, ``empty_kernel``, ``matvec_kernel``,
-    ``log_mel_kernel``), each after its
+    ``log_mel_kernel``, ``cross_int8_kernel``), each after its
     template arguments as they stand in the mangled name."""
     out, entry = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             found = re.search(r"(split_kernel|empty_kernel|matvec_kernel|"
-                              r"log_mel_kernel)I(\w*?)EE", line)
+                              r"log_mel_kernel|cross_int8_kernel)I(\w*?)EE",
+                              line)
             entry = f"{found.group(1)}<{found.group(2)}>" if found else ""
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry}: {line.strip()}")
@@ -502,6 +594,66 @@ def run_self(fns, randn, dev, dtype=torch.bfloat16):
                                                                        v, p)
         timed["sdpa"] = lambda q, k, v, p, n: sdpa(q, k[:, :, :n], v[:, :, :n])
         report(shape, timed, sets)
+
+
+def run_int8(fns, randn, dev):
+    """K5 at the int8 decode loops' shapes: 1, 2, 4, 8 and 16 rows of 20
+    heads (B x H = 20 to 320), 1500 cross positions, dh 64, f32 scales,
+    and the 16 rows again with bf16 scales, over K/V copies that exceed
+    L2; each non-probe checked against the plain version at kv_len 1500
+    and 1499.  First each variant's launch shape as its library reports
+    it (blocks resident per SM)."""
+    from chip_smoke import INT8_SHAPE_KEYS, copies_for, graph_ms
+    from .models.whisper import quantize_cross_kv
+    from .ops.decode_attention import (attend_int8_plain,
+                                       decode_cross_attention_int8)
+    import numpy as np
+    for var, fn in fns.items():
+        report_shape = getattr(fn.lib, "mwx_variant_shape", None)
+        if report_shape is not None:
+            report_shape.argtypes = [ctypes.c_void_p]
+            report_shape.restype = ctypes.c_int
+            shape = np.zeros(len(INT8_SHAPE_KEYS), dtype=np.int32)
+            _build.check(report_shape(shape.ctypes.data),
+                         "mwx_variant_shape")
+            print(json.dumps({"variant": var, "launch_shape": dict(zip(
+                INT8_SHAPE_KEYS, shape.tolist()))}), flush=True)
+    h, dh, ta = 20, 64, 1500
+    for b, scale_dtype in ((1, torch.float32), (2, torch.float32),
+                           (4, torch.float32), (8, torch.float32),
+                           (16, torch.float32), (16, torch.bfloat16)):
+        def kv4():
+            return quantize_cross_kv(randn((b, h, ta, dh)),
+                                     randn((b, h, ta, dh)), scale_dtype)
+        sets = [(randn((b, h, 1, dh)), *kv4())
+                for _ in range(copies_for(2 * b * h * ta * dh))]
+        lens = {n: torch.full((1,), n, dtype=torch.int32, device=dev)
+                for n in (ta, ta - 1)}
+        bf16_scales = int(scale_dtype == torch.bfloat16)
+        shape = (f"B={b} H={h} Ta={ta} kv_len={ta} dh={dh} int8 K/V, "
+                 f"{str(scale_dtype).split('.')[-1]} scales")
+        calls = {var: _launcher(fn, b * h, ta, dh, bf16_scales)
+                 for var, fn in fns.items()}
+        outs = {st[0]: torch.empty_like(st[0]) for st in sets}
+        q, *kv = sets[0]
+        for var, call in calls.items():
+            if "probe_" not in var:
+                for n, len_t in lens.items():
+                    call(q, *kv, outs[q], len_t)
+                    _check(var, outs[q], attend_int8_plain(q, *kv, n), shape)
+        full = lens[ta]
+        timed = {var: (lambda c: lambda a, kq, ks, vq, vs: c(
+            a, kq, ks, vq, vs, outs[a], full))(c) for var, c in calls.items()}
+        timed["shipped"] = lambda *a: decode_cross_attention_int8(*a, full)
+        report(shape, timed, sets)
+        # the read floor: one PyTorch reduction over as many bytes
+        nbytes = sum(t.numel() * t.element_size() for t in sets[0][1:])
+        flat = [(torch.empty(nbytes // 4, dtype=torch.int32, device=dev),)
+                for _ in range(copies_for(nbytes))]
+        print(json.dumps({"shape": shape, "variant": "torch_read_floor",
+                          "bytes": nbytes,
+                          "ms": graph_ms(torch.amax, flat,
+                                         iters=len(flat))}), flush=True)
 
 
 def run_matvec(fns, randn, dev):
@@ -602,10 +754,16 @@ def main() -> int:
                     default="bfloat16",
                     help="the element type of the variants (float32: "
                          "decode_self_attention's f32_ variants)")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="a checkout whose build of the kernel's shipped "
+                         "entry point is checked and timed beside the "
+                         "variants")
     args = ap.parse_args()
     if args.dtype == "float32" and args.kernel != "decode_self_attention":
         ap.error("--dtype float32: only decode_self_attention has float32 "
                  "variants")
+    if args.baseline and args.kernel not in SHIPPED_ENTRY:
+        ap.error(f"--baseline: only {', '.join(SHIPPED_ENTRY)}")
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 2
@@ -614,12 +772,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}", flush=True)
     fns = build_variants(args.kernel, args.dtype)
+    if args.baseline:
+        fns["baseline"] = build_baseline(args.kernel, args.baseline)
     randn = seeded_randn(dev, 4321)
     if args.kernel == "decode_self_attention":
         run_self(fns, randn, dev, getattr(torch, args.dtype))
     else:
-        {"int8_matmul": run_matvec, "mel": run_mel}[args.kernel](fns, randn,
-                                                                 dev)
+        {"int8_matmul": run_matvec, "mel": run_mel,
+         "decode_cross_attention_int8": run_int8}[args.kernel](fns, randn,
+                                                               dev)
     return 0
 
 

@@ -70,6 +70,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # head_dim, scale_bf16, stream
         "mwx_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _P],
+        # batch*heads, scale_bf16, int[6] out: K5's launch shape at dh 64
+        # (blocks per (batch, head), stages, keys a stage, threads, ring
+        # bytes, blocks resident per SM)
+        "mwx_decode_int8_shape": [_I, _I, _P],
     },
     "int8_matmul": {
         # x, q, s, out, m, k, n, stream

@@ -140,13 +140,19 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                                 k_s: torch.Tensor, v_q: torch.Tensor,
                                 v_s: torch.Tensor,
                                 kv_len: torch.Tensor) -> torch.Tensor:
-    """K5: q_len = 1 attention over int8 cross K/V, positions < kv_len,
-    the key axis split over a cluster of blocks per (batch, head) as K4's.
+    """K5: q_len = 1 attention over int8 cross K/V, positions < kv_len.
+    Bound by the bytes: each block streams its slice of the key axis
+    through a ring of shared memory filled by bulk copies, so its loads
+    overlap its widening and sums.  The slices (16-key boundaries) are
+    split over a cluster of up to 8 blocks per (batch, head), as many as
+    keep the grid within about 2.5 blocks an SM: 8 at 2 rows of 20 heads,
+    1 (no split) at 16 rows.  The launch shape follows B x H, never
+    kv_len, so a captured step replays one launch.
 
     q [B, H, 1, dh] bf16; k_q/v_q int8 [B, H, Ta, dh]; k_s/v_s [B, H, Ta]
-    float32 or bf16 (both the same); kv_len one int32.  Returns
-    [B, H, 1, dh] in q's dtype.  Each launch counts as (B, H, Ta, dh,
-    the scales' dtype)."""
+    float32 or bf16 (both the same); q and the codes 16-byte aligned;
+    kv_len one int32.  Returns [B, H, 1, dh] in q's dtype.  Each launch
+    counts as (B, H, Ta, dh, the scales' dtype)."""
     if q.device.type == "cpu":
         return attend_int8_plain(q, k_q, k_s, v_q, v_s,
                                  int(kv_len.reshape(-1)[0]))
@@ -162,6 +168,9 @@ def decode_cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     for t, tname in ((k_s, "k_s"), (v_s, "v_s")):
         _build.require(t, tname, k_s.dtype, (b, h, ta), q.device)
     _check_lengths(name, q, kv_len, ta)
+    for t, tname in ((q, "q"), (k_q, "k_q"), (v_q, "v_q")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     err = lib.mwx_decode_attention_int8(

@@ -332,6 +332,65 @@ def test_k6_kernels_match_the_trace_reader():
         assert not pattern.search(f"void (anonymous namespace)::x{name}<64>")
 
 
+def _functions(src: str) -> dict:
+    """{name: body} of the functions defined in a C++ source, comments left
+    out (a name defined more than once, as an overload or a lambda, keeps
+    its bodies together)."""
+    src = re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+    out = {}
+    for found in re.finditer(r"\b(\w+)\s*\(", src):
+        name = found.group(1)
+        if name in ("if", "for", "while", "switch", "return", "sizeof",
+                    "constexpr"):
+            continue
+        depth, i = 1, found.end()
+        while depth and i < len(src):         # past the parameter list
+            depth += {"(": 1, ")": -1}.get(src[i], 0)
+            i += 1
+        head = re.match(r"\s*(?:const\s*)?(?:->\s*[\w:<>]+\s*)?\{", src[i:])
+        if not head:
+            continue
+        depth, j = 1, i + head.end()
+        while depth and j < len(src):
+            depth += {"{": 1, "}": -1}.get(src[j], 0)
+            j += 1
+        out[name] = out.get(name, "") + src[i + head.end():j]
+    return out
+
+
+def test_k5_kernels_match_the_trace_reader():
+    """Every ``__global__`` kernel that K5's entry point
+    ``mwx_decode_attention_int8`` reaches, through the functions its body
+    calls, is a template whose demangled name the roofline reader's
+    pattern finds in a trace (``TRACE_NAMES["decode_cross_attention_int8"]``):
+    a second K5 kernel, or K5 under another name, would drop out of the
+    reader's device time, and ``decode_cross_attention_int8_roofline``
+    would read too high.  K3/K4's ``split_kernel`` is not reached."""
+    src = (ROOT / "manual_whisper_tpu_torch" / "csrc"
+           / "decode_attention.cu").read_text()
+    kernels = {name: head for head, name in _GLOBAL.findall(src)}
+    assert len(kernels) == src.count("__global__") >= 2
+    bodies = _functions(src)
+    reached, todo = set(), ["mwx_decode_attention_int8"]
+    while todo:
+        name = todo.pop()
+        if name in reached or name not in bodies:
+            continue
+        reached.add(name)
+        todo += [other for other in bodies
+                 if re.search(rf"\b{other}\b", bodies[name])]
+    launched = reached & set(kernels)
+    assert launched == {"cross_int8_kernel"}, launched
+    pattern = kernel_shapes.TRACE_NAMES["decode_cross_attention_int8"]
+    for name in launched:
+        assert kernels[name].startswith("template <"), name
+        assert pattern.search(f"void (anonymous namespace)::{name}<64, "
+                              f"float, Cfg>(x)")
+        assert pattern.search(f"{name}<64>(x)")
+        assert not pattern.search(f"void (anonymous namespace)::x{name}<64>")
+    assert not pattern.search("void (anonymous namespace)::split_kernel<64>")
+
+
 @pytest.mark.parametrize("name", ["int8_matmul_roofline.meeting",
                                   "decode_cross_attention_int8_roofline"
                                   ".meeting"])

@@ -322,10 +322,16 @@ def test_decode_int8_kernel(dev, dh, scale_dtype):
 
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 7, 8, 1499, 1500])
+@pytest.mark.parametrize("n", [1, 7, 8, 15, 16, 17, 63, 64, 65, 188, 189,
+                               192, 193, 1499, 1500])
 def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
-    """K5 splits the key axis over 8 blocks: lengths that leave blocks
-    without keys, and a ragged last slice, at the encoder's 1500 positions."""
+    """K5 splits the key axis over a cluster of 8 blocks at these 6 pairs,
+    in slices on 16-key boundaries, each streamed in stages of 64 keys:
+    lengths that leave blocks without keys (1 to 17), end a stage or a
+    slice on its edge or one key past it (63 to 65; 188 and 189, 1500 / 8
+    and one past; 192 and 193, that on 16 keys: the 8-block slice of
+    1500), and a ragged last slice, at the encoder's 1500 positions.  The bf16 scales' rows start off a 16-byte line at odd
+    (batch, head), so their edges go through the plain loads."""
     q = _randn((2, 3, 1, dh), dev, 22)
     kv4 = quantize_cross_kv(_randn((2, 3, 1500, dh), dev, 23),
                             _randn((2, 3, 1500, dh), dev, 24), scale_dtype)
@@ -335,6 +341,46 @@ def test_decode_int8_kernel_slices(dev, dh, scale_dtype, n):
     scales = str(scale_dtype).split(".")[-1]
     assert launches == {("decode_cross_attention_int8",
                          (2, 3, 1500, dh, scales)): 1}
+    torch.testing.assert_close(out.float(),
+                               attend_int8_plain(q, *kv4, n).float(),
+                               atol=1e-2, rtol=1e-2)
+
+
+# (batch, heads) on both sides of each of K5's launch-shape boundaries:
+# B x H = 5 SMs // (2 split) pairs keep ``split`` blocks a pair, one more
+# halves it (``int8_split`` in decode_attention.cu); then the int8 loops'
+# 16 and 2 rows of 20 heads
+INT8_PAIRS = ["split8", "split8+1", "split4", "split4+1", "split2",
+              "split2+1", "16x20", "2x20"]
+
+
+def _int8_pairs(name: str, sms: int):
+    if name.startswith("split"):
+        split, _, more = name[5:].partition("+")
+        return 1, 5 * sms // (2 * int(split)) + int(more or 0)
+    return tuple(int(x) for x in name.split("x"))
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 65, 1499, 1500])
+@pytest.mark.parametrize("pairs", INT8_PAIRS)
+def test_decode_int8_kernel_launch_shapes(dev, pairs, n, scale_dtype, dh):
+    """K5 on both sides of each launch-shape boundary the host picks by
+    B x H (one row of that many heads), and at the int8 loops' 16 and 2
+    rows of 20 heads."""
+    b, h = _int8_pairs(pairs,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
+    q = _randn((b, h, 1, dh), dev, 25)
+    kv4 = quantize_cross_kv(_randn((b, h, 1500, dh), dev, 26),
+                            _randn((b, h, 1500, dh), dev, 27), scale_dtype)
+    kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+    with _counting() as launches:
+        out = decode_cross_attention_int8(q, *kv4, kv_len)
+    scales = str(scale_dtype).split(".")[-1]
+    assert launches == {("decode_cross_attention_int8",
+                         (b, h, 1500, dh, scales)): 1}
     torch.testing.assert_close(out.float(),
                                attend_int8_plain(q, *kv4, n).float(),
                                atol=1e-2, rtol=1e-2)
@@ -382,6 +428,11 @@ def test_int8_kernels_reject_wrong_inputs(dev):
                                     kv_len)
     with pytest.raises(ValueError, match="int32"):
         decode_cross_attention_int8(q, *kv4, kv_len.long())
+    codes = torch.empty(kv4[0].numel() + 8, dtype=torch.int8, device=dev)
+    shifted = codes[8:].view(kv4[0].shape)                # 8-byte offset
+    shifted.copy_(kv4[0])
+    with pytest.raises(ValueError, match="aligned"):
+        decode_cross_attention_int8(q, shifted, *kv4[1:], kv_len)
 
 
 # -- the decode step's bias + residual add + LayerNorm -----------------------

@@ -33,7 +33,7 @@ def test_variant_patches_apply(name, var):
 
 def test_every_kernel_has_a_runner_and_the_shipped_shape():
     assert set(kv.VARIANTS) == {"decode_self_attention", "int8_matmul",
-                                "mel"}
+                                "mel", "decode_cross_attention_int8"}
     for name, spec in kv.VARIANTS.items():
         assert any(not v.startswith(("probe", "stamps")) for v in spec[3])
 
@@ -108,3 +108,23 @@ def test_self_variants_of_each_dtype_hold_its_shipped_shapes(dtype, elem,
                              r"true>, float>\(", src), var
     assert kv.selected("decode_self_attention", dtype,
                        only=["probe_empty_split8"]) == ["probe_empty_split8"]
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_int8_variants_hold_each_shipped_shape(split):
+    """K5 ships ``Int8Shape<split>`` (``Int8Cfg<split, stages, keys,
+    threads>``) for every split ``int8_split`` picks; each is among the
+    timed variants, and each variant's source instantiates its own shape
+    and launches through the shipped ``launch_int8``."""
+    text = (_build.CSRC_DIR / "decode_attention.cu").read_text()
+    found = re.search(r"using Int8Shape = Int8Cfg<SPLIT, (\d+), (\d+), "
+                      r"(\d+)>;", text)
+    stages, keys, threads = found.groups()
+    assert re.search(rf"case {split}: return launch_int8<DH, S, "
+                     rf"Int8Shape<{split}>>", text) or split == 1
+    name = f"split{split}_stages{stages}_keys{keys}_threads{threads}"
+    assert name in kv.VARIANTS["decode_cross_attention_int8"][3]
+    src = kv.variant_source("decode_cross_attention_int8", name)
+    assert (f"using VariantInt8 = Int8Cfg<{split}, {stages}, {keys}, "
+            f"{threads}>;") in src
+    assert "launch_int8<64, float, VariantInt8>(" in src
